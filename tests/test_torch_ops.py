@@ -1,0 +1,151 @@
+"""Parity of the PyTorch port's ops against the JAX package on the CPU.
+
+The kernels' plain versions stand in for the CUDA kernels here (a CPU tensor
+takes the plain version); the kernels themselves are held against these plain
+versions on the card by ``chip_smoke.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from wavthruvec_pytorch_tpu.models.layers import BiGRU as JaxBiGRU
+from wavthruvec_pytorch_tpu.ops import length_regulator as jlr
+from wavthruvec_pytorch_tpu.ops import masking as jmask
+from wavthruvec_pytorch_tpu.ops import positional as jpos
+from wavthruvec_pytorch_tpu.ops.fused_resblock import conv_residual_reference
+from wavthruvec_pytorch_tpu.ops.gru_pallas import gru_fwd_pallas
+from wavthruvec_pytorch_tpu_torch.models.layers import BiGRU
+from wavthruvec_pytorch_tpu_torch.ops import length_regulator as tlr
+from wavthruvec_pytorch_tpu_torch.ops import masking as tmask
+from wavthruvec_pytorch_tpu_torch.ops import positional as tpos
+from wavthruvec_pytorch_tpu_torch.ops.fused_resblock import (
+    conv_residual_plain,
+    fused_conv_residual,
+)
+from wavthruvec_pytorch_tpu_torch.ops.gru import gru_fwd, gru_fwd_plain
+
+
+def _t(a, dtype=torch.float32):
+    return torch.tensor(np.array(a), dtype=dtype)
+
+
+def test_masking_exact():
+    lengths = np.array([3, 7, 0, 5], np.int32)
+    np.testing.assert_array_equal(
+        tmask.get_mask_from_lengths(_t(lengths, torch.int64), 7).numpy(),
+        np.asarray(jmask.get_mask_from_lengths(jnp.asarray(lengths), 7)))
+    np.testing.assert_array_equal(
+        tmask.positions_from_lengths(_t(lengths, torch.int64), 9).numpy(),
+        np.asarray(jmask.positions_from_lengths(jnp.asarray(lengths), 9)))
+    seq = np.array([[4, 5, 0, 0], [7, 0, 0, 0]], np.int32)
+    np.testing.assert_array_equal(
+        tmask.get_non_pad_mask(_t(seq, torch.int64)).numpy(),
+        np.asarray(jmask.get_non_pad_mask(jnp.asarray(seq))))
+    np.testing.assert_array_equal(
+        tmask.get_attn_key_pad_mask(_t(seq, torch.int64), _t(seq, torch.int64)).numpy(),
+        np.asarray(jmask.get_attn_key_pad_mask(jnp.asarray(seq), jnp.asarray(seq))))
+
+
+@pytest.mark.parametrize("n_position,d_hid", [(51, 24), (3001, 448)])
+def test_sinusoid_table_exact(n_position, d_hid):
+    np.testing.assert_array_equal(
+        tpos.sinusoid_encoding_table(n_position, d_hid, padding_idx=0),
+        jpos.sinusoid_encoding_table(n_position, d_hid, padding_idx=0))
+    # the in-graph twin the JAX models use agrees to f32 rounding of the angle
+    np.testing.assert_allclose(
+        tpos.sinusoid_encoding_table(n_position, d_hid, padding_idx=0),
+        np.asarray(jpos.sinusoid_encoding_table_jnp(n_position, d_hid, padding_idx=0)),
+        atol=2e-3)
+
+
+@pytest.mark.parametrize("max_frames", [5, 16, 40])
+def test_expand_by_durations_exact(max_frames):
+    rng = np.random.default_rng(max_frames)
+    x = rng.standard_normal((3, 6, 4)).astype(np.float32)
+    dur = rng.integers(0, 5, (3, 6)).astype(np.int32)
+    dur[2] = 0  # an item with no frames at all
+    out, total = tlr.expand_by_durations(_t(x), _t(dur, torch.int64), max_frames)
+    jout, jtotal = jlr.expand_by_durations(jnp.asarray(x), jnp.asarray(dur), max_frames)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(jout))
+    # total is not clamped to max_frames
+    np.testing.assert_array_equal(total.numpy(), np.asarray(jtotal))
+
+
+@pytest.mark.parametrize("d", [1, 3])
+@pytest.mark.parametrize("k", [3, 7, 11])
+@pytest.mark.parametrize("C", [16, 32, 128, 256])
+def test_fused_unit_plain_matches_jax_reference(C, k, d):
+    """Plain version of the ResBlock2 kernel == conv_residual_reference,
+    f32, atol 2e-5 (tests/test_ops.py's tolerance for the same op)."""
+    rng = np.random.default_rng(C * 100 + k * 10 + d)
+    B, T = 2, 48
+    x = (rng.standard_normal((B, T, C)) * 0.5).astype(np.float32)
+    w = (rng.standard_normal((k, C, C)) * 0.05).astype(np.float32)
+    b = (rng.standard_normal(C) * 0.01).astype(np.float32)
+    got = fused_conv_residual(_t(x), _t(w), _t(b), dilation=d).numpy()
+    for i in range(B):
+        want = np.asarray(conv_residual_reference(
+            jnp.asarray(x[i]), jnp.asarray(w), jnp.asarray(b), dilation=d))
+        np.testing.assert_allclose(got[i], want, atol=2e-5)
+
+
+def test_fused_unit_wrapper_takes_plain_only_on_cpu():
+    rng = np.random.default_rng(0)
+    x = _t(rng.standard_normal((1, 10, 16)))
+    w = _t(rng.standard_normal((3, 16, 16)) * 0.1)
+    b = _t(rng.standard_normal(16))
+    before = fused_conv_residual.launches
+    torch.testing.assert_close(fused_conv_residual(x, w, b, dilation=3),
+                               conv_residual_plain(x, w, b, dilation=3), rtol=0, atol=0)
+    assert fused_conv_residual.launches == before  # the plain path launches nothing
+    with pytest.raises(ValueError):
+        fused_conv_residual(x.to("meta"), w.to("meta"), b.to("meta"))
+
+
+def _gru_inputs(D, B, T, H, seed=0):
+    rng = np.random.default_rng(seed)
+    gi = (rng.standard_normal((D, B, T, 3 * H)) * 0.5).astype(np.float32)
+    w_hh = rng.uniform(-1, 1, (D, H, 3 * H)).astype(np.float32) / np.sqrt(H)
+    b_hh = (rng.standard_normal((D, 3 * H)) * 0.1).astype(np.float32)
+    return gi, w_hh, b_hh
+
+
+@pytest.mark.parametrize("B,T", [(1, 12), (3, 20)])
+def test_gru_plain_matches_pallas_interpret(B, T):
+    """Plain GRU recurrence == gru_fwd_pallas(interpret=True) at D=2, H=128:
+    both round h and w_hh to bf16 and accumulate in f32; atol 1e-4."""
+    D, H = 2, 128
+    gi, w_hh, b_hh = _gru_inputs(D, B, T, H, seed=B)
+    want = np.asarray(gru_fwd_pallas(jnp.asarray(gi), jnp.asarray(w_hh), jnp.asarray(b_hh),
+                                     interpret=True))
+    got = gru_fwd(_t(gi), _t(w_hh).to(torch.bfloat16), _t(b_hh)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4)
+    torch.testing.assert_close(torch.from_numpy(got),
+                               gru_fwd_plain(_t(gi), _t(w_hh), _t(b_hh)), rtol=0, atol=0)
+
+
+def test_port_bigru_matches_jax_scan():
+    """The port's BiGRU (bf16 hidden matmul) against the JAX f32 scan
+    BiGRU: atol 2e-3, the bound tests/test_layers_parity.py uses for the
+    Pallas-vs-scan gap."""
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal((2, 33, 48)) * 0.5).astype(np.float32)
+    jm = JaxBiGRU(hidden=128)
+    v = jm.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    want = np.asarray(jm.apply(v, jnp.asarray(x)))
+    p = v["params"]
+    tm = BiGRU(48, 128, device="cpu")
+    sd = {}
+    for d_, t_ in (("fwd", ""), ("bwd", "_reverse")):
+        sd[f"weight_ih_l0{t_}"] = _t(np.asarray(p[f"{d_}_w_ih"]).T)
+        sd[f"weight_hh_l0{t_}"] = _t(np.asarray(p[f"{d_}_w_hh"]).T)
+        sd[f"bias_ih_l0{t_}"] = _t(p[f"{d_}_b_ih"])
+        sd[f"bias_hh_l0{t_}"] = _t(p[f"{d_}_b_hh"])
+    tm.load_state_dict(sd, strict=True)
+    with torch.no_grad():
+        got = tm(_t(x)).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-3)

@@ -1,0 +1,44 @@
+"""Duration predictor (JAX package: models/duration.py; reference:
+text2vec/module.py:110-156): 2 x (Conv1d k=3 pad=1 -> LayerNorm -> ReLU)
+-> Linear -> ReLU.  Inference only, so dropout is the identity."""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from wavthruvec_pytorch_tpu_torch.models.layers import Conv1d, LayerNorm, Linear
+
+
+class ConvNorm(nn.Module):
+    """The reference's ConvNorm wrapper: a Conv1d kept under ``.conv``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 1,
+                 padding: int = 0, w_init_gain: str = "linear", device=None):
+        super().__init__()
+        self.conv = Conv1d(in_channels, out_channels, kernel_size, padding=padding,
+                           w_init_gain=w_init_gain, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x)
+
+
+class DurationPredictor(nn.Module):
+    def __init__(self, in_dim: int, filter_size: int = 256, kernel_size: int = 3,
+                 device=None):
+        super().__init__()
+        self.conv_layer = nn.ModuleDict({
+            "conv1d_1": ConvNorm(in_dim, filter_size, kernel_size, padding=1, device=device),
+            "layer_norm_1": LayerNorm(filter_size, device=device),
+            "conv1d_2": ConvNorm(filter_size, filter_size, kernel_size, padding=1,
+                                 device=device),
+            "layer_norm_2": LayerNorm(filter_size, device=device),
+        })
+        self.linear_layer = Linear(filter_size, 1, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, N, C] encoder output -> [B, N] non-negative durations (float)."""
+        for i in (1, 2):
+            x = self.conv_layer[f"conv1d_{i}"](x)
+            x = torch.relu(self.conv_layer[f"layer_norm_{i}"](x))
+        return torch.relu(self.linear_layer(x))[..., 0]

@@ -1,0 +1,249 @@
+"""Building-block layers of the port (JAX package: models/layers.py).
+
+Every layer takes and returns the JAX layout ``[B, T, C]`` (``[B, C]`` for
+dense inputs) and transposes internally where ``F.conv1d`` wants
+``[B, C, T]``.  Parameter and buffer names are the torch reference's, the
+keys that ``weights.py`` emits, so state dicts load with ``strict=True``.
+The port is inference-only: BatchNorm always uses its running statistics
+and spectral norm uses its stored ``u``, ``v`` without iterating.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from wavthruvec_pytorch_tpu_torch.ops.gru import gru_fwd
+
+_GAIN = {"linear": 1.0, "relu": math.sqrt(2.0), "tanh": 5.0 / 3.0, "sigmoid": 1.0}
+
+# JAX's TorchLinear is nn.Dense with torch's default init: nn.Linear itself.
+TorchLinear = nn.Linear
+
+
+class Linear(nn.Module):
+    """nn.Linear with xavier_uniform(gain) weights, kept under the
+    reference's ``linear_layer`` attribute (text2vec/subLayer.py:11-31)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 w_init_gain: str = "linear", device=None):
+        super().__init__()
+        self.linear_layer = nn.Linear(in_features, out_features, bias=bias, device=device)
+        nn.init.xavier_uniform_(self.linear_layer.weight, gain=_GAIN[w_init_gain])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.linear_layer(x)
+
+
+class Conv1d(nn.Conv1d):
+    """torch Conv1d over ``[B, T, C]`` (optionally xavier-initialised)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0, dilation: int = 1,
+                 bias: bool = True, w_init_gain: str | None = None, device=None):
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride,
+                         padding=padding, dilation=dilation, bias=bias, device=device)
+        if w_init_gain is not None:
+            nn.init.xavier_uniform_(self.weight, gain=_GAIN[w_init_gain])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.transpose(1, 2)).transpose(1, 2)
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm over the last dim with torch's eps 1e-5."""
+
+    def __init__(self, normalized_shape: int, device=None):
+        super().__init__(normalized_shape, eps=1e-5, device=device)
+
+
+class BatchNorm(nn.Module):
+    """Eval-mode BatchNorm1d over the last dim of ``[B, T, C]`` or ``[B, C]``,
+    eps 1e-5, with torch BatchNorm1d's parameter and buffer names.  It always
+    normalises with the running statistics (the port has no training path)."""
+
+    def __init__(self, num_features: int, affine: bool = True, eps: float = 1e-5,
+                 device=None):
+        super().__init__()
+        self.eps = eps
+        if affine:
+            self.weight = nn.Parameter(torch.ones(num_features, device=device))
+            self.bias = nn.Parameter(torch.zeros(num_features, device=device))
+        else:
+            self.weight = None
+            self.bias = None
+        self.register_buffer("running_mean", torch.zeros(num_features, device=device))
+        self.register_buffer("running_var", torch.ones(num_features, device=device))
+        self.register_buffer("num_batches_tracked",
+                             torch.zeros((), dtype=torch.long, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # flax's order: (x - mean) * (rsqrt(var + eps) * scale) + bias
+        mul = torch.rsqrt(self.running_var + self.eps)
+        if self.weight is not None:
+            mul = mul * self.weight
+        y = (x - self.running_mean) * mul
+        if self.bias is not None:
+            y = y + self.bias
+        return y
+
+
+class Highway(nn.Module):
+    """Highway layer (reference: text2vec/module.py:247-260): H bias zeroed,
+    T (gate) bias at -1."""
+
+    def __init__(self, in_size: int, out_size: int, device=None):
+        super().__init__()
+        self.H = nn.Linear(in_size, out_size, device=device)
+        self.T = nn.Linear(in_size, out_size, device=device)
+        nn.init.zeros_(self.H.bias)
+        nn.init.constant_(self.T.bias, -1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = F.relu(self.H(x))
+        t = torch.sigmoid(self.T(x))
+        return h * t + x * (1.0 - t)
+
+
+def _norm_except(v: torch.Tensor, dim: int) -> torch.Tensor:
+    """L2 norm of ``v`` over every dim but ``dim`` (kept), with the JAX
+    package's 1e-32 under the root (models/layers.py:341-346)."""
+    dims = [i for i in range(v.dim()) if i != dim]
+    return torch.sqrt(torch.sum(v * v, dim=dims, keepdim=True) + 1e-32)
+
+
+class WNConv1d(nn.Module):
+    """weight_norm(Conv1d) over ``[B, T, C]``: ``weight_g`` [out, 1, 1],
+    ``weight_v`` [out, in, k], ``bias`` [out]; the norm is per output channel.
+    ``w_std`` selects HiFi-GAN's N(0, w_std) init of ``v``; ``g`` starts at
+    ``||v||``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 padding: int = 0, dilation: int = 1, bias: bool = True,
+                 w_std: float | None = None, device=None):
+        super().__init__()
+        self.padding = padding
+        self.dilation = dilation
+        v = torch.empty(out_channels, in_channels, kernel_size, device=device)
+        if w_std is not None:
+            nn.init.normal_(v, 0.0, w_std)
+        else:
+            bound = 1.0 / math.sqrt(in_channels * kernel_size)
+            nn.init.uniform_(v, -bound, bound)
+        self.weight_v = nn.Parameter(v)
+        self.weight_g = nn.Parameter(_norm_except(v, 0).clone())
+        if bias:
+            bound = 1.0 / math.sqrt(in_channels * kernel_size)
+            self.bias = nn.Parameter(
+                torch.empty(out_channels, device=device).uniform_(-bound, bound))
+        else:
+            self.bias = None
+
+    def weight(self) -> torch.Tensor:
+        """The weight-normed kernel g * v / ||v||, torch layout [out, in, k]."""
+        return self.weight_g * self.weight_v / _norm_except(self.weight_v, 0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv1d(x.transpose(1, 2), self.weight(), self.bias,
+                     padding=self.padding, dilation=self.dilation)
+        return y.transpose(1, 2).contiguous()
+
+
+class WNConvTranspose1d(nn.Module):
+    """weight_norm(ConvTranspose1d) over ``[B, T, C]``: ``weight_g`` [in, 1, 1],
+    ``weight_v`` [in, out, k]; output length ``(T-1)*stride - 2*padding + k``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int, padding: int = 0, w_std: float = 0.01, device=None):
+        super().__init__()
+        self.stride = stride
+        self.padding = padding
+        v = torch.empty(in_channels, out_channels, kernel_size, device=device)
+        nn.init.normal_(v, 0.0, w_std)
+        self.weight_v = nn.Parameter(v)
+        self.weight_g = nn.Parameter(_norm_except(v, 0).clone())
+        bound = 1.0 / math.sqrt(in_channels * kernel_size)
+        self.bias = nn.Parameter(
+            torch.empty(out_channels, device=device).uniform_(-bound, bound))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight_g * self.weight_v / _norm_except(self.weight_v, 0)
+        y = F.conv_transpose1d(x.transpose(1, 2), w, self.bias,
+                               stride=self.stride, padding=self.padding)
+        return y.transpose(1, 2).contiguous()
+
+
+class SpectralNormDense(nn.Module):
+    """spectral_norm(Linear) in eval mode: ``weight_orig`` / sigma with
+    sigma = u . (W v) from the stored ``weight_u``, ``weight_v`` and no power
+    iteration (JAX package: models/layers.py:625-631)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 w_mean: float = 0.0, w_std: float | None = None, device=None):
+        super().__init__()
+        w = torch.empty(out_features, in_features, device=device)
+        if w_std is None:
+            bound = 1.0 / math.sqrt(in_features)
+            nn.init.uniform_(w, -bound, bound)
+        else:
+            nn.init.normal_(w, w_mean, w_std)
+        self.weight_orig = nn.Parameter(w)
+        self.bias = nn.Parameter(torch.zeros(out_features, device=device))
+        self.register_buffer(
+            "weight_u", F.normalize(torch.randn(out_features, device=device), dim=0, eps=1e-12))
+        self.register_buffer(
+            "weight_v", F.normalize(torch.randn(in_features, device=device), dim=0, eps=1e-12))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        sigma = torch.dot(self.weight_u, torch.mv(self.weight_orig, self.weight_v))
+        return F.linear(x, self.weight_orig / sigma, self.bias)
+
+
+class BiGRU(nn.Module):
+    """Bidirectional single-layer GRU over ``[B, T, C]`` -> ``[B, T, 2H]``
+    with torch nn.GRU's gate math and parameter names.
+
+    It computes what the JAX package's ``gru_impl="pallas"`` path computes:
+    the input projections in f32 by one matmul, then the recurrence through
+    ``ops.gru.gru_fwd`` with ``w_hh`` stored in bf16 and h carried in f32
+    (on a CUDA tensor the hand-written kernel, on a CPU tensor its plain
+    version).  The backward direction runs over ``flip(x)`` across the whole
+    padded length with no length masking, as the reference feeds the padded
+    sequence unpacked (text2vec/module.py:356-358), and its output is flipped
+    back.
+    """
+
+    def __init__(self, input_size: int, hidden_size: int, device=None):
+        super().__init__()
+        self.hidden_size = hidden_size
+        bound = 1.0 / math.sqrt(hidden_size)
+        H3 = 3 * hidden_size
+        for sfx in ("", "_reverse"):
+            for name, shape in ((f"weight_ih_l0{sfx}", (H3, input_size)),
+                                (f"weight_hh_l0{sfx}", (H3, hidden_size)),
+                                (f"bias_ih_l0{sfx}", (H3,)),
+                                (f"bias_hh_l0{sfx}", (H3,))):
+                self.register_parameter(name, nn.Parameter(
+                    torch.empty(shape, device=device).uniform_(-bound, bound)))
+
+    def recurrence_inputs(self, x: torch.Tensor):
+        """[B, T, C] -> the arguments of ``gru_fwd`` for both directions:
+        gi [2, B, T, 3H] f32, w_hh [2, H, 3H] bf16, b_hh [2, 3H] f32."""
+        B, T, C = x.shape
+        H3 = 3 * self.hidden_size
+        xs = torch.stack([x, torch.flip(x, dims=(1,))])  # [2, B, T, C]
+        w_ih = torch.stack([self.weight_ih_l0, self.weight_ih_l0_reverse])  # [2, 3H, C]
+        b_ih = torch.stack([self.bias_ih_l0, self.bias_ih_l0_reverse])
+        gi = torch.matmul(xs.reshape(2, B * T, C), w_ih.transpose(1, 2))
+        gi = (gi.reshape(2, B, T, H3) + b_ih[:, None, None]).contiguous()
+        # JAX layout [D, H, 3H]: a transposed view of torch's [D, 3H, H]
+        w_hh = torch.stack([self.weight_hh_l0, self.weight_hh_l0_reverse]).to(torch.bfloat16)
+        b_hh = torch.stack([self.bias_hh_l0, self.bias_hh_l0_reverse]).contiguous()
+        return gi, w_hh.transpose(1, 2), b_hh
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ys = gru_fwd(*self.recurrence_inputs(x))  # [2, B, T, H]
+        return torch.cat([ys[0], torch.flip(ys[1], dims=(1,))], dim=-1)

@@ -1,0 +1,216 @@
+"""Text2Vec inference: FFT encoder with ECAPA speaker conditioning, duration
+predictor and length regulator, FFT decoder, CBHG postnet (JAX package:
+models/text2vec.py ``Encoder``, ``Decoder``, ``Text2Vec.infer``,
+``Text2Vec.speaker_embedding``; reference: text2vec/model.py:71-356).
+
+Semantics kept from the JAX package:
+
+* position ids are clamped at ``vocab_size`` in the encoder and at
+  ``max_seq_len`` in the decoder (a bare embedding lookup would raise);
+* inference durations are ``floor((dp + 0.5) * alpha)``, zeroed at text pads;
+* the decoder uses ``d_k = d_model // encoder_head`` (model.py:162).
+
+The training branch (ConvAttention soft alignment + MAS) is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from wavthruvec_pytorch_tpu_torch.config import Text2VecConfig, check_ported
+from wavthruvec_pytorch_tpu_torch.device import resolve_device
+from wavthruvec_pytorch_tpu_torch.models.cbhg import CBHG
+from wavthruvec_pytorch_tpu_torch.models.duration import ConvNorm, DurationPredictor
+from wavthruvec_pytorch_tpu_torch.models.ecapa import ECAPA_TDNN
+from wavthruvec_pytorch_tpu_torch.models.fft_block import FFTBlock
+from wavthruvec_pytorch_tpu_torch.models.layers import Linear
+from wavthruvec_pytorch_tpu_torch.ops.length_regulator import expand_by_durations
+from wavthruvec_pytorch_tpu_torch.ops.masking import (
+    get_attn_key_pad_mask,
+    get_mask_from_lengths,
+    get_non_pad_mask,
+    positions_from_lengths,
+)
+from wavthruvec_pytorch_tpu_torch.ops.positional import sinusoid_encoding_table
+
+
+def _position_table(n_position: int, d_hid: int, device) -> nn.Embedding:
+    """Frozen sinusoid table kept as ``position_enc.weight`` (model.py:56-58)."""
+    emb = nn.Embedding(n_position, d_hid, device=device)
+    emb.weight.requires_grad_(False)
+    with torch.no_grad():
+        emb.weight.copy_(torch.from_numpy(sinusoid_encoding_table(n_position, d_hid, 0)))
+    return emb
+
+
+def _fft_stack(cfg: Text2VecConfig, d_model: int, d_inner: int, n_head: int,
+               n_layer: int, device) -> nn.ModuleList:
+    d_k = d_model // cfg.encoder_head  # the reference uses encoder_head in both stacks
+    return nn.ModuleList(
+        FFTBlock(d_model, d_inner, n_head, d_k, d_k,
+                 fft_conv1d_kernel=cfg.fft_conv1d_kernel,
+                 fft_conv1d_padding=cfg.fft_conv1d_padding, device=device)
+        for _ in range(n_layer))
+
+
+class Encoder(nn.Module):
+    """Char embedding + clamped sinusoid positions + ECAPA speaker concat +
+    FFT stack (n_position = vocab_size + 1, the reference's quirk, model.py:86)."""
+
+    def __init__(self, cfg: Text2VecConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.src_word_emb = nn.Embedding(cfg.vocab_size, cfg.encoder_dim, device=device)
+        self.position_enc = _position_table(cfg.vocab_size + 1, cfg.encoder_dim, device)
+        if cfg.use_multi_speaker_condition:
+            self.speaker_encoder = ECAPA_TDNN(cfg.spk_channel, cfg.n_feat_dim,
+                                              cfg.n_speaker_dim, device=device)
+        self.layer_stack = _fft_stack(cfg, cfg.encoder_output_dim,
+                                      cfg.encoder_conv1d_filter_size, cfg.encoder_head,
+                                      cfg.encoder_n_layer, device)
+
+    def forward(self, src_seq: torch.Tensor, src_pos: torch.Tensor,
+                wav_feat: Optional[torch.Tensor] = None,
+                spk_emb: Optional[torch.Tensor] = None):
+        cfg = self.cfg
+        slf_attn_mask = get_attn_key_pad_mask(src_seq, src_seq)
+        non_pad_mask = get_non_pad_mask(src_seq)
+        # padding_idx=0 keeps the pad row at zero (model.py:88-90)
+        text_emb = self.src_word_emb(src_seq) * non_pad_mask
+        pos_ids = src_pos.clamp(max=cfg.vocab_size)
+        enc_output = text_emb + self.position_enc(pos_ids)
+        if cfg.use_multi_speaker_condition:
+            if spk_emb is None:
+                spk_emb = self.speaker_encoder(wav_feat)
+            B, N, _ = enc_output.shape
+            enc_output = torch.cat(
+                [enc_output, spk_emb[:, None, :].expand(B, N, cfg.n_speaker_dim)], dim=-1)
+        for layer in self.layer_stack:
+            enc_output, _ = layer(enc_output, non_pad_mask, slf_attn_mask)
+        return enc_output, spk_emb
+
+
+class Decoder(nn.Module):
+    """Clamped sinusoid positions + FFT stack over expanded frames."""
+
+    def __init__(self, cfg: Text2VecConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.position_enc = _position_table(cfg.max_seq_len + 1, cfg.decoder_model_dim, device)
+        self.layer_stack = _fft_stack(cfg, cfg.decoder_model_dim,
+                                      cfg.decoder_conv1d_filter_size, cfg.decoder_head,
+                                      cfg.decoder_n_layer, device)
+
+    def forward(self, enc_seq: torch.Tensor, enc_pos: torch.Tensor) -> torch.Tensor:
+        slf_attn_mask = get_attn_key_pad_mask(enc_pos, enc_pos)
+        non_pad_mask = get_non_pad_mask(enc_pos)
+        dec_output = enc_seq + self.position_enc(enc_pos.clamp(max=self.cfg.max_seq_len))
+        for layer in self.layer_stack:
+            dec_output, _ = layer(dec_output, non_pad_mask, slf_attn_mask)
+        return dec_output
+
+
+class LengthRegulator(nn.Module):
+    """Holds the duration predictor under the reference's attribute path
+    (``length_regulator.duration_predictor``)."""
+
+    def __init__(self, cfg: Text2VecConfig, device=None):
+        super().__init__()
+        self.duration_predictor = DurationPredictor(
+            cfg.encoder_output_dim, cfg.duration_predictor_filter_size,
+            cfg.duration_predictor_kernel_size, device=device)
+
+
+class ConvAttention(nn.Module):
+    """Parameters of the RAD-TTS alignment module (reference:
+    text2vec/module.py:455-545), held so that full Text2Vec state dicts load
+    strictly.  Its forward belongs to the training branch, which is not
+    ported yet (ROADMAP.md, queue 1 item 7)."""
+
+    def __init__(self, n_feat_channels: int, n_text_channels: int,
+                 n_att_channels: int = 80, device=None):
+        super().__init__()
+        self.key_proj = nn.Sequential(
+            ConvNorm(n_text_channels, 2 * n_text_channels, 3, padding=1,
+                     w_init_gain="relu", device=device),
+            nn.ReLU(),
+            ConvNorm(2 * n_text_channels, n_att_channels, 1, device=device),
+        )
+        self.query_proj = nn.Sequential(
+            ConvNorm(n_feat_channels, 2 * n_feat_channels, 3, padding=1,
+                     w_init_gain="relu", device=device),
+            nn.ReLU(),
+            ConvNorm(2 * n_feat_channels, n_feat_channels, 1, device=device),
+            nn.ReLU(),
+            ConvNorm(n_feat_channels, n_att_channels, 1, device=device),
+        )
+
+    def forward(self, *args, **kwargs):
+        raise NotImplementedError(
+            "ConvAttention belongs to the Text2Vec training branch, which is not "
+            "ported yet (ROADMAP.md, queue 1 item 7).")
+
+
+class Text2Vec(nn.Module):
+    """Text2Vec with reference parameter names; ``infer`` is the inference
+    branch.  ``device`` defaults to the card and raises without one."""
+
+    def __init__(self, cfg: Text2VecConfig, device=None):
+        super().__init__()
+        check_ported(cfg)
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.encoder = Encoder(cfg, device=device)
+        self.decoder = Decoder(cfg, device=device)
+        self.length_regulator = LengthRegulator(cfg, device=device)
+        self.WVF_linear = Linear(cfg.decoder_model_dim, cfg.n_feat_dim, device=device)
+        self.postnet = CBHG(cfg.n_feat_dim, K=8, device=device)
+        self.last_linear = Linear(2 * cfg.n_feat_dim, cfg.n_feat_dim, device=device)
+        if cfg.learn_alignments:
+            n_text = (cfg.encoder_dim + cfg.n_speaker_dim
+                      if cfg.use_speaker_emb_for_alignment else cfg.encoder_dim)
+            self.attention = ConvAttention(cfg.n_feat_dim, n_text, device=device)
+        self.eval()
+
+    @staticmethod
+    def _mask_tensor(x: torch.Tensor, position: torch.Tensor, max_len: int) -> torch.Tensor:
+        """Zero-fill frames beyond the per-item length (model.py:224-228)."""
+        mask = get_mask_from_lengths(position.max(dim=-1).values, max_len)
+        return x * mask[:, :, None].to(x.dtype)
+
+    @torch.inference_mode()
+    def infer(self, src_seq: torch.Tensor, src_pos: torch.Tensor,
+              wav_feat: Optional[torch.Tensor], max_frames: int, alpha: float = 1.0,
+              spk_emb: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """src_seq/src_pos [B, N] int, wav_feat [B, T_ref, n_feat] (or
+        ``spk_emb`` [B, n_speaker_dim] to skip ECAPA) -> dict with
+        ``feat_output``/``feat_postnet_output`` [B, max_frames, n_feat],
+        ``duration_predictor_output`` [B, N], ``durations`` [B, N] and
+        ``total_frames`` [B]."""
+        encoder_output, _ = self.encoder(src_seq, src_pos, wav_feat, spk_emb=spk_emb)
+        dp_out = self.length_regulator.duration_predictor(encoder_output)
+        durations = torch.floor((dp_out + 0.5) * alpha).to(torch.int64)
+        durations = durations * (src_seq != 0).to(torch.int64)
+
+        lr_output, total_frames = expand_by_durations(encoder_output, durations, max_frames)
+        wvf_pos = positions_from_lengths(total_frames, max_frames)
+
+        decoder_output = self.decoder(lr_output, wvf_pos)
+        wvf_output = self._mask_tensor(self.WVF_linear(decoder_output), wvf_pos, max_frames)
+        residual = self.last_linear(self.postnet(wvf_output))
+        wvf_postnet = self._mask_tensor(wvf_output + residual, wvf_pos, max_frames)
+        return {
+            "feat_output": wvf_output,
+            "feat_postnet_output": wvf_postnet,
+            "duration_predictor_output": dp_out,
+            "durations": durations,
+            "total_frames": total_frames,
+        }
+
+    @torch.inference_mode()
+    def speaker_embedding(self, wav_feat: torch.Tensor) -> torch.Tensor:
+        """[B, T_ref, n_feat] -> the ECAPA speaker embedding [B, n_speaker_dim]."""
+        return self.encoder.speaker_encoder(wav_feat)

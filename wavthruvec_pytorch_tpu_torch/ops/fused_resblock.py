@@ -1,0 +1,73 @@
+"""One HiFi-GAN ResBlock2 unit, ``conv_{k,d}(leaky_relu(x)) + b + x``, as a
+hand-written CUDA kernel (``csrc/fused_resblock.cu``) with its plain PyTorch
+version beside it.
+
+JAX counterpart: ``wavthruvec_pytorch_tpu/ops/fused_resblock.py``
+(``fused_conv_residual`` and its oracle ``conv_residual_reference``).  The
+port's Generator runs every ResBlock2 unit through ``fused_conv_residual``:
+on a CUDA tensor it launches the kernel, on a CPU tensor it runs
+``conv_residual_plain``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from wavthruvec_pytorch_tpu_torch.ops import kernel_build
+
+
+def conv_residual_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                        dilation: int = 1, neg_slope: float = 0.1) -> torch.Tensor:
+    """x [B, T, C], w [k, C_in, C_out], b [C_out] -> lrelu -> dilated conv
+    with "same" zero padding (k*d - d)//2 -> + b + x."""
+    k = w.shape[0]
+    pad = (k * dilation - dilation) // 2
+    xt = F.leaky_relu(x, neg_slope).transpose(1, 2)
+    y = F.conv1d(xt, w.permute(2, 1, 0), b, padding=pad, dilation=dilation)
+    return y.transpose(1, 2) + x
+
+
+def _lib() -> ctypes.CDLL:
+    lib = kernel_build.load("fused_resblock")
+    fn = lib.fused_resblock_forward
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def fused_conv_residual(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                        dilation: int = 1, neg_slope: float = 0.1) -> torch.Tensor:
+    """x [B, T, C] f32, w [k, C, C] f32 (the weight-normed kernel), b [C] f32
+    -> [B, T, C].  CPU tensors take ``conv_residual_plain``; CUDA tensors
+    launch the kernel; anything else raises."""
+    if x.device.type == "cpu":
+        return conv_residual_plain(x, w, b, dilation, neg_slope)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_conv_residual: unsupported device {x.device}")
+    if x.dim() != 3:
+        raise ValueError(f"x must be [B, T, C], got {tuple(x.shape)}")
+    B, T, C = x.shape
+    k = w.shape[0]
+    if tuple(w.shape) != (k, C, C) or k % 2 != 1:
+        raise ValueError(f"w must be [k, {C}, {C}] with odd k, got {tuple(w.shape)}")
+    if tuple(b.shape) != (C,):
+        raise ValueError(f"b must be [{C}], got {tuple(b.shape)}")
+    for name, t in (("x", x), ("w", w), ("b", b)):
+        if t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 tensor on {x.device}, "
+                             f"got {t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
+    lib = _lib()
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.fused_resblock_forward(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+        B, T, C, k, dilation, neg_slope, stream)
+    kernel_build.check(lib, err, "fused_resblock_forward")
+    fused_conv_residual.launches += 1
+    return out
+
+
+fused_conv_residual.launches = 0

@@ -1,0 +1,89 @@
+"""Forward recurrence of D stacked GRU directions as a hand-written CUDA
+kernel (``csrc/gru_fwd.cu``) with its plain PyTorch version beside it.
+
+JAX counterpart: ``wavthruvec_pytorch_tpu/ops/gru_pallas.py``
+(``gru_fwd_pallas``): torch nn.GRU gates, h0 = 0, ``h`` and ``w_hh``
+rounded to bf16 for the hidden matmul with f32 accumulation, h carried in
+f32.  The port's BiGRU always runs this function: on CUDA tensors it
+launches the kernel, on CPU tensors it runs ``gru_fwd_plain``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from wavthruvec_pytorch_tpu_torch.ops import kernel_build
+
+
+def gru_fwd_plain(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor) -> torch.Tensor:
+    """gi [D, B, T, 3H] f32 (input projections + b_ih), w_hh [D, H, 3H],
+    b_hh [D, 3H] -> hidden states [D, B, T, H].  ``h`` and ``w_hh`` are
+    rounded to bf16 and their products summed in f32, as the kernel does."""
+    D, B, T, H3 = gi.shape
+    H = H3 // 3
+    w = w_hh.to(torch.bfloat16).to(torch.float32)
+    h = gi.new_zeros(D, B, H)
+    ys = []
+    for t in range(T):
+        gh = torch.bmm(h.to(torch.bfloat16).to(torch.float32), w) + b_hh[:, None]
+        gi_t = gi[:, :, t]
+        r = torch.sigmoid(gi_t[..., :H] + gh[..., :H])
+        z = torch.sigmoid(gi_t[..., H:2 * H] + gh[..., H:2 * H])
+        n = torch.tanh(gi_t[..., 2 * H:] + r * gh[..., 2 * H:])
+        h = (1.0 - z) * n + z * h
+        ys.append(h)
+    return torch.stack(ys, dim=2)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = kernel_build.load("gru_fwd")
+    fn = lib.gru_fwd_forward
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def gru_fwd(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor) -> torch.Tensor:
+    """gi [D, B, T, 3H] f32 contiguous, w_hh [D, H, 3H] bf16 (any strides),
+    b_hh [D, 3H] f32 contiguous -> [D, B, T, H] f32.  CPU tensors take
+    ``gru_fwd_plain``; CUDA tensors launch the kernel (T step launches,
+    issued from C); anything else raises."""
+    if gi.device.type == "cpu":
+        return gru_fwd_plain(gi, w_hh, b_hh)
+    if gi.device.type != "cuda":
+        raise ValueError(f"gru_fwd: unsupported device {gi.device}")
+    if gi.dim() != 4 or gi.shape[-1] % 3 != 0:
+        raise ValueError(f"gi must be [D, B, T, 3H], got {tuple(gi.shape)}")
+    D, B, T, H3 = gi.shape
+    H = H3 // 3
+    if H % 8 != 0:
+        raise ValueError(f"gru_fwd needs H % 8 == 0 (16-byte weight rows), got H={H}")
+    if tuple(w_hh.shape) != (D, H, H3) or w_hh.dtype != torch.bfloat16:
+        raise ValueError(f"w_hh must be bf16 [{D}, {H}, {H3}], got {w_hh.dtype} "
+                         f"{tuple(w_hh.shape)}")
+    if tuple(b_hh.shape) != (D, H3):
+        raise ValueError(f"b_hh must be [{D}, {H3}], got {tuple(b_hh.shape)}")
+    for name, t in (("gi", gi), ("b_hh", b_hh)):
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 tensor, "
+                             f"got {t.dtype} (contiguous={t.is_contiguous()})")
+    for name, t in (("w_hh", w_hh), ("b_hh", b_hh)):
+        if t.device != gi.device:
+            raise ValueError(f"{name} is on {t.device}, gi on {gi.device}")
+    lib = _lib()
+    w_t = w_hh.transpose(1, 2).contiguous()  # [D, 3H, H]: no copy for a transposed view
+    y = torch.empty(D, B, T, H, device=gi.device, dtype=torch.float32)
+    stream = torch.cuda.current_stream(gi.device).cuda_stream
+    err = lib.gru_fwd_forward(gi.data_ptr(), w_t.data_ptr(), b_hh.data_ptr(),
+                              y.data_ptr(), D, B, T, H, stream)
+    kernel_build.check(lib, err, "gru_fwd_forward")
+    gru_fwd.launches += 1
+    gru_fwd.step_launches += T
+    return y
+
+
+# calls that launched the kernel, and the per-step launches they issued
+gru_fwd.launches = 0
+gru_fwd.step_launches = 0
