@@ -40,6 +40,31 @@ below is fatal: nothing is caught.
 7. Where the time of the 512-frame request goes, by stage (CUDA events
    from forward hooks) and by kernel (``torch.profiler``).
 
+Then the Text2Vec training slice, on the same full-size Text2Vec config:
+
+8. Training: a ``Text2VecTrainer`` with seeded random weights takes
+   ``WARMUP_STEPS`` then ``TIMED_STEPS`` LAMB steps on one synthetic batch
+   (B = 16, text bucket 64, frame bucket 1024: mixed lengths, seeded
+   1024-d features, beta-binomial priors from the port's ``data/prior.py``,
+   dropout 0.1).  Prints the median step (CUDA events), frames trained per
+   second, peak device memory and the losses; every loss must be finite and
+   the total loss must fall over the repeated batch.  Counters, set to 0
+   just before the timed steps: one MAS launch, one BiGRU forward launch
+   and one BiGRU backward per step.  Then ``text2vec_loop.main`` trains 3
+   steps on the demo corpus (``data/demo/text2vec.json``).
+9. The MAS kernel against its plain version at (B, T, N) = (16, 1024, 64),
+   (16, 3000, 128) and (4, 300, 300), variable lengths, exact zeros in the
+   valid region: the hard maps must be equal.
+10. The BiGRU backward on the card against the CPU (B = 2, T = 512,
+    H = 1024), and its time at the training shape.
+11. One training step on the card against the CPU: seeded full-size
+    weights, one small batch (B = 8), dropout 0.  Hard alignments and
+    durations equal, losses and gradients within stated tolerances.
+12. Where a training step's time goes: forward, backward and optimizer
+    (CUDA events), the MAS kernel, the BiGRU forward kernel and the plain
+    BiGRU backward at the step's shapes, and ``torch.profiler``'s device
+    busy share and launch count.
+
 Every float32 product and convolution in this run is full float32: TF32 is
 off for matmuls and cuDNN.  The second-to-last line is a JSON object with
 one entry per kernel; the last line is
@@ -48,6 +73,7 @@ one entry per kernel; the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -64,6 +90,7 @@ from wavthruvec_pytorch_tpu_torch.config import (
     load_config,
     repo_path,
 )
+from wavthruvec_pytorch_tpu_torch.data.prior import beta_binomial_prior_distribution
 from wavthruvec_pytorch_tpu_torch.entry import entry
 from wavthruvec_pytorch_tpu_torch.infer.synthesize import Synthesizer
 from wavthruvec_pytorch_tpu_torch.models.text2vec import Text2Vec
@@ -73,8 +100,20 @@ from wavthruvec_pytorch_tpu_torch.ops.fused_resblock import (
     conv_residual_plain,
     fused_conv_residual,
 )
-from wavthruvec_pytorch_tpu_torch.ops.gru import gru_fwd, gru_fwd_plain
+from wavthruvec_pytorch_tpu_torch.ops.gru import (
+    GRURecurrence,
+    gru_bwd_plain,
+    gru_fwd,
+    gru_fwd_plain,
+)
+from wavthruvec_pytorch_tpu_torch.ops.mas import mas_width1, mas_width1_plain
 from wavthruvec_pytorch_tpu_torch.text import TextFrontend
+from wavthruvec_pytorch_tpu_torch.train import text2vec_loop
+from wavthruvec_pytorch_tpu_torch.train.text2vec_train import (
+    SCALAR_KEYS,
+    Text2VecTrainer,
+    make_padded_batch,
+)
 
 SEED = 0
 FRAMES_PER_CHAR = 8.0  # ~0.16 s of speech per character at 50 latent frames/s
@@ -95,6 +134,24 @@ GRU_ATOL = 1e-3    # same bf16 rounding both sides; a 1-ulp bf16 flip of h
 # the full path on the card against the CPU on a small request
 LATENT_ATOL = 1e-3
 WAV_ATOL = 2e-3
+
+# training: B x text bucket x frame bucket, steps
+TRAIN_B, TRAIN_N, TRAIN_T = 16, 64, 1024
+WARMUP_STEPS, TIMED_STEPS = 2, 5
+# the card-vs-CPU step: B = 8, not 2, since ECAPA's last BatchNorms
+# normalise over the batch and at B = 2 map each feature to +-1 whatever its
+# input, which leaves the gradient below them set by f32 rounding
+CHECK_B, CHECK_N, CHECK_T = 8, 16, 64
+GRU_BWD_RTOL = 1e-3   # atol, as a share of each gradient's largest value: f32 sums over T
+STEP_LOSS_RTOL = 1e-4
+# gradients, as ||card - CPU|| / ||CPU||: of all of them at once, and of each
+# tensor whose largest gradient exceeds 1e-5 (the rest are 0 but for
+# rounding: biases in front of a softmax or a BatchNorm).  The BiGRU's bf16
+# rounding of h flips on other sums, and the flips feed back through every
+# layer; ECAPA's Res2Net convolutions, below two batch-wide BatchNorms, move
+# most.
+STEP_GRAD_GLOBAL_RTOL = 5e-3
+STEP_GRAD_RTOL = 3e-2
 
 
 def check(cond: bool, msg: str) -> None:
@@ -333,9 +390,12 @@ def check_gru(syn):
     g = torch.Generator(device="cuda").manual_seed(SEED)
     first = None
     print(f"BiGRU recurrence, kernel vs plain (atol {GRU_ATOL}), D=2, H={H}:")
-    for B, T in ((1, 512), (2, 512), (1, 3000), (2, 3000)):
+    # serving requests, and the training batch, whose B = 16 takes the
+    # kernel through four passes of its 4-row batch tile
+    for B, T in ((1, 512), (2, 512), (1, 3000), (2, 3000), (TRAIN_B, TRAIN_T)):
         x = torch.randn((B, T, H), generator=g, device="cuda")
         gi, w_hh, b_hh = bigru.recurrence_inputs(x)
+        w_hh = w_hh.to(torch.bfloat16)
         got = gru_fwd(gi, w_hh, b_hh)
         want = gru_fwd_plain(gi, w_hh, b_hh)
         torch.cuda.synchronize()
@@ -457,6 +517,280 @@ def profile_request(syn, max_frames: int = 512) -> None:
         print(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:5d}  {e.key[:110]}")
 
 
+def train_config() -> Text2VecConfig:
+    """The full-size demo config at the training batch of 16."""
+    cfg = load_config(Text2VecConfig, repo_path("data", "demo", "text2vec.json"))
+    return dataclasses.replace(cfg, batch_size=TRAIN_B)
+
+
+def synthetic_batch(cfg, B: int, N: int, T: int, seed: int):
+    """B items with text lengths in [N/2, N] and 0.75-1 x T/N frames per
+    character (12-16 at N = 64, T = 1024: 0.24-0.32 s a character at 50
+    Hz), padded to (N, T); seeded 1024-d features and beta-binomial
+    priors."""
+    rng = np.random.default_rng(seed)
+    items = []
+    for i in range(B):
+        n = int(rng.integers(N // 2, N + 1))
+        t = min(T, int(round(n * rng.uniform(0.75, 1.0) * T / N)))
+        items.append({
+            "text_enc": rng.integers(3, cfg.vocab_size, n).astype(np.int32),
+            "feat_gt_target": (rng.standard_normal((t, cfg.n_feat_dim)) * 0.5).astype(np.float32),
+            "attn_prior": beta_binomial_prior_distribution(
+                n, t, cfg.betabinom_scaling_factor).astype(np.float32),
+        })
+    return make_padded_batch(items, cfg, text_pad=N, frame_pad=T)
+
+
+def run_step(trainer, batch):
+    total, metrics, _ = trainer.forward(batch)
+    trainer.backward(total)
+    trainer.apply_gradients()
+    return metrics
+
+
+def train(dev):
+    cfg = train_config()
+    torch.manual_seed(SEED)
+    trainer = Text2VecTrainer(cfg, device=dev)
+    host = synthetic_batch(cfg, TRAIN_B, TRAIN_N, TRAIN_T, SEED)
+    batch = trainer.to_device(host)
+    frames = int(host["output_lengths"].sum())
+    print(f"training: Text2Vec at full size, {sum(p.numel() for p in trainer.params) / 1e6:.1f} M "
+          f"trained parameters, B={TRAIN_B} N={TRAIN_N} T={TRAIN_T}, {frames} real frames, "
+          f"dropout {cfg.dropout}, lr {cfg.learning_rate}")
+    totals = []
+    for _ in range(WARMUP_STEPS):
+        totals.append(run_step(trainer, batch)["total_loss"].item())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    mas_width1.launches = 0
+    gru_fwd.launches = gru_fwd.step_launches = 0
+    GRURecurrence.backward_calls = 0
+    times = []
+    for _ in range(TIMED_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = run_step(trainer, batch)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        values = torch.stack([metrics[k] for k in SCALAR_KEYS]).tolist()
+        check(all(math.isfinite(v) for v in values), f"non-finite losses {values}")
+        totals.append(values[0])
+    launches = dict(mas=mas_width1.launches, gru_fwd=gru_fwd.launches,
+                    gru_bwd=GRURecurrence.backward_calls)
+    print(f"launches on the training path ({TIMED_STEPS} steps): {launches}, "
+          f"BiGRU step launches {gru_fwd.step_launches}")
+    check(launches == dict(mas=TIMED_STEPS, gru_fwd=TIMED_STEPS, gru_bwd=TIMED_STEPS),
+          f"training launch counts {launches}")
+    ms = float(np.median(times))
+    print(f"training step: median {ms:.2f} ms of {TIMED_STEPS} (min {min(times):.2f}, max "
+          f"{max(times):.2f}), {frames / (ms / 1e3):.0f} frames/s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print("  last step's losses: " + ", ".join(f"{k} {v:.4f}" for k, v in zip(SCALAR_KEYS, values)))
+    print(f"  total loss over {len(totals)} steps of one batch: "
+          + " ".join(f"{v:.4f}" for v in totals))
+    check(totals[-1] < totals[0], f"total loss did not fall: {totals}")
+
+    history = text2vec_loop.main(load_config(Text2VecConfig, repo_path("data", "demo",
+                                                                       "text2vec.json")), 3)
+    check(len(history) == 3 and all(math.isfinite(v) for h in history for v in h.values()),
+          f"text2vec_loop: {history}")
+    return trainer, batch, launches
+
+
+def mas_inputs(B: int, T: int, N: int, seed: int):
+    """A soft alignment on the card that looks like ConvAttention's: a
+    diagonal band per item, and exact zeros where the softmax underflows."""
+    rng = np.random.default_rng(seed)
+    in_lens = rng.integers(N // 2, N + 1, B)
+    out_lens = rng.integers(T // 2, T + 1, B)
+    in_lens[0], out_lens[0] = N, T
+    i = np.arange(T)[None, :, None]
+    j = np.arange(N)[None, None, :]
+    centre = i * (in_lens / out_lens)[:, None, None]
+    logits = rng.standard_normal((B, T, N)) * 2.0 - (j - centre) ** 2 / 2.0
+    attn = torch.softmax(torch.tensor(logits, dtype=torch.float32, device="cuda"), dim=-1)
+    valid = (torch.tensor(i < out_lens[:, None, None], device="cuda")
+             & torch.tensor(j < in_lens[:, None, None], device="cuda"))
+    zeros = float((attn[valid] == 0).float().mean())
+    check(zeros > 0.2, f"MAS input has {zeros:.2f} exact zeros in the valid region")
+    lens = (torch.tensor(in_lens, dtype=torch.int32, device="cuda"),
+            torch.tensor(out_lens, dtype=torch.int32, device="cuda"))
+    return attn, lens, zeros
+
+
+def check_mas():
+    first = None
+    print("MAS, kernel vs plain (equal), variable lengths:")
+    # the training shape, the largest buckets, and a width that is no
+    # multiple of 32 and spans ten warps
+    for B, T, N in ((TRAIN_B, TRAIN_T, TRAIN_N), (16, 3000, 128), (4, 300, 300)):
+        attn, (il, ol), zeros = mas_inputs(B, T, N, SEED)
+        got = mas_width1(attn, il, ol)
+        want = mas_width1_plain(attn, il, ol)
+        torch.cuda.synchronize()
+        n_diff = int((got != want).sum())
+        err = float((got - want).abs().max())
+        check(n_diff == 0, f"MAS B={B} T={T} N={N}: {n_diff} cells differ from the plain version")
+        ms = cuda_ms(lambda: mas_width1(attn, il, ol), 10)
+        plain = cuda_ms(lambda: mas_width1_plain(attn, il, ol), 1, warmup=0)
+        rows = int(ol.sum())
+        # read: the valid cells of the rows walked; written: the whole map
+        n_bytes = 4.0 * int((ol.long() * il.long()).sum()) + 4.0 * B * T * N + 8.0 * B
+        n_ops = 5.0 * rows * N  # log, clamp, compare, max, add per cell walked
+        bms, by = bound_ms(n_bytes, n_ops, PEAK_F32)
+        print(f"  B={B} T={T:4d} N={N:3d}: {zeros:.0%} exact zeros, equal; kernel {ms:.3f} ms "
+              f"({1e3 * ms / T:.3f} us/row), plain {plain:.1f} ms, bound {bms:.4f} ms ({by})")
+        if first is None:  # the training step's shape goes into the summary line
+            first = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                         library_ms=None)
+        first["max_abs_err"] = max(first["max_abs_err"], err)
+    return first
+
+
+def check_gru_backward(bigru):
+    H = bigru.hidden_size
+    g = torch.Generator().manual_seed(SEED)
+    B, T = 2, 512
+    with torch.no_grad():
+        gi, w_hh, b_hh = (t.detach().cpu() for t in bigru.recurrence_inputs(
+            torch.randn(B, T, H, generator=g).cuda()))
+    ys = gru_fwd_plain(gi, w_hh, b_hh)
+    hprev = torch.cat([ys.new_zeros(2, B, 1, H), ys[:, :, :-1]], dim=2)
+    dys = torch.randn(ys.shape, generator=g)
+    args = (dys, gi, hprev, w_hh.contiguous(), b_hh)
+    want = gru_bwd_plain(*args)
+    got = gru_bwd_plain(*(a.cuda() for a in args))
+    errs = []
+    for name, a, b in zip(("dgi", "dw_hh", "db_hh"), got, want):
+        err = float((a.cpu() - b).abs().max() / b.abs().max())
+        errs.append(err)
+        check(err <= GRU_BWD_RTOL, f"BiGRU backward {name}: card vs CPU {err:.3g} of max")
+    print(f"BiGRU backward (plain PyTorch), card vs CPU at B={B} T={T} H={H}: max |err| / max |g| "
+          f"dgi {errs[0]:.2e}, dw_hh {errs[1]:.2e}, db_hh {errs[2]:.2e} (rtol {GRU_BWD_RTOL})")
+
+
+def grad_spread(got, ref):
+    """||got - ref|| / ||ref|| over all gradients, and the largest of it per
+    tensor among those whose largest gradient exceeds 1e-5 (the rest are 0
+    but for rounding), with that tensor's name."""
+    worst, worst_name, sq_err, sq_ref = 0.0, "", 0.0, 0.0
+    for name, g_ref in ref.items():
+        diff = float((got[name] - g_ref).norm())
+        sq_err, sq_ref = sq_err + diff ** 2, sq_ref + float(g_ref.norm()) ** 2
+        if float(g_ref.abs().max()) > 1e-5 and diff / float(g_ref.norm()) > worst:
+            worst, worst_name = diff / float(g_ref.norm()), name
+    return math.sqrt(sq_err / sq_ref), worst, worst_name
+
+
+def check_step_against_cpu(cfg):
+    """The same seeded full-size weights and one small batch through one
+    step's forward and backward on the card and on the CPU (where the
+    kernels take their plain versions), dropout 0.  The CPU runs again on
+    one thread: how far its own sums in another order move the gradients
+    is printed beside the card's difference."""
+    cfg = dataclasses.replace(cfg, dropout=0.0)
+    torch.manual_seed(SEED + 1)
+    state = Text2Vec(cfg, device="cpu").state_dict()
+    host = synthetic_batch(cfg, CHECK_B, CHECK_N, CHECK_T, SEED + 1)
+    res = {}
+    threads = torch.get_num_threads()
+    for run, dev in (("card", "cuda"), ("cpu", "cpu"), ("cpu1", "cpu")):
+        torch.set_num_threads(1 if run == "cpu1" else threads)
+        model = Text2Vec(cfg, device=dev)
+        model.load_state_dict(state, strict=True)
+        tr = Text2VecTrainer(cfg, device=dev, model=model)
+        total, metrics, out = tr.forward(tr.to_device(host))
+        tr.backward(total)
+        res[run] = dict(losses=[metrics[k].item() for k in SCALAR_KEYS],
+                        attn=out["attn"].cpu(), duration=out["duration"].cpu(),
+                        grads={n: p.grad.cpu() for n, p in model.named_parameters()
+                               if p.grad is not None})
+    torch.set_num_threads(threads)
+    card, cpu = res["card"], res["cpu"]
+    check(torch.equal(card["attn"], cpu["attn"]) and torch.equal(card["duration"], cpu["duration"]),
+          "hard alignment or durations differ between the card and the CPU")
+    loss_err = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(card["losses"], cpu["losses"]))
+    check(loss_err <= STEP_LOSS_RTOL, f"losses differ by {loss_err:.3g} (relative)")
+    check(card["grads"].keys() == cpu["grads"].keys(), "different parameters got gradients")
+    total_err, worst, worst_name = grad_spread(card["grads"], cpu["grads"])
+    check(total_err <= STEP_GRAD_GLOBAL_RTOL, f"gradients: card vs CPU {total_err:.3g} of the norm")
+    check(worst <= STEP_GRAD_RTOL, f"gradient {worst_name}: card vs CPU {worst:.3g} of its norm")
+    cpu_total, cpu_worst, cpu_worst_name = grad_spread(res["cpu1"]["grads"], cpu["grads"])
+    print(f"training step, card vs CPU (B={CHECK_B} N={CHECK_N} T={CHECK_T}, dropout 0): "
+          f"hard alignment and durations equal, losses {loss_err:.2e} (rtol {STEP_LOSS_RTOL}), "
+          f"{len(cpu['grads'])} gradients: ||card - CPU|| / ||CPU|| {total_err:.2e} in all "
+          f"(rtol {STEP_GRAD_GLOBAL_RTOL}), worst tensor {worst:.2e} in {worst_name} "
+          f"(rtol {STEP_GRAD_RTOL}); the CPU on 1 thread vs {threads}: {cpu_total:.2e} in all, "
+          f"worst tensor {cpu_worst:.2e} in {cpu_worst_name}")
+
+
+def profile_step(trainer, batch) -> None:
+    """Where one training step's time goes."""
+    def timed_step():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        total, _, out = trainer.forward(batch)
+        ev[1].record()
+        trainer.backward(total)
+        ev[2].record()
+        trainer.apply_gradients()
+        ev[3].record()
+        torch.cuda.synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(3)], out
+
+    runs = sorted((timed_step()[0] for _ in range(3)), key=sum)
+    fwd, bwd, opt = runs[1]
+    step_ms = fwd + bwd + opt
+    print(f"training step split (median of 3, CUDA events): forward {fwd:.2f} ms, backward "
+          f"{bwd:.2f} ms, optimizer {opt:.2f} ms, {step_ms:.2f} ms in all")
+
+    _, out = timed_step()
+    attn = out["attn_soft"].detach().contiguous()
+    il, ol = batch["input_lengths"], batch["output_lengths"]
+    bigru = trainer.model.postnet.gru
+    B, T = batch["feat_target"].shape[:2]
+    x = torch.randn(B, T, bigru.hidden_size, device="cuda")
+    with torch.no_grad():
+        gi, w_hh, b_hh = bigru.recurrence_inputs(x)
+        w_bf16 = w_hh.to(torch.bfloat16)
+        ys = gru_fwd(gi, w_bf16, b_hh)
+        hprev = torch.cat([ys.new_zeros(2, B, 1, ys.shape[-1]), ys[:, :, :-1]], dim=2)
+        dys = torch.randn_like(ys)
+        w32 = w_hh.contiguous()
+        parts = {
+            "MAS kernel": cuda_ms(lambda: mas_width1(attn, il, ol), 5),
+            "BiGRU forward kernel": cuda_ms(lambda: gru_fwd(gi, w_bf16, b_hh), 3),
+            "BiGRU backward (plain)": cuda_ms(lambda: gru_bwd_plain(dys, gi, hprev, w32, b_hh), 2),
+        }
+    for name, ms in parts.items():
+        print(f"  {name} at B={B} T={T}: {ms:.2f} ms ({100 * ms / step_ms:.1f}% of the step)")
+    # the backward's least work: gh recomputed, the reverse loop's product
+    # and dw_hh, each 2*D*B*T*H*3H f32 operations; its tensors moved once
+    n_ops = 3 * 2.0 * gi.numel() * hprev.shape[-1]
+    n_bytes = 4.0 * (2 * dys.numel() + 2 * gi.numel() + 2 * w32.numel() + 2 * b_hh.numel())
+    bms, by = bound_ms(n_bytes, n_ops, PEAK_F32)
+    print(f"  BiGRU backward bound: {bms:.2f} ms ({by}; {n_ops / 1e9:.0f} GFLOP)")
+
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+        timed_step()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    n_launch = sum(e.count for e in kernels)
+    print(f"  torch.profiler, one step: {n_launch} kernel launches of {len(kernels)} kernels, "
+          f"device busy {busy_ms:.2f} ms = {100 * busy_ms / step_ms:.1f}% of the uninstrumented "
+          f"{step_ms:.2f} ms step (profiled wall {wall_ms:.1f} ms)")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:6d}  {e.key[:100]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: PyTorch sees no CUDA device; this script runs on an NVIDIA GPU",
@@ -476,6 +810,13 @@ def main() -> int:
         gru = check_gru(syn)
         check_against_cpu(syn)
         profile_request(syn)
+    del syn
+
+    trainer, batch, train_launches = train(dev)
+    mas = check_mas()
+    check_gru_backward(trainer.model.postnet.gru)
+    check_step_against_cpu(trainer.cfg)
+    profile_step(trainer, batch)
 
     kernels = [
         dict(name="fused_resblock", route="cuda",
@@ -486,6 +827,10 @@ def main() -> int:
              source="wavthruvec_pytorch_tpu_torch/csrc/gru_fwd.cu",
              replaces="wavthruvec_pytorch_tpu/ops/gru_pallas.py:41",
              launches=launches["gru_fwd"], **gru),
+        dict(name="mas", route="cuda",
+             source="wavthruvec_pytorch_tpu_torch/csrc/mas.cu",
+             replaces="wavthruvec_pytorch_tpu/ops/mas_pallas.py:30",
+             launches=train_launches["mas"], **mas),
     ]
     for kern in kernels:
         check(all(math.isfinite(kern[key]) for key in ("ms", "plain_ms", "bound_ms")),

@@ -93,7 +93,7 @@ def test_batch_norm_eval(shape, affine):
     if affine:
         jv["params"]["BatchNorm_0"] = {"scale": rng.standard_normal(8).astype(np.float32),
                                        "bias": rng.standard_normal(8).astype(np.float32)}
-    tm = _load(tl.BatchNorm(8, affine=affine, device="cpu"), jv,
+    tm = _load(tl.BatchNorm(8, affine=affine, device="cpu").eval(), jv,
                [("bn" if affine else "bn_na", "m", "m")])
     np.testing.assert_allclose(*_run(jm, jv, tm, x), atol=ATOL)
 

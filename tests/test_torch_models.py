@@ -75,7 +75,7 @@ def test_fft_block():
     want = np.asarray(jm.apply(jv, jnp.asarray(x), jnp.asarray(non_pad), jnp.asarray(mask))[0])
     sd = weights._to_torch(weights._export({"params": {"m": {"layer_stack_0": _np(jv["params"])}}},
                                            weights._fft_stack_spec("m", "m", 1)))
-    tm = _strip_load(FFTBlock(D, 48, 2, 16, 16, device="cpu"), sd, "m.layer_stack.0.")
+    tm = _strip_load(FFTBlock(D, 48, 2, 16, 16, device="cpu").eval(), sd, "m.layer_stack.0.")
     with torch.no_grad():
         got = tm(torch.tensor(x), torch.tensor(non_pad), torch.tensor(mask))[0].numpy()
     np.testing.assert_allclose(got, want, atol=2e-5)
@@ -90,7 +90,7 @@ def test_ecapa_feature_input():
     want = np.asarray(jm.apply(jv, jnp.asarray(x)))
     sd = weights._to_torch(weights._export({c: {"m": t} for c, t in jv.items()},
                                            weights._ecapa_spec("m", "m")))
-    tm = _strip_load(ECAPA_TDNN(64, 32, 16, device="cpu"), sd, "m.")
+    tm = _strip_load(ECAPA_TDNN(64, 32, 16, device="cpu").eval(), sd, "m.")
     with torch.no_grad():
         got = tm(torch.tensor(x)).numpy()
     np.testing.assert_allclose(got, want, atol=1e-4)
@@ -105,7 +105,7 @@ def test_duration_predictor():
     rows = [row for row in weights._text2vec_spec(JT2V()) if "duration_predictor" in row[1]]
     sd = weights._to_torch(weights._export({"params": {"duration_predictor": _np(jv["params"])}},
                                            rows))
-    tm = _strip_load(DurationPredictor(40, 16, 3, device="cpu"), sd,
+    tm = _strip_load(DurationPredictor(40, 16, 3, device="cpu").eval(), sd,
                      "length_regulator.duration_predictor.")
     with torch.no_grad():
         got = tm(torch.tensor(x)).numpy()
@@ -124,7 +124,7 @@ def test_cbhg_with_pallas_gru():
     rows = [row for row in weights._text2vec_spec(JT2V()) if row[1].startswith("postnet.")]
     sd = weights._to_torch(weights._export({c: {"postnet": t} for c, t in jv.items()}, rows))
     sd["postnet.pre_highway.weight"] = torch.zeros(H, 1024)
-    tm = _strip_load(CBHG(H, K=8, device="cpu"), sd, "postnet.")
+    tm = _strip_load(CBHG(H, K=8, device="cpu").eval(), sd, "postnet.")
     with torch.no_grad():
         got = tm(torch.tensor(x)).numpy()
     np.testing.assert_allclose(got, want, atol=1e-4)

@@ -25,6 +25,8 @@ from wavthruvec_pytorch_tpu_torch.infer.synthesize import Synthesizer, make_serv
 from wavthruvec_pytorch_tpu_torch.models.text2vec import Text2Vec
 from wavthruvec_pytorch_tpu_torch.models.vec2wav import Generator
 from wavthruvec_pytorch_tpu_torch.text import TextFrontend
+from wavthruvec_pytorch_tpu_torch.train import text2vec_loop
+from wavthruvec_pytorch_tpu_torch.train.text2vec_train import Text2VecTrainer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_DIR = os.path.dirname(os.path.abspath(port.__file__))
@@ -100,18 +102,20 @@ def test_kernel_modules_import_without_nvcc(tmp_path):
     """With no CUDA toolkit in reach, the kernel modules import and their CPU
     path runs; nothing is built."""
     code = ("import os, torch\n"
-            "from wavthruvec_pytorch_tpu_torch.ops import kernel_build, gru, fused_resblock\n"
+            "from wavthruvec_pytorch_tpu_torch.ops import kernel_build, gru, fused_resblock, mas\n"
             "before = set(os.listdir(kernel_build.BUILD_DIR)) "
             "if os.path.isdir(kernel_build.BUILD_DIR) else set()\n"
             "x = torch.randn(1, 9, 16)\n"
             "y = fused_resblock.fused_conv_residual(x, torch.randn(3, 16, 16), torch.randn(16))\n"
             "h = gru.gru_fwd(torch.randn(2, 1, 5, 48), torch.randn(2, 16, 48).bfloat16(),"
             " torch.randn(2, 48))\n"
-            "assert y.shape == x.shape and h.shape == (2, 1, 5, 16)\n"
+            "a = mas.mas_width1(torch.rand(2, 7, 4), torch.tensor([4, 2]), torch.tensor([7, 5]))\n"
+            "assert y.shape == x.shape and h.shape == (2, 1, 5, 16) and a.shape == (2, 7, 4)\n"
             "after = set(os.listdir(kernel_build.BUILD_DIR)) "
             "if os.path.isdir(kernel_build.BUILD_DIR) else set()\n"
             "assert after == before, after - before\n"
             "assert fused_resblock.fused_conv_residual.launches == 0 == gru.gru_fwd.launches\n"
+            "assert mas.mas_width1.launches == 0\n"
             "try:\n"
             "    kernel_build._nvcc()\n"
             "except RuntimeError:\n"
@@ -131,11 +135,16 @@ def test_entry_points_raise_without_gpu(monkeypatch):
         Text2Vec(t2v_cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Synthesizer(t2v_cfg, v2w_cfg, {}, {}, TextFrontend("PE abc"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Text2VecTrainer(t2v_cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        text2vec_loop.main(t2v_cfg, 1)
     # the CPU is taken only when asked for
     assert next(Generator(v2w_cfg, device="cpu").parameters()).device.type == "cpu"
 
 
-@pytest.mark.parametrize("flag", ["flash_attention", "compute_dtype", "bf16_serving"])
+@pytest.mark.parametrize("flag", ["flash_attention", "compute_dtype", "bf16_serving",
+                                  "partial_padding"])
 def test_unported_flags_raise(flag):
     if flag == "flash_attention":
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -145,6 +154,9 @@ def test_unported_flags_raise(flag):
             Generator(Vec2WavConfig(**TINY_V2W, compute_dtype="bfloat16"), device="cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             Text2Vec(Text2VecConfig(**TINY_T2V, compute_dtype="bfloat16"), device="cpu")
+    elif flag == "partial_padding":
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            Text2Vec(Text2VecConfig(**TINY_T2V, attn_use_partial_padding=True), device="cpu")
     else:
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             make_serving_generator(Vec2WavConfig(**TINY_V2W), "bf16", device="cpu")

@@ -8,8 +8,9 @@ compatibility:
 
 * ``gru_impl`` selects nothing here: the CBHG BiGRU always computes what the
   JAX ``gru_impl="pallas"`` kernel computes (bf16 ``w_hh``, f32 carry);
-* ``flash_attention=True`` and ``compute_dtype != "float32"`` are not ported
-  yet and raise ``NotImplementedError`` where a model is built.
+* ``flash_attention=True``, ``compute_dtype != "float32"`` and
+  ``attn_use_partial_padding=True`` are not ported yet and raise
+  ``NotImplementedError`` where a model is built.
 """
 
 from __future__ import annotations
@@ -206,6 +207,11 @@ def check_ported(cfg) -> None:
         raise NotImplementedError(
             "flash_attention=True is not ported (ROADMAP.md, queue 2 item 3: "
             "flash attention for Hopper)."
+        )
+    if getattr(cfg, "attn_use_partial_padding", False):
+        raise NotImplementedError(
+            "attn_use_partial_padding=True is not ported (ROADMAP.md, queue 1 item 7: "
+            "PartialConv1d in ConvAttention)."
         )
 
 

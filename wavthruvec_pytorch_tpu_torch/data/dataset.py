@@ -1,0 +1,85 @@
+"""Text2Vec training data: every item in host memory, batched by length
+(JAX package: data/dataset.py ``load_buffer``, ``BucketedLoader``;
+reference: text2vec/dataset.py:57-214).
+
+Each epoch shuffles the items, takes ``batch_size * batch_expand_size`` at a
+time, sorts them by text length, longest first, and cuts them into
+``batch_expand_size`` batches, each padded to the config's
+(``text_buckets``, ``frame_buckets``) shape.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Dict, Iterator, List, Sequence
+
+import numpy as np
+
+from wavthruvec_pytorch_tpu_torch.config import Text2VecConfig
+from wavthruvec_pytorch_tpu_torch.data.prior import get_attention_prior
+from wavthruvec_pytorch_tpu_torch.text import TextFrontend
+from wavthruvec_pytorch_tpu_torch.train.text2vec_train import make_padded_batch
+
+
+def load_buffer(file_lists: Sequence[str], cfg: Text2VecConfig,
+                frontend: TextFrontend) -> List[Dict]:
+    """Load every ``npy|text|speaker`` line of the file lists (feature paths
+    relative to ``cfg.feat_ground_truth``) with ``np.load``: features
+    ``[T, n_feat]``, text ids, and the cached attention prior."""
+    lines: List[str] = []
+    for path in file_lists:
+        with open(path, "r", encoding="utf-8") as f:
+            lines.extend(f.readlines())
+    start = time.perf_counter()
+    buffer = []
+    for line in lines:
+        npy_file, character, spk = line.strip().split("|")
+        feat_path = os.path.join(cfg.feat_ground_truth, npy_file)
+        feat = np.asarray(np.load(feat_path)).squeeze().astype(np.float32)  # [1, T, C] -> [T, C]
+        text_enc = np.asarray(frontend.text_to_sequence(character), np.int32)
+        prior = (get_attention_prior(text_enc.shape[0], feat.shape[0],
+                                     cache_path=cfg.betabinom_cache_path,
+                                     scaling_factor=cfg.betabinom_scaling_factor)
+                 if cfg.use_attn_prior_masking else None)
+        buffer.append({"text_enc": text_enc, "feat_gt_target": feat, "audiopath": feat_path,
+                       "attn_prior": prior, "speaker": spk})
+    print(f"cost {time.perf_counter() - start:.2f}s to load all data into buffer.")
+    if buffer:
+        _check_position_capacity(cfg, max(len(it["text_enc"]) for it in buffer),
+                                 max(it["feat_gt_target"].shape[0] for it in buffer))
+    return buffer
+
+
+def _check_position_capacity(cfg: Text2VecConfig, max_text_len: int, max_frames: int) -> None:
+    """Refuse data that the sinusoid position tables cannot index (JAX:
+    ``Text2VecConfig.validate_position_capacity``): the model clamps
+    positions, so longer data would train on aliased positions."""
+    if max_text_len > cfg.vocab_size:
+        raise ValueError(f"longest text ({max_text_len} tokens) exceeds the encoder position "
+                         f"table (vocab_size={cfg.vocab_size}, text2vec/model.py:86)")
+    if max_frames > cfg.max_seq_len:
+        raise ValueError(f"longest feature sequence ({max_frames} frames) exceeds the decoder "
+                         f"position table (max_seq_len={cfg.max_seq_len})")
+
+
+class BucketedLoader:
+    """Length-bucketed batches of ``batch_size`` items over a buffer."""
+
+    def __init__(self, buffer: List[Dict], cfg: Text2VecConfig, seed: int = 0):
+        self.buffer = buffer
+        self.cfg = cfg
+        self.rng = np.random.default_rng(seed)
+        self.super_batch = cfg.batch_size * cfg.batch_expand_size
+
+    def __len__(self) -> int:
+        return len(self.buffer) // self.super_batch * self.cfg.batch_expand_size
+
+    def epoch(self) -> Iterator[Dict[str, np.ndarray]]:
+        order = self.rng.permutation(len(self.buffer))
+        for s in range(len(order) // self.super_batch):
+            idx = list(order[s * self.super_batch:(s + 1) * self.super_batch])
+            idx.sort(key=lambda i: -len(self.buffer[i]["text_enc"]))
+            for j in range(self.cfg.batch_expand_size):
+                chunk = idx[j * self.cfg.batch_size:(j + 1) * self.cfg.batch_size]
+                yield make_padded_batch([self.buffer[i] for i in chunk], self.cfg)

@@ -1,6 +1,6 @@
 """Duration predictor (JAX package: models/duration.py; reference:
-text2vec/module.py:110-156): 2 x (Conv1d k=3 pad=1 -> LayerNorm -> ReLU)
--> Linear -> ReLU.  Inference only, so dropout is the identity."""
+text2vec/module.py:110-156): 2 x (Conv1d k=3 pad=1 -> LayerNorm -> ReLU ->
+Dropout) -> Linear -> ReLU; dropout is the identity in eval mode."""
 
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ class ConvNorm(nn.Module):
 
 class DurationPredictor(nn.Module):
     def __init__(self, in_dim: int, filter_size: int = 256, kernel_size: int = 3,
-                 device=None):
+                 dropout: float = 0.1, device=None):
         super().__init__()
         self.conv_layer = nn.ModuleDict({
             "conv1d_1": ConvNorm(in_dim, filter_size, kernel_size, padding=1, device=device),
@@ -35,10 +35,11 @@ class DurationPredictor(nn.Module):
             "layer_norm_2": LayerNorm(filter_size, device=device),
         })
         self.linear_layer = Linear(filter_size, 1, device=device)
+        self.dropout = nn.Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """[B, N, C] encoder output -> [B, N] non-negative durations (float)."""
         for i in (1, 2):
             x = self.conv_layer[f"conv1d_{i}"](x)
-            x = torch.relu(self.conv_layer[f"layer_norm_{i}"](x))
+            x = self.dropout(torch.relu(self.conv_layer[f"layer_norm_{i}"](x)))
         return torch.relu(self.linear_layer(x))[..., 0]

@@ -4,8 +4,8 @@ Every layer takes and returns the JAX layout ``[B, T, C]`` (``[B, C]`` for
 dense inputs) and transposes internally where ``F.conv1d`` wants
 ``[B, C, T]``.  Parameter and buffer names are the torch reference's, the
 keys that ``weights.py`` emits, so state dicts load with ``strict=True``.
-The port is inference-only: BatchNorm always uses its running statistics
-and spectral norm uses its stored ``u``, ``v`` without iterating.
+BatchNorm follows the module's train/eval mode with flax's semantics;
+spectral norm uses its stored ``u``, ``v`` without iterating.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from wavthruvec_pytorch_tpu_torch.ops.gru import gru_fwd
+from wavthruvec_pytorch_tpu_torch.ops.gru import GRURecurrence
 
 _GAIN = {"linear": 1.0, "relu": math.sqrt(2.0), "tanh": 5.0 / 3.0, "sigmoid": 1.0}
 
@@ -61,9 +61,16 @@ class LayerNorm(nn.LayerNorm):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm1d over the last dim of ``[B, T, C]`` or ``[B, C]``,
-    eps 1e-5, with torch BatchNorm1d's parameter and buffer names.  It always
-    normalises with the running statistics (the port has no training path)."""
+    """BatchNorm1d over the last dim of ``[B, T, C]`` or ``[B, C]``, eps
+    1e-5, with torch BatchNorm1d's parameter and buffer names and flax
+    ``nn.BatchNorm``'s semantics (JAX package: models/layers.py:283-309).
+
+    In eval mode it normalises with the running statistics.  In train mode
+    it normalises with the batch's mean and its biased variance
+    ``max(0, E[x^2] - E[x]^2)`` (flax's ``use_fast_variance``), and moves the
+    running statistics 0.1 of the way to them, the variance biased too.
+    ``F.batch_norm(training=True)`` would update with the unbiased variance.
+    """
 
     def __init__(self, num_features: int, affine: bool = True, eps: float = 1e-5,
                  device=None):
@@ -81,11 +88,22 @@ class BatchNorm(nn.Module):
                              torch.zeros((), dtype=torch.long, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            dims = tuple(range(x.dim() - 1))
+            mean = x.mean(dim=dims)
+            var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
+            with torch.no_grad():
+                # flax's momentum 0.9: ra = 0.9 * ra + (1 - 0.9) * stat
+                self.running_mean.copy_(0.9 * self.running_mean + (1.0 - 0.9) * mean)
+                self.running_var.copy_(0.9 * self.running_var + (1.0 - 0.9) * var)
+                self.num_batches_tracked.add_(1)
+        else:
+            mean, var = self.running_mean, self.running_var
         # flax's order: (x - mean) * (rsqrt(var + eps) * scale) + bias
-        mul = torch.rsqrt(self.running_var + self.eps)
+        mul = torch.rsqrt(var + self.eps)
         if self.weight is not None:
             mul = mul * self.weight
-        y = (x - self.running_mean) * mul
+        y = (x - mean) * mul
         if self.bias is not None:
             y = y + self.bias
         return y
@@ -208,9 +226,10 @@ class BiGRU(nn.Module):
 
     It computes what the JAX package's ``gru_impl="pallas"`` path computes:
     the input projections in f32 by one matmul, then the recurrence through
-    ``ops.gru.gru_fwd`` with ``w_hh`` stored in bf16 and h carried in f32
-    (on a CUDA tensor the hand-written kernel, on a CPU tensor its plain
-    version).  The backward direction runs over ``flip(x)`` across the whole
+    ``ops.gru.GRURecurrence``, whose forward is ``gru_fwd`` with ``w_hh``
+    rounded to bf16 and h carried in f32 (on a CUDA tensor the hand-written
+    kernel, on a CPU tensor its plain version) and whose backward is JAX's
+    custom VJP.  The backward direction runs over ``flip(x)`` across the whole
     padded length with no length masking, as the reference feeds the padded
     sequence unpacked (text2vec/module.py:356-358), and its output is flipped
     back.
@@ -230,8 +249,9 @@ class BiGRU(nn.Module):
                     torch.empty(shape, device=device).uniform_(-bound, bound)))
 
     def recurrence_inputs(self, x: torch.Tensor):
-        """[B, T, C] -> the arguments of ``gru_fwd`` for both directions:
-        gi [2, B, T, 3H] f32, w_hh [2, H, 3H] bf16, b_hh [2, 3H] f32."""
+        """[B, T, C] -> the arguments of ``GRURecurrence`` for both
+        directions: gi [2, B, T, 3H] f32, w_hh [2, H, 3H] f32 (a transposed
+        view of the parameters), b_hh [2, 3H] f32."""
         B, T, C = x.shape
         H3 = 3 * self.hidden_size
         xs = torch.stack([x, torch.flip(x, dims=(1,))])  # [2, B, T, C]
@@ -240,10 +260,10 @@ class BiGRU(nn.Module):
         gi = torch.matmul(xs.reshape(2, B * T, C), w_ih.transpose(1, 2))
         gi = (gi.reshape(2, B, T, H3) + b_ih[:, None, None]).contiguous()
         # JAX layout [D, H, 3H]: a transposed view of torch's [D, 3H, H]
-        w_hh = torch.stack([self.weight_hh_l0, self.weight_hh_l0_reverse]).to(torch.bfloat16)
+        w_hh = torch.stack([self.weight_hh_l0, self.weight_hh_l0_reverse])
         b_hh = torch.stack([self.bias_hh_l0, self.bias_hh_l0_reverse]).contiguous()
         return gi, w_hh.transpose(1, 2), b_hh
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        ys = gru_fwd(*self.recurrence_inputs(x))  # [2, B, T, H]
+        ys = GRURecurrence.apply(*self.recurrence_inputs(x))  # [2, B, T, H]
         return torch.cat([ys[0], torch.flip(ys[1], dims=(1,))], dim=-1)

@@ -1,20 +1,26 @@
-"""Text2Vec inference: FFT encoder with ECAPA speaker conditioning, duration
-predictor and length regulator, FFT decoder, CBHG postnet (JAX package:
-models/text2vec.py ``Encoder``, ``Decoder``, ``Text2Vec.infer``,
-``Text2Vec.speaker_embedding``; reference: text2vec/model.py:71-356).
+"""Text2Vec: FFT encoder with ECAPA speaker conditioning, duration predictor
+and length regulator, FFT decoder, CBHG postnet (JAX package:
+models/text2vec.py ``Encoder``, ``Decoder``, ``Text2Vec``; reference:
+text2vec/model.py:71-356).
+
+``Text2Vec.forward`` is the training branch: ConvAttention soft alignment,
+MAS (``ops/mas.py``, the CUDA kernel on the card) and the hard-attention
+expansion.  ``infer`` is the inference branch.
 
 Semantics kept from the JAX package:
 
 * position ids are clamped at ``vocab_size`` in the encoder and at
   ``max_seq_len`` in the decoder (a bare embedding lookup would raise);
 * inference durations are ``floor((dp + 0.5) * alpha)``, zeroed at text pads;
-* the decoder uses ``d_k = d_model // encoder_head`` (model.py:162).
-
-The training branch (ConvAttention soft alignment + MAS) is not ported yet.
+* the decoder uses ``d_k = d_model // encoder_head`` (model.py:162);
+* ``forward`` runs BatchNorm (ECAPA, CBHG) on batch statistics and dropout
+  as the module's train/eval mode says (JAX: ``train_bn``,
+  ``deterministic``); ``infer`` always runs in eval mode.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional
 
 import torch
@@ -23,11 +29,13 @@ from torch import nn
 from wavthruvec_pytorch_tpu_torch.config import Text2VecConfig, check_ported
 from wavthruvec_pytorch_tpu_torch.device import resolve_device
 from wavthruvec_pytorch_tpu_torch.models.cbhg import CBHG
-from wavthruvec_pytorch_tpu_torch.models.duration import ConvNorm, DurationPredictor
+from wavthruvec_pytorch_tpu_torch.models.conv_attention import ConvAttention
+from wavthruvec_pytorch_tpu_torch.models.duration import DurationPredictor
 from wavthruvec_pytorch_tpu_torch.models.ecapa import ECAPA_TDNN
 from wavthruvec_pytorch_tpu_torch.models.fft_block import FFTBlock
 from wavthruvec_pytorch_tpu_torch.models.layers import Linear
 from wavthruvec_pytorch_tpu_torch.ops.length_regulator import expand_by_durations
+from wavthruvec_pytorch_tpu_torch.ops.mas import mas_width1
 from wavthruvec_pytorch_tpu_torch.ops.masking import (
     get_attn_key_pad_mask,
     get_mask_from_lengths,
@@ -52,7 +60,8 @@ def _fft_stack(cfg: Text2VecConfig, d_model: int, d_inner: int, n_head: int,
     return nn.ModuleList(
         FFTBlock(d_model, d_inner, n_head, d_k, d_k,
                  fft_conv1d_kernel=cfg.fft_conv1d_kernel,
-                 fft_conv1d_padding=cfg.fft_conv1d_padding, device=device)
+                 fft_conv1d_padding=cfg.fft_conv1d_padding, dropout=cfg.dropout,
+                 device=device)
         for _ in range(n_layer))
 
 
@@ -121,42 +130,28 @@ class LengthRegulator(nn.Module):
         super().__init__()
         self.duration_predictor = DurationPredictor(
             cfg.encoder_output_dim, cfg.duration_predictor_filter_size,
-            cfg.duration_predictor_kernel_size, device=device)
+            cfg.duration_predictor_kernel_size, cfg.dropout, device=device)
 
 
-class ConvAttention(nn.Module):
-    """Parameters of the RAD-TTS alignment module (reference:
-    text2vec/module.py:455-545), held so that full Text2Vec state dicts load
-    strictly.  Its forward belongs to the training branch, which is not
-    ported yet (ROADMAP.md, queue 1 item 7)."""
-
-    def __init__(self, n_feat_channels: int, n_text_channels: int,
-                 n_att_channels: int = 80, device=None):
-        super().__init__()
-        self.key_proj = nn.Sequential(
-            ConvNorm(n_text_channels, 2 * n_text_channels, 3, padding=1,
-                     w_init_gain="relu", device=device),
-            nn.ReLU(),
-            ConvNorm(2 * n_text_channels, n_att_channels, 1, device=device),
-        )
-        self.query_proj = nn.Sequential(
-            ConvNorm(n_feat_channels, 2 * n_feat_channels, 3, padding=1,
-                     w_init_gain="relu", device=device),
-            nn.ReLU(),
-            ConvNorm(2 * n_feat_channels, n_feat_channels, 1, device=device),
-            nn.ReLU(),
-            ConvNorm(n_feat_channels, n_att_channels, 1, device=device),
-        )
-
-    def forward(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ConvAttention belongs to the Text2Vec training branch, which is not "
-            "ported yet (ROADMAP.md, queue 1 item 7).")
+@contextlib.contextmanager
+def _eval_mode(module: nn.Module):
+    """Run ``module`` in eval mode and restore its mode afterwards."""
+    if not module.training:
+        yield
+        return
+    module.eval()
+    try:
+        yield
+    finally:
+        module.train()
 
 
 class Text2Vec(nn.Module):
-    """Text2Vec with reference parameter names; ``infer`` is the inference
-    branch.  ``device`` defaults to the card and raises without one."""
+    """Text2Vec with reference parameter names; ``forward`` is the training
+    branch, ``infer`` the inference branch.  ``device`` defaults to the card
+    and raises without one.  The sinusoid position tables are frozen
+    (``requires_grad=False``): they are not parameters of the JAX model, and
+    the optimizer leaves them out."""
 
     def __init__(self, cfg: Text2VecConfig, device=None):
         super().__init__()
@@ -173,13 +168,45 @@ class Text2Vec(nn.Module):
             n_text = (cfg.encoder_dim + cfg.n_speaker_dim
                       if cfg.use_speaker_emb_for_alignment else cfg.encoder_dim)
             self.attention = ConvAttention(cfg.n_feat_dim, n_text, device=device)
-        self.eval()
 
     @staticmethod
     def _mask_tensor(x: torch.Tensor, position: torch.Tensor, max_len: int) -> torch.Tensor:
         """Zero-fill frames beyond the per-item length (model.py:224-228)."""
         mask = get_mask_from_lengths(position.max(dim=-1).values, max_len)
         return x * mask[:, :, None].to(x.dtype)
+
+    def forward(self, src_seq: torch.Tensor, src_pos: torch.Tensor, wav_feat: torch.Tensor,
+                in_lens: torch.Tensor, out_lens: torch.Tensor, WVF_pos: torch.Tensor,
+                attn_prior: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """Training branch (JAX: ``Text2Vec.__call__`` with MAS on).
+        src_seq/src_pos [B, N] int, wav_feat [B, T, n_feat] (the target
+        features, also ECAPA's and ConvAttention's input), in_lens/out_lens
+        [B], WVF_pos [B, T] int, attn_prior [B, T, N] -> dict with
+        ``feat_output``/``feat_postnet_output`` [B, T, n_feat],
+        ``duration_predictor_output`` [B, N], ``duration`` [B, N] int32,
+        ``attn`` (hard), ``attn_soft``, ``attn_logprob`` [B, T, N]."""
+        encoder_output, _ = self.encoder(src_seq, src_pos, wav_feat)
+        attn_soft, attn_logprob = self.attention(wav_feat, encoder_output, key_lens=in_lens,
+                                                 attn_prior=attn_prior)
+        attn_hard = mas_width1(attn_soft.detach(), in_lens, out_lens)
+        duration = attn_hard.sum(dim=1).to(torch.int32)
+        lr_output = torch.matmul(attn_hard, encoder_output)  # hard-attention expansion
+        dp_out = self.length_regulator.duration_predictor(encoder_output)
+
+        max_len = wav_feat.shape[1]
+        decoder_output = self.decoder(lr_output, WVF_pos)
+        wvf_output = self._mask_tensor(self.WVF_linear(decoder_output), WVF_pos, max_len)
+        residual = self.last_linear(self.postnet(wvf_output))
+        wvf_postnet = self._mask_tensor(wvf_output + residual, WVF_pos, max_len)
+        return {
+            "feat_output": wvf_output,
+            "feat_postnet_output": wvf_postnet,
+            "duration_predictor_output": dp_out,
+            "duration": duration,
+            "attn": attn_hard,
+            "attn_soft": attn_soft,
+            "attn_logprob": attn_logprob,
+        }
 
     @torch.inference_mode()
     def infer(self, src_seq: torch.Tensor, src_pos: torch.Tensor,
@@ -189,7 +216,11 @@ class Text2Vec(nn.Module):
         ``spk_emb`` [B, n_speaker_dim] to skip ECAPA) -> dict with
         ``feat_output``/``feat_postnet_output`` [B, max_frames, n_feat],
         ``duration_predictor_output`` [B, N], ``durations`` [B, N] and
-        ``total_frames`` [B]."""
+        ``total_frames`` [B].  Runs in eval mode whatever the module's mode."""
+        with _eval_mode(self):
+            return self._infer(src_seq, src_pos, wav_feat, max_frames, alpha, spk_emb)
+
+    def _infer(self, src_seq, src_pos, wav_feat, max_frames, alpha, spk_emb):
         encoder_output, _ = self.encoder(src_seq, src_pos, wav_feat, spk_emb=spk_emb)
         dp_out = self.length_regulator.duration_predictor(encoder_output)
         durations = torch.floor((dp_out + 0.5) * alpha).to(torch.int64)
@@ -212,5 +243,7 @@ class Text2Vec(nn.Module):
 
     @torch.inference_mode()
     def speaker_embedding(self, wav_feat: torch.Tensor) -> torch.Tensor:
-        """[B, T_ref, n_feat] -> the ECAPA speaker embedding [B, n_speaker_dim]."""
-        return self.encoder.speaker_encoder(wav_feat)
+        """[B, T_ref, n_feat] -> the ECAPA speaker embedding [B, n_speaker_dim],
+        in eval mode."""
+        with _eval_mode(self):
+            return self.encoder.speaker_encoder(wav_feat)

@@ -6,6 +6,11 @@ JAX counterpart: ``wavthruvec_pytorch_tpu/ops/gru_pallas.py``
 rounded to bf16 for the hidden matmul with f32 accumulation, h carried in
 f32.  The port's BiGRU always runs this function: on CUDA tensors it
 launches the kernel, on CPU tensors it runs ``gru_fwd_plain``.
+
+``GRURecurrence`` makes the recurrence differentiable: its forward is
+``gru_fwd``, its backward ``gru_bwd_plain``, plain PyTorch, as the JAX
+package's backward ``_gru_stacked_bwd`` (models/layers.py:795-840) is a
+``lax.scan`` and not a Pallas kernel.
 """
 
 from __future__ import annotations
@@ -87,3 +92,70 @@ def gru_fwd(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor) -> torch.T
 # calls that launched the kernel, and the per-step launches they issued
 gru_fwd.launches = 0
 gru_fwd.step_launches = 0
+
+
+def gru_bwd_plain(dys: torch.Tensor, gi: torch.Tensor, hprev: torch.Tensor,
+                  w_hh: torch.Tensor, b_hh: torch.Tensor):
+    """Backward of the recurrence, JAX's ``_gru_stacked_bwd``: dys, hprev
+    [D, B, T, H], gi [D, B, T, 3H], w_hh [D, H, 3H] f32, b_hh [D, 3H] ->
+    (dgi [D, B, T, 3H], dw_hh [D, H, 3H], db_hh [D, 3H]).
+
+    As in JAX, the gates are recomputed from the forward's f32 ``hprev``
+    with the f32 ``w_hh`` (not the bf16 copy the forward multiplied by).
+    Everything that does not depend on the carried gradient is computed for
+    all T at once: the gates, and the factors that turn the total gradient
+    on h_t into the gate gradients.  The reverse loop over T then carries
+    only dh [D, B, H] (4 launches a step), and every weight gradient is one
+    large matmul after it.  The arithmetic is JAX's, reassociated."""
+    D, B, T, H = hprev.shape
+    gh = torch.matmul(hprev, w_hh[:, None]) + b_hh[:, None, None]  # [D, B, T, 3H]
+    r = torch.sigmoid(gi[..., :H] + gh[..., :H])
+    z = torch.sigmoid(gi[..., H:2 * H] + gh[..., H:2 * H])
+    h_n = gh[..., 2 * H:]
+    n = torch.tanh(gi[..., 2 * H:] + r * h_n)
+    # with g the total gradient on h_t: dn_pre = g * dn, and
+    # [dr_pre, dz_pre, dhn] = g * coef (JAX's dgh), dh_{t-1} = g * z + dgh . w_hh^T
+    dn = (1.0 - z) * (1.0 - n * n)
+    coef = torch.stack([dn * h_n * r * (1.0 - r), (hprev - n) * z * (1.0 - z), dn * r], dim=3)
+    coef_t = coef.permute(2, 0, 1, 3, 4).contiguous()  # [T, D, B, 3, H]
+    z_t = z.permute(2, 0, 1, 3).contiguous()
+    dys_t = dys.permute(2, 0, 1, 3).contiguous()
+    w_t = w_hh.transpose(1, 2)  # [D, 3H, H]
+    g_all = torch.empty_like(dys_t)  # [T, D, B, H]
+    dh = dys.new_zeros(D, B, H)
+    for t in range(T - 1, -1, -1):
+        g = torch.add(dys_t[t], dh, out=g_all[t])
+        dgh = (coef_t[t] * g[:, :, None]).view(D, B, 3 * H)
+        dh = torch.baddbmm(g * z_t[t], dgh, w_t)
+    g = g_all.permute(1, 2, 0, 3)  # [D, B, T, H]
+    dgh = (coef * g[:, :, :, None]).reshape(D, B, T, 3 * H)
+    dgi = torch.cat([dgh[..., :2 * H], g * dn], dim=-1)
+    dw_hh = torch.matmul(hprev.reshape(D, B * T, H).transpose(1, 2), dgh.reshape(D, B * T, 3 * H))
+    return dgi, dw_hh, dgh.sum(dim=(1, 2))
+
+
+class GRURecurrence(torch.autograd.Function):
+    """The D-direction recurrence with a gradient.  ``apply(gi, w_hh,
+    b_hh)``: gi [D, B, T, 3H] f32 (input projections + b_ih), w_hh
+    [D, H, 3H] f32 (the parameters; the bf16 copy the kernel reads is made
+    here), b_hh [D, 3H] -> [D, B, T, H].  The forward is ``gru_fwd`` (the
+    kernel on CUDA tensors), the backward ``gru_bwd_plain``; the gradients
+    of the input projection reach ``w_ih``, ``b_ih`` and x through the
+    autograd of the matmul that made ``gi``."""
+
+    @staticmethod
+    def forward(ctx, gi, w_hh, b_hh):
+        ys = gru_fwd(gi, w_hh.to(torch.bfloat16), b_hh)
+        ctx.save_for_backward(gi, ys, w_hh, b_hh)
+        return ys
+
+    @staticmethod
+    def backward(ctx, dys):
+        gi, ys, w_hh, b_hh = ctx.saved_tensors
+        GRURecurrence.backward_calls += 1
+        hprev = torch.cat([ys.new_zeros(ys.shape[:2] + (1, ys.shape[3])), ys[:, :, :-1]], dim=2)
+        return gru_bwd_plain(dys.contiguous(), gi, hprev, w_hh, b_hh)
+
+
+# backward passes run, counted as gru_fwd counts its launches
+GRURecurrence.backward_calls = 0

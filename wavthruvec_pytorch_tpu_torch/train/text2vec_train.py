@@ -1,0 +1,130 @@
+"""One Text2Vec training step (JAX package: train/text2vec_train.py
+``train_step``; reference: text2vec/train.py:199-455).
+
+The step: the forward in train mode (BatchNorm on batch statistics,
+dropout), ConvAttention soft alignment, MAS, durations and the hard-attention
+expansion, the duration predictor, decoder and postnet; the 4-term loss
+(``dnn_loss`` + ``binarization_loss_weight`` x binarization loss); the
+backward; a clip to global norm ``grad_clip_thresh`` when ``(step + 1) %
+grad_clip_every == 0``; the LAMB update; the BatchNorm running statistics
+move during the forward.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from wavthruvec_pytorch_tpu_torch.config import Text2VecConfig
+from wavthruvec_pytorch_tpu_torch.device import resolve_device
+from wavthruvec_pytorch_tpu_torch.models.losses import attention_binarization_loss, dnn_loss
+from wavthruvec_pytorch_tpu_torch.models.text2vec import Text2Vec
+from wavthruvec_pytorch_tpu_torch.text import pad_to_bucket
+from wavthruvec_pytorch_tpu_torch.train.lamb import Lamb
+
+# the scalars a step reports, in the JAX package's order
+SCALAR_KEYS = ("total_loss", "WVF_loss", "WVF_postnet_loss", "duration_loss",
+               "attn_binarization_loss")
+BATCH_KEYS = ("text", "src_pos", "feat_target", "input_lengths", "output_lengths", "feat_pos",
+              "attn_prior")
+
+
+def make_padded_batch(items: Sequence[Dict], cfg: Text2VecConfig, text_pad: Optional[int] = None,
+                      frame_pad: Optional[int] = None) -> Dict[str, np.ndarray]:
+    """Pad host items ``{text_enc, feat_gt_target, attn_prior}`` into one
+    batch of a bucketed shape (JAX package: ``make_padded_batch``): text to
+    the smallest ``text_buckets`` entry that holds the longest text, frames
+    likewise over ``frame_buckets``, unless ``text_pad``/``frame_pad`` say."""
+    B = len(items)
+    in_lens = np.array([len(it["text_enc"]) for it in items], np.int32)
+    out_lens = np.array([it["feat_gt_target"].shape[0] for it in items], np.int32)
+    N = text_pad or pad_to_bucket(int(in_lens.max()), cfg.text_buckets)
+    T = frame_pad or pad_to_bucket(int(out_lens.max()), cfg.frame_buckets)
+    text = np.zeros((B, N), np.int32)
+    src_pos = np.zeros((B, N), np.int32)
+    feat = np.zeros((B, T, cfg.n_feat_dim), np.float32)
+    feat_pos = np.zeros((B, T), np.int32)
+    prior = np.zeros((B, T, N), np.float32)
+    for i, it in enumerate(items):
+        n, t = in_lens[i], out_lens[i]
+        text[i, :n] = it["text_enc"]
+        src_pos[i, :n] = np.arange(1, n + 1)
+        feat[i, :t] = it["feat_gt_target"]
+        feat_pos[i, :t] = np.arange(1, t + 1)
+        if it.get("attn_prior") is not None:
+            prior[i, :t, :n] = it["attn_prior"]
+    return {"text": text, "src_pos": src_pos, "feat_target": feat, "input_lengths": in_lens,
+            "output_lengths": out_lens, "feat_pos": feat_pos, "attn_prior": prior}
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float) -> torch.Tensor:
+    """optax's ``clip_by_global_norm``, in place: with ``n`` the global norm
+    of ``grads``, leave them alone when ``n < max_norm``, else make each
+    ``g / n * max_norm``.  Returns ``n``.  (``clip_grad_norm_`` would divide
+    by ``n + 1e-6``.)  Reading ``n`` on the host syncs once."""
+    norms = torch.stack(torch._foreach_norm(list(grads)))
+    g_norm = torch.sqrt(torch.sum(norms * norms))
+    if not bool(g_norm < max_norm):
+        torch._foreach_div_(list(grads), g_norm)
+        torch._foreach_mul_(list(grads), max_norm)
+    return g_norm
+
+
+class Text2VecTrainer:
+    """A Text2Vec model in train mode, its LAMB optimizer and the step
+    counter.  ``step(batch)`` runs one training step on a batch from
+    ``make_padded_batch`` and returns the ``SCALAR_KEYS`` losses as 0-dim
+    tensors on the device.  ``forward``, ``backward`` and
+    ``apply_gradients`` are its three parts."""
+
+    def __init__(self, cfg: Text2VecConfig, device=None, model: Optional[Text2Vec] = None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.model = (model if model is not None else Text2Vec(cfg, device=self.device)).train()
+        self.params = [p for p in self.model.parameters() if p.requires_grad]
+        self.optimizer = Lamb(self.params, lr=cfg.learning_rate, betas=(cfg.beta1, cfg.beta2),
+                              eps=cfg.epsilon, weight_decay=cfg.weight_decay)
+        self.step_count = 0
+
+    def to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        out = {}
+        for k in BATCH_KEYS:
+            a = np.asarray(batch[k])
+            dtype = torch.float32 if a.dtype.kind == "f" else torch.int64
+            out[k] = torch.as_tensor(a, dtype=dtype).to(self.device, non_blocking=True)
+        return out
+
+    def forward(self, batch: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+        """-> (total loss, the SCALAR_KEYS losses, the model's outputs)."""
+        out = self.model(batch["text"], batch["src_pos"], batch["feat_target"],
+                         batch["input_lengths"], batch["output_lengths"], batch["feat_pos"],
+                         attn_prior=batch["attn_prior"])
+        wvf, postnet, duration = dnn_loss(out["feat_output"], out["feat_postnet_output"],
+                                          batch["feat_target"], out["duration_predictor_output"],
+                                          out["duration"])
+        binarization = attention_binarization_loss(out["attn"], out["attn_soft"])
+        total = wvf + postnet + duration + self.cfg.binarization_loss_weight * binarization
+        metrics = dict(zip(SCALAR_KEYS, (total, wvf, postnet, duration, binarization)))
+        return total, {k: v.detach() for k, v in metrics.items()}, out
+
+    def backward(self, total: torch.Tensor) -> None:
+        self.optimizer.zero_grad(set_to_none=True)
+        total.backward()
+
+    def apply_gradients(self) -> None:
+        """Clip on every ``grad_clip_every``-th step, then the LAMB update."""
+        if (self.step_count + 1) % self.cfg.grad_clip_every == 0:
+            clip_by_global_norm([p.grad for p in self.params if p.grad is not None],
+                                self.cfg.grad_clip_thresh)
+        self.optimizer.step()
+        self.step_count += 1
+
+    def step(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        total, metrics, _ = self.forward(self.to_device(batch))
+        self.backward(total)
+        self.apply_gradients()
+        return metrics
