@@ -65,6 +65,37 @@ Then the Text2Vec training slice, on the same full-size Text2Vec config:
     BiGRU backward at the step's shapes, and ``torch.profiler``'s device
     busy share and launch count.
 
+Then the long-bucket bf16 slice: the JAX package's own long-bucket training
+config ``artifacts/flash_longbucket/flash/longbucket/config.json`` (the
+full-size model, ``compute_dtype`` bfloat16, ``flash_attention``, dropout 0,
+text bucket 768, frame bucket 3072), read where it lies:
+
+13. The flash kernels against their plain version on the card: the forward
+    (``out`` and ``lse``) in bf16 at the step's decoder [16, 2, 3072, 224]
+    and encoder [16, 2, 768, 224] shapes and in f32 at the serving shapes
+    [1, 2, 3072 | 768, 224]; dK/dV and dQ against autograd of the plain
+    version in bf16 at B = 2 of the decoder shape and at the encoder's full
+    shape; each with its time, its bound and ``F.scaled_dot_product_attention``'s
+    (the same boolean mask; forward, and forward + backward).
+14. Training: ``Text2VecTrainer`` (bf16) takes ``WARMUP_STEPS`` then
+    ``TIMED_STEPS`` steps on one synthetic batch at B = 16, N = 768,
+    T = 3072 (3-4 frames per character); counters, set to 0 just before the
+    timed steps: per step 8 flash forward, 8 dK/dV and 8 dQ launches, 1 MAS
+    launch and 1 BiGRU forward launch; then its time split and profile as in
+    phase 12; then two steps of the same config through the dense attention
+    branch, for their time and peak memory.  MAS is also held against its
+    plain version at (16, 3072, 768), where its take-left bits no longer
+    fit shared memory.
+15. One bf16 flash step on the card against the CPU: seeded full-size
+    weights, B = 8, N = 256, T = 512 (both stacks take the flash gate, so the
+    CPU runs the plain version), a diagonal prior that leaves MAS no
+    near-ties.  Hard alignments and durations equal, losses and gradients
+    within stated tolerances.
+16. Serving with the long-bucket config in f32 (only ``vocab_path`` set to
+    the demo vocabulary, whose ids lie below 803): one request through
+    ``Synthesizer.synthesize`` padded to 768 characters and 3072 frames,
+    8 flash forward launches.
+
 Every float32 product and convolution in this run is full float32: TF32 is
 off for matmuls and cuDNN.  The second-to-last line is a JSON object with
 one entry per kernel; the last line is
@@ -105,6 +136,12 @@ from wavthruvec_pytorch_tpu_torch.ops.gru import (
     gru_bwd_plain,
     gru_fwd,
     gru_fwd_plain,
+)
+from wavthruvec_pytorch_tpu_torch.ops.flash_attention import (
+    flash_attention_plain,
+    flash_bwd_dkv,
+    flash_bwd_dq,
+    flash_fwd,
 )
 from wavthruvec_pytorch_tpu_torch.ops.mas import mas_width1, mas_width1_plain
 from wavthruvec_pytorch_tpu_torch.text import TextFrontend
@@ -153,6 +190,28 @@ STEP_LOSS_RTOL = 1e-4
 STEP_GRAD_GLOBAL_RTOL = 5e-3
 STEP_GRAD_RTOL = 3e-2
 
+# the long-bucket bf16 slice
+LONG_CFG = ("artifacts", "flash_longbucket", "flash", "longbucket", "config.json")
+LONG_B, LONG_N, LONG_T = 16, 768, 3072
+FLASH_H, FLASH_D = 2, 224  # heads and head dim of both FFT stacks
+# flash kernels vs plain, max |err| / max |plain|: in bf16 the kernels round
+# the running (not the final) probabilities and dS to bf16 before their
+# products, the plain version the final probabilities only; in f32 only the
+# sums' order differs
+FLASH_BF16_RTOL = 2e-2
+FLASH_F32_RTOL = 1e-4
+FLASH_LSE_ATOL = 1e-4  # f32 both sides; lse ~ log T
+# the bf16 card-vs-CPU step: bf16 rounds at other sums on the two devices
+# (cuDNN/cuBLAS and the kernels against oneDNN and the plain versions), and a
+# flip of one rounding feeds every layer after it.  The gradients are held
+# to bf16's own noise: per module, ||card - CPU|| may be at most
+# BF16_GRAD_NOISE times the CPU's bf16-vs-f32 distance (plus 1e-3 of the f32
+# norm), over all tensors BF16_GRAD_NOISE_ALL times
+BF16_CHECK_B, BF16_CHECK_N, BF16_CHECK_T = 8, 256, 512
+BF16_STEP_LOSS_RTOL = 2e-2
+BF16_GRAD_NOISE = 2.0
+BF16_GRAD_NOISE_ALL = 1.5
+
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
@@ -197,15 +256,18 @@ def build_kernels() -> None:
                 print(f"  {name}: {line.strip()}")
 
 
-def make_synthesizer(dev):
-    t2v_cfg = load_config(Text2VecConfig, repo_path("data", "demo", "text2vec.json"))
+def make_synthesizer(dev, t2v_cfg=None):
+    """A Synthesizer with seeded random weights: the full-size demo Text2Vec
+    config unless ``t2v_cfg`` is given, and the demo Vec2Wav config."""
+    if t2v_cfg is None:
+        t2v_cfg = load_config(Text2VecConfig, repo_path("data", "demo", "text2vec.json"))
     v2w_cfg = load_config(Vec2WavConfig, repo_path("data", "demo", "vec2wav.json"))
     torch.manual_seed(SEED)
     t2v = Text2Vec(t2v_cfg, device=dev)
     gen = Generator(v2w_cfg, device=dev)
     t2v.length_regulator.duration_predictor.linear_layer.linear_layer.bias.add_(FRAMES_PER_CHAR)
     frontend = TextFrontend.from_vocab_file(repo_path(t2v_cfg.vocab_path))
-    check(frontend.vocab_size == t2v_cfg.vocab_size, "vocab size differs from the config")
+    check(frontend.vocab_size <= t2v_cfg.vocab_size, "the vocabulary has more ids than the config")
     syn = Synthesizer(t2v_cfg, v2w_cfg, t2v.state_dict(), gen.state_dict(), frontend, device=dev)
 
     # conv_post's output without its bias, on random latents with the demo
@@ -523,21 +585,31 @@ def train_config() -> Text2VecConfig:
     return dataclasses.replace(cfg, batch_size=TRAIN_B)
 
 
-def synthetic_batch(cfg, B: int, N: int, T: int, seed: int):
+def diagonal_prior(n: int, t: int) -> np.ndarray:
+    """[t, n] prior: 1 at text position floor(i * n / t) of frame i, 1e-4
+    elsewhere.  Its log makes any other monotonic path cost 9.2 a frame, far
+    beyond what rounding moves in the soft alignment, so MAS has no near-ties."""
+    prior = np.full((t, n), 1e-4, np.float32)
+    prior[np.arange(t), np.arange(t) * n // t] = 1.0
+    return prior
+
+
+def synthetic_batch(cfg, B: int, N: int, T: int, seed: int, diagonal: bool = False):
     """B items with text lengths in [N/2, N] and 0.75-1 x T/N frames per
     character (12-16 at N = 64, T = 1024: 0.24-0.32 s a character at 50
-    Hz), padded to (N, T); seeded 1024-d features and beta-binomial
-    priors."""
+    Hz), padded to (N, T); seeded 1024-d features and beta-binomial priors
+    (``diagonal``: ``diagonal_prior``)."""
     rng = np.random.default_rng(seed)
     items = []
     for i in range(B):
         n = int(rng.integers(N // 2, N + 1))
         t = min(T, int(round(n * rng.uniform(0.75, 1.0) * T / N)))
+        prior = (diagonal_prior(n, t) if diagonal else beta_binomial_prior_distribution(
+            n, t, cfg.betabinom_scaling_factor).astype(np.float32))
         items.append({
             "text_enc": rng.integers(3, cfg.vocab_size, n).astype(np.int32),
             "feat_gt_target": (rng.standard_normal((t, cfg.n_feat_dim)) * 0.5).astype(np.float32),
-            "attn_prior": beta_binomial_prior_distribution(
-                n, t, cfg.betabinom_scaling_factor).astype(np.float32),
+            "attn_prior": prior,
         })
     return make_padded_batch(items, cfg, text_pad=N, frame_pad=T)
 
@@ -547,6 +619,58 @@ def run_step(trainer, batch):
     trainer.backward(total)
     trainer.apply_gradients()
     return metrics
+
+
+def reset_counters() -> None:
+    mas_width1.launches = 0
+    gru_fwd.launches = gru_fwd.step_launches = 0
+    GRURecurrence.backward_calls = 0
+    flash_fwd.launches = flash_bwd_dkv.launches = flash_bwd_dq.launches = 0
+
+
+def read_counters() -> dict:
+    return dict(mas=mas_width1.launches, gru_fwd=gru_fwd.launches,
+                gru_bwd=GRURecurrence.backward_calls, flash_fwd=flash_fwd.launches,
+                flash_bwd_dkv=flash_bwd_dkv.launches, flash_bwd_dq=flash_bwd_dq.launches)
+
+
+def timed_training(trainer, batch, frames: int, label: str, per_step: dict) -> dict:
+    """``WARMUP_STEPS`` then ``TIMED_STEPS`` steps on one batch; the launch
+    counters are set to 0 just before the timed steps and must read
+    ``per_step`` times ``TIMED_STEPS`` after them.  Every loss must be
+    finite and the total loss must fall.  Returns the counters."""
+    totals = []
+    for _ in range(WARMUP_STEPS):
+        totals.append(run_step(trainer, batch)["total_loss"].item())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_counters()
+    times = []
+    for _ in range(TIMED_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = run_step(trainer, batch)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        values = torch.stack([metrics[k] for k in SCALAR_KEYS]).tolist()
+        check(all(math.isfinite(v) for v in values), f"non-finite losses {values}")
+        totals.append(values[0])
+    launches = read_counters()
+    print(f"launches on the {label} path ({TIMED_STEPS} steps): {launches}, "
+          f"BiGRU step launches {gru_fwd.step_launches}")
+    want = {k: TIMED_STEPS * per_step.get(k, 0) for k in launches}
+    check(launches == want, f"{label} launch counts {launches}, not {want}")
+    ms = float(np.median(times))
+    print(f"{label} step: median {ms:.2f} ms of {TIMED_STEPS} (min {min(times):.2f}, max "
+          f"{max(times):.2f}), {frames / (ms / 1e3):.0f} frames/s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print("  last step's losses: " + ", ".join(f"{k} {v:.4f}" for k, v in zip(SCALAR_KEYS, values)))
+    print(f"  total loss over {len(totals)} steps of one batch: "
+          + " ".join(f"{v:.4f}" for v in totals))
+    check(totals[-1] < totals[0], f"total loss did not fall: {totals}")
+    return launches
 
 
 def train(dev):
@@ -559,40 +683,8 @@ def train(dev):
     print(f"training: Text2Vec at full size, {sum(p.numel() for p in trainer.params) / 1e6:.1f} M "
           f"trained parameters, B={TRAIN_B} N={TRAIN_N} T={TRAIN_T}, {frames} real frames, "
           f"dropout {cfg.dropout}, lr {cfg.learning_rate}")
-    totals = []
-    for _ in range(WARMUP_STEPS):
-        totals.append(run_step(trainer, batch)["total_loss"].item())
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-
-    mas_width1.launches = 0
-    gru_fwd.launches = gru_fwd.step_launches = 0
-    GRURecurrence.backward_calls = 0
-    times = []
-    for _ in range(TIMED_STEPS):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        metrics = run_step(trainer, batch)
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-        values = torch.stack([metrics[k] for k in SCALAR_KEYS]).tolist()
-        check(all(math.isfinite(v) for v in values), f"non-finite losses {values}")
-        totals.append(values[0])
-    launches = dict(mas=mas_width1.launches, gru_fwd=gru_fwd.launches,
-                    gru_bwd=GRURecurrence.backward_calls)
-    print(f"launches on the training path ({TIMED_STEPS} steps): {launches}, "
-          f"BiGRU step launches {gru_fwd.step_launches}")
-    check(launches == dict(mas=TIMED_STEPS, gru_fwd=TIMED_STEPS, gru_bwd=TIMED_STEPS),
-          f"training launch counts {launches}")
-    ms = float(np.median(times))
-    print(f"training step: median {ms:.2f} ms of {TIMED_STEPS} (min {min(times):.2f}, max "
-          f"{max(times):.2f}), {frames / (ms / 1e3):.0f} frames/s, peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print("  last step's losses: " + ", ".join(f"{k} {v:.4f}" for k, v in zip(SCALAR_KEYS, values)))
-    print(f"  total loss over {len(totals)} steps of one batch: "
-          + " ".join(f"{v:.4f}" for v in totals))
-    check(totals[-1] < totals[0], f"total loss did not fall: {totals}")
+    launches = timed_training(trainer, batch, frames, "training",
+                              dict(mas=1, gru_fwd=1, gru_bwd=1))
 
     history = text2vec_loop.main(load_config(Text2VecConfig, repo_path("data", "demo",
                                                                        "text2vec.json")), 3)
@@ -627,7 +719,10 @@ def check_mas():
     print("MAS, kernel vs plain (equal), variable lengths:")
     # the training shape, the largest buckets, and a width that is no
     # multiple of 32 and spans ten warps
-    for B, T, N in ((TRAIN_B, TRAIN_T, TRAIN_N), (16, 3000, 128), (4, 300, 300)):
+    # multiple of 32 and spans ten warps; the long bucket, whose take-left
+    # bits (294,912 bytes) exceed a block's shared memory
+    for B, T, N in ((TRAIN_B, TRAIN_T, TRAIN_N), (16, 3000, 128), (4, 300, 300),
+                    (LONG_B, LONG_T, LONG_N)):
         attn, (il, ol), zeros = mas_inputs(B, T, N, SEED)
         got = mas_width1(attn, il, ol)
         want = mas_width1_plain(attn, il, ol)
@@ -686,6 +781,41 @@ def grad_spread(got, ref):
     return math.sqrt(sq_err / sq_ref), worst, worst_name
 
 
+def step_result(cfg, state, host, dev, dtype=None) -> dict:
+    """One step's forward and backward (no update) of a model with the
+    weights ``state`` on ``dev``: losses, hard alignment, durations and
+    gradients, on the host."""
+    model = Text2Vec(cfg, device=dev, dtype=dtype)
+    model.load_state_dict(state, strict=True)
+    tr = Text2VecTrainer(cfg, device=dev, model=model)
+    total, metrics, out = tr.forward(tr.to_device(host))
+    tr.backward(total)
+    return dict(losses=[metrics[k].item() for k in SCALAR_KEYS],
+                attn=out["attn"].cpu(), duration=out["duration"].cpu(),
+                grads={n: p.grad.cpu() for n, p in model.named_parameters()
+                       if p.grad is not None})
+
+
+def compare_steps(card, cpu, loss_rtol) -> float:
+    """Alignment and durations equal, losses within ``loss_rtol``, the same
+    parameters with gradients; returns the losses' relative error."""
+    check(torch.equal(card["attn"], cpu["attn"]) and torch.equal(card["duration"], cpu["duration"]),
+          "hard alignment or durations differ between the card and the CPU")
+    loss_err = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(card["losses"], cpu["losses"]))
+    check(loss_err <= loss_rtol, f"losses differ by {loss_err:.3g} (relative)")
+    check(card["grads"].keys() == cpu["grads"].keys(), "different parameters got gradients")
+    return loss_err
+
+
+def grad_module(name: str) -> str:
+    parts = name.split(".")
+    return ".".join(parts[:2]) if parts[0] == "encoder" else parts[0]
+
+
+def grad_dist(a, b, names) -> float:
+    return math.sqrt(sum(float((a[n] - b[n]).norm()) ** 2 for n in names))
+
+
 def check_step_against_cpu(cfg):
     """The same seeded full-size weights and one small batch through one
     step's forward and backward on the card and on the CPU (where the
@@ -696,30 +826,17 @@ def check_step_against_cpu(cfg):
     torch.manual_seed(SEED + 1)
     state = Text2Vec(cfg, device="cpu").state_dict()
     host = synthetic_batch(cfg, CHECK_B, CHECK_N, CHECK_T, SEED + 1)
-    res = {}
     threads = torch.get_num_threads()
-    for run, dev in (("card", "cuda"), ("cpu", "cpu"), ("cpu1", "cpu")):
-        torch.set_num_threads(1 if run == "cpu1" else threads)
-        model = Text2Vec(cfg, device=dev)
-        model.load_state_dict(state, strict=True)
-        tr = Text2VecTrainer(cfg, device=dev, model=model)
-        total, metrics, out = tr.forward(tr.to_device(host))
-        tr.backward(total)
-        res[run] = dict(losses=[metrics[k].item() for k in SCALAR_KEYS],
-                        attn=out["attn"].cpu(), duration=out["duration"].cpu(),
-                        grads={n: p.grad.cpu() for n, p in model.named_parameters()
-                               if p.grad is not None})
+    card = step_result(cfg, state, host, "cuda")
+    cpu = step_result(cfg, state, host, "cpu")
+    torch.set_num_threads(1)
+    cpu1 = step_result(cfg, state, host, "cpu")
     torch.set_num_threads(threads)
-    card, cpu = res["card"], res["cpu"]
-    check(torch.equal(card["attn"], cpu["attn"]) and torch.equal(card["duration"], cpu["duration"]),
-          "hard alignment or durations differ between the card and the CPU")
-    loss_err = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(card["losses"], cpu["losses"]))
-    check(loss_err <= STEP_LOSS_RTOL, f"losses differ by {loss_err:.3g} (relative)")
-    check(card["grads"].keys() == cpu["grads"].keys(), "different parameters got gradients")
+    loss_err = compare_steps(card, cpu, STEP_LOSS_RTOL)
     total_err, worst, worst_name = grad_spread(card["grads"], cpu["grads"])
     check(total_err <= STEP_GRAD_GLOBAL_RTOL, f"gradients: card vs CPU {total_err:.3g} of the norm")
     check(worst <= STEP_GRAD_RTOL, f"gradient {worst_name}: card vs CPU {worst:.3g} of its norm")
-    cpu_total, cpu_worst, cpu_worst_name = grad_spread(res["cpu1"]["grads"], cpu["grads"])
+    cpu_total, cpu_worst, cpu_worst_name = grad_spread(cpu1["grads"], cpu["grads"])
     print(f"training step, card vs CPU (B={CHECK_B} N={CHECK_N} T={CHECK_T}, dropout 0): "
           f"hard alignment and durations equal, losses {loss_err:.2e} (rtol {STEP_LOSS_RTOL}), "
           f"{len(cpu['grads'])} gradients: ||card - CPU|| / ||CPU|| {total_err:.2e} in all "
@@ -791,6 +908,243 @@ def profile_step(trainer, batch) -> None:
         print(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:6d}  {e.key[:100]}")
 
 
+def long_config() -> Text2VecConfig:
+    """The JAX package's long-bucket training config, read where it lies."""
+    return load_config(Text2VecConfig, repo_path(*LONG_CFG))
+
+
+def flash_case(B: int, T: int, dtype, seed: int):
+    """q, k, v [B, H, T, D] as the model passes them (transposed views of
+    [B, T, H, D]), seeded N(0, 1), and segment ids of mixed lengths in
+    [T/2, T] (the first item full)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn((B, T, FLASH_H, FLASH_D), generator=g, device="cuda")
+               .to(dtype).transpose(1, 2) for _ in range(3))
+    lens = np.random.default_rng(seed).integers(T // 2, T + 1, B)
+    lens[0] = T
+    seg = (torch.arange(T, device="cuda")[None]
+           < torch.tensor(lens, device="cuda")[:, None]).to(torch.int32)
+    return q, k, v, seg
+
+
+def flash_bound(B: int, T: int, dtype, n_products: int, n_in: int, n_out: int, n_rows: int):
+    """Bound of a flash kernel: ``n_products`` products of 2 B H T^2 D
+    operations on the tensor cores (bf16) or the CUDA cores (f32); bytes:
+    ``n_in`` [B, T, H, D] tensors read and ``n_out`` written, ``n_rows`` f32
+    [B, H, T] rows moved and the int32 segment ids."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    n_bytes = (size * (n_in + n_out) * B * T * FLASH_H * FLASH_D
+               + 4.0 * n_rows * B * FLASH_H * T + 4.0 * B * T)
+    n_ops = 2.0 * n_products * B * FLASH_H * T * T * FLASH_D
+    return bound_ms(n_bytes, n_ops, PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32)
+
+
+def rel_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+def check_flash():
+    """Phase 13: each flash kernel against its plain version at the path's
+    shapes, with times, bounds and SDPA's times.  The summary line takes
+    the training decoder's shape."""
+    scale = 1.0 / math.sqrt(FLASH_D)
+    rows = {}
+
+    def record(name, err, ms, plain, bms, by, lib):
+        if name not in rows:
+            rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                              library_ms=lib)
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+
+    print(f"flash forward, kernel vs plain (out: rtol {FLASH_BF16_RTOL} bf16, {FLASH_F32_RTOL} f32 "
+          f"of max |out|; lse: atol {FLASH_LSE_ATOL}), H={FLASH_H} D={FLASH_D}:")
+    for label, B, T, dtype in (("training decoder", LONG_B, LONG_T, torch.bfloat16),
+                               ("training encoder", LONG_B, LONG_N, torch.bfloat16),
+                               ("serving decoder", 1, LONG_T, torch.float32),
+                               ("serving encoder", 1, LONG_N, torch.float32)):
+        q, k, v, seg = flash_case(B, T, dtype, SEED)
+        out, lse = flash_fwd(q, k, v, seg, scale)
+        want, want_lse = flash_attention_plain(q, k, v, seg, scale)
+        torch.cuda.synchronize()
+        err, lse_err = rel_err(out, want), float((lse - want_lse).abs().max())
+        tol = FLASH_BF16_RTOL if dtype == torch.bfloat16 else FLASH_F32_RTOL
+        check(err <= tol and lse_err <= FLASH_LSE_ATOL,
+              f"flash forward {label}: out {err:.3g} of max, lse {lse_err:.3g}")
+        mask = (seg[:, :, None] == seg[:, None, :])[:, None]
+        reps = 3 if T == LONG_T and B > 1 else 10
+        ms = cuda_ms(lambda: flash_fwd(q, k, v, seg, scale), reps)
+        plain = cuda_ms(lambda: flash_attention_plain(q, k, v, seg, scale), 1, warmup=0)
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale),
+                      reps)
+        bms, by = flash_bound(B, T, dtype, 2, 3, 1, 1)
+        print(f"  {label} [{B}, {FLASH_H}, {T}, {FLASH_D}] {str(dtype)[6:]}: out {err:.2e} of max, "
+              f"lse {lse_err:.2e}; kernel {ms:.3f} ms, plain {plain:.3f} ms, SDPA {lib:.3f} ms, "
+              f"bound {bms:.4f} ms ({by})")
+        abs_err = float((out.float() - want.float()).abs().max())
+        record("flash_fwd", abs_err, ms, plain, bms, by, lib)
+
+    print(f"flash backward, kernels vs autograd of the plain version (rtol {FLASH_BF16_RTOL} of "
+          f"max |grad|), bf16:")
+    for label, B_cmp, B, T in (("training decoder", 2, LONG_B, LONG_T),
+                               ("training encoder", LONG_B, LONG_B, LONG_N)):
+        q, k, v, seg = flash_case(B_cmp, T, torch.bfloat16, SEED + 1)
+        dout = torch.randn(q.shape, device="cuda").to(torch.bfloat16)
+        out, lse = flash_fwd(q, k, v, seg, scale)
+        dk, dv = flash_bwd_dkv(q, k, v, seg, out, lse, dout, scale)
+        dq = flash_bwd_dq(q, k, v, seg, out, lse, dout, scale)
+        qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+        want = torch.autograd.grad(flash_attention_plain(*qkv, seg, scale)[0], qkv, dout)
+        torch.cuda.synchronize()
+        errs = {n: rel_err(a, b) for n, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), want)}
+        check(max(errs.values()) <= FLASH_BF16_RTOL, f"flash backward {label}: {errs}")
+        abs_err = {n: float((a.float() - b.float()).abs().max())
+                   for n, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), want)}
+
+        # times at the step's shape
+        q, k, v, seg = flash_case(B, T, torch.bfloat16, SEED + 1)
+        dout = torch.randn(q.shape, device="cuda").to(torch.bfloat16)
+        out, lse = flash_fwd(q, k, v, seg, scale)
+        reps = 2 if T == LONG_T else 5
+        ms_dkv = cuda_ms(lambda: flash_bwd_dkv(q, k, v, seg, out, lse, dout, scale), reps)
+        ms_dq = cuda_ms(lambda: flash_bwd_dq(q, k, v, seg, out, lse, dout, scale), reps)
+        qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+        o_plain = flash_attention_plain(*qkv, seg, scale)[0]
+        plain = cuda_ms(lambda: torch.autograd.grad(o_plain, qkv, dout, retain_graph=True), 1,
+                        warmup=0)
+        del o_plain
+        mask = (seg[:, :, None] == seg[:, None, :])[:, None]
+
+        def sdpa_fwd_bwd():
+            o = F.scaled_dot_product_attention(*qkv, attn_mask=mask, scale=scale)
+            torch.autograd.grad(o, qkv, dout)
+
+        lib = cuda_ms(sdpa_fwd_bwd, reps)
+        # dK/dV: S, dP, dV, dK; dQ: S, dP, dQ (5 products for both together)
+        b_dkv, by_dkv = flash_bound(B, T, torch.bfloat16, 4, 4, 2, 2)
+        b_dq, by_dq = flash_bound(B, T, torch.bfloat16, 3, 4, 1, 2)
+        print(f"  {label} [{B_cmp}, {FLASH_H}, {T}, {FLASH_D}]: dq {errs['dq']:.2e}, "
+              f"dk {errs['dk']:.2e}, dv {errs['dv']:.2e} of max; at B={B}: dK/dV kernel "
+              f"{ms_dkv:.3f} ms (bound {b_dkv:.4f}, {by_dkv}), dQ kernel {ms_dq:.3f} ms (bound "
+              f"{b_dq:.4f}, {by_dq}), plain backward {plain:.3f} ms, SDPA forward + backward "
+              f"{lib:.3f} ms")
+        record("flash_bwd_dkv", max(abs_err["dk"], abs_err["dv"]), ms_dkv, plain, b_dkv, by_dkv,
+               lib)
+        record("flash_bwd_dq", abs_err["dq"], ms_dq, plain, b_dq, by_dq, lib)
+    return rows
+
+
+def train_long(dev):
+    """Phase 14: the long-bucket bf16 training step."""
+    cfg = long_config()
+    check(cfg.compute_dtype == "bfloat16" and cfg.flash_attention and cfg.dropout == 0.0,
+          f"{'/'.join(LONG_CFG)} is not the bf16 flash config")
+    torch.manual_seed(SEED)
+    trainer = Text2VecTrainer(cfg, device=dev)
+    check(trainer.model.decoder.layer_stack[0].slf_attn.w_qs.compute_dtype == torch.bfloat16,
+          "the trainer did not build a bf16 model")
+    host = synthetic_batch(cfg, LONG_B, LONG_N, LONG_T, SEED)
+    batch = trainer.to_device(host)
+    frames = int(host["output_lengths"].sum())
+    print(f"long-bucket training: {'/'.join(LONG_CFG)}, bf16, flash attention, "
+          f"{sum(p.numel() for p in trainer.params) / 1e6:.1f} M trained parameters, "
+          f"B={LONG_B} N={LONG_N} T={LONG_T}, {frames} real frames, dropout {cfg.dropout}, "
+          f"lr {cfg.learning_rate}")
+    launches = timed_training(trainer, batch, frames, "long-bucket training",
+                              dict(mas=1, gru_fwd=1, gru_bwd=1, flash_fwd=8, flash_bwd_dkv=8,
+                                   flash_bwd_dq=8))
+    return trainer, host, batch, launches
+
+
+def dense_long_step(dev, host) -> None:
+    """The long-bucket step through the dense attention branch
+    (``flash_attention=False``, the rest as the config says): its step time
+    and peak device memory beside the flash step's."""
+    cfg = dataclasses.replace(long_config(), flash_attention=False)
+    torch.manual_seed(SEED)
+    trainer = Text2VecTrainer(cfg, device=dev)
+    batch = trainer.to_device(host)
+    run_step(trainer, batch)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(2):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        run_step(trainer, batch)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    print(f"  the same step, dense attention branch: {min(times):.2f} and {max(times):.2f} ms, "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def check_flash_step_against_cpu():
+    """Phase 15: one bf16 flash step, card against CPU; the CPU's f32 step
+    on the same weights measures bf16's own noise in the gradients."""
+    cfg = long_config()
+    torch.manual_seed(SEED + 2)
+    state = Text2Vec(cfg, device="cpu").state_dict()
+    host = synthetic_batch(cfg, BF16_CHECK_B, BF16_CHECK_N, BF16_CHECK_T, SEED + 2, diagonal=True)
+    reset_counters()
+    card = step_result(cfg, state, host, "cuda", torch.bfloat16)
+    check(flash_fwd.launches == flash_bwd_dkv.launches == flash_bwd_dq.launches == 8,
+          f"card step: flash launches {read_counters()}")
+    t0 = time.perf_counter()
+    cpu = step_result(cfg, state, host, "cpu", torch.bfloat16)
+    cpu_s = time.perf_counter() - t0
+    f32 = step_result(cfg, state, host, "cpu")["grads"]
+    loss_err = compare_steps(card, cpu, BF16_STEP_LOSS_RTOL)
+    zeros = {n: torch.zeros_like(g) for n, g in f32.items()}
+    print(f"bf16 flash training step, card vs CPU (B={BF16_CHECK_B} N={BF16_CHECK_N} "
+          f"T={BF16_CHECK_T}, diagonal prior; CPU bf16 part {cpu_s:.1f} s): hard alignment and "
+          f"durations equal, losses {loss_err:.2e} (rtol {BF16_STEP_LOSS_RTOL}); gradients, "
+          f"||card - CPU|| against the CPU's ||bf16 - f32||, as shares of ||f32||:")
+    groups = sorted({grad_module(n) for n in f32})
+    for mod in groups + ["all"]:
+        names = [n for n in f32 if mod == "all" or grad_module(n) == mod]
+        err = grad_dist(card["grads"], cpu["grads"], names)
+        noise, norm = grad_dist(cpu["grads"], f32, names), grad_dist(f32, zeros, names)
+        bound = (BF16_GRAD_NOISE_ALL * noise if mod == "all"
+                 else BF16_GRAD_NOISE * noise + 1e-3 * norm)
+        print(f"  {mod} ({len(names)} tensors): {err / norm:.2e} against {noise / norm:.2e}")
+        check(err <= bound, f"bf16 gradients of {mod}: card vs CPU {err / norm:.3g}, "
+                            f"bf16 vs f32 {noise / norm:.3g} of the norm")
+
+
+def serve_long(dev):
+    """Phase 16: one long-bucket request in f32 through the flash forward."""
+    cfg = dataclasses.replace(long_config(), vocab_path="data/demo/vocab.txt")
+    syn = make_synthesizer(dev, cfg)
+    text, ref, spk = demo_inputs(syn)
+    texts = [text(300)]
+
+    def run():
+        return syn.synthesize(texts, ref, spk, seed=SEED)
+
+    run()  # warm-up
+    torch.cuda.synchronize()
+    flash_fwd.launches = 0
+    times = []
+    for _ in range(REPEATS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        wav, n_samples = run()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    check(flash_fwd.launches == 8 * REPEATS,
+          f"long-bucket request: {flash_fwd.launches} flash launches in {REPEATS}, not 8 each")
+    frames = n_samples // syn.v2w_cfg.total_upsample
+    check(wav.shape == (1, LONG_T * syn.v2w_cfg.total_upsample) and bool(np.isfinite(wav).all())
+          and 0 < int(frames[0]) <= LONG_T, f"long-bucket request: wav {wav.shape}, {frames}")
+    ms = float(np.median(times))
+    audio_s = float(n_samples.sum()) / SAMPLE_RATE
+    print(f"long-bucket request (f32, flash, text bucket {LONG_N}, {LONG_T} frames): "
+          f"total_frames {frames.tolist()}, median {ms:.2f} ms of {REPEATS} (min {min(times):.2f}, "
+          f"max {max(times):.2f}), {audio_s:.2f} s of speech, realtime factor "
+          f"{audio_s / (ms / 1e3):.1f}, 8 flash forward launches a request")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: PyTorch sees no CUDA device; this script runs on an NVIDIA GPU",
@@ -817,6 +1171,18 @@ def main() -> int:
     check_gru_backward(trainer.model.postnet.gru)
     check_step_against_cpu(trainer.cfg)
     profile_step(trainer, batch)
+    del trainer, batch
+
+    flash = check_flash()
+    trainer, host, batch, long_launches = train_long(dev)
+    profile_step(trainer, batch)
+    del trainer, batch
+    torch.cuda.empty_cache()
+    dense_long_step(dev, host)
+    torch.cuda.empty_cache()
+    check_flash_step_against_cpu()
+    with torch.inference_mode():
+        serve_long(dev)
 
     kernels = [
         dict(name="fused_resblock", route="cuda",
@@ -832,6 +1198,12 @@ def main() -> int:
              replaces="wavthruvec_pytorch_tpu/ops/mas_pallas.py:30",
              launches=train_launches["mas"], **mas),
     ]
+    flash_src = "jax/experimental/pallas/ops/tpu/flash_attention.py"  # jax 0.9.0
+    for name, line in (("flash_fwd", 589), ("flash_bwd_dkv", 941), ("flash_bwd_dq", 1287)):
+        kernels.append(dict(name=name, route="cuda",
+                            source="wavthruvec_pytorch_tpu_torch/csrc/flash_attn.cu",
+                            replaces=f"{flash_src}:{line}", launches=long_launches[name],
+                            **flash[name]))
     for kern in kernels:
         check(all(math.isfinite(kern[key]) for key in ("ms", "plain_ms", "bound_ms")),
               f"{kern['name']}: non-finite time")

@@ -1,0 +1,188 @@
+"""The port's flash attention (``ops/flash_attention.py``) and the flash
+branch of its FFT block against the JAX package on the CPU.
+
+On the CPU the port runs the kernels' plain version, ``flash_attention_plain``;
+its oracle is JAX's ``mha_reference_no_custom_vjp`` with ``SegmentIds`` (the
+Pallas kernel's own reference), output and gradients through ``jax.vjp``.
+JAX's ``MultiHeadAttention`` takes its flash branch only on a TPU, so on the
+CPU JAX's ``FFTBlock(use_flash=True)`` computes the dense branch: real rows
+agree, and pad rows are zero in both after the non-pad mask.
+
+Tolerances: f32, sums in another order: atol 1e-5 (attention), 2e-5 (the
+block).  bf16: the port rounds the probabilities to bf16 before the product
+with v, as the TPU kernel does, and the reference does not: 2e-2 of the
+largest value (the attention), and for the block, whose projections round
+to bf16 in both packages at other sums, 3e-2.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from jax.experimental.pallas.ops.tpu.flash_attention import (
+    SegmentIds,
+    mha_reference_no_custom_vjp,
+)
+
+from wavthruvec_pytorch_tpu.models.fft_block import FFTBlock as JFFT
+from wavthruvec_pytorch_tpu_torch import weights
+from wavthruvec_pytorch_tpu_torch.models.fft_block import FFTBlock, flash_gate
+from wavthruvec_pytorch_tpu_torch.ops import flash_attention as fa
+
+BF16_RTOL = 2e-2
+BLOCK_BF16_RTOL = 3e-2
+
+
+def _bf16_values(a):
+    """``a`` rounded to bf16 and back to f32 numpy (the same values in both
+    packages)."""
+    return torch.tensor(a).bfloat16().float().numpy()
+
+
+def _max_rel(got, want):
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_mha_reference(dtype):
+    """flash_attention (the plain version on the CPU, through the
+    autograd.Function) == mha_reference_no_custom_vjp with segment ids, for
+    the output and the three gradients: B = 2, H = 2, T = 256, D = 24, the
+    second item padded from 200 on."""
+    rng = np.random.default_rng(0)
+    B, H, T, D = 2, 2, 256, 24
+    q, k, v, dout = (rng.standard_normal((B, H, T, D)).astype(np.float32) for _ in range(4))
+    if dtype == "bfloat16":
+        q, k, v, dout = (_bf16_values(a) for a in (q, k, v, dout))
+    seg = np.ones((B, T), np.int32)
+    seg[1, 200:] = 0
+    scale = 1.0 / math.sqrt(D)
+
+    def ref(q_, k_, v_):
+        s = jnp.asarray(seg)
+        return mha_reference_no_custom_vjp(q_, k_, v_, None, SegmentIds(q=s, kv=s), sm_scale=scale)
+
+    want, vjp = jax.vjp(ref, *(jnp.asarray(a) for a in (q, k, v)))
+    want_grads = vjp(jnp.asarray(dout))
+
+    tdt = getattr(torch, dtype)
+    qkv = [torch.tensor(a).to(tdt).requires_grad_() for a in (q, k, v)]
+    got = fa.flash_attention(*qkv, torch.tensor(seg), scale)
+    assert got.dtype == tdt
+    got.backward(torch.tensor(dout).to(tdt))
+    pairs = [("out", got, want)] + [(f"d{n}", t.grad, g)
+                                     for n, t, g in zip("qkv", qkv, want_grads)]
+    for name, g, w in pairs:
+        g, w = g.detach().float().numpy(), np.asarray(w)
+        print(f"{dtype} {name}: max |port - JAX| {np.abs(g - w).max():.3g}, "
+              f"relative to max |JAX| {_max_rel(g, w):.3g}")
+        if dtype == "float32":
+            np.testing.assert_allclose(g, w, atol=1e-5, err_msg=name)
+        else:
+            assert _max_rel(g, w) <= BF16_RTOL, name
+    assert fa.flash_fwd.launches == fa.flash_bwd_dkv.launches == fa.flash_bwd_dq.launches == 0
+
+
+def test_plain_lse_and_masking():
+    """lse is the log of the masked softmax's denominator, and a pad query
+    sees exactly the pad keys (segment semantics): checked against a direct
+    f32 computation, atol 1e-5."""
+    rng = np.random.default_rng(1)
+    B, H, T, D = 1, 1, 128, 8
+    q, k, v = (torch.tensor(rng.standard_normal((B, H, T, D)).astype(np.float32))
+               for _ in range(3))
+    seg = torch.ones(B, T, dtype=torch.int32)
+    seg[0, 100:] = 0
+    out, lse = fa.flash_attention_plain(q, k, v, seg, 0.5)
+    s = (q @ k.transpose(-1, -2)) * 0.5
+    same = (seg[:, :, None] == seg[:, None, :])[:, None]
+    want_lse = torch.logsumexp(torch.where(same, s, -math.inf), dim=-1)
+    np.testing.assert_allclose(lse.numpy(), want_lse.numpy(), atol=1e-5)
+    p_pad = torch.softmax(s[0, 0, 110, 100:], dim=-1)
+    np.testing.assert_allclose(out[0, 0, 110].numpy(), (p_pad @ v[0, 0, 100:]).numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("bad", ["float16", "meta"])
+def test_wrapper_raises_on_other_dtypes_and_devices(bad):
+    q = torch.zeros(1, 1, 64, 8, dtype=torch.float16 if bad == "float16" else torch.float32,
+                    device="meta" if bad == "meta" else "cpu")
+    with pytest.raises(ValueError, match="float32 or bfloat16" if bad == "float16" else "device"):
+        fa.flash_attention(q, q, q, torch.ones(1, 64, dtype=torch.int32, device=q.device), 1.0)
+
+
+def _block_pair(T, dtype, seed, use_flash=True):
+    """The port's and JAX's FFTBlock(d_model 32, d_inner 48, 2 heads of 16,
+    use_flash, dtype) on the same weights; a batch of 2 whose second item
+    is padded from 3/4 of T on."""
+    rng = np.random.default_rng(seed)
+    B, D = 2, 32
+    x = rng.standard_normal((B, T, D)).astype(np.float32)
+    seq = np.ones((B, T), np.int32)
+    seq[1, 3 * T // 4:] = 0
+    non_pad = (seq != 0).astype(np.float32)[..., None]
+    mask = np.broadcast_to((seq == 0)[:, None, :], (B, T, T))
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else None
+    jm = JFFT(D, 48, 2, 16, 16, dropout=0.0, use_flash=use_flash, dtype=jdt)
+    jargs = (jnp.asarray(x), jnp.asarray(non_pad), jnp.asarray(mask))
+    jv = jm.init(jax.random.PRNGKey(seed), *jargs)
+    want = np.asarray(jm.apply(jv, *jargs)[0].astype(jnp.float32))
+    sd = weights._to_torch(weights._export(
+        {"params": {"m": {"layer_stack_0": jax.tree_util.tree_map(np.asarray, jv["params"])}}},
+        weights._fft_stack_spec("m", "m", 1)))
+    tm = FFTBlock(D, 48, 2, 16, 16, dropout=0.0, use_flash=use_flash,
+                  dtype=torch.bfloat16 if dtype == "bfloat16" else None, device="cpu")
+    tm.load_state_dict({k[len("m.layer_stack.0."):]: v for k, v in sd.items()}, strict=True)
+    with torch.no_grad():
+        got, attn = tm.eval()(torch.tensor(x), torch.tensor(non_pad), torch.tensor(mask))
+    return got.float().numpy(), attn, want, seq
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_block_matches_jax(dtype):
+    """FFTBlock(use_flash=True) at T = 256 (the gate passes: the port takes
+    the flash branch) against JAX's, which takes the dense branch on the
+    CPU: real rows atol 2e-5 in f32, 3e-2 of the largest value in bf16; pad
+    rows are zero in both."""
+    got, attn, want, seq = _block_pair(256, dtype, seed=2)
+    assert tuple(attn.shape) == (2, 2, 0, 0)  # the flash branch ran
+    real = seq.astype(bool)
+    assert not got[~real].any() and not want[~real].any()
+    err = np.abs(got[real] - want[real]).max()
+    print(f"{dtype} flash FFTBlock vs JAX: real rows max |diff| {err:.3g}, "
+          f"relative {_max_rel(got[real], want[real]):.3g}")
+    if dtype == "float32":
+        np.testing.assert_allclose(got[real], want[real], atol=2e-5)
+    else:
+        assert _max_rel(got[real], want[real]) <= BLOCK_BF16_RTOL
+
+
+@pytest.mark.parametrize("T,flash", [(3000, False), (128, False), (200, False), (256, True),
+                                     (3072, True)])
+def test_flash_gate(T, flash):
+    """JAX's gate: d_v == d_k, T % 128 == 0 and T >= 256.  The dense branch
+    returns the [B, H, T, T] probabilities, the flash branch [B, H, 0, 0]."""
+    assert flash_gate(True, 16, 16, T) == flash
+    assert not flash_gate(False, 16, 16, T) and not flash_gate(True, 16, 8, T)
+    rng = np.random.default_rng(3)
+    x = torch.tensor(rng.standard_normal((1, T, 8)).astype(np.float32))
+    blk = FFTBlock(8, 16, 1, 8, 8, dropout=0.0, use_flash=True, device="cpu").eval()
+    with torch.no_grad():
+        _, attn = blk(x)
+    assert tuple(attn.shape) == ((1, 1, 0, 0) if flash else (1, 1, T, T))
+
+
+def test_dropout_guard():
+    """A training forward with use_flash and dropout > 0 raises ValueError,
+    even where the gate would not pass (T = 16), as JAX's does; dropout 0, or
+    an eval forward, runs."""
+    x = torch.zeros(1, 16, 32)
+    blk = FFTBlock(32, 64, 2, 16, 16, dropout=0.1, use_flash=True, device="cpu")
+    with pytest.raises(ValueError, match="attention-prob dropout"):
+        blk.train()(x)
+    blk.eval()(x)
+    FFTBlock(32, 64, 2, 16, 16, dropout=0.0, use_flash=True, device="cpu").train()(x)
+    FFTBlock(32, 64, 2, 16, 16, dropout=0.1, use_flash=False, device="cpu").train()(x)

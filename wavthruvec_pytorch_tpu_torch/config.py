@@ -8,7 +8,9 @@ compatibility:
 
 * ``gru_impl`` selects nothing here: the CBHG BiGRU always computes what the
   JAX ``gru_impl="pallas"`` kernel computes (bf16 ``w_hh``, f32 carry);
-* ``flash_attention=True``, ``compute_dtype != "float32"`` and
+* ``Text2VecConfig.flash_attention=True`` and ``compute_dtype="bfloat16"``
+  are ported (the trainer computes in bf16, serving in f32, as in the JAX
+  package); ``Vec2WavConfig.compute_dtype != "float32"`` and
   ``attn_use_partial_padding=True`` are not ported yet and raise
   ``NotImplementedError`` where a model is built.
 """
@@ -197,16 +199,11 @@ def load_config(cls, path: str):
 
 def check_ported(cfg) -> None:
     """Raise for a config flag whose JAX implementation is not ported yet."""
-    if cfg.compute_dtype != "float32":
+    if isinstance(cfg, Vec2WavConfig) and cfg.compute_dtype != "float32":
         raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r} is not ported; the port "
-            "computes in float32 (ROADMAP.md, queue 1 item 3: reduced-precision "
-            "serving variants)."
-        )
-    if getattr(cfg, "flash_attention", False):
-        raise NotImplementedError(
-            "flash_attention=True is not ported (ROADMAP.md, queue 2 item 3: "
-            "flash attention for Hopper)."
+            f"Vec2WavConfig.compute_dtype={cfg.compute_dtype!r} is not ported; the "
+            "Generator computes in float32 (ROADMAP.md, queue 1 item 3: the bf16 "
+            "serving Generator)."
         )
     if getattr(cfg, "attn_use_partial_padding", False):
         raise NotImplementedError(

@@ -34,7 +34,12 @@
 //     __syncthreads;
 //   * each row's take_left goes into shared memory as bits, one
 //     __ballot_sync word per warp: T * ceil(N/32) * 4 bytes, 48,000 bytes at
-//     T = 3000, N = 128, held as dynamic shared memory;
+//     T = 3000, N = 128, held as dynamic shared memory.  Where that exceeds
+//     the card's opt-in shared memory per block (294,912 bytes at T = 3072,
+//     N = 768 against the H100's 232,448), the bits go to a global scratch
+//     [B, T, ceil(N/32)] uint32 that the caller allocates (4.7 MB at
+//     B = 16): the same words, written by lane 0 of each warp and read by
+//     the backtrack after the block's barrier, mostly from L2;
 //   * the input rows are loaded CHUNK at a time into registers, the next
 //     chunk's loads issued before the current chunk is walked, so the
 //     chain does not wait on device memory every row;
@@ -56,17 +61,20 @@ __device__ __forceinline__ float log_cell(float a) {
 }
 
 // attn: [B, T, N] f32; in_lens, out_lens: [B] int32; opt: [B, T, N] f32.
-// blockDim.x = 32 * ceil(N / 32); dynamic shared memory T * W words,
-// W = ceil(N / 32).
+// blockDim.x = 32 * ceil(N / 32), W = ceil(N / 32).  The [T, W] take-left
+// bits are dynamic shared memory of T * W words, or with GLOBAL_BITS the
+// item's slice of gbits [B, T, W].
+template <bool GLOBAL_BITS>
 __global__ void mas_kernel(const float* __restrict__ attn, const int* __restrict__ in_lens,
                            const int* __restrict__ out_lens, float* __restrict__ opt,
-                           int T, int N) {
-  extern __shared__ uint32_t bits[];  // [T, W] take_left bits
+                           uint32_t* __restrict__ gbits, int T, int N) {
+  extern __shared__ uint32_t sbits[];
   __shared__ float edge[2][32];       // each warp's last log_p, by row parity
   const int b = blockIdx.x;
   const int j = threadIdx.x;
   const int lane = j % 32, warp = j / 32;
   const int W = blockDim.x / 32;
+  uint32_t* bits = GLOBAL_BITS ? gbits + static_cast<size_t>(b) * T * W : sbits;
   const int in_len = min(max(in_lens[b], 0), N);
   const int out_len = min(max(out_lens[b], 0), T);
   const float* a = attn + static_cast<size_t>(b) * T * N;
@@ -135,19 +143,30 @@ size_t mas_shared_bytes(int T, int N) {
 }
 
 // attn: [B, T, N] f32 contiguous; in_lens, out_lens: [B] int32; opt: [B, T,
-// N] f32, written in full.  1 <= N <= 1024; mas_shared_bytes(T, N) must fit
-// the card's opt-in shared memory per block.  Returns the first
+// N] f32, written in full.  1 <= N <= 1024.  With bits == nullptr the
+// take-left bits live in shared memory, and mas_shared_bytes(T, N) must fit
+// the card's opt-in shared memory per block; else bits is a scratch of
+// B * mas_shared_bytes(T, N) bytes on the card.  Returns the first
 // cudaError_t (0 on success).
 int mas_forward(const void* attn, const void* in_lens, const void* out_lens, void* opt,
-                int B, int T, int N, void* stream) {
+                int B, int T, int N, void* bits, void* stream) {
+  const int threads = 32 * ((N + 31) / 32);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bits != nullptr) {
+    mas_kernel<true><<<B, threads, 0, s>>>(
+        static_cast<const float*>(attn), static_cast<const int*>(in_lens),
+        static_cast<const int*>(out_lens), static_cast<float*>(opt),
+        static_cast<uint32_t*>(bits), T, N);
+    return static_cast<int>(cudaGetLastError());
+  }
   const size_t smem = mas_shared_bytes(T, N);
-  cudaError_t e = cudaFuncSetAttribute(mas_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t e = cudaFuncSetAttribute(mas_kernel<false>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int threads = 32 * ((N + 31) / 32);
-  mas_kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  mas_kernel<false><<<B, threads, smem, s>>>(
       static_cast<const float*>(attn), static_cast<const int*>(in_lens),
-      static_cast<const int*>(out_lens), static_cast<float*>(opt), T, N);
+      static_cast<const int*>(out_lens), static_cast<float*>(opt), nullptr, T, N);
   return static_cast<int>(cudaGetLastError());
 }
 

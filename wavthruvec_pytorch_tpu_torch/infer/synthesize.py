@@ -6,6 +6,11 @@ the largest frame bucket); all padding is masked, so a batch of mixed-length
 texts gives each item what it would get alone.  Noise for the vocoder comes
 from a ``torch.Generator`` seeded with ``seed``, a different stream from the
 JAX package's ``jax.random``: pass ``noise`` to reproduce a JAX run.
+Text2Vec runs in f32 whatever the config's ``compute_dtype``, as the JAX
+package's ``Synthesizer`` builds it (``infer/synthesize.py:158``); a
+``flash_attention`` config takes the flash forward kernel in both stacks
+where the gate passes (text bucket 768 and frame bucket 3072 in the
+long-bucket config).
 """
 
 from __future__ import annotations

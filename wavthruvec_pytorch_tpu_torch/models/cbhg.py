@@ -4,7 +4,9 @@
 The K=8 conv bank keeps the reference's per-k BatchNormConv1d (conv pad k//2,
 no bias, ReLU, BN) with the [:T] slice for even kernels; maxpool(k=2, s=1,
 pad=1) is sliced back to T.  The BiGRU runs the hand-written recurrence
-kernel on the card (``ops/gru.py``).
+kernel on the card (``ops/gru.py``).  ``dtype`` is the convolutions' compute
+dtype; as in the JAX package the BatchNorms, the highways and the BiGRU
+have none and compute in f32.
 """
 
 from __future__ import annotations
@@ -23,10 +25,10 @@ class BatchNormConv1d(nn.Module):
     text2vec/module.py:159-176)."""
 
     def __init__(self, in_dim: int, out_dim: int, kernel_size: int, padding: int = 0,
-                 activation: Optional[str] = None, device=None):
+                 activation: Optional[str] = None, dtype=None, device=None):
         super().__init__()
         self.conv1d = Conv1d(in_dim, out_dim, kernel_size, padding=padding, bias=False,
-                             w_init_gain="linear", device=device)
+                             w_init_gain="linear", dtype=dtype, device=device)
         self.bn = BatchNorm(out_dim, device=device)
         self.activation = activation
 
@@ -40,17 +42,17 @@ class BatchNormConv1d(nn.Module):
 class CBHG(nn.Module):
     """[B, T, in_dim] -> [B, T, 2 * in_dim], with projections (256, in_dim)."""
 
-    def __init__(self, in_dim: int, K: int = 8, device=None):
+    def __init__(self, in_dim: int, K: int = 8, dtype=None, device=None):
         super().__init__()
         self.conv1d_banks = nn.ModuleList(
             BatchNormConv1d(in_dim, in_dim, k, padding=k // 2, activation="relu",
-                            device=device)
+                            dtype=dtype, device=device)
             for k in range(1, K + 1))
         projections = (256, in_dim)
         in_sizes = (K * in_dim,) + projections[:-1]
         activations = ("relu", None)
         self.conv1d_projections = nn.ModuleList(
-            BatchNormConv1d(i, o, 3, padding=1, activation=a, device=device)
+            BatchNormConv1d(i, o, 3, padding=1, activation=a, dtype=dtype, device=device)
             for i, o, a in zip(in_sizes, projections, activations))
         # The reference's pre_highway Linear(1024, in_dim) (module.py:312) is
         # dead weight: it is bypassed because projections[-1] == in_dim.  It

@@ -1,6 +1,8 @@
 """Duration predictor (JAX package: models/duration.py; reference:
 text2vec/module.py:110-156): 2 x (Conv1d k=3 pad=1 -> LayerNorm -> ReLU ->
-Dropout) -> Linear -> ReLU; dropout is the identity in eval mode."""
+Dropout) -> Linear -> ReLU; dropout is the identity in eval mode.  ``dtype``
+is the convolutions' compute dtype; as in the JAX package the LayerNorms
+and the Linear have none, so the output is f32."""
 
 from __future__ import annotations
 
@@ -14,10 +16,10 @@ class ConvNorm(nn.Module):
     """The reference's ConvNorm wrapper: a Conv1d kept under ``.conv``."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 1,
-                 padding: int = 0, w_init_gain: str = "linear", device=None):
+                 padding: int = 0, w_init_gain: str = "linear", dtype=None, device=None):
         super().__init__()
         self.conv = Conv1d(in_channels, out_channels, kernel_size, padding=padding,
-                           w_init_gain=w_init_gain, device=device)
+                           w_init_gain=w_init_gain, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x)
@@ -25,12 +27,13 @@ class ConvNorm(nn.Module):
 
 class DurationPredictor(nn.Module):
     def __init__(self, in_dim: int, filter_size: int = 256, kernel_size: int = 3,
-                 dropout: float = 0.1, device=None):
+                 dropout: float = 0.1, dtype=None, device=None):
         super().__init__()
         self.conv_layer = nn.ModuleDict({
-            "conv1d_1": ConvNorm(in_dim, filter_size, kernel_size, padding=1, device=device),
+            "conv1d_1": ConvNorm(in_dim, filter_size, kernel_size, padding=1, dtype=dtype,
+                                 device=device),
             "layer_norm_1": LayerNorm(filter_size, device=device),
-            "conv1d_2": ConvNorm(filter_size, filter_size, kernel_size, padding=1,
+            "conv1d_2": ConvNorm(filter_size, filter_size, kernel_size, padding=1, dtype=dtype,
                                  device=device),
             "layer_norm_2": LayerNorm(filter_size, device=device),
         })

@@ -6,6 +6,15 @@ dense inputs) and transposes internally where ``F.conv1d`` wants
 keys that ``weights.py`` emits, so state dicts load with ``strict=True``.
 BatchNorm follows the module's train/eval mode with flax's semantics;
 spectral norm uses its stored ``u``, ``v`` without iterating.
+
+Compute dtype, flax's rule (``dtype`` of ``nn.Dense``, ``nn.Conv``,
+``nn.LayerNorm``, ``nn.BatchNorm``): a layer built with ``dtype`` casts its
+input and its f32 parameters to it and returns that dtype; with ``dtype=None``
+it computes in the promotion of its input's and parameters' dtypes (bf16
+input and f32 parameters: f32).  Parameters stay f32 and their gradients
+reach them in f32 through the casts.  The normalisations take their
+statistics in f32 whatever the dtype.  A product and its bias add are two
+roundings, as in flax.
 """
 
 from __future__ import annotations
@@ -20,8 +29,44 @@ from wavthruvec_pytorch_tpu_torch.ops.gru import GRURecurrence
 
 _GAIN = {"linear": 1.0, "relu": math.sqrt(2.0), "tanh": 5.0 / 3.0, "sigmoid": 1.0}
 
-# JAX's TorchLinear is nn.Dense with torch's default init: nn.Linear itself.
-TorchLinear = nn.Linear
+def compute_dtype(dtype, x: torch.Tensor, *params) -> torch.dtype:
+    """flax's rule: ``dtype`` if given, else the promotion of the input's and
+    the parameters' dtypes."""
+    if dtype is not None:
+        return dtype
+    dt = x.dtype
+    for p in params:
+        if p is not None:
+            dt = torch.promote_types(dt, p.dtype)
+    return dt
+
+
+def _casts(dtype, x, *params) -> bool:
+    """Whether the layer must cast: a dtype is given, or its input's and
+    parameters' dtypes differ.  Otherwise the one-call path of before runs."""
+    return dtype is not None or any(p is not None and p.dtype != x.dtype for p in params)
+
+
+def dense(x: torch.Tensor, weight: torch.Tensor, bias, dtype=None) -> torch.Tensor:
+    """flax ``nn.Dense(dtype)`` with a torch-layout weight [out, in]."""
+    if not _casts(dtype, x, weight, bias):
+        return F.linear(x, weight, bias)
+    dt = compute_dtype(dtype, x, weight, bias)
+    y = F.linear(x.to(dt), weight.to(dt))
+    return y if bias is None else y + bias.to(dt)
+
+
+class TorchLinear(nn.Linear):
+    """nn.Linear with torch's default init (JAX: ``TorchLinear``) and a
+    compute ``dtype`` (None: promote)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True, dtype=None,
+                 device=None):
+        super().__init__(in_features, out_features, bias=bias, device=device)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dense(x, self.weight, self.bias, self.compute_dtype)
 
 
 class Linear(nn.Module):
@@ -29,9 +74,10 @@ class Linear(nn.Module):
     reference's ``linear_layer`` attribute (text2vec/subLayer.py:11-31)."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 w_init_gain: str = "linear", device=None):
+                 w_init_gain: str = "linear", dtype=None, device=None):
         super().__init__()
-        self.linear_layer = nn.Linear(in_features, out_features, bias=bias, device=device)
+        self.linear_layer = TorchLinear(in_features, out_features, bias=bias, dtype=dtype,
+                                        device=device)
         nn.init.xavier_uniform_(self.linear_layer.weight, gain=_GAIN[w_init_gain])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -39,25 +85,44 @@ class Linear(nn.Module):
 
 
 class Conv1d(nn.Conv1d):
-    """torch Conv1d over ``[B, T, C]`` (optionally xavier-initialised)."""
+    """torch Conv1d over ``[B, T, C]`` (optionally xavier-initialised) with a
+    compute ``dtype`` (None: promote)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, dilation: int = 1,
-                 bias: bool = True, w_init_gain: str | None = None, device=None):
+                 bias: bool = True, w_init_gain: str | None = None, dtype=None, device=None):
         super().__init__(in_channels, out_channels, kernel_size, stride=stride,
                          padding=padding, dilation=dilation, bias=bias, device=device)
         if w_init_gain is not None:
             nn.init.xavier_uniform_(self.weight, gain=_GAIN[w_init_gain])
+        self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.transpose(1, 2)).transpose(1, 2)
+        if not _casts(self.compute_dtype, x, self.weight, self.bias):
+            return super().forward(x.transpose(1, 2)).transpose(1, 2)
+        dt = compute_dtype(self.compute_dtype, x, self.weight, self.bias)
+        y = F.conv1d(x.transpose(1, 2).to(dt), self.weight.to(dt), None, self.stride,
+                     self.padding, self.dilation)
+        if self.bias is not None:
+            y = y + self.bias.to(dt)[:, None]
+        return y.transpose(1, 2)
 
 
 class LayerNorm(nn.LayerNorm):
-    """LayerNorm over the last dim with torch's eps 1e-5."""
+    """LayerNorm over the last dim with torch's eps 1e-5 and a compute
+    ``dtype`` (None: promote): statistics and normalisation in f32, the
+    result cast to the dtype."""
 
-    def __init__(self, normalized_shape: int, device=None):
+    def __init__(self, normalized_shape: int, dtype=None, device=None):
         super().__init__(normalized_shape, eps=1e-5, device=device)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not _casts(self.compute_dtype, x, self.weight, self.bias):
+            return super().forward(x)
+        y = F.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
+                         self.bias.float(), self.eps)
+        return y.to(compute_dtype(self.compute_dtype, x, self.weight, self.bias))
 
 
 class BatchNorm(nn.Module):
@@ -73,9 +138,10 @@ class BatchNorm(nn.Module):
     """
 
     def __init__(self, num_features: int, affine: bool = True, eps: float = 1e-5,
-                 device=None):
+                 dtype=None, device=None):
         super().__init__()
         self.eps = eps
+        self.compute_dtype = dtype
         if affine:
             self.weight = nn.Parameter(torch.ones(num_features, device=device))
             self.bias = nn.Parameter(torch.zeros(num_features, device=device))
@@ -90,8 +156,9 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             dims = tuple(range(x.dim() - 1))
-            mean = x.mean(dim=dims)
-            var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
+            xf = x.float()  # flax takes the statistics in f32
+            mean = xf.mean(dim=dims)
+            var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
             with torch.no_grad():
                 # flax's momentum 0.9: ra = 0.9 * ra + (1 - 0.9) * stat
                 self.running_mean.copy_(0.9 * self.running_mean + (1.0 - 0.9) * mean)
@@ -106,12 +173,13 @@ class BatchNorm(nn.Module):
         y = (x - mean) * mul
         if self.bias is not None:
             y = y + self.bias
-        return y
+        return y.to(compute_dtype(self.compute_dtype, x, self.weight, self.bias))
 
 
 class Highway(nn.Module):
     """Highway layer (reference: text2vec/module.py:247-260): H bias zeroed,
-    T (gate) bias at -1."""
+    T (gate) bias at -1.  As in the JAX package it has no compute dtype: its
+    Dense layers promote."""
 
     def __init__(self, in_size: int, out_size: int, device=None):
         super().__init__()
@@ -121,8 +189,8 @@ class Highway(nn.Module):
         nn.init.constant_(self.T.bias, -1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = F.relu(self.H(x))
-        t = torch.sigmoid(self.T(x))
+        h = F.relu(dense(x, self.H.weight, self.H.bias))
+        t = torch.sigmoid(dense(x, self.T.weight, self.T.bias))
         return h * t + x * (1.0 - t)
 
 
@@ -257,6 +325,8 @@ class BiGRU(nn.Module):
         xs = torch.stack([x, torch.flip(x, dims=(1,))])  # [2, B, T, C]
         w_ih = torch.stack([self.weight_ih_l0, self.weight_ih_l0_reverse])  # [2, 3H, C]
         b_ih = torch.stack([self.bias_ih_l0, self.bias_ih_l0_reverse])
+        # JAX's einsum promotes a bf16 input with the f32 weights to f32
+        xs = xs.to(compute_dtype(None, xs, w_ih))
         gi = torch.matmul(xs.reshape(2, B * T, C), w_ih.transpose(1, 2))
         gi = (gi.reshape(2, B, T, H3) + b_ih[:, None, None]).contiguous()
         # JAX layout [D, H, 3H]: a transposed view of torch's [D, 3H, H]

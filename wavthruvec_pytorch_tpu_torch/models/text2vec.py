@@ -15,7 +15,14 @@ Semantics kept from the JAX package:
 * the decoder uses ``d_k = d_model // encoder_head`` (model.py:162);
 * ``forward`` runs BatchNorm (ECAPA, CBHG) on batch statistics and dropout
   as the module's train/eval mode says (JAX: ``train_bn``,
-  ``deterministic``); ``infer`` always runs in eval mode.
+  ``deterministic``); ``infer`` always runs in eval mode;
+* ``dtype`` (``torch.bfloat16`` for ``compute_dtype="bfloat16"`` training)
+  goes where JAX's ``Text2Vec(cfg, dtype)`` sends it: ECAPA, the FFT blocks,
+  the duration predictor, ``WVF_linear``, the CBHG convolutions and
+  ``last_linear``; ConvAttention stays f32.  Each of those layers returns its
+  dtype, and f32 elsewhere follows the promotions (``models/layers.py``);
+* ``cfg.flash_attention`` sends both FFT stacks through the flash branch
+  where its gate passes (``models/fft_block.py``).
 """
 
 from __future__ import annotations
@@ -55,13 +62,13 @@ def _position_table(n_position: int, d_hid: int, device) -> nn.Embedding:
 
 
 def _fft_stack(cfg: Text2VecConfig, d_model: int, d_inner: int, n_head: int,
-               n_layer: int, device) -> nn.ModuleList:
+               n_layer: int, dtype, device) -> nn.ModuleList:
     d_k = d_model // cfg.encoder_head  # the reference uses encoder_head in both stacks
     return nn.ModuleList(
         FFTBlock(d_model, d_inner, n_head, d_k, d_k,
                  fft_conv1d_kernel=cfg.fft_conv1d_kernel,
                  fft_conv1d_padding=cfg.fft_conv1d_padding, dropout=cfg.dropout,
-                 device=device)
+                 use_flash=cfg.flash_attention, dtype=dtype, device=device)
         for _ in range(n_layer))
 
 
@@ -69,17 +76,17 @@ class Encoder(nn.Module):
     """Char embedding + clamped sinusoid positions + ECAPA speaker concat +
     FFT stack (n_position = vocab_size + 1, the reference's quirk, model.py:86)."""
 
-    def __init__(self, cfg: Text2VecConfig, device=None):
+    def __init__(self, cfg: Text2VecConfig, dtype=None, device=None):
         super().__init__()
         self.cfg = cfg
         self.src_word_emb = nn.Embedding(cfg.vocab_size, cfg.encoder_dim, device=device)
         self.position_enc = _position_table(cfg.vocab_size + 1, cfg.encoder_dim, device)
         if cfg.use_multi_speaker_condition:
             self.speaker_encoder = ECAPA_TDNN(cfg.spk_channel, cfg.n_feat_dim,
-                                              cfg.n_speaker_dim, device=device)
+                                              cfg.n_speaker_dim, dtype=dtype, device=device)
         self.layer_stack = _fft_stack(cfg, cfg.encoder_output_dim,
                                       cfg.encoder_conv1d_filter_size, cfg.encoder_head,
-                                      cfg.encoder_n_layer, device)
+                                      cfg.encoder_n_layer, dtype, device)
 
     def forward(self, src_seq: torch.Tensor, src_pos: torch.Tensor,
                 wav_feat: Optional[torch.Tensor] = None,
@@ -105,13 +112,13 @@ class Encoder(nn.Module):
 class Decoder(nn.Module):
     """Clamped sinusoid positions + FFT stack over expanded frames."""
 
-    def __init__(self, cfg: Text2VecConfig, device=None):
+    def __init__(self, cfg: Text2VecConfig, dtype=None, device=None):
         super().__init__()
         self.cfg = cfg
         self.position_enc = _position_table(cfg.max_seq_len + 1, cfg.decoder_model_dim, device)
         self.layer_stack = _fft_stack(cfg, cfg.decoder_model_dim,
                                       cfg.decoder_conv1d_filter_size, cfg.decoder_head,
-                                      cfg.decoder_n_layer, device)
+                                      cfg.decoder_n_layer, dtype, device)
 
     def forward(self, enc_seq: torch.Tensor, enc_pos: torch.Tensor) -> torch.Tensor:
         slf_attn_mask = get_attn_key_pad_mask(enc_pos, enc_pos)
@@ -126,11 +133,11 @@ class LengthRegulator(nn.Module):
     """Holds the duration predictor under the reference's attribute path
     (``length_regulator.duration_predictor``)."""
 
-    def __init__(self, cfg: Text2VecConfig, device=None):
+    def __init__(self, cfg: Text2VecConfig, dtype=None, device=None):
         super().__init__()
         self.duration_predictor = DurationPredictor(
             cfg.encoder_output_dim, cfg.duration_predictor_filter_size,
-            cfg.duration_predictor_kernel_size, cfg.dropout, device=device)
+            cfg.duration_predictor_kernel_size, cfg.dropout, dtype=dtype, device=device)
 
 
 @contextlib.contextmanager
@@ -149,21 +156,26 @@ def _eval_mode(module: nn.Module):
 class Text2Vec(nn.Module):
     """Text2Vec with reference parameter names; ``forward`` is the training
     branch, ``infer`` the inference branch.  ``device`` defaults to the card
-    and raises without one.  The sinusoid position tables are frozen
+    and raises without one.  ``dtype`` is the compute dtype (None: f32; the
+    parameters are f32 either way), independent of ``cfg.compute_dtype``:
+    the trainer passes bf16 for a bf16 config, serving builds f32, as the
+    JAX package does.  The sinusoid position tables are frozen
     (``requires_grad=False``): they are not parameters of the JAX model, and
     the optimizer leaves them out."""
 
-    def __init__(self, cfg: Text2VecConfig, device=None):
+    def __init__(self, cfg: Text2VecConfig, device=None, dtype=None):
         super().__init__()
         check_ported(cfg)
         device = resolve_device(device)
         self.cfg = cfg
-        self.encoder = Encoder(cfg, device=device)
-        self.decoder = Decoder(cfg, device=device)
-        self.length_regulator = LengthRegulator(cfg, device=device)
-        self.WVF_linear = Linear(cfg.decoder_model_dim, cfg.n_feat_dim, device=device)
-        self.postnet = CBHG(cfg.n_feat_dim, K=8, device=device)
-        self.last_linear = Linear(2 * cfg.n_feat_dim, cfg.n_feat_dim, device=device)
+        self.encoder = Encoder(cfg, dtype=dtype, device=device)
+        self.decoder = Decoder(cfg, dtype=dtype, device=device)
+        self.length_regulator = LengthRegulator(cfg, dtype=dtype, device=device)
+        self.WVF_linear = Linear(cfg.decoder_model_dim, cfg.n_feat_dim, dtype=dtype,
+                                 device=device)
+        self.postnet = CBHG(cfg.n_feat_dim, K=8, dtype=dtype, device=device)
+        self.last_linear = Linear(2 * cfg.n_feat_dim, cfg.n_feat_dim, dtype=dtype,
+                                  device=device)
         if cfg.learn_alignments:
             n_text = (cfg.encoder_dim + cfg.n_speaker_dim
                       if cfg.use_speaker_emb_for_alignment else cfg.encoder_dim)
@@ -190,7 +202,9 @@ class Text2Vec(nn.Module):
                                                  attn_prior=attn_prior)
         attn_hard = mas_width1(attn_soft.detach(), in_lens, out_lens)
         duration = attn_hard.sum(dim=1).to(torch.int32)
-        lr_output = torch.matmul(attn_hard, encoder_output)  # hard-attention expansion
+        # hard-attention expansion; JAX takes its product in f32 whatever the
+        # encoder's dtype (preferred_element_type), and attn_hard is 0/1
+        lr_output = torch.matmul(attn_hard, encoder_output.float())
         dp_out = self.length_regulator.duration_predictor(encoder_output)
 
         max_len = wav_feat.shape[1]

@@ -1,0 +1,190 @@
+"""Flash attention with segment masking as hand-written CUDA kernels
+(``csrc/flash_attn.cu``: the forward, dK/dV and dQ) with the plain PyTorch
+version beside them.
+
+JAX counterpart: ``jax.experimental.pallas.ops.tpu.flash_attention`` (jax
+0.9.0), which the JAX package's ``MultiHeadAttention`` calls on the TPU
+(``models/fft_block.py:106-134``); its CPU oracle is
+``mha_reference_no_custom_vjp``.  Query row r attends to key c only where
+``seg[r] == seg[c]`` (1 real, 0 pad in the FFT blocks); elsewhere the score
+is ``-0.7 * f32max``.  Scores, the softmax and the products' sums are f32
+whatever the input dtype; the unnormalised probabilities are rounded to the
+input dtype before the product with v, as the TPU kernel does in bf16.
+
+``flash_attention`` (``FlashAttention.apply``) is what the model calls: on a
+CUDA tensor its forward is the forward kernel and its backward the two
+backward kernels; on a CPU tensor both are the plain version (the backward
+by autograd through it).  Any other device or dtype raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from wavthruvec_pytorch_tpu_torch.ops import kernel_build
+
+MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+_DTYPES = (torch.float32, torch.bfloat16)
+_MAX_D = 256
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seg: torch.Tensor,
+                          sm_scale: float):
+    """q, k, v [B, H, T, D] (f32 or bf16), seg [B, T] integer ids ->
+    (out [B, H, T, D] in q's dtype, lse [B, H, T] f32).  The probabilities
+    are rounded to the input dtype before the product with v; their
+    gradient passes the rounding unchanged, as the kernels' backward keeps
+    dP in f32."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+    same = seg[:, None, :, None] == seg[:, None, None, :]
+    s = torch.where(same, s, MASK_VALUE)
+    m = s.amax(dim=-1, keepdim=True).detach()  # the result does not depend on m
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    p_in = p + (p.to(q.dtype).float() - p).detach()  # rounded value, identity gradient
+    out = torch.matmul(p_in, v.float()) / l
+    return out.to(q.dtype), (m + torch.log(l))[..., 0]
+
+
+def _lib() -> ctypes.CDLL:
+    lib = kernel_build.load("flash_attn")
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_fwd.argtypes = [ptr] * 6 + [i32] * 4 + [f32, i32, ptr]
+    lib.flash_bwd_dkv.argtypes = [ptr] * 9 + [i32] * 4 + [f32, i32, ptr]
+    lib.flash_bwd_dq.argtypes = [ptr] * 8 + [i32] * 4 + [f32, i32, ptr]
+    for fn in (lib.flash_fwd, lib.flash_bwd_dkv, lib.flash_bwd_dq):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_cuda(q, k, v, seg, *more):
+    """Raise for what the kernels do not take; returns (B, H, T, D)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention kernels: unsupported device {q.device}")
+    if q.dim() != 4:
+        raise ValueError(f"q must be [B, H, T, D], got {tuple(q.shape)}")
+    B, H, T, D = q.shape
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"flash attention takes float32 or bfloat16, got {q.dtype}")
+    for t in (k, v) + more:
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"k, v (and dout) must match q {q.dtype} {tuple(q.shape)} on "
+                             f"{q.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if T % 64 != 0 or not 1 <= D <= _MAX_D or (q.dtype == torch.bfloat16 and D % 16 != 0):
+        raise ValueError(f"flash attention kernels take T % 64 == 0, D <= {_MAX_D} and, in "
+                         f"bfloat16, D % 16 == 0; got T={T}, D={D}")
+    if tuple(seg.shape) != (B, T) or seg.dtype.is_floating_point or seg.device != q.device:
+        raise ValueError(f"seg must be an integer [{B}, {T}] tensor on {q.device}, got "
+                         f"{seg.dtype} {tuple(seg.shape)} on {seg.device}")
+    return B, H, T, D
+
+
+def _btkd(t: torch.Tensor) -> torch.Tensor:
+    """[B, H, T, D] -> the kernels' contiguous [B, T, H, D] (no copy for a
+    transposed view of one, as the model passes)."""
+    return t.transpose(1, 2).contiguous()
+
+
+def flash_fwd(q, k, v, seg, sm_scale: float):
+    """The forward kernel: q, k, v [B, H, T, D] CUDA f32 or bf16, seg [B, T]
+    -> (out [B, H, T, D], a transposed view of a [B, T, H, D] tensor; lse
+    [B, H, T] f32).  One launch."""
+    B, H, T, D = _check_cuda(q, k, v, seg)
+    qc, kc, vc = _btkd(q), _btkd(k), _btkd(v)
+    out = torch.empty_like(qc)
+    lse = torch.empty(B, H, T, device=q.device, dtype=torch.float32)
+    seg32 = seg.to(torch.int32).contiguous()
+    lib = _lib()
+    err = lib.flash_fwd(qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), seg32.data_ptr(),
+                        out.data_ptr(), lse.data_ptr(), B, H, T, D, float(sm_scale),
+                        int(q.dtype == torch.bfloat16),
+                        torch.cuda.current_stream(q.device).cuda_stream)
+    kernel_build.check(lib, err, "flash_fwd")
+    flash_fwd.launches += 1
+    return out.transpose(1, 2), lse
+
+
+def _bwd_args(q, k, v, seg, out, lse, dout):
+    B, H, T, D = _check_cuda(q, k, v, seg, out, dout)
+    if tuple(lse.shape) != (B, H, T) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be float32 [{B}, {H}, {T}], got {lse.dtype} {tuple(lse.shape)}")
+    # delta = rowsum(dO * out), outside the kernels as in the JAX package
+    delta = (dout.float() * out.float()).sum(dim=-1).contiguous()
+    tensors = (_btkd(q), _btkd(k), _btkd(v), seg.to(torch.int32).contiguous(), _btkd(dout),
+               lse.contiguous(), delta)
+    return (B, H, T, D), tensors
+
+
+def flash_bwd_dkv(q, k, v, seg, out, lse, dout, sm_scale: float):
+    """The dK/dV kernel -> (dk, dv) [B, H, T, D] in q's dtype.  One launch."""
+    (B, H, T, D), ts = _bwd_args(q, k, v, seg, out, lse, dout)
+    dk, dv = torch.empty_like(ts[0]), torch.empty_like(ts[0])
+    lib = _lib()
+    err = lib.flash_bwd_dkv(*(t.data_ptr() for t in ts), dk.data_ptr(), dv.data_ptr(),
+                            B, H, T, D, float(sm_scale), int(q.dtype == torch.bfloat16),
+                            torch.cuda.current_stream(q.device).cuda_stream)
+    kernel_build.check(lib, err, "flash_bwd_dkv")
+    flash_bwd_dkv.launches += 1
+    return dk.transpose(1, 2), dv.transpose(1, 2)
+
+
+def flash_bwd_dq(q, k, v, seg, out, lse, dout, sm_scale: float):
+    """The dQ kernel -> dq [B, H, T, D] in q's dtype.  One launch."""
+    (B, H, T, D), ts = _bwd_args(q, k, v, seg, out, lse, dout)
+    dq = torch.empty_like(ts[0])
+    lib = _lib()
+    err = lib.flash_bwd_dq(*(t.data_ptr() for t in ts), dq.data_ptr(),
+                           B, H, T, D, float(sm_scale), int(q.dtype == torch.bfloat16),
+                           torch.cuda.current_stream(q.device).cuda_stream)
+    kernel_build.check(lib, err, "flash_bwd_dq")
+    flash_bwd_dq.launches += 1
+    return dq.transpose(1, 2)
+
+
+# launches of each kernel
+flash_fwd.launches = 0
+flash_bwd_dkv.launches = 0
+flash_bwd_dq.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """``apply(q, k, v, seg, sm_scale)``: q, k, v [B, H, T, D], seg [B, T] ->
+    out [B, H, T, D].  CUDA tensors run the kernels, CPU tensors the plain
+    version; it saves q, k, v, out and lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seg, sm_scale):
+        if q.device.type == "cpu":
+            out, lse = flash_attention_plain(q, k, v, seg, sm_scale)
+        else:
+            out, lse = flash_fwd(q, k, v, seg, sm_scale)
+        ctx.save_for_backward(q, k, v, seg, out, lse)
+        ctx.sm_scale = sm_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, seg, out, lse = ctx.saved_tensors
+        if q.device.type == "cpu":
+            with torch.enable_grad():
+                qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+                o, _ = flash_attention_plain(*qkv, seg, ctx.sm_scale)
+                dq, dk, dv = torch.autograd.grad(o, qkv, dout)
+        else:
+            dk, dv = flash_bwd_dkv(q, k, v, seg, out, lse, dout, ctx.sm_scale)
+            dq = flash_bwd_dq(q, k, v, seg, out, lse, dout, ctx.sm_scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seg: torch.Tensor,
+                    sm_scale: float) -> torch.Tensor:
+    """Differentiable flash attention: q, k, v [B, H, T, D] float32 or
+    bfloat16 on the CPU or a CUDA device, seg [B, T] integer ids -> out
+    [B, H, T, D] in q's dtype."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"flash_attention takes float32 or bfloat16, got {q.dtype}")
+    return FlashAttention.apply(q, k, v, seg, sm_scale)

@@ -63,7 +63,7 @@ def mas_width1_plain(attn: torch.Tensor, in_lens: torch.Tensor,
 
 def _lib() -> ctypes.CDLL:
     lib = kernel_build.load("mas")
-    lib.mas_forward.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.mas_forward.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
     lib.mas_forward.restype = ctypes.c_int
     lib.mas_shared_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.mas_shared_bytes.restype = ctypes.c_size_t
@@ -75,8 +75,10 @@ def _lib() -> ctypes.CDLL:
 def mas_width1(attn: torch.Tensor, in_lens: torch.Tensor, out_lens: torch.Tensor) -> torch.Tensor:
     """attn [B, T, N] float32, in_lens/out_lens [B] integer -> [B, T, N]
     float32 hard alignment.  CPU tensors take ``mas_width1_plain``; CUDA
-    tensors launch the kernel (one launch); anything else raises.  Lengths
-    are read as ``0 <= in_len <= N`` and ``0 <= out_len <= T``."""
+    tensors launch the kernel (one launch), with its take-left bits in shared
+    memory where they fit the card's opt-in shared memory per block and in a
+    global scratch where they do not; anything else raises.  Lengths are
+    read as ``0 <= in_len <= N`` and ``0 <= out_len <= T``."""
     if attn.device.type == "cpu":
         return mas_width1_plain(attn, in_lens, out_lens)
     if attn.device.type != "cuda":
@@ -94,17 +96,16 @@ def mas_width1(attn: torch.Tensor, in_lens: torch.Tensor, out_lens: torch.Tensor
             raise ValueError(f"{name} must be an integer [{B}] tensor on {attn.device}, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
     lib = _lib()
-    smem = lib.mas_shared_bytes(T, N) + _STATIC_SHARED
-    limit = lib.mas_max_shared_bytes(attn.device.index)
-    if smem > limit:
-        raise ValueError(f"mas_width1: T={T}, N={N} needs {smem} bytes of shared memory "
-                         f"for its take-left bits; this card allows {limit} per block")
+    bits_bytes = lib.mas_shared_bytes(T, N)
+    bits = None
+    if bits_bytes + _STATIC_SHARED > lib.mas_max_shared_bytes(attn.device.index):
+        bits = torch.empty(B * bits_bytes // 4, dtype=torch.int32, device=attn.device)
     in32 = in_lens.to(torch.int32).contiguous()
     out32 = out_lens.to(torch.int32).contiguous()
     opt = torch.empty_like(attn)
     stream = torch.cuda.current_stream(attn.device).cuda_stream
     err = lib.mas_forward(attn.data_ptr(), in32.data_ptr(), out32.data_ptr(), opt.data_ptr(),
-                          B, T, N, stream)
+                          B, T, N, None if bits is None else bits.data_ptr(), stream)
     kernel_build.check(lib, err, "mas_forward")
     mas_width1.launches += 1
     return opt

@@ -7,7 +7,9 @@ expansion, the duration predictor, decoder and postnet; the 4-term loss
 (``dnn_loss`` + ``binarization_loss_weight`` x binarization loss); the
 backward; a clip to global norm ``grad_clip_thresh`` when ``(step + 1) %
 grad_clip_every == 0``; the LAMB update; the BatchNorm running statistics
-move during the forward.
+move during the forward.  A config with ``compute_dtype="bfloat16"`` builds
+the model with bf16 compute (JAX: ``init_state``, text2vec_train.py:99); the
+parameters, their gradients, the clip and the LAMB state stay f32.
 """
 
 from __future__ import annotations
@@ -83,7 +85,10 @@ class Text2VecTrainer:
     def __init__(self, cfg: Text2VecConfig, device=None, model: Optional[Text2Vec] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.model = (model if model is not None else Text2Vec(cfg, device=self.device)).train()
+        if model is None:
+            dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
+            model = Text2Vec(cfg, device=self.device, dtype=dtype)
+        self.model = model.train()
         self.params = [p for p in self.model.parameters() if p.requires_grad]
         self.optimizer = Lamb(self.params, lr=cfg.learning_rate, betas=(cfg.beta1, cfg.beta2),
                               eps=cfg.epsilon, weight_decay=cfg.weight_decay)
