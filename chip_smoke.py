@@ -10,7 +10,7 @@ below is fatal: nothing is caught.
 1. Card and build: prints ``nvidia-smi``'s name and power limit, builds the
    CUDA kernels under ``wavthruvec_pytorch_tpu_torch/csrc/`` with ``nvcc``
    (one process per source, all at once) and prints the build seconds and
-   ``ptxas``'s register report.
+   ``ptxas``'s register report and warnings.
 2. Models: the full-size configs ``data/demo/text2vec.json`` (1024-d
    latents, 448-d FFT stacks, ECAPA C = 1024, CBHG H = 1024) and
    ``data/demo/vec2wav.json`` (512-channel Generator, x320) with seeded random
@@ -75,17 +75,25 @@ text bucket 768, frame bucket 3072), read where it lies:
     and encoder [16, 2, 768, 224] shapes and in f32 at the serving shapes
     [1, 2, 3072 | 768, 224]; dK/dV and dQ against autograd of the plain
     version in bf16 at B = 2 of the decoder shape and at the encoder's full
-    shape; each with its time, its bound and ``F.scaled_dot_product_attention``'s
-    (the same boolean mask; forward, and forward + backward).
+    shape; each with its time, TFLOP/s, share of its bound and
+    ``F.scaled_dot_product_attention``'s time (the same boolean mask;
+    forward, forward + backward, and the backward alone on a retained
+    graph).  The backward kernels are timed as the backward calls them,
+    after one shared ``backward_inputs`` (timed apart).  Three more bf16
+    cases hold the forward and both backward kernels at the edges: T = 384
+    with a length of 201 (a 128-query tile straddles the real/pad
+    boundary), T = 320 (the forward's last 128-query tile is half outside)
+    and T = 256 (the shortest length the model's gate passes).  ``ptxas``'s
+    register and spill report of the two wgmma kernels is printed again.
 14. Training: ``Text2VecTrainer`` (bf16) takes ``WARMUP_STEPS`` then
     ``TIMED_STEPS`` steps on one synthetic batch at B = 16, N = 768,
     T = 3072 (3-4 frames per character); counters, set to 0 just before the
     timed steps: per step 8 flash forward, 8 dK/dV and 8 dQ launches, 1 MAS
     launch and 1 BiGRU forward launch; then its time split and profile as in
-    phase 12; then two steps of the same config through the dense attention
-    branch, for their time and peak memory.  MAS is also held against its
-    plain version at (16, 3072, 768), where its take-left bits no longer
-    fit shared memory.
+    phase 12, with the flash kernels' device time; then two steps of the
+    same config through the dense attention branch, for their time and peak
+    memory.  MAS is also held against its plain version at (16, 3072, 768),
+    where its take-left bits no longer fit shared memory.
 15. One bf16 flash step on the card against the CPU: seeded full-size
     weights, B = 8, N = 256, T = 512 (both stacks take the flash gate, so the
     CPU runs the plain version), a diagonal prior that leaves MAS no
@@ -107,6 +115,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -138,6 +147,7 @@ from wavthruvec_pytorch_tpu_torch.ops.gru import (
     gru_fwd_plain,
 )
 from wavthruvec_pytorch_tpu_torch.ops.flash_attention import (
+    backward_inputs,
     flash_attention_plain,
     flash_bwd_dkv,
     flash_bwd_dq,
@@ -252,7 +262,7 @@ def build_kernels() -> None:
     print(f"build: {time.perf_counter() - t0:.1f} s for {', '.join(kernel_build.KERNELS)}")
     for name in kernel_build.KERNELS:
         for line in kernel_build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "arning" in line:
                 print(f"  {name}: {line.strip()}")
 
 
@@ -906,6 +916,17 @@ def profile_step(trainer, batch) -> None:
           f"{step_ms:.2f} ms step (profiled wall {wall_ms:.1f} ms)")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:6d}  {e.key[:100]}")
+    flash = {}
+    for e in kernels:
+        name = re.search(r"flash_\w+", e.key)
+        if name:
+            ms, n = flash.get(name.group(0), (0.0, 0))
+            flash[name.group(0)] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    if flash:
+        flash_ms = sum(ms for ms, _ in flash.values())
+        parts = ", ".join(f"{k} {ms:.2f} ms x{n}" for k, (ms, n) in sorted(flash.items()))
+        print(f"  flash kernels: {flash_ms:.2f} ms of device time ({100 * flash_ms / busy_ms:.1f}% "
+              f"of busy): {parts}")
 
 
 def long_config() -> Text2VecConfig:
@@ -913,15 +934,16 @@ def long_config() -> Text2VecConfig:
     return load_config(Text2VecConfig, repo_path(*LONG_CFG))
 
 
-def flash_case(B: int, T: int, dtype, seed: int):
+def flash_case(B: int, T: int, dtype, seed: int, lens=None):
     """q, k, v [B, H, T, D] as the model passes them (transposed views of
-    [B, T, H, D]), seeded N(0, 1), and segment ids of mixed lengths in
-    [T/2, T] (the first item full)."""
+    [B, T, H, D]), seeded N(0, 1), and segment ids of the lengths ``lens``,
+    by default mixed lengths in [T/2, T] (the first item full)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = (torch.randn((B, T, FLASH_H, FLASH_D), generator=g, device="cuda")
                .to(dtype).transpose(1, 2) for _ in range(3))
-    lens = np.random.default_rng(seed).integers(T // 2, T + 1, B)
-    lens[0] = T
+    if lens is None:
+        lens = np.random.default_rng(seed).integers(T // 2, T + 1, B)
+        lens[0] = T
     seg = (torch.arange(T, device="cuda")[None]
            < torch.tensor(lens, device="cuda")[:, None]).to(torch.int32)
     return q, k, v, seg
@@ -943,10 +965,19 @@ def rel_err(got, want) -> float:
     return float((got.float() - want.float()).abs().max() / want.float().abs().max())
 
 
+# bf16 edge cases of phase 13: (label, T, lengths)
+FLASH_EDGES = (("straddling tile", 384, (384, 201)), ("half tile", 320, (320, 201)),
+               ("shortest gated", 256, (256, 131)))
+
+
+def rate(n_ops: float, ms: float, bms: float) -> str:
+    return f"{n_ops / ms / 1e9:.0f} TFLOP/s, {100 * bms / ms:.1f}% of bound"
+
+
 def check_flash():
     """Phase 13: each flash kernel against its plain version at the path's
-    shapes, with times, bounds and SDPA's times.  The summary line takes
-    the training decoder's shape."""
+    shapes, with times, rates, bounds and SDPA's times.  The summary line
+    takes the training decoder's shape."""
     scale = 1.0 / math.sqrt(FLASH_D)
     rows = {}
 
@@ -956,13 +987,24 @@ def check_flash():
                               library_ms=lib)
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
 
+    print("flash wgmma kernels, ptxas:")
+    log = kernel_build.build_log("flash_attn").splitlines()
+    for i, line in enumerate(log):
+        for kern in ("flash_fwd_bf16", "flash_bwd_dkv_bf16"):
+            if "entry function" in line and kern in line:
+                for info in log[i + 1:i + 4]:
+                    if "registers" in info or "spill" in info:
+                        print(f"  {kern}: {info.strip()}")
+
     print(f"flash forward, kernel vs plain (out: rtol {FLASH_BF16_RTOL} bf16, {FLASH_F32_RTOL} f32 "
           f"of max |out|; lse: atol {FLASH_LSE_ATOL}), H={FLASH_H} D={FLASH_D}:")
-    for label, B, T, dtype in (("training decoder", LONG_B, LONG_T, torch.bfloat16),
-                               ("training encoder", LONG_B, LONG_N, torch.bfloat16),
-                               ("serving decoder", 1, LONG_T, torch.float32),
-                               ("serving encoder", 1, LONG_N, torch.float32)):
-        q, k, v, seg = flash_case(B, T, dtype, SEED)
+    cases = [("training decoder", LONG_B, LONG_T, torch.bfloat16, None),
+             ("training encoder", LONG_B, LONG_N, torch.bfloat16, None),
+             ("serving decoder", 1, LONG_T, torch.float32, None),
+             ("serving encoder", 1, LONG_N, torch.float32, None)]
+    cases += [(label, len(lens), T, torch.bfloat16, lens) for label, T, lens in FLASH_EDGES]
+    for label, B, T, dtype, lens in cases:
+        q, k, v, seg = flash_case(B, T, dtype, SEED, lens)
         out, lse = flash_fwd(q, k, v, seg, scale)
         want, want_lse = flash_attention_plain(q, k, v, seg, scale)
         torch.cuda.synchronize()
@@ -970,33 +1012,47 @@ def check_flash():
         tol = FLASH_BF16_RTOL if dtype == torch.bfloat16 else FLASH_F32_RTOL
         check(err <= tol and lse_err <= FLASH_LSE_ATOL,
               f"flash forward {label}: out {err:.3g} of max, lse {lse_err:.3g}")
+        head = (f"  {label} [{B}, {FLASH_H}, {T}, {FLASH_D}] {str(dtype)[6:]}: out {err:.2e} of "
+                f"max, lse {lse_err:.2e}")
+        if lens is not None:
+            print(f"{head}, lengths {list(lens)}")
+            continue
         mask = (seg[:, :, None] == seg[:, None, :])[:, None]
-        reps = 3 if T == LONG_T and B > 1 else 10
+        reps = 10
         ms = cuda_ms(lambda: flash_fwd(q, k, v, seg, scale), reps)
         plain = cuda_ms(lambda: flash_attention_plain(q, k, v, seg, scale), 1, warmup=0)
         lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale),
                       reps)
         bms, by = flash_bound(B, T, dtype, 2, 3, 1, 1)
-        print(f"  {label} [{B}, {FLASH_H}, {T}, {FLASH_D}] {str(dtype)[6:]}: out {err:.2e} of max, "
-              f"lse {lse_err:.2e}; kernel {ms:.3f} ms, plain {plain:.3f} ms, SDPA {lib:.3f} ms, "
-              f"bound {bms:.4f} ms ({by})")
+        n_ops = 2 * 2.0 * B * FLASH_H * T * T * FLASH_D
+        print(f"{head}; kernel {ms:.3f} ms ({rate(n_ops, ms, bms)}), plain {plain:.3f} ms, "
+              f"SDPA {lib:.3f} ms, bound {bms:.4f} ms ({by})")
         abs_err = float((out.float() - want.float()).abs().max())
         record("flash_fwd", abs_err, ms, plain, bms, by, lib)
 
     print(f"flash backward, kernels vs autograd of the plain version (rtol {FLASH_BF16_RTOL} of "
           f"max |grad|), bf16:")
-    for label, B_cmp, B, T in (("training decoder", 2, LONG_B, LONG_T),
-                               ("training encoder", LONG_B, LONG_B, LONG_N)):
-        q, k, v, seg = flash_case(B_cmp, T, torch.bfloat16, SEED + 1)
+    cases = [("training decoder", 2, LONG_B, LONG_T, None),
+             ("training encoder", LONG_B, LONG_B, LONG_N, None)]
+    cases += [(label, len(lens), None, T, lens) for label, T, lens in FLASH_EDGES]
+    for label, B_cmp, B, T, lens in cases:
+        q, k, v, seg = flash_case(B_cmp, T, torch.bfloat16, SEED + 1, lens)
         dout = torch.randn(q.shape, device="cuda").to(torch.bfloat16)
         out, lse = flash_fwd(q, k, v, seg, scale)
-        dk, dv = flash_bwd_dkv(q, k, v, seg, out, lse, dout, scale)
-        dq = flash_bwd_dq(q, k, v, seg, out, lse, dout, scale)
+        ins = backward_inputs(q, k, v, seg, out, lse, dout)
+        dk, dv = flash_bwd_dkv(ins, scale)
+        dq = flash_bwd_dq(ins, scale)
+        del ins
         qkv = [t.detach().requires_grad_() for t in (q, k, v)]
         want = torch.autograd.grad(flash_attention_plain(*qkv, seg, scale)[0], qkv, dout)
         torch.cuda.synchronize()
         errs = {n: rel_err(a, b) for n, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), want)}
         check(max(errs.values()) <= FLASH_BF16_RTOL, f"flash backward {label}: {errs}")
+        head = (f"  {label} [{B_cmp}, {FLASH_H}, {T}, {FLASH_D}]: dq {errs['dq']:.2e}, "
+                f"dk {errs['dk']:.2e}, dv {errs['dv']:.2e} of max")
+        if lens is not None:
+            print(f"{head}, lengths {list(lens)}")
+            continue
         abs_err = {n: float((a.float() - b.float()).abs().max())
                    for n, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), want)}
 
@@ -1004,9 +1060,19 @@ def check_flash():
         q, k, v, seg = flash_case(B, T, torch.bfloat16, SEED + 1)
         dout = torch.randn(q.shape, device="cuda").to(torch.bfloat16)
         out, lse = flash_fwd(q, k, v, seg, scale)
-        reps = 2 if T == LONG_T else 5
-        ms_dkv = cuda_ms(lambda: flash_bwd_dkv(q, k, v, seg, out, lse, dout, scale), reps)
-        ms_dq = cuda_ms(lambda: flash_bwd_dq(q, k, v, seg, out, lse, dout, scale), reps)
+        reps = 10
+        # the kernels alone, on one shared preparation as the backward calls
+        # them; the kernels line's ms is a call made alone, its own
+        # preparation included
+        ins = backward_inputs(q, k, v, seg, out, lse, dout)
+        ms_prep = cuda_ms(lambda: backward_inputs(q, k, v, seg, out, lse, dout), reps)
+        ms_dkv = cuda_ms(lambda: flash_bwd_dkv(ins, scale), reps)
+        ms_dq = cuda_ms(lambda: flash_bwd_dq(ins, scale), reps)
+        del ins
+        call_dkv = cuda_ms(lambda: flash_bwd_dkv(backward_inputs(q, k, v, seg, out, lse, dout),
+                                                 scale), reps)
+        call_dq = cuda_ms(lambda: flash_bwd_dq(backward_inputs(q, k, v, seg, out, lse, dout),
+                                               scale), reps)
         qkv = [t.detach().requires_grad_() for t in (q, k, v)]
         o_plain = flash_attention_plain(*qkv, seg, scale)[0]
         plain = cuda_ms(lambda: torch.autograd.grad(o_plain, qkv, dout, retain_graph=True), 1,
@@ -1019,17 +1085,23 @@ def check_flash():
             torch.autograd.grad(o, qkv, dout)
 
         lib = cuda_ms(sdpa_fwd_bwd, reps)
+        o_sdpa = F.scaled_dot_product_attention(*qkv, attn_mask=mask, scale=scale)
+        lib_bwd = cuda_ms(lambda: torch.autograd.grad(o_sdpa, qkv, dout, retain_graph=True), reps)
+        del o_sdpa
         # dK/dV: S, dP, dV, dK; dQ: S, dP, dQ (5 products for both together)
         b_dkv, by_dkv = flash_bound(B, T, torch.bfloat16, 4, 4, 2, 2)
         b_dq, by_dq = flash_bound(B, T, torch.bfloat16, 3, 4, 1, 2)
-        print(f"  {label} [{B_cmp}, {FLASH_H}, {T}, {FLASH_D}]: dq {errs['dq']:.2e}, "
-              f"dk {errs['dk']:.2e}, dv {errs['dv']:.2e} of max; at B={B}: dK/dV kernel "
-              f"{ms_dkv:.3f} ms (bound {b_dkv:.4f}, {by_dkv}), dQ kernel {ms_dq:.3f} ms (bound "
-              f"{b_dq:.4f}, {by_dq}), plain backward {plain:.3f} ms, SDPA forward + backward "
-              f"{lib:.3f} ms")
-        record("flash_bwd_dkv", max(abs_err["dk"], abs_err["dv"]), ms_dkv, plain, b_dkv, by_dkv,
-               lib)
-        record("flash_bwd_dq", abs_err["dq"], ms_dq, plain, b_dq, by_dq, lib)
+        product = 2.0 * B * FLASH_H * T * T * FLASH_D
+        print(f"{head}; at B={B}: dK/dV kernel {ms_dkv:.3f} ms "
+              f"({rate(4 * product, ms_dkv, b_dkv)}; bound {b_dkv:.4f}, {by_dkv}), dQ kernel "
+              f"{ms_dq:.3f} ms "
+              f"({rate(3 * product, ms_dq, b_dq)}; bound {b_dq:.4f}, {by_dq}), their shared "
+              f"preparation (delta, layouts) {ms_prep:.3f} ms; a call alone with its preparation: "
+              f"dK/dV {call_dkv:.3f} ms, dQ {call_dq:.3f} ms; plain backward {plain:.3f} ms, SDPA "
+              f"forward + backward {lib:.3f} ms, SDPA backward alone {lib_bwd:.3f} ms")
+        record("flash_bwd_dkv", max(abs_err["dk"], abs_err["dv"]), call_dkv, plain, b_dkv,
+               by_dkv, lib)
+        record("flash_bwd_dq", abs_err["dq"], call_dq, plain, b_dq, by_dq, lib)
     return rows
 
 

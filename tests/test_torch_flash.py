@@ -30,6 +30,7 @@ from jax.experimental.pallas.ops.tpu.flash_attention import (
 
 from wavthruvec_pytorch_tpu.models.fft_block import FFTBlock as JFFT
 from wavthruvec_pytorch_tpu_torch import weights
+from wavthruvec_pytorch_tpu_torch.config import Text2VecConfig, load_config, repo_path
 from wavthruvec_pytorch_tpu_torch.models.fft_block import FFTBlock, flash_gate
 from wavthruvec_pytorch_tpu_torch.ops import flash_attention as fa
 
@@ -186,3 +187,70 @@ def test_dropout_guard():
     blk.eval()(x)
     FFTBlock(32, 64, 2, 16, 16, dropout=0.0, use_flash=True, device="cpu").train()(x)
     FFTBlock(32, 64, 2, 16, 16, dropout=0.1, use_flash=False, device="cpu").train()(x)
+
+
+def test_kernel_shape_rule():
+    """``kernel_shape_ok`` takes every length the model's flash gate lets
+    through at the head dim of both FFT stacks of the long-bucket config, in
+    both dtypes, and rejects what the kernels are not built for."""
+    cfg = load_config(Text2VecConfig, repo_path("artifacts", "flash_longbucket", "flash",
+                                                "longbucket", "config.json"))
+    dims = {cfg.encoder_output_dim // cfg.encoder_head, cfg.decoder_model_dim // cfg.encoder_head}
+    assert dims == {fa.HOPPER_D}
+    gated = [T for T in range(0, 4097, 64) if flash_gate(True, fa.HOPPER_D, fa.HOPPER_D, T)]
+    assert gated[0] == 256 and {768, 3072} <= set(gated)
+    for T in gated:
+        for B in (1, 16):
+            for dtype in (torch.bfloat16, torch.float32):
+                assert fa.kernel_shape_ok(B, 2, T, fa.HOPPER_D, dtype), (B, T, dtype)
+    assert fa.kernel_shape_ok(1, 2, 64, 128, torch.float32)
+    for bad in ((1, 2, 64, 128, torch.bfloat16), (1, 2, 64, 256, torch.bfloat16),
+                (1, 2, 96, 224, torch.bfloat16), (0, 2, 64, 224, torch.bfloat16),
+                (1, 2, 64, 320, torch.float32), (1, 2, 64, 224, torch.float16)):
+        assert not fa.kernel_shape_ok(*bad), bad
+
+
+def test_backward_inputs_shared():
+    """``backward_inputs``, made once a backward for both kernels: q, k, v
+    and dout in the kernels' contiguous [B, T, H, D] layout, int32 segment
+    ids, and delta = rowsum(dout * out) in f32 (against float64, 1e-5 of the
+    row's sum of |terms|).  It raises for a bf16 head dim the kernels do not
+    take, and the kernels refuse CPU inputs."""
+    rng = np.random.default_rng(4)
+    B, H, T, D = 2, 2, 64, fa.HOPPER_D
+    q, k, v, out, dout = (torch.tensor(rng.standard_normal((B, H, T, D)), dtype=torch.bfloat16)
+                          for _ in range(5))
+    seg = torch.tensor(rng.integers(0, 2, (B, T)))
+    lse = torch.tensor(rng.standard_normal((B, H, T)), dtype=torch.float32)
+    ins = fa.backward_inputs(q, k, v, seg, out, lse, dout)
+    terms = dout.double() * out.double()
+    assert ins.delta.dtype == torch.float32 and tuple(ins.delta.shape) == (B, H, T)
+    err = (ins.delta.double() - terms.sum(-1)).abs() / terms.abs().sum(-1)
+    assert float(err.max()) <= 1e-5
+    for name, t in (("q", q), ("k", k), ("v", v), ("dout", dout)):
+        got = getattr(ins, name)
+        assert got.is_contiguous() and torch.equal(got, t.transpose(1, 2)), name
+    assert ins.seg.dtype == torch.int32 and torch.equal(ins.seg, seg.to(torch.int32))
+    assert torch.equal(ins.lse, lse) and ins.shape == (B, H, T, D)
+    with pytest.raises(ValueError, match=f"D = {fa.HOPPER_D} in bfloat16"):
+        fa.backward_inputs(*(t[..., :32] for t in (q, k, v)), seg, out[..., :32], lse,
+                           dout[..., :32])
+    with pytest.raises(ValueError, match="device"):
+        fa.flash_bwd_dkv(ins, 0.1)
+    with pytest.raises(ValueError, match="device"):
+        fa.flash_bwd_dq(ins, 0.1)
+
+
+@pytest.mark.parametrize("d_k, dtype", [(16, torch.bfloat16), (128, torch.bfloat16),
+                                        (288, None)])
+def test_flash_block_on_card_refuses_head_dim(d_k, dtype):
+    """A flash block built for a CUDA device raises NotImplementedError at
+    construction for a head dim the kernels do not take, before it
+    allocates anything (so it raises here too); ``head_dim_ok`` holds the
+    rule and the CPU block takes any head dim."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md section 3"):
+        FFTBlock(2 * d_k, 64, 2, d_k, d_k, dropout=0.0, use_flash=True, dtype=dtype,
+                 device="cuda")
+    assert not fa.head_dim_ok(d_k, dtype or torch.float32)
+    assert fa.head_dim_ok(fa.HOPPER_D, torch.bfloat16) and fa.head_dim_ok(d_k % 256, torch.float32)
+    FFTBlock(2 * d_k, 64, 2, d_k, d_k, dropout=0.0, use_flash=True, dtype=dtype, device="cpu")

@@ -7,12 +7,15 @@
 * without a GPU, an entry point called with no ``device`` raises instead of
   falling back to the CPU;
 * importing the kernel modules needs no ``nvcc`` and builds nothing;
+* a library's name follows its source and every shared header, so an
+  edited header is never served by a stale build;
 * configuration flags that are not ported yet raise; those a slice ported
   build.
 """
 
 import ast
 import os
+import shutil
 import subprocess
 import sys
 
@@ -25,6 +28,7 @@ from wavthruvec_pytorch_tpu_torch.entry import entry
 from wavthruvec_pytorch_tpu_torch.infer.synthesize import Synthesizer, make_serving_generator
 from wavthruvec_pytorch_tpu_torch.models.text2vec import Text2Vec
 from wavthruvec_pytorch_tpu_torch.models.vec2wav import Generator
+from wavthruvec_pytorch_tpu_torch.ops import kernel_build
 from wavthruvec_pytorch_tpu_torch.text import TextFrontend
 from wavthruvec_pytorch_tpu_torch.train import text2vec_loop
 from wavthruvec_pytorch_tpu_torch.train.text2vec_train import Text2VecTrainer
@@ -128,6 +132,30 @@ def test_kernel_modules_import_without_nvcc(tmp_path):
             "    print('ok')\n")
     res = _run(code, {"PATH": str(tmp_path), "CUDA_HOME": str(tmp_path)})
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def test_library_path_covers_headers(tmp_path, monkeypatch):
+    """In a copy of ``csrc/``, an unchanged tree names the same libraries;
+    editing a shared header renames every kernel's library (any source may
+    include it), and editing one source renames only its own."""
+    names = kernel_build.KERNELS
+    original = {n: kernel_build.library_path(n) for n in names}
+    src = tmp_path / "csrc"
+    shutil.copytree(kernel_build.SRC_DIR, src)
+    monkeypatch.setattr(kernel_build, "SRC_DIR", str(src))
+    headers = sorted(src.glob("*.cuh"))
+    assert headers, "no shared header under csrc/"
+    before = {n: kernel_build.library_path(n) for n in names}
+    assert before == original
+    assert len(set(before.values())) == len(names)
+
+    headers[0].write_text(headers[0].read_text() + "\n// edited\n")
+    edited = {n: kernel_build.library_path(n) for n in names}
+    assert all(edited[n] != before[n] for n in names), edited
+
+    (src / "mas.cu").write_text((src / "mas.cu").read_text() + "\n// edited\n")
+    again = {n: kernel_build.library_path(n) for n in names}
+    assert [n for n in names if again[n] != edited[n]] == ["mas"]
 
 
 def test_entry_points_raise_without_gpu(monkeypatch):

@@ -13,13 +13,18 @@ input dtype before the product with v, as the TPU kernel does in bf16.
 
 ``flash_attention`` (``FlashAttention.apply``) is what the model calls: on a
 CUDA tensor its forward is the forward kernel and its backward the two
-backward kernels; on a CPU tensor both are the plain version (the backward
-by autograd through it).  Any other device or dtype raises.
+backward kernels, after one shared ``backward_inputs``; on a CPU tensor
+both are the plain version (the backward by autograd through it).  Any
+other device or dtype raises, and so does a CUDA shape the kernels are not
+built for (``kernel_shape_ok``: T % 64 == 0; float32 D <= 256; bfloat16
+D = 224, the head dim of both FFT stacks, for which the forward and dK/dV
+are written with Hopper's TMA and ``wgmma``).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -28,6 +33,7 @@ from wavthruvec_pytorch_tpu_torch.ops import kernel_build
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_D = 256
+HOPPER_D = 224  # the one head dim of the bf16 forward and dK/dV kernels
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seg: torch.Tensor,
@@ -59,10 +65,24 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_cuda(q, k, v, seg, *more):
-    """Raise for what the kernels do not take; returns (B, H, T, D)."""
-    if q.device.type != "cuda":
-        raise ValueError(f"flash attention kernels: unsupported device {q.device}")
+def head_dim_ok(D: int, dtype: torch.dtype) -> bool:
+    """Whether the kernels take head dim D in ``dtype``: float32 any
+    D <= 256; bfloat16 D = 224 only (the head dim of both FFT stacks, which
+    the wgmma forward and dK/dV kernels are built for)."""
+    if dtype == torch.float32:
+        return 1 <= D <= _MAX_D
+    return dtype == torch.bfloat16 and D == HOPPER_D
+
+
+def kernel_shape_ok(B: int, H: int, T: int, D: int, dtype: torch.dtype) -> bool:
+    """Whether the kernels take q, k, v [B, H, T, D] in ``dtype``: T % 64 == 0
+    and ``head_dim_ok``."""
+    return min(B, H, T) >= 1 and T % 64 == 0 and head_dim_ok(D, dtype)
+
+
+def _check(q, k, v, seg, *more):
+    """Raise for what the kernels do not take, whatever the device; returns
+    (B, H, T, D)."""
     if q.dim() != 4:
         raise ValueError(f"q must be [B, H, T, D], got {tuple(q.shape)}")
     B, H, T, D = q.shape
@@ -72,13 +92,26 @@ def _check_cuda(q, k, v, seg, *more):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"k, v (and dout) must match q {q.dtype} {tuple(q.shape)} on "
                              f"{q.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if T % 64 != 0 or not 1 <= D <= _MAX_D or (q.dtype == torch.bfloat16 and D % 16 != 0):
-        raise ValueError(f"flash attention kernels take T % 64 == 0, D <= {_MAX_D} and, in "
-                         f"bfloat16, D % 16 == 0; got T={T}, D={D}")
+    if not kernel_shape_ok(B, H, T, D, q.dtype):
+        raise ValueError(f"flash attention kernels take T % 64 == 0 and D <= {_MAX_D} in "
+                         f"float32, D = {HOPPER_D} in bfloat16; got T={T}, D={D}, {q.dtype}")
     if tuple(seg.shape) != (B, T) or seg.dtype.is_floating_point or seg.device != q.device:
         raise ValueError(f"seg must be an integer [{B}, {T}] tensor on {q.device}, got "
                          f"{seg.dtype} {tuple(seg.shape)} on {seg.device}")
     return B, H, T, D
+
+
+def _require_cuda(t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"flash attention kernels: unsupported device {t.device}")
+
+
+def _aligned(dtype: torch.dtype, *tensors) -> None:
+    """The bf16 kernels load by TMA and bulk copies: 16-byte aligned bases."""
+    for t in tensors:
+        if dtype == torch.bfloat16 and t.data_ptr() % 16 != 0:
+            raise ValueError(f"flash attention kernels: a {t.dtype} {tuple(t.shape)} tensor is "
+                             f"not 16-byte aligned (data_ptr {t.data_ptr():#x})")
 
 
 def _btkd(t: torch.Tensor) -> torch.Tensor:
@@ -91,11 +124,13 @@ def flash_fwd(q, k, v, seg, sm_scale: float):
     """The forward kernel: q, k, v [B, H, T, D] CUDA f32 or bf16, seg [B, T]
     -> (out [B, H, T, D], a transposed view of a [B, T, H, D] tensor; lse
     [B, H, T] f32).  One launch."""
-    B, H, T, D = _check_cuda(q, k, v, seg)
+    _require_cuda(q)
+    B, H, T, D = _check(q, k, v, seg)
     qc, kc, vc = _btkd(q), _btkd(k), _btkd(v)
     out = torch.empty_like(qc)
     lse = torch.empty(B, H, T, device=q.device, dtype=torch.float32)
     seg32 = seg.to(torch.int32).contiguous()
+    _aligned(q.dtype, qc, kc, vc, seg32)
     lib = _lib()
     err = lib.flash_fwd(qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), seg32.data_ptr(),
                         out.data_ptr(), lse.data_ptr(), B, H, T, D, float(sm_scale),
@@ -106,38 +141,63 @@ def flash_fwd(q, k, v, seg, sm_scale: float):
     return out.transpose(1, 2), lse
 
 
-def _bwd_args(q, k, v, seg, out, lse, dout):
-    B, H, T, D = _check_cuda(q, k, v, seg, out, dout)
+class BackwardInputs(NamedTuple):
+    """What both backward kernels read, made once a backward: q, k, v, dout
+    in the kernels' [B, T, H, D] layout, int32 seg [B, T], lse and
+    delta = rowsum(dO * out) [B, H, T] f32."""
+    shape: Tuple[int, int, int, int]
+    q: torch.Tensor
+    k: torch.Tensor
+    v: torch.Tensor
+    seg: torch.Tensor
+    dout: torch.Tensor
+    lse: torch.Tensor
+    delta: torch.Tensor
+
+
+def backward_inputs(q, k, v, seg, out, lse, dout) -> BackwardInputs:
+    """Check and lay out the backward's inputs ([B, H, T, D] as the forward
+    took them) on any device."""
+    B, H, T, D = _check(q, k, v, seg, out, dout)
     if tuple(lse.shape) != (B, H, T) or lse.dtype != torch.float32:
         raise ValueError(f"lse must be float32 [{B}, {H}, {T}], got {lse.dtype} {tuple(lse.shape)}")
     # delta = rowsum(dO * out), outside the kernels as in the JAX package
     delta = (dout.float() * out.float()).sum(dim=-1).contiguous()
-    tensors = (_btkd(q), _btkd(k), _btkd(v), seg.to(torch.int32).contiguous(), _btkd(dout),
-               lse.contiguous(), delta)
-    return (B, H, T, D), tensors
+    ins = BackwardInputs((B, H, T, D), _btkd(q), _btkd(k), _btkd(v),
+                         seg.to(torch.int32).contiguous(), _btkd(dout), lse.contiguous(), delta)
+    _aligned(q.dtype, ins.q, ins.k, ins.v, ins.seg, ins.dout, ins.lse, ins.delta)
+    return ins
 
 
-def flash_bwd_dkv(q, k, v, seg, out, lse, dout, sm_scale: float):
-    """The dK/dV kernel -> (dk, dv) [B, H, T, D] in q's dtype.  One launch."""
-    (B, H, T, D), ts = _bwd_args(q, k, v, seg, out, lse, dout)
-    dk, dv = torch.empty_like(ts[0]), torch.empty_like(ts[0])
+def flash_bwd_dkv(ins: BackwardInputs, sm_scale: float):
+    """The dK/dV kernel on ``backward_inputs``' result -> (dk, dv)
+    [B, H, T, D] in q's dtype.  One launch."""
+    _require_cuda(ins.q)
+    B, H, T, D = ins.shape
+    dk, dv = torch.empty_like(ins.q), torch.empty_like(ins.q)
     lib = _lib()
-    err = lib.flash_bwd_dkv(*(t.data_ptr() for t in ts), dk.data_ptr(), dv.data_ptr(),
-                            B, H, T, D, float(sm_scale), int(q.dtype == torch.bfloat16),
-                            torch.cuda.current_stream(q.device).cuda_stream)
+    err = lib.flash_bwd_dkv(ins.q.data_ptr(), ins.k.data_ptr(), ins.v.data_ptr(),
+                            ins.seg.data_ptr(), ins.dout.data_ptr(), ins.lse.data_ptr(),
+                            ins.delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, T, D,
+                            float(sm_scale), int(ins.q.dtype == torch.bfloat16),
+                            torch.cuda.current_stream(ins.q.device).cuda_stream)
     kernel_build.check(lib, err, "flash_bwd_dkv")
     flash_bwd_dkv.launches += 1
     return dk.transpose(1, 2), dv.transpose(1, 2)
 
 
-def flash_bwd_dq(q, k, v, seg, out, lse, dout, sm_scale: float):
-    """The dQ kernel -> dq [B, H, T, D] in q's dtype.  One launch."""
-    (B, H, T, D), ts = _bwd_args(q, k, v, seg, out, lse, dout)
-    dq = torch.empty_like(ts[0])
+def flash_bwd_dq(ins: BackwardInputs, sm_scale: float):
+    """The dQ kernel on ``backward_inputs``' result -> dq [B, H, T, D] in
+    q's dtype.  One launch."""
+    _require_cuda(ins.q)
+    B, H, T, D = ins.shape
+    dq = torch.empty_like(ins.q)
     lib = _lib()
-    err = lib.flash_bwd_dq(*(t.data_ptr() for t in ts), dq.data_ptr(),
-                           B, H, T, D, float(sm_scale), int(q.dtype == torch.bfloat16),
-                           torch.cuda.current_stream(q.device).cuda_stream)
+    err = lib.flash_bwd_dq(ins.q.data_ptr(), ins.k.data_ptr(), ins.v.data_ptr(),
+                           ins.seg.data_ptr(), ins.dout.data_ptr(), ins.lse.data_ptr(),
+                           ins.delta.data_ptr(), dq.data_ptr(), B, H, T, D, float(sm_scale),
+                           int(ins.q.dtype == torch.bfloat16),
+                           torch.cuda.current_stream(ins.q.device).cuda_stream)
     kernel_build.check(lib, err, "flash_bwd_dq")
     flash_bwd_dq.launches += 1
     return dq.transpose(1, 2)
@@ -173,8 +233,9 @@ class FlashAttention(torch.autograd.Function):
                 o, _ = flash_attention_plain(*qkv, seg, ctx.sm_scale)
                 dq, dk, dv = torch.autograd.grad(o, qkv, dout)
         else:
-            dk, dv = flash_bwd_dkv(q, k, v, seg, out, lse, dout, ctx.sm_scale)
-            dq = flash_bwd_dq(q, k, v, seg, out, lse, dout, ctx.sm_scale)
+            ins = backward_inputs(q, k, v, seg, out, lse, dout)
+            dk, dv = flash_bwd_dkv(ins, ctx.sm_scale)
+            dq = flash_bwd_dq(ins, ctx.sm_scale)
         return dq, dk, dv, None, None
 
 

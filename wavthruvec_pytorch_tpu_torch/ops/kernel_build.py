@@ -3,15 +3,17 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface and loaded with ``ctypes``.  Libraries go
 to ``wavthruvec_pytorch_tpu_torch/build/`` under a name that carries the
-hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is reused.  Nothing is compiled when a module is imported:
-the first launch of a kernel builds it, and ``build_all`` builds every
-kernel at once, one ``nvcc`` process per source, all started together.
+hash of the source, the shared headers ``csrc/*.cuh`` and the flags, so an
+edited source or header is rebuilt and an unchanged one is reused.  Nothing
+is compiled when a module is imported: the first launch of a kernel builds
+it, and ``build_all`` builds every kernel at once, one ``nvcc`` process per
+source, all started together.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -42,9 +44,15 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(SRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest[:16]}.so")
+    """The library of ``csrc/<name>.cu``, named by the hash of that source,
+    of every header ``csrc/*.cuh`` (any source may include any) and of the
+    flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(glob.glob(os.path.join(SRC_DIR, "*.cuh")))
+    for path in [os.path.join(SRC_DIR, f"{name}.cu")] + headers:
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
 def _start_build(name: str):
