@@ -74,17 +74,23 @@ text bucket 768, frame bucket 3072), read where it lies:
     (``out`` and ``lse``) in bf16 at the step's decoder [16, 2, 3072, 224]
     and encoder [16, 2, 768, 224] shapes and in f32 at the serving shapes
     [1, 2, 3072 | 768, 224]; dK/dV and dQ against autograd of the plain
-    version in bf16 at B = 2 of the decoder shape and at the encoder's full
-    shape; each with its time, TFLOP/s, share of its bound and
-    ``F.scaled_dot_product_attention``'s time (the same boolean mask;
-    forward, forward + backward, and the backward alone on a retained
+    version, in bf16 and in f32, at B = 2 of the decoder shape and at the
+    encoder's full shape; each with its time, TFLOP/s, share of its bound
+    (f32: on the tensor cores at f32 accuracy, three TF32 products a
+    product) and ``F.scaled_dot_product_attention``'s time (the same boolean
+    mask; forward, forward + backward, and the backward alone on a retained
     graph).  The backward kernels are timed as the backward calls them,
-    after one shared ``backward_inputs`` (timed apart).  Three more bf16
-    cases hold the forward and both backward kernels at the edges: T = 384
-    with a length of 201 (a 128-query tile straddles the real/pad
-    boundary), T = 320 (the forward's last 128-query tile is half outside)
-    and T = 256 (the shortest length the model's gate passes).  ``ptxas``'s
-    register and spill report of the two wgmma kernels is printed again.
+    after one shared ``backward_inputs`` (timed apart), and their sum
+    against SDPA's backward.  Kernels and SDPA are timed on a filled launch
+    queue, so their times are the device's, not the host's issue rate.
+    Three more cases in each dtype hold the forward and both backward
+    kernels at the edges: T = 384 with a length of 201 (a 128-query tile
+    straddles the real/pad boundary), T = 320 (the last 128-query tile is
+    half outside) and T = 256 (the shortest length the model's gate
+    passes); and bf16 at head dims 64, 128, 256 and 96 (run zero-padded to
+    128) at T = 384.  ``ptxas``'s register and spill report of
+    every instance of the Hopper and tensor-core kernels is printed again;
+    the dQ and f32 forward instances must not spill.
 14. Training: ``Text2VecTrainer`` (bf16) takes ``WARMUP_STEPS`` then
     ``TIMED_STEPS`` steps on one synthetic batch at B = 16, N = 768,
     T = 3072 (3-4 frames per character); counters, set to 0 just before the
@@ -168,11 +174,16 @@ WAV_STD = 0.3
 REPEATS = 3  # timed runs of each request; its median is reported
 SAMPLE_RATE = 16000
 
-# H100 SXM peaks (NVIDIA data sheet, dense): f32 on the CUDA cores, bf16
-# tensor cores, HBM3 bandwidth.
+# H100 SXM peaks (NVIDIA data sheet, dense): f32 on the CUDA cores, bf16 and
+# TF32 tensor cores, HBM3 bandwidth.
 PEAK_F32 = 67e12
 PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
+# f32 flash on the tensor cores: f32 accuracy takes three TF32 products for
+# each product (3xTF32: hi hi + hi lo + lo hi), so the least time of f32
+# work there is that of three times the TF32 operations
+PEAK_F32_TC = PEAK_TF32 / 3
 
 # tolerances of the kernel-vs-plain checks on the card
 FUSED_ATOL = 1e-4  # f32 both sides, k*C-term sums in another order
@@ -228,13 +239,17 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
+def cuda_ms(fn, reps: int, warmup: int = 1, queued: bool = False) -> float:
     """Mean milliseconds of ``fn()`` on the card (CUDA events around ``reps``
-    back-to-back calls, after ``warmup`` calls)."""
+    back-to-back calls, after ``warmup`` calls).  ``queued``: the card first
+    spins ~30 ms (``torch.cuda._sleep``) while the host enqueues the calls,
+    so the events time the device's work alone, not the host's issue rate."""
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if queued:
+        torch.cuda._sleep(50_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -934,12 +949,12 @@ def long_config() -> Text2VecConfig:
     return load_config(Text2VecConfig, repo_path(*LONG_CFG))
 
 
-def flash_case(B: int, T: int, dtype, seed: int, lens=None):
+def flash_case(B: int, T: int, dtype, seed: int, lens=None, D: int = FLASH_D):
     """q, k, v [B, H, T, D] as the model passes them (transposed views of
     [B, T, H, D]), seeded N(0, 1), and segment ids of the lengths ``lens``,
     by default mixed lengths in [T/2, T] (the first item full)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v = (torch.randn((B, T, FLASH_H, FLASH_D), generator=g, device="cuda")
+    q, k, v = (torch.randn((B, T, FLASH_H, D), generator=g, device="cuda")
                .to(dtype).transpose(1, 2) for _ in range(3))
     if lens is None:
         lens = np.random.default_rng(seed).integers(T // 2, T + 1, B)
@@ -949,29 +964,52 @@ def flash_case(B: int, T: int, dtype, seed: int, lens=None):
     return q, k, v, seg
 
 
-def flash_bound(B: int, T: int, dtype, n_products: int, n_in: int, n_out: int, n_rows: int):
+def flash_bound(B: int, T: int, dtype, n_products: int, n_in: int, n_out: int, n_rows: int,
+                peak_f32: float = PEAK_F32_TC):
     """Bound of a flash kernel: ``n_products`` products of 2 B H T^2 D
-    operations on the tensor cores (bf16) or the CUDA cores (f32); bytes:
+    operations at the bf16 tensor-core peak, or in f32 at ``peak_f32`` (by
+    default f32-accurate work on the tensor cores, ``PEAK_F32_TC``); bytes:
     ``n_in`` [B, T, H, D] tensors read and ``n_out`` written, ``n_rows`` f32
     [B, H, T] rows moved and the int32 segment ids."""
     size = torch.tensor([], dtype=dtype).element_size()
     n_bytes = (size * (n_in + n_out) * B * T * FLASH_H * FLASH_D
                + 4.0 * n_rows * B * FLASH_H * T + 4.0 * B * T)
     n_ops = 2.0 * n_products * B * FLASH_H * T * T * FLASH_D
-    return bound_ms(n_bytes, n_ops, PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32)
+    return bound_ms(n_bytes, n_ops, PEAK_BF16 if dtype == torch.bfloat16 else peak_f32)
 
 
 def rel_err(got, want) -> float:
     return float((got.float() - want.float()).abs().max() / want.float().abs().max())
 
 
-# bf16 edge cases of phase 13: (label, T, lengths)
+# edge cases of phase 13, in both dtypes: (label, T, lengths)
 FLASH_EDGES = (("straddling tile", 384, (384, 201)), ("half tile", 320, (320, 201)),
                ("shortest gated", 256, (256, 131)))
+# bf16 head dims of phase 13 besides the model's 224: the other instantiated
+# widths, and one the wrapper zero-pads (96 -> 128); at T = 384, lengths 384, 201
+FLASH_HEAD_DIMS = (64, 128, 256, 96)
 
 
 def rate(n_ops: float, ms: float, bms: float) -> str:
     return f"{n_ops / ms / 1e9:.0f} TFLOP/s, {100 * bms / ms:.1f}% of bound"
+
+
+def flash_ptxas() -> None:
+    """ptxas's register and spill report of each instance of the Hopper and
+    tensor-core kernels; the dQ and f32 forward instances must not spill."""
+    print("flash kernels, ptxas (kernel<head dim>):")
+    log = kernel_build.build_log("flash_attn").splitlines()
+    for i, line in enumerate(log):
+        for kern in ("flash_fwd_bf16", "flash_bwd_dkv_bf16", "flash_bwd_dq_bf16", "flash_fwd_f32"):
+            width = re.search(kern + r"ILi(\d+)E", line) if "entry function" in line else None
+            if width is None:
+                continue
+            info = " ".join(x.strip() for x in log[i + 1:i + 4] if "registers" in x or "spill" in x)
+            print(f"  {kern}<{width.group(1)}>: {info}")
+            if kern in ("flash_bwd_dq_bf16", "flash_fwd_f32"):
+                spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", info)
+                check(spills is not None and spills.groups() == ("0", "0"),
+                      f"{kern}<{width.group(1)}> spills: {info}")
 
 
 def check_flash():
@@ -981,128 +1019,150 @@ def check_flash():
     scale = 1.0 / math.sqrt(FLASH_D)
     rows = {}
 
-    def record(name, err, ms, plain, bms, by, lib):
-        if name not in rows:
-            rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-                              library_ms=lib)
-        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+    def record(name, err, ms=None, plain=None, bms=None, by=None, lib=None):
+        """max_abs_err over every case; the times of the first timed case"""
+        row = rows.setdefault(name, dict(max_abs_err=0.0))
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        if ms is not None and "ms" not in row:
+            row.update(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib)
 
-    print("flash wgmma kernels, ptxas:")
-    log = kernel_build.build_log("flash_attn").splitlines()
-    for i, line in enumerate(log):
-        for kern in ("flash_fwd_bf16", "flash_bwd_dkv_bf16"):
-            if "entry function" in line and kern in line:
-                for info in log[i + 1:i + 4]:
-                    if "registers" in info or "spill" in info:
-                        print(f"  {kern}: {info.strip()}")
-
+    flash_ptxas()
     print(f"flash forward, kernel vs plain (out: rtol {FLASH_BF16_RTOL} bf16, {FLASH_F32_RTOL} f32 "
-          f"of max |out|; lse: atol {FLASH_LSE_ATOL}), H={FLASH_H} D={FLASH_D}:")
-    cases = [("training decoder", LONG_B, LONG_T, torch.bfloat16, None),
-             ("training encoder", LONG_B, LONG_N, torch.bfloat16, None),
-             ("serving decoder", 1, LONG_T, torch.float32, None),
-             ("serving encoder", 1, LONG_N, torch.float32, None)]
-    cases += [(label, len(lens), T, torch.bfloat16, lens) for label, T, lens in FLASH_EDGES]
-    for label, B, T, dtype, lens in cases:
-        q, k, v, seg = flash_case(B, T, dtype, SEED, lens)
-        out, lse = flash_fwd(q, k, v, seg, scale)
-        want, want_lse = flash_attention_plain(q, k, v, seg, scale)
+          f"of max |out|; lse: atol {FLASH_LSE_ATOL}), H={FLASH_H}; f32 bounds: 3xTF32, three "
+          f"TF32 products a product at {PEAK_TF32 / 1e12:.0f} TFLOP/s:")
+    cases = [("training decoder", LONG_B, LONG_T, torch.bfloat16, None, FLASH_D),
+             ("training encoder", LONG_B, LONG_N, torch.bfloat16, None, FLASH_D),
+             ("serving decoder", 1, LONG_T, torch.float32, None, FLASH_D),
+             ("serving encoder", 1, LONG_N, torch.float32, None, FLASH_D)]
+    cases += [(label, len(lens), T, dtype, lens, FLASH_D) for label, T, lens in FLASH_EDGES
+              for dtype in (torch.bfloat16, torch.float32)]
+    cases += [("head dim", 2, 384, torch.bfloat16, (384, 201), D) for D in FLASH_HEAD_DIMS]
+    old_yardstick = True
+    for label, B, T, dtype, lens, D in cases:
+        q, k, v, seg = flash_case(B, T, dtype, SEED, lens, D)
+        scale_d = 1.0 / math.sqrt(D)
+        out, lse = flash_fwd(q, k, v, seg, scale_d)
+        want, want_lse = flash_attention_plain(q, k, v, seg, scale_d)
         torch.cuda.synchronize()
         err, lse_err = rel_err(out, want), float((lse - want_lse).abs().max())
         tol = FLASH_BF16_RTOL if dtype == torch.bfloat16 else FLASH_F32_RTOL
         check(err <= tol and lse_err <= FLASH_LSE_ATOL,
-              f"flash forward {label}: out {err:.3g} of max, lse {lse_err:.3g}")
-        head = (f"  {label} [{B}, {FLASH_H}, {T}, {FLASH_D}] {str(dtype)[6:]}: out {err:.2e} of "
+              f"flash forward {label} D={D} {dtype}: out {err:.3g} of max, lse {lse_err:.3g}")
+        head = (f"  {label} [{B}, {FLASH_H}, {T}, {D}] {str(dtype)[6:]}: out {err:.2e} of "
                 f"max, lse {lse_err:.2e}")
+        abs_err = float((out.float() - want.float()).abs().max())
         if lens is not None:
             print(f"{head}, lengths {list(lens)}")
+            record("flash_fwd", abs_err)
             continue
         mask = (seg[:, :, None] == seg[:, None, :])[:, None]
         reps = 10
-        ms = cuda_ms(lambda: flash_fwd(q, k, v, seg, scale), reps)
+        ms = cuda_ms(lambda: flash_fwd(q, k, v, seg, scale), reps, queued=True)
         plain = cuda_ms(lambda: flash_attention_plain(q, k, v, seg, scale), 1, warmup=0)
         lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale),
-                      reps)
+                      reps, queued=True)
         bms, by = flash_bound(B, T, dtype, 2, 3, 1, 1)
         n_ops = 2 * 2.0 * B * FLASH_H * T * T * FLASH_D
+        extra = ""
+        if dtype == torch.float32 and old_yardstick:
+            old, _ = flash_bound(B, T, dtype, 2, 3, 1, 1, peak_f32=PEAK_F32)
+            extra = (f" (at the CUDA cores' {PEAK_F32 / 1e12:.0f} TFLOP/s, the yardstick of "
+                     f"the f32 kernels before the tensor-core forward: {old:.4f} ms)")
+            old_yardstick = False
         print(f"{head}; kernel {ms:.3f} ms ({rate(n_ops, ms, bms)}), plain {plain:.3f} ms, "
-              f"SDPA {lib:.3f} ms, bound {bms:.4f} ms ({by})")
-        abs_err = float((out.float() - want.float()).abs().max())
+              f"SDPA {lib:.3f} ms, bound {bms:.4f} ms ({by}){extra}")
         record("flash_fwd", abs_err, ms, plain, bms, by, lib)
 
-    print(f"flash backward, kernels vs autograd of the plain version (rtol {FLASH_BF16_RTOL} of "
-          f"max |grad|), bf16:")
-    cases = [("training decoder", 2, LONG_B, LONG_T, None),
-             ("training encoder", LONG_B, LONG_B, LONG_N, None)]
-    cases += [(label, len(lens), None, T, lens) for label, T, lens in FLASH_EDGES]
-    for label, B_cmp, B, T, lens in cases:
-        q, k, v, seg = flash_case(B_cmp, T, torch.bfloat16, SEED + 1, lens)
-        dout = torch.randn(q.shape, device="cuda").to(torch.bfloat16)
-        out, lse = flash_fwd(q, k, v, seg, scale)
+    print(f"flash backward, kernels vs autograd of the plain version (rtol {FLASH_BF16_RTOL} bf16, "
+          f"{FLASH_F32_RTOL} f32 of max |grad|):")
+    cases = [("training decoder", 2, LONG_B, LONG_T, dtype, None, FLASH_D)
+             for dtype in (torch.bfloat16, torch.float32)]
+    cases += [("training encoder", LONG_B, LONG_B, LONG_N, dtype, None, FLASH_D)
+              for dtype in (torch.bfloat16, torch.float32)]
+    cases += [(label, len(lens), None, T, dtype, lens, FLASH_D) for label, T, lens in FLASH_EDGES
+              for dtype in (torch.bfloat16, torch.float32)]
+    cases += [("head dim", 2, None, 384, torch.bfloat16, (384, 201), D) for D in FLASH_HEAD_DIMS]
+    for label, B_cmp, B, T, dtype, lens, D in cases:
+        q, k, v, seg = flash_case(B_cmp, T, dtype, SEED + 1, lens, D)
+        scale_d = 1.0 / math.sqrt(D)
+        dout = torch.randn(q.shape, device="cuda").to(dtype)
+        out, lse = flash_fwd(q, k, v, seg, scale_d)
         ins = backward_inputs(q, k, v, seg, out, lse, dout)
-        dk, dv = flash_bwd_dkv(ins, scale)
-        dq = flash_bwd_dq(ins, scale)
+        dk, dv = flash_bwd_dkv(ins, scale_d)
+        dq = flash_bwd_dq(ins, scale_d)
         del ins
         qkv = [t.detach().requires_grad_() for t in (q, k, v)]
-        want = torch.autograd.grad(flash_attention_plain(*qkv, seg, scale)[0], qkv, dout)
+        want = torch.autograd.grad(flash_attention_plain(*qkv, seg, scale_d)[0], qkv, dout)
         torch.cuda.synchronize()
         errs = {n: rel_err(a, b) for n, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), want)}
-        check(max(errs.values()) <= FLASH_BF16_RTOL, f"flash backward {label}: {errs}")
-        head = (f"  {label} [{B_cmp}, {FLASH_H}, {T}, {FLASH_D}]: dq {errs['dq']:.2e}, "
+        tol = FLASH_BF16_RTOL if dtype == torch.bfloat16 else FLASH_F32_RTOL
+        check(max(errs.values()) <= tol, f"flash backward {label} D={D} {dtype}: {errs}")
+        head = (f"  {label} [{B_cmp}, {FLASH_H}, {T}, {D}] {str(dtype)[6:]}: dq {errs['dq']:.2e}, "
                 f"dk {errs['dk']:.2e}, dv {errs['dv']:.2e} of max")
-        if lens is not None:
-            print(f"{head}, lengths {list(lens)}")
-            continue
         abs_err = {n: float((a.float() - b.float()).abs().max())
                    for n, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), want)}
-
-        # times at the step's shape
-        q, k, v, seg = flash_case(B, T, torch.bfloat16, SEED + 1)
-        dout = torch.randn(q.shape, device="cuda").to(torch.bfloat16)
-        out, lse = flash_fwd(q, k, v, seg, scale)
-        reps = 10
-        # the kernels alone, on one shared preparation as the backward calls
-        # them; the kernels line's ms is a call made alone, its own
-        # preparation included
-        ins = backward_inputs(q, k, v, seg, out, lse, dout)
-        ms_prep = cuda_ms(lambda: backward_inputs(q, k, v, seg, out, lse, dout), reps)
-        ms_dkv = cuda_ms(lambda: flash_bwd_dkv(ins, scale), reps)
-        ms_dq = cuda_ms(lambda: flash_bwd_dq(ins, scale), reps)
-        del ins
-        call_dkv = cuda_ms(lambda: flash_bwd_dkv(backward_inputs(q, k, v, seg, out, lse, dout),
-                                                 scale), reps)
-        call_dq = cuda_ms(lambda: flash_bwd_dq(backward_inputs(q, k, v, seg, out, lse, dout),
-                                               scale), reps)
-        qkv = [t.detach().requires_grad_() for t in (q, k, v)]
-        o_plain = flash_attention_plain(*qkv, seg, scale)[0]
-        plain = cuda_ms(lambda: torch.autograd.grad(o_plain, qkv, dout, retain_graph=True), 1,
-                        warmup=0)
-        del o_plain
-        mask = (seg[:, :, None] == seg[:, None, :])[:, None]
-
-        def sdpa_fwd_bwd():
-            o = F.scaled_dot_product_attention(*qkv, attn_mask=mask, scale=scale)
-            torch.autograd.grad(o, qkv, dout)
-
-        lib = cuda_ms(sdpa_fwd_bwd, reps)
-        o_sdpa = F.scaled_dot_product_attention(*qkv, attn_mask=mask, scale=scale)
-        lib_bwd = cuda_ms(lambda: torch.autograd.grad(o_sdpa, qkv, dout, retain_graph=True), reps)
-        del o_sdpa
-        # dK/dV: S, dP, dV, dK; dQ: S, dP, dQ (5 products for both together)
-        b_dkv, by_dkv = flash_bound(B, T, torch.bfloat16, 4, 4, 2, 2)
-        b_dq, by_dq = flash_bound(B, T, torch.bfloat16, 3, 4, 1, 2)
+        if lens is not None:
+            print(f"{head}, lengths {list(lens)}")
+            record("flash_bwd_dkv", max(abs_err["dk"], abs_err["dv"]))
+            record("flash_bwd_dq", abs_err["dq"])
+            continue
+        times = flash_backward_times(B, T, dtype, scale)
+        b_dkv, by_dkv = flash_bound(B, T, dtype, 4, 4, 2, 2)
+        b_dq, by_dq = flash_bound(B, T, dtype, 3, 4, 1, 2)
         product = 2.0 * B * FLASH_H * T * T * FLASH_D
-        print(f"{head}; at B={B}: dK/dV kernel {ms_dkv:.3f} ms "
-              f"({rate(4 * product, ms_dkv, b_dkv)}; bound {b_dkv:.4f}, {by_dkv}), dQ kernel "
-              f"{ms_dq:.3f} ms "
-              f"({rate(3 * product, ms_dq, b_dq)}; bound {b_dq:.4f}, {by_dq}), their shared "
-              f"preparation (delta, layouts) {ms_prep:.3f} ms; a call alone with its preparation: "
-              f"dK/dV {call_dkv:.3f} ms, dQ {call_dq:.3f} ms; plain backward {plain:.3f} ms, SDPA "
-              f"forward + backward {lib:.3f} ms, SDPA backward alone {lib_bwd:.3f} ms")
-        record("flash_bwd_dkv", max(abs_err["dk"], abs_err["dv"]), call_dkv, plain, b_dkv,
-               by_dkv, lib)
-        record("flash_bwd_dq", abs_err["dq"], call_dq, plain, b_dq, by_dq, lib)
+        total = times["prep"] + times["dkv"] + times["dq"]
+        print(f"{head}; at B={B}: dK/dV kernel {times['dkv']:.3f} ms "
+              f"({rate(4 * product, times['dkv'], b_dkv)}; bound {b_dkv:.4f}, {by_dkv}), dQ kernel "
+              f"{times['dq']:.3f} ms ({rate(3 * product, times['dq'], b_dq)}; bound {b_dq:.4f}, "
+              f"{by_dq}), their shared preparation (delta, layouts) {times['prep']:.3f} ms; a call "
+              f"alone with its preparation: dK/dV {times['call_dkv']:.3f} ms, dQ "
+              f"{times['call_dq']:.3f} ms; plain backward {times['plain']:.3f} ms, SDPA forward + "
+              f"backward {times['sdpa']:.3f} ms, SDPA backward alone {times['sdpa_bwd']:.3f} ms; "
+              f"the backward (preparation + dK/dV + dQ) {total:.3f} ms, "
+              f"{total / times['sdpa_bwd']:.2f}x SDPA's backward")
+        timed = dtype == torch.bfloat16  # the training path's dtype gives the kernels line's times
+        record("flash_bwd_dkv", max(abs_err["dk"], abs_err["dv"]),
+               *((times["call_dkv"], times["plain"], b_dkv, by_dkv, times["sdpa"]) if timed else ()))
+        record("flash_bwd_dq", abs_err["dq"],
+               *((times["call_dq"], times["plain"], b_dq, by_dq, times["sdpa"]) if timed else ()))
     return rows
+
+
+def flash_backward_times(B: int, T: int, dtype, scale: float) -> dict:
+    """Times of the backward kernels at [B, 2, T, 224] (mixed lengths): each
+    kernel alone on one shared ``backward_inputs`` (timed apart), as the
+    backward calls them, and each call made alone with its own preparation;
+    the plain backward, SDPA's forward + backward and SDPA's backward alone
+    (``autograd.grad`` on a retained graph), with the same boolean mask."""
+    q, k, v, seg = flash_case(B, T, dtype, SEED + 1)
+    dout = torch.randn(q.shape, device="cuda").to(dtype)
+    out, lse = flash_fwd(q, k, v, seg, scale)
+    reps = 10
+    ins = backward_inputs(q, k, v, seg, out, lse, dout)
+    t = dict(prep=cuda_ms(lambda: backward_inputs(q, k, v, seg, out, lse, dout), reps, queued=True),
+             dkv=cuda_ms(lambda: flash_bwd_dkv(ins, scale), reps, queued=True),
+             dq=cuda_ms(lambda: flash_bwd_dq(ins, scale), reps, queued=True))
+    del ins
+    t["call_dkv"] = cuda_ms(lambda: flash_bwd_dkv(backward_inputs(q, k, v, seg, out, lse, dout),
+                                                  scale), reps, queued=True)
+    t["call_dq"] = cuda_ms(lambda: flash_bwd_dq(backward_inputs(q, k, v, seg, out, lse, dout),
+                                                scale), reps, queued=True)
+    qkv = [x.detach().requires_grad_() for x in (q, k, v)]
+    o_plain = flash_attention_plain(*qkv, seg, scale)[0]
+    t["plain"] = cuda_ms(lambda: torch.autograd.grad(o_plain, qkv, dout, retain_graph=True), 1,
+                         warmup=0)
+    del o_plain
+    mask = (seg[:, :, None] == seg[:, None, :])[:, None]
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(*qkv, attn_mask=mask, scale=scale)
+        torch.autograd.grad(o, qkv, dout)
+
+    t["sdpa"] = cuda_ms(sdpa_fwd_bwd, reps, queued=True)
+    o_sdpa = F.scaled_dot_product_attention(*qkv, attn_mask=mask, scale=scale)
+    t["sdpa_bwd"] = cuda_ms(lambda: torch.autograd.grad(o_sdpa, qkv, dout, retain_graph=True), reps,
+                            queued=True)
+    return t
 
 
 def train_long(dev):

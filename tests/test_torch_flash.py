@@ -191,33 +191,87 @@ def test_dropout_guard():
 
 def test_kernel_shape_rule():
     """``kernel_shape_ok`` takes every length the model's flash gate lets
-    through at the head dim of both FFT stacks of the long-bucket config, in
-    both dtypes, and rejects what the kernels are not built for."""
+    through at the head dim of both FFT stacks of the long-bucket config (an
+    instantiated width, run unpadded), and any head dim up to 256 in both
+    dtypes; it rejects what the kernels do not take."""
     cfg = load_config(Text2VecConfig, repo_path("artifacts", "flash_longbucket", "flash",
                                                 "longbucket", "config.json"))
     dims = {cfg.encoder_output_dim // cfg.encoder_head, cfg.decoder_model_dim // cfg.encoder_head}
-    assert dims == {fa.HOPPER_D}
-    gated = [T for T in range(0, 4097, 64) if flash_gate(True, fa.HOPPER_D, fa.HOPPER_D, T)]
+    assert dims == {224} and 224 in fa.WIDTHS and fa.kernel_width(224) == 224
+    gated = [T for T in range(0, 4097, 64) if flash_gate(True, 224, 224, T)]
     assert gated[0] == 256 and {768, 3072} <= set(gated)
     for T in gated:
         for B in (1, 16):
             for dtype in (torch.bfloat16, torch.float32):
-                assert fa.kernel_shape_ok(B, 2, T, fa.HOPPER_D, dtype), (B, T, dtype)
-    assert fa.kernel_shape_ok(1, 2, 64, 128, torch.float32)
-    for bad in ((1, 2, 64, 128, torch.bfloat16), (1, 2, 64, 256, torch.bfloat16),
-                (1, 2, 96, 224, torch.bfloat16), (0, 2, 64, 224, torch.bfloat16),
-                (1, 2, 64, 320, torch.float32), (1, 2, 64, 224, torch.float16)):
+                assert fa.kernel_shape_ok(B, 2, T, 224, dtype), (B, T, dtype)
+    for D in (1, 12, 48, 64, 96, 128, 200, 256):
+        for dtype in (torch.bfloat16, torch.float32):
+            assert fa.kernel_shape_ok(1, 2, 64, D, dtype), (D, dtype)
+    assert [fa.kernel_width(D) for D in (1, 64, 65, 128, 129, 224, 225, 256)] == \
+        [64, 64, 128, 128, 224, 224, 256, 256]
+    for bad in ((1, 2, 96, 224, torch.bfloat16), (0, 2, 64, 224, torch.bfloat16),
+                (1, 2, 64, 288, torch.bfloat16), (1, 2, 64, 320, torch.float32),
+                (1, 2, 64, 0, torch.float32), (1, 2, 64, 224, torch.float16)):
         assert not fa.kernel_shape_ok(*bad), bad
+
+
+def test_f32_splits():
+    """The f32 forward's key splits: every split non-empty and at most 32; a
+    single split where the query tiles alone fill the card; at serving's
+    shapes (B H = 2, T = 768 and 3072) the blocks fill more than 70% of an
+    H100's 132 SMs in every wave, where one split would leave 91% (T = 768)
+    or 64% (T = 3072) of them idle."""
+    for BH, T in ((2, 768), (2, 3072), (2, 256), (4, 320), (32, 3072), (32, 768), (1, 64)):
+        s = fa.f32_splits(BH, T, 132)
+        tiles = T // 32
+        per = -(-tiles // s)
+        assert 1 <= s <= min(32, tiles) and -(-tiles // per) == s, (BH, T, s)
+    assert fa.f32_splits(32, 3072, 132) == 1
+    for T in (768, 3072):
+        s = fa.f32_splits(2, T, 132)
+        blocks = 2 * (T // 128) * s
+        waves = -(-blocks // 132)
+        assert blocks / (waves * 132) > 0.7, (T, s, blocks)
+
+
+@pytest.mark.parametrize("D", [12, 48, 96])
+def test_head_dim_padding_is_exact(D):
+    """What the wrappers do for a head dim outside ``WIDTHS``: zero-pad q, k,
+    v and dout to ``kernel_width(D)``, keep sm_scale = 1/sqrt(D), slice the
+    output and gradients back.  On the plain version in f32 (B = 2, H = 2,
+    T = 128, the second item padded from 90 on) the output, lse and the
+    three gradients equal the unpadded ones within 1e-6."""
+    rng = np.random.default_rng(D)
+    B, H, T = 2, 2, 128
+    W = fa.kernel_width(D)
+    assert W > D
+    q, k, v, dout = (torch.tensor(rng.standard_normal((B, H, T, D)).astype(np.float32))
+                     for _ in range(4))
+    seg = torch.ones(B, T, dtype=torch.int32)
+    seg[1, 90:] = 0
+    scale = 1.0 / math.sqrt(D)
+
+    def run(width):
+        qkv = [torch.nn.functional.pad(t, (0, width - D)).requires_grad_() for t in (q, k, v)]
+        out, lse = fa.flash_attention_plain(*qkv, seg, scale)
+        grads = torch.autograd.grad(out, qkv, torch.nn.functional.pad(dout, (0, width - D)))
+        return [out[..., :D], lse] + [g[..., :D] for g in grads], out[..., D:]
+
+    want, _ = run(D)
+    got, pad_out = run(W)
+    assert not pad_out.any()
+    for name, g, w in zip(("out", "lse", "dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.detach().numpy(), w.detach().numpy(), atol=1e-6, err_msg=name)
 
 
 def test_backward_inputs_shared():
     """``backward_inputs``, made once a backward for both kernels: q, k, v
-    and dout in the kernels' contiguous [B, T, H, D] layout, int32 segment
-    ids, and delta = rowsum(dout * out) in f32 (against float64, 1e-5 of the
-    row's sum of |terms|).  It raises for a bf16 head dim the kernels do not
-    take, and the kernels refuse CPU inputs."""
+    and dout in the kernels' contiguous [B, T, H, D] layout (bf16: zero-padded
+    to ``kernel_width(D)``), int32 segment ids, and delta = rowsum(dout * out)
+    in f32 (against float64, 1e-5 of the row's sum of |terms|).  It raises for
+    a head dim above 256, and the kernels refuse CPU inputs."""
     rng = np.random.default_rng(4)
-    B, H, T, D = 2, 2, 64, fa.HOPPER_D
+    B, H, T, D = 2, 2, 64, 224
     q, k, v, out, dout = (torch.tensor(rng.standard_normal((B, H, T, D)), dtype=torch.bfloat16)
                           for _ in range(5))
     seg = torch.tensor(rng.integers(0, 2, (B, T)))
@@ -232,25 +286,48 @@ def test_backward_inputs_shared():
         assert got.is_contiguous() and torch.equal(got, t.transpose(1, 2)), name
     assert ins.seg.dtype == torch.int32 and torch.equal(ins.seg, seg.to(torch.int32))
     assert torch.equal(ins.lse, lse) and ins.shape == (B, H, T, D)
-    with pytest.raises(ValueError, match=f"D = {fa.HOPPER_D} in bfloat16"):
-        fa.backward_inputs(*(t[..., :32] for t in (q, k, v)), seg, out[..., :32], lse,
-                           dout[..., :32])
+    small = fa.backward_inputs(*(t[..., :48] for t in (q, k, v)), seg, out[..., :48], lse,
+                               dout[..., :48])
+    assert small.shape == (B, H, T, 48) and small.q.shape == (B, T, H, 64)
+    assert torch.equal(small.q[..., :48], q[..., :48].transpose(1, 2))
+    assert not small.q[..., 48:].any() and not small.dout[..., 48:].any()
+    f32 = fa.backward_inputs(*(t[..., :48].float() for t in (q, k, v)), seg,
+                             out[..., :48].float(), lse, dout[..., :48].float())
+    assert f32.q.shape == (B, T, H, 48)  # the f32 backward kernels take any D
+    wide = torch.zeros(B, H, T, 288, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="D <= 256"):
+        fa.backward_inputs(wide, wide, wide, seg, wide, lse, wide)
     with pytest.raises(ValueError, match="device"):
         fa.flash_bwd_dkv(ins, 0.1)
     with pytest.raises(ValueError, match="device"):
         fa.flash_bwd_dq(ins, 0.1)
 
 
-@pytest.mark.parametrize("d_k, dtype", [(16, torch.bfloat16), (128, torch.bfloat16),
-                                        (288, None)])
+@pytest.mark.parametrize("d_k, dtype", [(288, torch.bfloat16), (288, None),
+                                        (320, torch.bfloat16)])
 def test_flash_block_on_card_refuses_head_dim(d_k, dtype):
-    """A flash block built for a CUDA device raises NotImplementedError at
-    construction for a head dim the kernels do not take, before it
-    allocates anything (so it raises here too); ``head_dim_ok`` holds the
-    rule and the CPU block takes any head dim."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md section 3"):
+    """A flash block built for a CUDA device raises ValueError at
+    construction for a head dim the kernels do not take (above 256), before
+    it allocates anything (so it raises here too); ``head_dim_ok`` holds the
+    rule, and the CPU block takes any head dim."""
+    with pytest.raises(ValueError, match="d_k <= 256"):
         FFTBlock(2 * d_k, 64, 2, d_k, d_k, dropout=0.0, use_flash=True, dtype=dtype,
                  device="cuda")
     assert not fa.head_dim_ok(d_k, dtype or torch.float32)
-    assert fa.head_dim_ok(fa.HOPPER_D, torch.bfloat16) and fa.head_dim_ok(d_k % 256, torch.float32)
+    for D in (1, 48, 224, 256):
+        assert fa.head_dim_ok(D, torch.bfloat16) and fa.head_dim_ok(D, torch.float32)
     FFTBlock(2 * d_k, 64, 2, d_k, d_k, dropout=0.0, use_flash=True, dtype=dtype, device="cpu")
+
+
+def test_flash_block_on_card_takes_padded_head_dim():
+    """A bf16 flash block at d_k = 48 (run zero-padded to 64 on the card)
+    passes the head-dim check at construction on a CUDA device; on a machine
+    without one it then fails where torch first allocates on the card, with
+    torch's own error, not the block's."""
+    try:
+        FFTBlock(96, 64, 2, 48, 48, dropout=0.0, use_flash=True, dtype=torch.bfloat16,
+                 device="cuda")
+    except NotImplementedError as err:
+        pytest.fail(f"the head-dim check refused d_k = 48: {err}")
+    except (AssertionError, RuntimeError) as err:  # torch's, without a card
+        assert "d_k" not in str(err)

@@ -22,38 +22,38 @@
 // Replaces: jax.experimental.pallas.ops.tpu.flash_attention (jax 0.9.0),
 // which the JAX package calls at wavthruvec_pytorch_tpu/models/fft_block.py
 // :106-134: _flash_attention_impl (pallas_call :758), _flash_attention_bwd_dkv
-// (:1121) and _flash_attention_bwd_dq (:1456).  The TPU kernel pads the
-// head dim 224 to 256; these take D = 224 as it is (f32 and the bf16 dQ:
-// any D <= 256, bf16 D % 16 == 0).
+// (:1121) and _flash_attention_bwd_dq (:1456).  The JAX package zero-pads a
+// head dim above 128 to a multiple of 128 for it (224 -> 256).  Here the
+// forward (both dtypes) and the bf16 backward are templates on the head dim
+// HD, built for HD = 64, 128, 224 and 256 (a multiple of 32: a TMA box is 32
+// columns, a wgmma k-step 16); the wrapper zero-pads any other D <= 256 to
+// the next of them, which is exact (padded columns add 0 to every q.k;
+// padded v columns give output columns that are dropped).  The f32
+// backward takes any D <= 256 as it is.
 //
 // What bounds them on an H100: at T = 3072, D = 224 the products (4 T^2 D
 // operations a head forward, 10 T^2 D backward) put them far above the
-// byte bound, so operations bound them: 989 TFLOP/s on bf16 tensor cores,
-// 67 TFLOP/s for f32 on the CUDA cores.  Three designs:
+// byte bound, so operations bound them: 989 TFLOP/s on bf16 tensor cores;
+// for f32, three TF32 products per product (below) at 495 TFLOP/s, i.e.
+// 165 TFLOP/s of f32-accurate work.  Three designs:
 //
-//   * bf16 forward and dK/dV (training; D = 224 only): Hopper's own path.
-//     One producer warpgroup streams tiles by TMA (64-byte swizzle, 32-column
-//     boxes, so D = 224 needs no padding) into a two-stage ring under
-//     mbarriers; two consumer warpgroups run wgmma with f32 accumulators in
-//     registers (setmaxnreg moves the producer's registers to them).  The
-//     scores' accumulator is the register A operand of the next product, so
-//     P and dS never go to shared memory as bf16.  The forward gives each
-//     consumer 64 of a block's 128 query rows; dK/dV gives one consumer S,
-//     P and dV and the other dP, dS and dK over the same 64 keys, with P
-//     passed between them through shared memory, so each product is
-//     computed once.  Scores are taken in base 2 (x = s sm_scale log2 e)
-//     with the mask at MASK in that domain, still finite.
-//   * bf16 dQ: mma.sync m16n8k16 with f32 accumulators, operands from shared
-//     memory by ldmatrix (.trans where the operand must be read down its
-//     columns).  Each warp owns 16 rows; a product's f32 result tile is in
-//     the register layout of the next product's A operand.  Shared rows are
-//     padded by 16 bytes, which puts the 8 rows an ldmatrix reads in 8
-//     different bank groups.
-//   * f32 (serving): f32 FMAs on the CUDA cores, one block of 256 threads
-//     per (b, h, tile of rows), each thread holding a 4 x 4 (or 2 x 4) block
-//     of scores and a 4 x 16 (or 2 x 16) strip of output rows in registers;
-//     shared rows padded to an odd number of words, so 16 threads reading 16
-//     rows at one column hit 16 banks.
+//   * bf16 (training), all three kernels: Hopper's own path.  One producer
+//     warpgroup streams tiles by TMA (64-byte swizzle, 32-column boxes) into
+//     a two-stage ring under mbarriers; two consumer warpgroups run wgmma
+//     with f32 accumulators in registers (setmaxnreg moves the producer's
+//     registers to them).  The scores' accumulator is the register A operand
+//     of the next product, so P and dS never go to shared memory as bf16.
+//     The forward and dQ give each consumer 64 of a block's 128 query rows;
+//     dK/dV gives one consumer S, P and dV and the other dP, dS and dK over
+//     the same 64 keys, with P passed between them through shared memory, so
+//     each product is computed once.  Scores are taken in base 2
+//     (x = s sm_scale log2 e) with the mask at MASK in that domain, still
+//     finite.
+//   * f32 forward (serving): 3xTF32 on the tensor cores (below).
+//   * f32 backward: f32 FMAs on the CUDA cores, one block of 256 threads per
+//     (b, h, tile of rows), each thread holding a block of scores and a strip
+//     of output rows in registers; shared rows padded to an odd number of
+//     words, so 16 threads reading 16 rows at one column hit 16 banks.
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
@@ -64,15 +64,327 @@
 #include <stdint.h>
 #include <stdio.h>
 
+#include <type_traits>
+
 #include "hopper.cuh"
 
 namespace {
 
+using hopper::smem_u32;
+
 constexpr int MAX_D = 256;
+constexpr uint32_t SMEM_MAX = 232448;  // dynamic shared memory a block may opt into
 constexpr float MASK = -0.7f * FLT_MAX;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// In an m16n8 (mma.sync) or m64n8 (wgmma, per warp: rows 16 w..) accumulator
+// tile, lane l holds rows g = l / 4 and g + 8, columns 2 t and 2 t + 1
+// (t = l % 4): c[0], c[1] in row g, c[2], c[3] in row g + 8.
 
 // ===========================================================================
-// f32: CUDA-core kernels
+// f32 forward: 3xTF32 on the tensor cores (mma.sync m16n8k8)
+// ===========================================================================
+//
+// One TF32 product keeps 10 mantissa bits, ~1e-3 of a logit at D = 224.  So
+// each operand x is split into hi = x with its low 13 mantissa bits cleared
+// (a TF32 value) and lo = x - hi (exact in f32; the tensor core reads its top
+// 19 bits), and a product is summed as lo_a hi_b + hi_a lo_b + hi_a hi_b in
+// f32 (CUTLASS's OpMultiplyAddFastF32 scheme): about 2^-20 of each term, f32
+// accuracy at three times TF32's work.  Both S = Q K^T and O += P V.
+//
+// Route: mma.sync rather than wgmma.  wgmma reads .tf32 operands from shared
+// memory K-major only (V would need a transposed copy), and hi and lo tiles
+// of Q, K and V would all have to sit in shared memory, which leaves no room
+// for a ring at D = 224.  mma.sync takes its fragments from registers: each
+// is read once from an f32 tile and split there, and P stays in registers
+// as the A operand of P V.  The m16n8 accumulator holds keys 2 t, 2 t + 1
+// where the m16n8k8 A operand wants columns t, t + 4, so the P V sum runs
+// over the 8 keys of a tile in the order (0, 2, 4, 6, 1, 3, 5, 7): A column
+// t is key 2 t, column t + 4 key 2 t + 1, and V's fragment rows follow.
+//
+// A block is 8 warps, each owning 16 query rows (128 a block); K and V
+// tiles of 32 keys, one buffer each, loaded by cp.async so that K's next
+// tile streams during the softmax and P V, and V's during the next S.
+// Shared rows are HD + 4 words (4 mod 32), so each fragment load of a warp
+// hits 32 banks.  Q, K, V: 175 KB at HD = 224, one block an SM.  At
+// serving's B H = 2 the query tiles alone are 12 (T = 768) or 48
+// (T = 3072) blocks for 132 SMs, so the wrapper splits the keys over
+// blockIdx.z: each split writes its unnormalised O and (m, l) rows, and a
+// second kernel merges them (exact up to the sums' order).
+
+constexpr int XQ = 128;  // query rows a block
+constexpr int XK = 32;   // keys a tile
+constexpr int XT = 256;  // threads a block: 8 warps
+
+template <int HD>
+constexpr size_t x_smem() {
+  return static_cast<size_t>(XQ + 2 * XK) * (HD + 4) * sizeof(float);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Start copying rows [r0, r0 + rows) of one head (row stride rs floats) into
+// a shared [rows, HD + 4] tile; rows at or past `limit` are zero-filled.
+template <int HD>
+__device__ __forceinline__ void x_load(float* dst, const float* src, int r0, int rows, int limit,
+                                       size_t rs) {
+  constexpr int CPR = HD / 4;  // 16-byte chunks a row
+  for (int i = threadIdx.x; i < rows * CPR; i += XT) {
+    const int r = i / CPR, c = (i - r * CPR) * 4;
+    const bool in = r0 + r < limit;
+    cp_async16(smem_u32(dst + r * (HD + 4) + c), src + static_cast<size_t>(in ? r0 + r : 0) * rs + c,
+               in ? 16u : 0u);
+  }
+}
+
+// hi: x with the low 13 mantissa bits cleared (TF32); lo = x - hi, exact
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  const uint32_t h = __float_as_uint(x) & 0xffffe000u;
+  hi = h;
+  lo = __float_as_uint(x - __uint_as_float(h));
+}
+
+// c += a b, m16n8k8, TF32 in, f32 accumulate.  A (16 x 8): a[0] (g, t),
+// a[1] (g + 8, t), a[2] (g, t + 4), a[3] (g + 8, t + 4); B (8 x 8): b0
+// (k = t, n = g), b1 (k = t + 4, n = g).
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b at f32 accuracy from split operands, the small terms first
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ahi)[4],
+                                           const uint32_t (&alo)[4], uint32_t bhi0, uint32_t bhi1,
+                                           uint32_t blo0, uint32_t blo1) {
+  mma_tf32(c, alo, bhi0, bhi1);
+  mma_tf32(c, ahi, blo0, blo1);
+  mma_tf32(c, ahi, bhi0, bhi1);
+}
+
+// forward: one block per (128 query rows, b * H + h, split of the key
+// tiles); part_o / part_ml (null without a split): the split's unnormalised
+// output rows [split][B H][T][HD] and (m, l) [split][B H][T][2]
+template <int HD>
+__global__ void __launch_bounds__(XT, 1)
+flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const int* __restrict__ seg, float* __restrict__ out,
+              float* __restrict__ lse, float* __restrict__ part_o, float* __restrict__ part_ml,
+              int H, int T_, int tiles_per_split, float scale_log2) {
+  constexpr int LD = HD + 4, NO = HD / 8;
+  extern __shared__ __align__(16) float xs[];
+  float* Qs = xs;
+  float* Ks = Qs + XQ * LD;
+  float* Vs = Ks + XK * LD;
+
+  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
+  const int q0 = blockIdx.x * XQ;
+  const int kt0 = blockIdx.z * tiles_per_split, kt1 = min(T_ / XK, kt0 + tiles_per_split);
+  const size_t rs = static_cast<size_t>(H) * HD;
+  const size_t head = static_cast<size_t>(b) * T_ * rs + static_cast<size_t>(h) * HD;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int ra = q0 + 16 * warp + g, rb = ra + 8;  // this thread's two query rows
+  const int* segb = seg + static_cast<size_t>(b) * T_;
+  const int sqa = ra < T_ ? segb[ra] : -1, sqb = rb < T_ ? segb[rb] : -1;
+
+  x_load<HD>(Qs, q + head, q0, XQ, T_, rs);
+  cp_async_commit();
+  x_load<HD>(Ks, k + head, kt0 * XK, XK, T_, rs);
+  cp_async_commit();
+  x_load<HD>(Vs, v + head, kt0 * XK, XK, T_, rs);
+  cp_async_commit();
+
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  // running row maxima (base-2 scores) and this thread's share of the row sums
+  float ma = -INFINITY, mb = -INFINITY, la = 0.f, lb = 0.f;
+  const float* qa = Qs + (16 * warp + g) * LD + t;
+
+  for (int j = kt0; j < kt1; ++j) {
+    int2 sk[XK / 8];  // segment ids of keys 8 n + 2 t, + 1
+#pragma unroll
+    for (int n = 0; n < XK / 8; ++n)
+      sk[n] = *reinterpret_cast<const int2*>(segb + j * XK + 8 * n + 2 * t);
+    cp_async_wait<1>();  // all but the newest group (V_j): Q and K_j are in
+    __syncthreads();
+
+    // S = Q K^T
+    float s[XK / 8][4];
+#pragma unroll
+    for (int n = 0; n < XK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll 4
+    for (int kk = 0; kk < HD; kk += 8) {
+      uint32_t ah[4], al[4];
+      split_tf32(qa[kk], ah[0], al[0]);
+      split_tf32(qa[kk + 8 * LD], ah[1], al[1]);
+      split_tf32(qa[kk + 4], ah[2], al[2]);
+      split_tf32(qa[kk + 8 * LD + 4], ah[3], al[3]);
+#pragma unroll
+      for (int n = 0; n < XK / 8; ++n) {
+        const float* kb = Ks + (8 * n + g) * LD + kk + t;
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(kb[0], bh0, bl0);
+        split_tf32(kb[4], bh1, bl1);
+        mma_3xtf32(s[n], ah, al, bh0, bh1, bl0, bl1);
+      }
+    }
+    __syncthreads();  // every warp is done with K_j
+    if (j + 1 < kt1) x_load<HD>(Ks, k + head, (j + 1) * XK, XK, T_, rs);
+    cp_async_commit();
+
+    // online softmax in base 2, masked scores at MASK (as the bf16 forward)
+    float mxa = -INFINITY, mxb = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < XK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * scale_log2;
+        if ((e < 2 ? sqa : sqb) != ((e & 1) ? sk[n].y : sk[n].x)) x = MASK;
+        s[n][e] = x;
+        if (e < 2) mxa = fmaxf(mxa, x); else mxb = fmaxf(mxb, x);
+      }
+    const float mna = fmaxf(ma, quad_max(mxa)), mnb = fmaxf(mb, quad_max(mxb));
+    const float ala = ex2(ma - mna), alb = ex2(mb - mnb);  // 0 on the first tile
+    float suma = 0.f, sumb = 0.f;
+#pragma unroll
+    for (int n = 0; n < XK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = ex2(s[n][e] - (e < 2 ? mna : mnb));
+        s[n][e] = p;
+        if (e < 2) suma += p; else sumb += p;
+      }
+    la = la * ala + suma;
+    lb = lb * alb + sumb;
+    ma = mna;
+    mb = mnb;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      o[n][0] *= ala; o[n][1] *= ala; o[n][2] *= alb; o[n][3] *= alb;
+    }
+
+    cp_async_wait<1>();  // all but K_{j+1}: V_j is in
+    __syncthreads();
+    // O += P V over the keys of each 8-key step in the order (0, 2, 4, 6, 1, 3, 5, 7)
+#pragma unroll
+    for (int ks = 0; ks < XK / 8; ++ks) {
+      uint32_t ph[4], pl[4];
+      split_tf32(s[ks][0], ph[0], pl[0]);
+      split_tf32(s[ks][2], ph[1], pl[1]);
+      split_tf32(s[ks][1], ph[2], pl[2]);
+      split_tf32(s[ks][3], ph[3], pl[3]);
+      const float* vb = Vs + (8 * ks + 2 * t) * LD + g;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(vb[8 * n], bh0, bl0);
+        split_tf32(vb[LD + 8 * n], bh1, bl1);
+        mma_3xtf32(o[n], ph, pl, bh0, bh1, bl0, bl1);
+      }
+    }
+    __syncthreads();  // every warp is done with V_j
+    if (j + 1 < kt1) x_load<HD>(Vs, v + head, (j + 1) * XK, XK, T_, rs);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+
+  la = quad_sum(la);
+  lb = quad_sum(lb);
+  if (part_o == nullptr) {
+    const float ia = 1.f / la, ib = 1.f / lb;
+    float* pa = out + head + static_cast<size_t>(ra) * rs + 2 * t;
+    float* pb = out + head + static_cast<size_t>(rb) * rs + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      if (ra < T_) *reinterpret_cast<float2*>(pa + 8 * n) = make_float2(o[n][0] * ia, o[n][1] * ia);
+      if (rb < T_) *reinterpret_cast<float2*>(pb + 8 * n) = make_float2(o[n][2] * ib, o[n][3] * ib);
+    }
+    if (t == 0) {
+      if (ra < T_) lse[static_cast<size_t>(bh) * T_ + ra] = ma * LN2 + logf(la);
+      if (rb < T_) lse[static_cast<size_t>(bh) * T_ + rb] = mb * LN2 + logf(lb);
+    }
+  } else {
+    const size_t row = (static_cast<size_t>(blockIdx.z) * gridDim.y + bh) * T_;
+    float* pa = part_o + (row + ra) * HD + 2 * t;
+    float* pb = part_o + (row + rb) * HD + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      if (ra < T_) *reinterpret_cast<float2*>(pa + 8 * n) = make_float2(o[n][0], o[n][1]);
+      if (rb < T_) *reinterpret_cast<float2*>(pb + 8 * n) = make_float2(o[n][2], o[n][3]);
+    }
+    if (t == 0) {
+      if (ra < T_) *reinterpret_cast<float2*>(part_ml + 2 * (row + ra)) = make_float2(ma, la);
+      if (rb < T_) *reinterpret_cast<float2*>(part_ml + 2 * (row + rb)) = make_float2(mb, lb);
+    }
+  }
+}
+
+// Merge the key splits of the f32 forward: one warp per query row (8 a
+// block); lane s < nsplit weighs split s by exp2(m_s - M), M the largest m.
+__global__ void __launch_bounds__(256)
+flash_fwd_f32_merge(const float* __restrict__ part_o, const float* __restrict__ part_ml,
+                    float* __restrict__ out, float* __restrict__ lse, int H, int T_, int HD,
+                    int nsplit) {
+  const int bh = blockIdx.y, b = bh / H, h = bh - b * H, BH = gridDim.y;
+  const int r = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (r >= T_) return;
+  const size_t row = static_cast<size_t>(lane) * BH * T_ + static_cast<size_t>(bh) * T_ + r;
+  float2 ml = make_float2(-INFINITY, 0.f);
+  if (lane < nsplit) ml = *reinterpret_cast<const float2*>(part_ml + 2 * row);
+  float M = ml.x;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, off));
+  const float w = lane < nsplit ? ex2(ml.x - M) : 0.f;
+  float L = w * ml.y;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) L += __shfl_xor_sync(0xffffffffu, L, off);
+  const float inv = 1.f / L;
+  float* o = out + (static_cast<size_t>(b) * T_ + r) * H * HD + static_cast<size_t>(h) * HD;
+  for (int c = lane; c < HD; c += 32) {
+    float acc = 0.f;
+    for (int s = 0; s < nsplit; ++s)
+      acc += __shfl_sync(0xffffffffu, w, s) *
+             part_o[((static_cast<size_t>(s) * BH + bh) * T_ + r) * HD + c];
+    o[c] = acc * inv;
+  }
+  if (lane == 0) lse[static_cast<size_t>(bh) * T_ + r] = M * LN2 + logf(L);
+}
+
+// ===========================================================================
+// f32 backward: CUDA-core kernels
 // ===========================================================================
 
 constexpr int NT = 256;        // threads per block: 16 x 16
@@ -88,131 +400,6 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src, int r0, 
   for (int idx = threadIdx.x; idx < rows * D; idx += NT) {
     const int r = idx / D, d = idx - r * D;
     dst[r * ld + d] = src[static_cast<size_t>(r0 + r) * row_stride + d];
-  }
-}
-
-__device__ __forceinline__ float group16_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float group16_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// forward: one block per (tile of FQ query rows, b * H + h)
-constexpr int FQ = 64, FK = 64;
-
-__global__ void __launch_bounds__(NT)
-flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const int* __restrict__ seg, float* __restrict__ out,
-              float* __restrict__ lse, int H, int T_, int D, float sm_scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int ld = f32_ld(D);
-  float* Qs = reinterpret_cast<float*>(smem);
-  float* Ks = Qs + FQ * ld;
-  float* Vs = Ks + FK * ld;
-  float* Ps = Vs + FK * ld;  // [FQ, FK + 1]
-  int* segk = reinterpret_cast<int*>(Ps + FQ * (FK + 1));
-
-  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
-  const int q0 = blockIdx.x * FQ;
-  const size_t rs = static_cast<size_t>(H) * D;
-  const size_t base = static_cast<size_t>(b) * T_ * rs + static_cast<size_t>(h) * D;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-
-  load_tile(Qs, q + base, q0, FQ, D, ld, rs);
-  int segq[4];
-  float m[4], l[4], acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    segq[i] = seg[static_cast<size_t>(b) * T_ + q0 + ty + 16 * i];
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < T_; k0 += FK) {
-    __syncthreads();  // the previous tile's reads are done
-    load_tile(Ks, k + base, k0, FK, D, ld, rs);
-    load_tile(Vs, v + base, k0, FK, D, ld, rs);
-    if (threadIdx.x < FK) segk[threadIdx.x] = seg[static_cast<size_t>(b) * T_ + k0 + threadIdx.x];
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float a[4], bk[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Qs[(ty + 16 * i) * ld + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bk[j] = Ks[(tx + 16 * j) * ld + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bk[j], s[i][j]);
-    }
-
-    // online softmax; the 16 threads of a row group are 16 lanes of a warp
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float rmax = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float x = s[i][j] * sm_scale;
-        if (segq[i] != segk[tx + 16 * j]) x = MASK;
-        s[i][j] = x;
-        rmax = fmaxf(rmax, x);
-      }
-      const float m_new = fmaxf(m[i], group16_max(rmax));
-      const float alpha = expf(m[i] - m_new);  // 0 on the first tile
-      float rsum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        rsum += p;
-        Ps[(ty + 16 * i) * (FK + 1) + tx + 16 * j] = p;
-      }
-      l[i] = l[i] * alpha + group16_sum(rsum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-
-    for (int c = 0; c < FK; ++c) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ps[(ty + 16 * i) * (FK + 1) + c];
-#pragma unroll
-      for (int cc = 0; cc < NC; ++cc) {
-        const int d = tx + 16 * cc;
-        if (d < D) {
-          const float vv = Vs[c * ld + d];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][cc] = fmaf(p[i], vv, acc[i][cc]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    float* o = out + base + static_cast<size_t>(r) * rs;
-#pragma unroll
-    for (int cc = 0; cc < NC; ++cc) {
-      const int d = tx + 16 * cc;
-      if (d < D) o[d] = acc[i][cc] / l[i];
-    }
-    if (tx == 0) lse[static_cast<size_t>(bh) * T_ + r] = m[i] + logf(l[i]);
   }
 }
 
@@ -454,132 +641,34 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ===========================================================================
-// bf16: shared helpers, and dQ on mma.sync m16n8k16 with f32 accumulators
+// bf16 forward, dK/dV and dQ on Hopper: TMA, mbarriers, wgmma, warp
+// specialisation; templates on the head dim HD
 // ===========================================================================
+//
+// A block is three warpgroups.  Warpgroup 0 is the producer: one thread
+// starts every tile load by TMA into a ring of stages and gives its
+// registers to the consumers (setmaxnreg).  Warpgroups 1 and 2 consume:
+// wgmma products with f32 accumulators in registers, the scores' A operand
+// of the next product rounded to bf16 in registers.  Each stage has a full
+// barrier (the producer's expected bytes, completed by TMA) and an empty
+// barrier (one arrival per consumer warpgroup once its products on the
+// stage are done).  Tiles are [rows, HD] in 32-column boxes with the 64-byte
+// swizzle (hopper.cuh).  Every layout is checked against SMEM_MAX below.
 
 using bf16 = __nv_bfloat16;
-constexpr int NDT = MAX_D / 8;  // 8-column tiles of a full row
 
-// Row stride of a shared bf16 [rows, D] tile: D + 8 elements (16 bytes), so
-// the 8 rows an ldmatrix reads start in 8 different 16-byte bank groups.
-__host__ __device__ __forceinline__ int bf16_ld(int D) { return D + 8; }
+constexpr int BOX = 32;        // columns of a TMA box: one 64-byte swizzle row
+constexpr int WG = 128;        // threads of a warpgroup
+constexpr int NS = 32;         // f32 registers a thread of a 64 x 64 score tile
 
-// Copy rows [r0, r0 + rows) of one head into a shared tile, 16 bytes a load
-// (D % 8 == 0; rows start 16-byte aligned).
-__device__ __forceinline__ void load_tile16(bf16* dst, const bf16* src, int r0, int rows, int D,
-                                            int ld, size_t row_stride) {
-  const int vpr = D / 8;
-  for (int idx = threadIdx.x; idx < rows * vpr; idx += blockDim.x) {
-    const int r = idx / vpr, c = (idx - r * vpr) * 8;
-    *reinterpret_cast<uint4*>(dst + r * ld + c) =
-        *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r0 + r) * row_stride + c);
-  }
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// A operand (16 x 16, row-major) at rows r0.., columns c0.. of a tile
-__device__ __forceinline__ void ld_a(uint32_t a[4], const bf16* tile, int ld, int r0, int c0) {
-  const int lane = threadIdx.x % 32;
-  const bf16* p = tile + (r0 + lane % 16) * ld + c0 + (lane / 16) * 8;
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-               : "r"(smem_addr(p)));
-}
-
-// B operand (16 x 8) whose columns n are tile rows r0..r0+7 and whose k runs
-// along them from column c0 (B = rows^T: the key tile for Q K^T)
-__device__ __forceinline__ void ld_b(uint32_t& b0, uint32_t& b1, const bf16* tile, int ld, int r0,
-                                     int c0) {
-  const int lane = threadIdx.x % 32;
-  const bf16* p = tile + (r0 + lane % 8) * ld + c0 + ((lane / 8) % 2) * 8;
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(b0), "=r"(b1)
-               : "r"(smem_addr(p)));
-}
-
-// B operand (16 x 8) whose k runs down tile rows r0..r0+15 and whose
-// columns n are tile columns c0..c0+7 (B = the tile itself: V for P V)
-__device__ __forceinline__ void ld_b_t(uint32_t& b0, uint32_t& b1, const bf16* tile, int ld,
-                                       int r0, int c0) {
-  const int lane = threadIdx.x % 32;
-  const bf16* p = tile + (r0 + lane % 16) * ld + c0;
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(b0), "=r"(b1)
-               : "r"(smem_addr(p)));
-}
-
-// c += a b (m16n8k16, bf16 in, f32 accumulate)
-__device__ __forceinline__ void mma(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+template <int HD>
+__host__ __device__ constexpr uint32_t tile_bytes(int rows) {
+  return static_cast<uint32_t>(rows) * HD * 2;
 }
 
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// The A operand of the 16 columns 16 s.. of a warp's f32 result tiles c (the
-// m16n8 accumulator layout of tiles 2s and 2s + 1 is the A layout), rounded
-// to bf16.
-__device__ __forceinline__ void acc_to_a(uint32_t a[4], const float (*c)[4], int s) {
-  a[0] = pack(c[2 * s][0], c[2 * s][1]);
-  a[1] = pack(c[2 * s][2], c[2 * s][3]);
-  a[2] = pack(c[2 * s + 1][0], c[2 * s + 1][1]);
-  a[3] = pack(c[2 * s + 1][2], c[2 * s + 1][3]);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// In an m16n8 tile, lane l holds rows g = l / 4 and g + 8, columns 2 t and
-// 2 t + 1 (t = l % 4): c[0], c[1] in row g, c[2], c[3] in row g + 8.
-
-// ===========================================================================
-// bf16 forward and dK/dV on Hopper: TMA, mbarriers, wgmma, warp specialisation
-// ===========================================================================
-//
-// A block is three warpgroups.  Warpgroup 0 is the producer: one thread
-// starts every tile load by TMA into a ring of FSTAGES (BSTAGES) stages and
-// gives its registers to the consumers (setmaxnreg).  Warpgroups 1 and 2
-// consume: wgmma products with f32 accumulators in registers, the scores'
-// A operand of the next product rounded to bf16 in registers.  Each stage
-// has a full barrier (the producer's expected bytes, completed by TMA) and
-// an empty barrier (one arrival per consumer warpgroup once its products on
-// the stage are done).  Tiles are [rows, HD] in 32-column boxes with the
-// 64-byte swizzle (hopper.cuh).
-
-using hopper::smem_u32;
-
-constexpr int HD = 224;        // the head dim these two kernels take (both FFT stacks)
-constexpr int BOX = 32;        // columns of a TMA box: one 64-byte swizzle row
-constexpr int WG = 128;        // threads of a warpgroup
-constexpr int NACC = HD / 2;   // f32 registers a thread of a 64 x HD accumulator
-constexpr int NS = 32;         // f32 registers a thread of a 64 x 64 score tile
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
-
-__host__ __device__ constexpr uint32_t tile_bytes(int rows) {
-  return static_cast<uint32_t>(rows) * HD * 2;
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // The wgmma A operand (4 registers) of score columns 16 ks.. of a 64 x 64
@@ -591,22 +680,30 @@ __device__ __forceinline__ void scores_to_a(uint32_t (&a)[4], const float (&s)[N
   a[3] = pack(s[8 * ks + 6], s[8 * ks + 7]);
 }
 
-// acc = A B over k = 0..HD-1: A the 64 rows a0.. of tile ta (ta_rows rows),
-// B the 64 rows of tile tb, both K-major.
-__device__ __forceinline__ void product_kmajor(float (&acc)[NS], uint32_t ta, int ta_rows, int a0,
-                                               uint32_t tb) {
-  hopper::wgmma_fence();
+// Issue acc = A B over k = 0..HD-1 (not committed): A the 64 rows a0.. of
+// tile ta (ta_rows rows), B the 64 rows of tile tb, both K-major.
+template <int HD>
+__device__ __forceinline__ void issue_kmajor(float (&acc)[NS], uint32_t ta, int ta_rows, int a0,
+                                             uint32_t tb) {
 #pragma unroll
   for (int kk = 0; kk < HD; kk += 16)
     hopper::wgmma_m64n64k16_ss(acc, hopper::kmajor_desc(ta, ta_rows, a0, kk),
                                hopper::kmajor_desc(tb, 64, 0, kk), kk > 0);
+}
+
+template <int HD>
+__device__ __forceinline__ void product_kmajor(float (&acc)[NS], uint32_t ta, int ta_rows, int a0,
+                                               uint32_t tb) {
+  hopper::wgmma_fence();
+  issue_kmajor<HD>(acc, ta, ta_rows, a0, tb);
   hopper::wgmma_commit();
   hopper::wgmma_wait<0>();
   hopper::fence_regs(acc);
 }
 
 // acc += round(s) B: B the 64 x HD tile tb read N-major (k down its rows).
-__device__ __forceinline__ void product_nmajor(float (&acc)[NACC], const float (&s)[NS],
+template <int HD>
+__device__ __forceinline__ void product_nmajor(float (&acc)[HD / 2], const float (&s)[NS],
                                                uint32_t tb) {
   uint32_t a[4][4];
 #pragma unroll
@@ -614,7 +711,7 @@ __device__ __forceinline__ void product_nmajor(float (&acc)[NACC], const float (
   hopper::wgmma_fence();
 #pragma unroll
   for (int ks = 0; ks < 4; ++ks)
-    hopper::wgmma_m64n224k16_rs(acc, a[ks], hopper::nmajor_desc(tb, 64, 16 * ks));
+    hopper::wgmma_rs<HD>(acc, a[ks], hopper::nmajor_desc(tb, 64, 16 * ks));
   hopper::wgmma_commit();
   hopper::wgmma_wait<0>();
   hopper::fence_regs(acc);
@@ -622,8 +719,9 @@ __device__ __forceinline__ void product_nmajor(float (&acc)[NACC], const float (
 
 // Write a 64 x HD f32 accumulator as bf16 rows r0 + 16 w + g (and + 8) of one
 // head (row stride rs elements), times `mul0` (`mul1`); rows >= nrows skipped.
+template <int HD>
 __device__ __forceinline__ void store_rows(bf16* base, size_t rs, int r0, int nrows,
-                                           const float (&acc)[NACC], float mul0, float mul1) {
+                                           const float (&acc)[HD / 2], float mul0, float mul1) {
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4, w = (threadIdx.x % WG) / 32;
   const int ra = r0 + 16 * w + g, rb = ra + 8;
   bf16* pa = base + static_cast<size_t>(ra) * rs + 2 * t;
@@ -637,34 +735,46 @@ __device__ __forceinline__ void store_rows(bf16* base, size_t rs, int r0, int nr
   }
 }
 
-// forward: one block per (128 query rows, b * H + h); consumer warpgroup c
-// owns rows 64 c..64 c+63; key tiles of FN
-constexpr int FM = 128, FN = 64, FSTAGES = 2;
-constexpr uint32_t F_Q = 0;
-constexpr uint32_t F_K = F_Q + tile_bytes(FM);
-constexpr uint32_t F_V = F_K + FSTAGES * tile_bytes(FN);
-constexpr uint32_t F_SEG = F_V + FSTAGES * tile_bytes(FN);  // int [FSTAGES][FN]
-constexpr uint32_t F_BAR = F_SEG + FSTAGES * FN * 4;        // full_q, full_k[], full_v[], empty[]
-constexpr uint32_t F_SMEM = F_BAR + 8 * (1 + 3 * FSTAGES) + 1024;  // + alignment slack
+// Shared memory of the bf16 smem_raw, aligned up to 1024 bytes.
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
+                                          ~static_cast<uintptr_t>(1023));
+}
 
+// forward: one block per (128 query rows, b * H + h); consumer warpgroup c
+// owns rows 64 c..64 c+63; key tiles of 64
+template <int HD>
+struct FwdLayout {
+  static constexpr int M = 128, N = 64, STAGES = 2;
+  static constexpr uint32_t Q = 0;
+  static constexpr uint32_t K = Q + tile_bytes<HD>(M);
+  static constexpr uint32_t V = K + STAGES * tile_bytes<HD>(N);
+  static constexpr uint32_t SEG = V + STAGES * tile_bytes<HD>(N);  // int [STAGES][N]
+  static constexpr uint32_t BAR = SEG + STAGES * N * 4;  // full_q, full_k[], full_v[], empty[]
+  static constexpr uint32_t SMEM = BAR + 8 * (1 + 3 * STAGES) + 1024;  // + alignment slack
+  static_assert(SMEM <= SMEM_MAX, "forward shared memory");
+};
+
+template <int HD>
 __global__ void __launch_bounds__(3 * WG, 1)
 flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ seg,
                bf16* __restrict__ out, float* __restrict__ lse, int H, int T_, float scale_log2) {
+  using L = FwdLayout<HD>;
+  constexpr int FM = L::M, FN = L::N, ST = L::STAGES;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* smem = align1024(smem_raw);
   const uint32_t sb = smem_u32(smem);
-  const uint32_t full_q = sb + F_BAR;
+  const uint32_t full_q = sb + L::BAR;
   auto full_k = [&](int s) { return full_q + 8 * (1 + s); };
-  auto full_v = [&](int s) { return full_q + 8 * (1 + FSTAGES + s); };
-  auto empty = [&](int s) { return full_q + 8 * (1 + 2 * FSTAGES + s); };
+  auto full_v = [&](int s) { return full_q + 8 * (1 + ST + s); };
+  auto empty = [&](int s) { return full_q + 8 * (1 + 2 * ST + s); };
 
   const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
   const int q0 = blockIdx.x * FM, nkt = T_ / FN;
   if (threadIdx.x == 0) {
     hopper::mbar_init(full_q, 1);
-    for (int s = 0; s < FSTAGES; ++s) {
+    for (int s = 0; s < ST; ++s) {
       hopper::mbar_init(full_k(s), 1);
       hopper::mbar_init(full_v(s), 1);
       hopper::mbar_init(empty(s), 2);
@@ -677,20 +787,20 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
     hopper::setmaxnreg_dec<24>();
     if (threadIdx.x == 0) {
       const int row0 = b * T_;
-      hopper::mbar_expect_tx(full_q, tile_bytes(FM));
+      hopper::mbar_expect_tx(full_q, tile_bytes<HD>(FM));
       for (int c = 0; c < HD / BOX; ++c)
-        hopper::tma_load_3d(sb + F_Q + c * FM * 64, &tm_q, full_q, c * BOX, h, row0 + q0);
+        hopper::tma_load_3d(sb + L::Q + c * FM * 64, &tm_q, full_q, c * BOX, h, row0 + q0);
       for (int j = 0; j < nkt; ++j) {
-        const int s = j % FSTAGES;
-        if (j >= FSTAGES) hopper::mbar_wait(empty(s), (j / FSTAGES - 1) & 1);
-        hopper::mbar_expect_tx(full_k(s), tile_bytes(FN) + FN * 4);
+        const int s = j % ST;
+        if (j >= ST) hopper::mbar_wait(empty(s), (j / ST - 1) & 1);
+        hopper::mbar_expect_tx(full_k(s), tile_bytes<HD>(FN) + FN * 4);
         for (int c = 0; c < HD / BOX; ++c)
-          hopper::tma_load_3d(sb + F_K + s * tile_bytes(FN) + c * FN * 64, &tm_k, full_k(s),
+          hopper::tma_load_3d(sb + L::K + s * tile_bytes<HD>(FN) + c * FN * 64, &tm_k, full_k(s),
                               c * BOX, h, row0 + j * FN);
-        hopper::bulk_load(sb + F_SEG + s * FN * 4, seg + row0 + j * FN, FN * 4, full_k(s));
-        hopper::mbar_expect_tx(full_v(s), tile_bytes(FN));
+        hopper::bulk_load(sb + L::SEG + s * FN * 4, seg + row0 + j * FN, FN * 4, full_k(s));
+        hopper::mbar_expect_tx(full_v(s), tile_bytes<HD>(FN));
         for (int c = 0; c < HD / BOX; ++c)
-          hopper::tma_load_3d(sb + F_V + s * tile_bytes(FN) + c * FN * 64, &tm_v, full_v(s),
+          hopper::tma_load_3d(sb + L::V + s * tile_bytes<HD>(FN) + c * FN * 64, &tm_v, full_v(s),
                               c * BOX, h, row0 + j * FN);
       }
     }
@@ -701,23 +811,23 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
     const int r0 = q0 + 64 * cw + 16 * (tid / 32) + g, r1 = r0 + 8;
     const int segq0 = r0 < T_ ? seg[static_cast<size_t>(b) * T_ + r0] : -1;
     const int segq1 = r1 < T_ ? seg[static_cast<size_t>(b) * T_ + r1] : -1;
-    float o[NACC], sc[NS];
+    float o[HD / 2], sc[NS];
 #pragma unroll
-    for (int i = 0; i < NACC; ++i) o[i] = 0.f;
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
     // running row maxima (base-2 scores) and this thread's share of the row sums
     float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
     hopper::mbar_wait(full_q, 0);
     for (int j = 0; j < nkt; ++j) {
-      const int s = j % FSTAGES;
-      const uint32_t ph = (j / FSTAGES) & 1;
+      const int s = j % ST;
+      const uint32_t ph = (j / ST) & 1;
       hopper::mbar_wait(full_k(s), ph);
-      product_kmajor(sc, sb + F_Q, FM, 64 * cw, sb + F_K + s * tile_bytes(FN));
+      product_kmajor<HD>(sc, sb + L::Q, FM, 64 * cw, sb + L::K + s * tile_bytes<HD>(FN));
 
       // online softmax in base 2: x = s * sm_scale * log2(e), masked x = MASK
       // (finite, so a tile masked for the whole row gives exp2(0) = 1,
       // which alpha = 0 wipes once a real key arrives)
-      const int* segk = reinterpret_cast<const int*>(smem + F_SEG) + s * FN;
+      const int* segk = reinterpret_cast<const int*>(smem + L::SEG) + s * FN;
       float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
       for (int n = 0; n < FN / 8; ++n) {
@@ -752,15 +862,15 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
 
       // O += round(P) V
       hopper::mbar_wait(full_v(s), ph);
-      product_nmajor(o, sc, sb + F_V + s * tile_bytes(FN));
+      product_nmajor<HD>(o, sc, sb + L::V + s * tile_bytes<HD>(FN));
       if (tid == 0) hopper::mbar_arrive(empty(s));
     }
 
     l0 = quad_sum(l0);
     l1 = quad_sum(l1);
     const size_t rs = static_cast<size_t>(H) * HD;
-    store_rows(out + static_cast<size_t>(b) * T_ * rs + static_cast<size_t>(h) * HD, rs,
-               q0 + 64 * cw, T_, o, 1.f / l0, 1.f / l1);
+    store_rows<HD>(out + static_cast<size_t>(b) * T_ * rs + static_cast<size_t>(h) * HD, rs,
+                   q0 + 64 * cw, T_, o, 1.f / l0, 1.f / l1);
     if (t == 0) {
       if (r0 < T_) lse[static_cast<size_t>(bh) * T_ + r0] = m0 * LN2 + logf(l0);
       if (r1 < T_) lse[static_cast<size_t>(bh) * T_ + r1] = m1 * LN2 + logf(l1);
@@ -775,18 +885,24 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
 // A does), dS^T = P^T (dP^T - delta) sm_scale and dK += round(dS^T) Q.  Each
 // of the four products is computed once; each warpgroup holds one 64 x HD
 // accumulator.  Named barriers 1-2 (P^T written, by buffer) and 3-4 (P^T
-// read) pace the exchange through two buffers.
-constexpr int BK = 64, BQ = 64, BSTAGES = 2;
-constexpr uint32_t B_K = 0;
-constexpr uint32_t B_V = B_K + tile_bytes(BK);
-constexpr uint32_t B_Q = B_V + tile_bytes(BK);                 // [BSTAGES]
-constexpr uint32_t B_DO = B_Q + BSTAGES * tile_bytes(BQ);       // [BSTAGES]
-constexpr uint32_t B_X = B_DO + BSTAGES * tile_bytes(BQ);       // f32 [2][NS][WG]
-constexpr uint32_t B_ROWS = B_X + 2 * NS * WG * 4;  // [BSTAGES]: lse, delta f32, seg int [BQ]
-constexpr uint32_t B_BAR = B_ROWS + BSTAGES * 3 * BQ * 4;       // full_kv, full[], empty[]
-constexpr uint32_t B_SMEM = B_BAR + 8 * (1 + 2 * BSTAGES) + 1024;
+// read) pace the exchange through two buffers.  At HD = 256 the two-stage
+// ring takes 231,976 bytes.
+template <int HD>
+struct DkvLayout {
+  static constexpr int BK = 64, BQ = 64, STAGES = 2;
+  static constexpr uint32_t K = 0;
+  static constexpr uint32_t V = K + tile_bytes<HD>(BK);
+  static constexpr uint32_t Q = V + tile_bytes<HD>(BK);                // [STAGES]
+  static constexpr uint32_t DO = Q + STAGES * tile_bytes<HD>(BQ);      // [STAGES]
+  static constexpr uint32_t X = DO + STAGES * tile_bytes<HD>(BQ);      // f32 [2][NS][WG]
+  static constexpr uint32_t ROWS = X + 2 * NS * WG * 4;  // [STAGES]: lse, delta f32, seg int [BQ]
+  static constexpr uint32_t BAR = ROWS + STAGES * 3 * BQ * 4;         // full_kv, full[], empty[]
+  static constexpr uint32_t SMEM = BAR + 8 * (1 + 2 * STAGES) + 1024;
+  static_assert(SMEM <= SMEM_MAX, "dK/dV shared memory");
+};
 constexpr int BAR_P_FULL = 1, BAR_P_FREE = 3;
 
+template <int HD>
 __global__ void __launch_bounds__(3 * WG, 1)
 flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
@@ -795,19 +911,20 @@ flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tm_q,
                    const int* __restrict__ seg, const float* __restrict__ lse,
                    const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
                    int H, int T_, float scale_log2, float sm_scale) {
+  using L = DkvLayout<HD>;
+  constexpr int BK = L::BK, BQ = L::BQ, ST = L::STAGES;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* smem = align1024(smem_raw);
   const uint32_t sb = smem_u32(smem);
-  const uint32_t full_kv = sb + B_BAR;
+  const uint32_t full_kv = sb + L::BAR;
   auto full = [&](int s) { return full_kv + 8 * (1 + s); };
-  auto empty = [&](int s) { return full_kv + 8 * (1 + BSTAGES + s); };
+  auto empty = [&](int s) { return full_kv + 8 * (1 + ST + s); };
 
   const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
   const int k0 = blockIdx.x * BK, nqt = T_ / BQ;
   if (threadIdx.x == 0) {
     hopper::mbar_init(full_kv, 1);
-    for (int s = 0; s < BSTAGES; ++s) {
+    for (int s = 0; s < ST; ++s) {
       hopper::mbar_init(full(s), 1);
       hopper::mbar_init(empty(s), 2);
     }
@@ -819,22 +936,22 @@ flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tm_q,
     hopper::setmaxnreg_dec<24>();
     if (threadIdx.x == 0) {
       const int row0 = b * T_;
-      hopper::mbar_expect_tx(full_kv, 2 * tile_bytes(BK));
+      hopper::mbar_expect_tx(full_kv, 2 * tile_bytes<HD>(BK));
       for (int c = 0; c < HD / BOX; ++c) {
-        hopper::tma_load_3d(sb + B_K + c * BK * 64, &tm_k, full_kv, c * BOX, h, row0 + k0);
-        hopper::tma_load_3d(sb + B_V + c * BK * 64, &tm_v, full_kv, c * BOX, h, row0 + k0);
+        hopper::tma_load_3d(sb + L::K + c * BK * 64, &tm_k, full_kv, c * BOX, h, row0 + k0);
+        hopper::tma_load_3d(sb + L::V + c * BK * 64, &tm_v, full_kv, c * BOX, h, row0 + k0);
       }
       for (int j = 0; j < nqt; ++j) {
-        const int s = j % BSTAGES;
-        if (j >= BSTAGES) hopper::mbar_wait(empty(s), (j / BSTAGES - 1) & 1);
-        hopper::mbar_expect_tx(full(s), 2 * tile_bytes(BQ) + 3 * BQ * 4);
+        const int s = j % ST;
+        if (j >= ST) hopper::mbar_wait(empty(s), (j / ST - 1) & 1);
+        hopper::mbar_expect_tx(full(s), 2 * tile_bytes<HD>(BQ) + 3 * BQ * 4);
         for (int c = 0; c < HD / BOX; ++c) {
-          hopper::tma_load_3d(sb + B_Q + s * tile_bytes(BQ) + c * BQ * 64, &tm_q, full(s),
+          hopper::tma_load_3d(sb + L::Q + s * tile_bytes<HD>(BQ) + c * BQ * 64, &tm_q, full(s),
                               c * BOX, h, row0 + j * BQ);
-          hopper::tma_load_3d(sb + B_DO + s * tile_bytes(BQ) + c * BQ * 64, &tm_do, full(s),
+          hopper::tma_load_3d(sb + L::DO + s * tile_bytes<HD>(BQ) + c * BQ * 64, &tm_do, full(s),
                               c * BOX, h, row0 + j * BQ);
         }
-        const uint32_t rows = sb + B_ROWS + s * 3 * BQ * 4;
+        const uint32_t rows = sb + L::ROWS + s * 3 * BQ * 4;
         const size_t r = static_cast<size_t>(bh) * T_ + j * BQ;
         hopper::bulk_load(rows, lse + r, BQ * 4, full(s));
         hopper::bulk_load(rows + BQ * 4, delta + r, BQ * 4, full(s));
@@ -849,22 +966,22 @@ flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tm_q,
     const int segk0 = seg[static_cast<size_t>(b) * T_ + kr];
     const int segk1 = seg[static_cast<size_t>(b) * T_ + kr + 8];
     // A: S^T = K Q^T, then dV += P^T dO; B: dP^T = V dO^T, then dK += dS^T Q
-    const uint32_t ta = sb + (cw == 0 ? B_K : B_V);
-    const uint32_t tb1 = sb + (cw == 0 ? B_Q : B_DO), tb2 = sb + (cw == 0 ? B_DO : B_Q);
-    float acc[NACC], sc[NS];
+    const uint32_t ta = sb + (cw == 0 ? L::K : L::V);
+    const uint32_t tb1 = sb + (cw == 0 ? L::Q : L::DO), tb2 = sb + (cw == 0 ? L::DO : L::Q);
+    float acc[HD / 2], sc[NS];
 #pragma unroll
-    for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
 
     hopper::mbar_wait(full_kv, 0);
     for (int j = 0; j < nqt; ++j) {
-      const int s = j % BSTAGES;
-      hopper::mbar_wait(full(s), (j / BSTAGES) & 1);
-      product_kmajor(sc, ta, BK, 0, tb1 + s * tile_bytes(BQ));
+      const int s = j % ST;
+      hopper::mbar_wait(full(s), (j / ST) & 1);
+      product_kmajor<HD>(sc, ta, BK, 0, tb1 + s * tile_bytes<HD>(BQ));
 
-      const float* lse_s = reinterpret_cast<const float*>(smem + B_ROWS + s * 3 * BQ * 4);
+      const float* lse_s = reinterpret_cast<const float*>(smem + L::ROWS + s * 3 * BQ * 4);
       const float* delta_s = lse_s + BQ;
       const int* segq = reinterpret_cast<const int*>(lse_s + 2 * BQ);
-      float* xbuf = reinterpret_cast<float*>(smem + B_X) + (j & 1) * NS * WG;
+      float* xbuf = reinterpret_cast<float*>(smem + L::X) + (j & 1) * NS * WG;
       if (cw == 0) {
         // P^T = exp2(s * sm_scale * log2(e) - lse * log2(e)); masked: MASK
 #pragma unroll
@@ -896,111 +1013,147 @@ flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tm_q,
         }
         if (j < nqt - 2) hopper::named_arrive(BAR_P_FREE + (j & 1), 2 * WG);
       }
-      product_nmajor(acc, sc, tb2 + s * tile_bytes(BQ));
+      product_nmajor<HD>(acc, sc, tb2 + s * tile_bytes<HD>(BQ));
       if (tid == 0) hopper::mbar_arrive(empty(s));
     }
 
     const size_t rs = static_cast<size_t>(H) * HD;
     const size_t head = static_cast<size_t>(b) * T_ * rs + static_cast<size_t>(h) * HD;
-    store_rows((cw == 0 ? dv : dk) + head, rs, k0, T_, acc, 1.f, 1.f);
+    store_rows<HD>((cw == 0 ? dv : dk) + head, rs, k0, T_, acc, 1.f, 1.f);
   }
 }
 
-// dQ: 4 warps x 16 query rows a block, key tiles of MQK
-constexpr int MQ = 64, MQK = 32;
+// dQ: one block per (128 query rows, b * H + h); consumer warpgroup c owns
+// rows 64 c..64 c+63, with their lse, delta and segment ids in registers.
+// Q and dO come once by TMA; K and V in 64-key tiles (segment ids by bulk
+// copy) through a ring.  Per key tile: S = Q K^T and dP = dO V^T issued
+// back to back (14 m64n64k16 each at HD = 224, shared x shared), P =
+// exp2(x - lse log2 e) on S while dP finishes, dS = P (dP - delta) sm_scale,
+// and dQ += round(dS) K with dS the register A operand and K read N-major
+// (4 m64nHDk16).  A thread holds dQ (HD / 2), S and dP (32 each) in
+// registers.  Shared memory at HD = 224: Q and dO 57,344 bytes each, K and V
+// 28,672 each a stage, two stages: 230,952 bytes in all.  At HD = 256 two
+// stages would take 263,208 bytes, so that instantiation runs one stage
+// (the next tile's load waits for both consumers to finish the last).
+template <int HD>
+struct DqLayout {
+  static constexpr int M = 128, N = 64;
+  static constexpr int STAGES =
+      2 * tile_bytes<HD>(M) + 2 * (2 * tile_bytes<HD>(N) + N * 4) + 8 * 5 + 1024 <= SMEM_MAX ? 2
+                                                                                               : 1;
+  static constexpr uint32_t Q = 0;
+  static constexpr uint32_t DO = Q + tile_bytes<HD>(M);
+  static constexpr uint32_t K = DO + tile_bytes<HD>(M);                // [STAGES]
+  static constexpr uint32_t V = K + STAGES * tile_bytes<HD>(N);        // [STAGES]
+  static constexpr uint32_t SEG = V + STAGES * tile_bytes<HD>(N);      // int [STAGES][N]
+  static constexpr uint32_t BAR = SEG + STAGES * N * 4;                // full_qd, full[], empty[]
+  static constexpr uint32_t SMEM = BAR + 8 * (1 + 2 * STAGES) + 1024;
+  static_assert(SMEM <= SMEM_MAX, "dQ shared memory");
+};
 
-__global__ void __launch_bounds__(128)
-flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const int* __restrict__ seg,
-                  const bf16* __restrict__ dout, const float* __restrict__ lse,
-                  const float* __restrict__ delta, bf16* __restrict__ dq, int H, int T_, int D,
-                  float sm_scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int ld = bf16_ld(D);
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* dOs = Qs + MQ * ld;
-  bf16* Ks = dOs + MQ * ld;
-  bf16* Vs = Ks + MQK * ld;
-  int* segk = reinterpret_cast<int*>(Vs + MQK * ld);
+template <int HD>
+__global__ void __launch_bounds__(3 * WG, 1)
+flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                  const __grid_constant__ CUtensorMap tm_v,
+                  const __grid_constant__ CUtensorMap tm_do, const int* __restrict__ seg,
+                  const float* __restrict__ lse, const float* __restrict__ delta,
+                  bf16* __restrict__ dq, int H, int T_, float scale_log2, float sm_scale) {
+  using L = DqLayout<HD>;
+  constexpr int QM = L::M, KN = L::N, ST = L::STAGES;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const uint32_t sb = smem_u32(smem);
+  const uint32_t full_qd = sb + L::BAR;
+  auto full = [&](int s) { return full_qd + 8 * (1 + s); };
+  auto empty = [&](int s) { return full_qd + 8 * (1 + ST + s); };
 
   const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
-  const int q0 = blockIdx.x * MQ;
-  const size_t rs = static_cast<size_t>(H) * D;
-  const size_t base = static_cast<size_t>(b) * T_ * rs + static_cast<size_t>(h) * D;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int wr = warp * 16;
+  const int q0 = blockIdx.x * QM, nkt = T_ / KN;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(full_qd, 1);
+    for (int s = 0; s < ST; ++s) {
+      hopper::mbar_init(full(s), 1);
+      hopper::mbar_init(empty(s), 2);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
 
-  load_tile16(Qs, q + base, q0, MQ, D, ld, rs);
-  load_tile16(dOs, dout + base, q0, MQ, D, ld, rs);
-  const size_t r0 = static_cast<size_t>(bh) * T_ + q0 + wr + g;
-  const float lse0 = lse[r0], lse1 = lse[r0 + 8], dl0 = delta[r0], dl1 = delta[r0 + 8];
-  const int segq0 = seg[static_cast<size_t>(b) * T_ + q0 + wr + g];
-  const int segq1 = seg[static_cast<size_t>(b) * T_ + q0 + wr + g + 8];
-  float dQ[NDT][4];
-#pragma unroll
-  for (int n = 0; n < NDT; ++n) dQ[n][0] = dQ[n][1] = dQ[n][2] = dQ[n][3] = 0.f;
-
-  for (int k0 = 0; k0 < T_; k0 += MQK) {
-    __syncthreads();
-    load_tile16(Ks, k + base, k0, MQK, D, ld, rs);
-    load_tile16(Vs, v + base, k0, MQK, D, ld, rs);
-    if (threadIdx.x < MQK) segk[threadIdx.x] = seg[static_cast<size_t>(b) * T_ + k0 + threadIdx.x];
-    __syncthreads();
-
-    float s[MQK / 8][4], dp[MQK / 8][4];
-#pragma unroll
-    for (int n = 0; n < MQK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-    for (int kk = 0; kk < D; kk += 16) {
-      uint32_t aq[4], ao[4];
-      ld_a(aq, Qs, ld, wr, kk);
-      ld_a(ao, dOs, ld, wr, kk);
-#pragma unroll
-      for (int n = 0; n < MQK / 8; ++n) {
-        uint32_t b0, b1;
-        ld_b(b0, b1, Ks, ld, n * 8, kk);
-        mma(s[n], aq, b0, b1);
-        ld_b(b0, b1, Vs, ld, n * 8, kk);
-        mma(dp[n], ao, b0, b1);
+  if (threadIdx.x / WG == 0) {  // producer
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      const int row0 = b * T_;
+      hopper::mbar_expect_tx(full_qd, 2 * tile_bytes<HD>(QM));
+      for (int c = 0; c < HD / BOX; ++c) {
+        hopper::tma_load_3d(sb + L::Q + c * QM * 64, &tm_q, full_qd, c * BOX, h, row0 + q0);
+        hopper::tma_load_3d(sb + L::DO + c * QM * 64, &tm_do, full_qd, c * BOX, h, row0 + q0);
+      }
+      for (int j = 0; j < nkt; ++j) {
+        const int s = j % ST;
+        if (j >= ST) hopper::mbar_wait(empty(s), (j / ST - 1) & 1);
+        hopper::mbar_expect_tx(full(s), 2 * tile_bytes<HD>(KN) + KN * 4);
+        for (int c = 0; c < HD / BOX; ++c) {
+          hopper::tma_load_3d(sb + L::K + s * tile_bytes<HD>(KN) + c * KN * 64, &tm_k, full(s),
+                              c * BOX, h, row0 + j * KN);
+          hopper::tma_load_3d(sb + L::V + s * tile_bytes<HD>(KN) + c * KN * 64, &tm_v, full(s),
+                              c * BOX, h, row0 + j * KN);
+        }
+        hopper::bulk_load(sb + L::SEG + s * KN * 4, seg + row0 + j * KN, KN * 4, full(s));
       }
     }
+  } else {  // consumers
+    hopper::setmaxnreg_inc<240>();
+    const int cw = threadIdx.x / WG - 1, tid = threadIdx.x % WG;
+    const int lane = tid % 32, g = lane / 4, t = lane % 4;
+    const int r0 = q0 + 64 * cw + 16 * (tid / 32) + g, r1 = r0 + 8;
+    const size_t rr = static_cast<size_t>(bh) * T_;
+    const int segq0 = r0 < T_ ? seg[static_cast<size_t>(b) * T_ + r0] : -1;
+    const int segq1 = r1 < T_ ? seg[static_cast<size_t>(b) * T_ + r1] : -1;
+    const float lse0 = r0 < T_ ? lse[rr + r0] * LOG2E : 0.f;
+    const float lse1 = r1 < T_ ? lse[rr + r1] * LOG2E : 0.f;
+    const float dl0 = r0 < T_ ? delta[rr + r0] : 0.f, dl1 = r1 < T_ ? delta[rr + r1] : 0.f;
+    float acc[HD / 2], sc[NS], dp[NS];
 #pragma unroll
-    for (int n = 0; n < MQK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool lo = e < 2;
-        float x = s[n][e] * sm_scale;
-        if ((lo ? segq0 : segq1) != segk[n * 8 + 2 * t + (e & 1)]) x = MASK;
-        const float p = expf(x - (lo ? lse0 : lse1));
-        dp[n][e] = p * (dp[n][e] - (lo ? dl0 : dl1)) * sm_scale;
-      }
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
 
-    // dQ += round(dS) K
+    hopper::mbar_wait(full_qd, 0);
+    for (int j = 0; j < nkt; ++j) {
+      const int s = j % ST;
+      hopper::mbar_wait(full(s), (j / ST) & 1);
+      const uint32_t tk = sb + L::K + s * tile_bytes<HD>(KN);
+      hopper::wgmma_fence();
+      issue_kmajor<HD>(sc, sb + L::Q, QM, 64 * cw, tk);
+      hopper::wgmma_commit();
+      issue_kmajor<HD>(dp, sb + L::DO, QM, 64 * cw, sb + L::V + s * tile_bytes<HD>(KN));
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();  // S is in; dP may still run
+      hopper::fence_regs(sc);
+
+      // P = exp2(s * sm_scale * log2(e) - lse * log2(e)); masked: MASK
+      const int* segk = reinterpret_cast<const int*>(smem + L::SEG) + s * KN;
 #pragma unroll
-    for (int ks = 0; ks < MQK / 16; ++ks) {
-      uint32_t a[4];
-      acc_to_a(a, dp, ks);
+      for (int n = 0; n < KN / 8; ++n) {
+        const int2 sk = *reinterpret_cast<const int2*>(segk + 8 * n + 2 * t);
 #pragma unroll
-      for (int n = 0; n < NDT; ++n) {
-        if (n * 8 < D) {
-          uint32_t b0, b1;
-          ld_b_t(b0, b1, Ks, ld, ks * 16, n * 8);
-          mma(dQ[n], a, b0, b1);
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[4 * n + e] * scale_log2;
+          if ((e < 2 ? segq0 : segq1) != ((e & 1) ? sk.y : sk.x)) x = MASK;
+          sc[4 * n + e] = ex2(x - (e < 2 ? lse0 : lse1));
         }
       }
-    }
-  }
-
-  bf16* o0 = dq + base + static_cast<size_t>(q0 + wr + g) * rs;
-  bf16* o1 = o0 + 8 * rs;
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dp);
 #pragma unroll
-  for (int n = 0; n < NDT; ++n) {
-    if (n * 8 < D) {
-      const int c = n * 8 + 2 * t;
-      *reinterpret_cast<uint32_t*>(o0 + c) = pack(dQ[n][0], dQ[n][1]);
-      *reinterpret_cast<uint32_t*>(o1 + c) = pack(dQ[n][2], dQ[n][3]);
+      for (int i = 0; i < NS; ++i) sc[i] *= (dp[i] - ((i & 2) ? dl1 : dl0)) * sm_scale;
+
+      // dQ += round(dS) K
+      product_nmajor<HD>(acc, sc, tk);
+      if (tid == 0) hopper::mbar_arrive(empty(s));
     }
+
+    const size_t rs = static_cast<size_t>(H) * HD;
+    store_rows<HD>(dq + static_cast<size_t>(b) * T_ * rs + static_cast<size_t>(h) * HD, rs,
+                   q0 + 64 * cw, T_, acc, 1.f, 1.f);
   }
 }
 
@@ -1008,9 +1161,21 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // launches
 // ===========================================================================
 
-bool shape_ok(int B, int H, int T, int D, int is_bf16) {
-  return B > 0 && H > 0 && T > 0 && T % 64 == 0 && D > 0 && D <= MAX_D &&
-         (!is_bf16 || D % 16 == 0);
+bool shape_ok(int B, int H, int T, int D) {
+  return B > 0 && H > 0 && T > 0 && T % 64 == 0 && D > 0 && D <= MAX_D;
+}
+
+// Call f with std::integral_constant<int, D> for a head dim the templates
+// are built for; cudaErrorInvalidValue for any other.
+template <typename F>
+int by_width(int D, F f) {
+  switch (D) {
+    case 64: return f(std::integral_constant<int, 64>());
+    case 128: return f(std::integral_constant<int, 128>());
+    case 224: return f(std::integral_constant<int, 224>());
+    case 256: return f(std::integral_constant<int, 256>());
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Set the kernel's dynamic shared memory, launch it, and return the first
@@ -1031,7 +1196,7 @@ constexpr int TMAP_ERROR = 100000;
 // A TMA map of one [B, T, H, HD] bf16 tensor as {HD, H, B * T}: boxes of
 // BOX columns x 1 head x box_rows rows, 64-byte swizzle.  Returns 0 or an
 // error code.
-int bf16_map(CUtensorMap* map, const void* ptr, int B, int H, int T, int box_rows) {
+int bf16_map(CUtensorMap* map, const void* ptr, int B, int H, int T, int HD, int box_rows) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = [] {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;
@@ -1046,7 +1211,8 @@ int bf16_map(CUtensorMap* map, const void* ptr, int B, int H, int T, int box_row
     return static_cast<int>(cudaErrorMisalignedAddress);
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(HD), static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(B) * T};
-  const cuuint64_t strides[2] = {HD * sizeof(bf16), static_cast<cuuint64_t>(H) * HD * sizeof(bf16)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(HD) * sizeof(bf16),
+                                 static_cast<cuuint64_t>(H) * HD * sizeof(bf16)};
   const cuuint32_t box[3] = {BOX, 1, static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
@@ -1064,49 +1230,74 @@ extern "C" {
 
 // All tensors contiguous: q, k, v, out, dout, dq, dk, dv [B, T, H, D] in
 // bf16 (is_bf16 = 1) or f32; seg [B, T] int32 (keys and queries attend
-// where their ids are equal); lse, delta [B, H, T] f32.  T % 64 == 0 and
-// D <= 256; in bf16 the forward and dK/dV take D = 224 only (HD) and every
-// pointer 16-byte aligned, dQ any D % 16 == 0.  Each returns the first
-// cudaError_t (0 on success), cudaErrorInvalidValue for a shape it does not
-// take, or TMAP_ERROR + the CUresult of a failed tensor-map encode.
+// where their ids are equal); lse, delta [B, H, T] f32.  T % 64 == 0; the
+// forward (both dtypes) and the bf16 backward take D in {64, 128, 224, 256}
+// (the caller zero-pads other head dims), the f32 backward any D <= 256; the
+// bf16 kernels every pointer 16-byte aligned.  The f32 forward splits the
+// keys nsplit ways (1 <= nsplit <= 32, every split non-empty), with
+// nsplit * B * H * T * (D + 2) floats of scratch at `part` when nsplit > 1.
+// Each returns the first cudaError_t (0 on success), cudaErrorInvalidValue
+// for a shape it does not take, or TMAP_ERROR + the CUresult of a failed
+// tensor-map encode.
 
 int flash_fwd(const void* q, const void* k, const void* v, const void* seg, void* out, void* lse,
-              int B, int H, int T, int D, float sm_scale, int is_bf16, void* stream) {
-  if (!shape_ok(B, H, T, D, is_bf16)) return static_cast<int>(cudaErrorInvalidValue);
+              int B, int H, int T, int D, float sm_scale, int is_bf16, int nsplit, void* part,
+              void* stream) {
+  if (!shape_ok(B, H, T, D)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    if (D != HD) return static_cast<int>(cudaErrorInvalidValue);
     if (!aligned16(seg)) return static_cast<int>(cudaErrorMisalignedAddress);
-    CUtensorMap mq, mk, mv;
-    int e;
-    if ((e = bf16_map(&mq, q, B, H, T, FM)) || (e = bf16_map(&mk, k, B, H, T, FN)) ||
-        (e = bf16_map(&mv, v, B, H, T, FN)))
-      return e;
-    return launch(flash_fwd_bf16, dim3((T + FM - 1) / FM, B * H), 3 * WG, F_SMEM, s, mq, mk, mv,
-                  seg, out, lse, H, T, sm_scale * LOG2E);
+    return by_width(D, [&](auto width) {
+      constexpr int HD = decltype(width)::value;
+      using L = FwdLayout<HD>;
+      CUtensorMap mq, mk, mv;
+      int e;
+      if ((e = bf16_map(&mq, q, B, H, T, HD, L::M)) || (e = bf16_map(&mk, k, B, H, T, HD, L::N)) ||
+          (e = bf16_map(&mv, v, B, H, T, HD, L::N)))
+        return e;
+      return launch(flash_fwd_bf16<HD>, dim3((T + L::M - 1) / L::M, B * H), 3 * WG, L::SMEM, s, mq,
+                    mk, mv, seg, out, lse, H, T, sm_scale * LOG2E);
+    });
   }
-  const size_t smem = (FQ + 2 * FK) * f32_ld(D) * sizeof(float) +
-                      FQ * (FK + 1) * sizeof(float) + FK * sizeof(int);
-  return launch(flash_fwd_f32, dim3(T / FQ, B * H), NT, smem, s, q, k, v, seg, out, lse, H, T, D,
-                sm_scale);
+  const int nkt = T / XK;
+  if (nsplit < 1 || nsplit > 32 || nsplit > nkt || (nsplit > 1 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tps = (nkt + nsplit - 1) / nsplit;
+  if ((nkt + tps - 1) / tps != nsplit) return static_cast<int>(cudaErrorInvalidValue);
+  return by_width(D, [&](auto width) {
+    constexpr int HD = decltype(width)::value;
+    float* part_o = nsplit > 1 ? static_cast<float*>(part) : nullptr;
+    float* part_ml = nsplit > 1 ? part_o + static_cast<size_t>(nsplit) * B * H * T * HD : nullptr;
+    const int e = launch(flash_fwd_f32<HD>, dim3((T + XQ - 1) / XQ, B * H, nsplit), XT,
+                         x_smem<HD>(), s, q, k, v, seg, out, lse, part_o, part_ml, H, T, tps,
+                         sm_scale * LOG2E);
+    if (e != 0 || nsplit == 1) return e;
+    return launch(flash_fwd_f32_merge, dim3(T / 8, B * H), 256, 0, s, part_o, part_ml, out, lse,
+                  H, T, HD, nsplit);
+  });
 }
 
 int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* seg, const void* dout,
                   const void* lse, const void* delta, void* dk, void* dv, int B, int H, int T,
                   int D, float sm_scale, int is_bf16, void* stream) {
-  if (!shape_ok(B, H, T, D, is_bf16)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!shape_ok(B, H, T, D)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    if (D != HD) return static_cast<int>(cudaErrorInvalidValue);
     if (!aligned16(seg) || !aligned16(lse) || !aligned16(delta))
       return static_cast<int>(cudaErrorMisalignedAddress);
-    CUtensorMap mq, mk, mv, mdo;
-    int e;
-    if ((e = bf16_map(&mq, q, B, H, T, BQ)) || (e = bf16_map(&mk, k, B, H, T, BK)) ||
-        (e = bf16_map(&mv, v, B, H, T, BK)) || (e = bf16_map(&mdo, dout, B, H, T, BQ)))
-      return e;
-    return launch(flash_bwd_dkv_bf16, dim3(T / BK, B * H), 3 * WG, B_SMEM, s, mq, mk, mv, mdo, seg,
-                  lse, delta, dk, dv, H, T, sm_scale * LOG2E, sm_scale);
+    return by_width(D, [&](auto width) {
+      constexpr int HD = decltype(width)::value;
+      using L = DkvLayout<HD>;
+      CUtensorMap mq, mk, mv, mdo;
+      int e;
+      if ((e = bf16_map(&mq, q, B, H, T, HD, L::BQ)) ||
+          (e = bf16_map(&mk, k, B, H, T, HD, L::BK)) ||
+          (e = bf16_map(&mv, v, B, H, T, HD, L::BK)) ||
+          (e = bf16_map(&mdo, dout, B, H, T, HD, L::BQ)))
+        return e;
+      return launch(flash_bwd_dkv_bf16<HD>, dim3(T / L::BK, B * H), 3 * WG, L::SMEM, s, mq, mk,
+                    mv, mdo, seg, lse, delta, dk, dv, H, T, sm_scale * LOG2E, sm_scale);
+    });
   }
   const size_t smem = (2 * BK_ + 2 * BQ_) * f32_ld(D) * sizeof(float) +
                       (2 * BK_ * (BQ_ + 1) + 2 * BQ_) * sizeof(float) + BQ_ * sizeof(int);
@@ -1117,12 +1308,22 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* seg, 
 int flash_bwd_dq(const void* q, const void* k, const void* v, const void* seg, const void* dout,
                  const void* lse, const void* delta, void* dq, int B, int H, int T, int D,
                  float sm_scale, int is_bf16, void* stream) {
-  if (!shape_ok(B, H, T, D, is_bf16)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!shape_ok(B, H, T, D)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    const size_t smem = (2 * MQ + 2 * MQK) * bf16_ld(D) * sizeof(bf16) + MQK * sizeof(int);
-    return launch(flash_bwd_dq_bf16, dim3(T / MQ, B * H), 128, smem, s, q, k, v, seg, dout, lse,
-                  delta, dq, H, T, D, sm_scale);
+    if (!aligned16(seg)) return static_cast<int>(cudaErrorMisalignedAddress);
+    return by_width(D, [&](auto width) {
+      constexpr int HD = decltype(width)::value;
+      using L = DqLayout<HD>;
+      CUtensorMap mq, mk, mv, mdo;
+      int e;
+      if ((e = bf16_map(&mq, q, B, H, T, HD, L::M)) || (e = bf16_map(&mk, k, B, H, T, HD, L::N)) ||
+          (e = bf16_map(&mv, v, B, H, T, HD, L::N)) ||
+          (e = bf16_map(&mdo, dout, B, H, T, HD, L::M)))
+        return e;
+      return launch(flash_bwd_dq_bf16<HD>, dim3((T + L::M - 1) / L::M, B * H), 3 * WG, L::SMEM, s,
+                    mq, mk, mv, mdo, seg, lse, delta, dq, H, T, sm_scale * LOG2E, sm_scale);
+    });
   }
   const size_t smem = (2 * QQ + 2 * QK) * f32_ld(D) * sizeof(float) +
                       QQ * (QK + 1) * sizeof(float) + QK * sizeof(int);

@@ -162,42 +162,59 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
-// d += A B, m64n224k16: A [64, 16] bf16 in registers (the m64n8 accumulator
-// layout of two adjacent 8-column tiles), B [16, 224] N-major in shared memory
-__device__ __forceinline__ void wgmma_m64n224k16_rs(float (&d)[112], const uint32_t (&a)[4],
-                                                    uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %117, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n224k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111"
-      "}, {%112, %113, %114, %115}, %116, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
-        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
-        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
+// d += A B, m64nNk16: A [64, 16] bf16 in registers (the m64n8 accumulator
+// layout of two adjacent 8-column tiles), B [16, N] N-major in shared memory,
+// for the head dims the flash kernels are built for (N = 64, 128, 224, 256).
+//
+// One PTX string per width: the N / 2 accumulators are operands %0.. in
+// order, followed by A's four registers, B's descriptor and the scale-d flag.
+// The operand lists are generated: WTV_OPS10(t) is the ten placeholders
+// "%t0, ..., %t9, " (t empty for 0-9), WTV_F16(i) the constraints of
+// accumulators d[i]..d[i + 15].
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t desc_b);
+
+#define WTV_OPS10(t)                                                                            \
+  "%" #t "0, %" #t "1, %" #t "2, %" #t "3, %" #t "4, %" #t "5, %" #t "6, %" #t "7, %" #t "8, " \
+  "%" #t "9, "
+#define WTV_F4(i) "+f"(d[(i)]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3])
+#define WTV_F16(i) WTV_F4(i), WTV_F4((i) + 4), WTV_F4((i) + 8), WTV_F4((i) + 12)
+#define WTV_F32(i) WTV_F16(i), WTV_F16((i) + 16)
+#define WTV_F64(i) WTV_F32(i), WTV_F32((i) + 32)
+
+// N: the width; DLIST: the placeholders %0..%(N/2 - 1); A0..SC: the numbers
+// N/2..N/2 + 5 of the operands after them; then the accumulators' constraints.
+#define WTV_WGMMA_RS(N, DLIST, A0, A1, A2, A3, DESC, SC, ...)                                    \
+  template <>                                                                                   \
+  __device__ __forceinline__ void wgmma_rs<N>(float (&d)[N / 2], const uint32_t (&a)[4],       \
+                                              uint64_t desc_b) {                                \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #SC ", 0;\n"                              \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" DLIST "}, "       \
+                 "{%" #A0 ", %" #A1 ", %" #A2 ", %" #A3 "}, %" #DESC ", p, 1, 1, 1;\n}\n"       \
+                 : __VA_ARGS__                                                                  \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));            \
+  }
+
+WTV_WGMMA_RS(64, WTV_OPS10() WTV_OPS10(1) WTV_OPS10(2) "%30, %31",
+             32, 33, 34, 35, 36, 37, WTV_F32(0))
+WTV_WGMMA_RS(128, WTV_OPS10() WTV_OPS10(1) WTV_OPS10(2) WTV_OPS10(3) WTV_OPS10(4) WTV_OPS10(5)
+             "%60, %61, %62, %63",
+             64, 65, 66, 67, 68, 69, WTV_F64(0))
+WTV_WGMMA_RS(224, WTV_OPS10() WTV_OPS10(1) WTV_OPS10(2) WTV_OPS10(3) WTV_OPS10(4) WTV_OPS10(5)
+             WTV_OPS10(6) WTV_OPS10(7) WTV_OPS10(8) WTV_OPS10(9) WTV_OPS10(10) "%110, %111",
+             112, 113, 114, 115, 116, 117, WTV_F64(0), WTV_F32(64), WTV_F16(96))
+WTV_WGMMA_RS(256, WTV_OPS10() WTV_OPS10(1) WTV_OPS10(2) WTV_OPS10(3) WTV_OPS10(4) WTV_OPS10(5)
+             WTV_OPS10(6) WTV_OPS10(7) WTV_OPS10(8) WTV_OPS10(9) WTV_OPS10(10) WTV_OPS10(11)
+             "%120, %121, %122, %123, %124, %125, %126, %127",
+             128, 129, 130, 131, 132, 133, WTV_F64(0), WTV_F64(64))
+
+#undef WTV_WGMMA_RS
+#undef WTV_F64
+#undef WTV_F32
+#undef WTV_F16
+#undef WTV_F4
+#undef WTV_OPS10
 
 
 }  // namespace hopper

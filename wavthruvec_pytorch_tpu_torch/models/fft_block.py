@@ -20,8 +20,8 @@ queries see pad keys, rows the block's non-pad mask zeroes.  It keeps no
 probabilities (``attn`` is ``[B, H, 0, 0]``) and cannot drop them out, so a
 training forward with ``use_flash`` and dropout > 0 raises, gate or not.
 A block with ``use_flash`` built on a CUDA device raises at construction
-for a head dim the kernels do not take (``head_dim_ok``: bf16 takes 224
-only); on the CPU the plain version takes any.
+for a head dim the kernels do not take (``head_dim_ok``: d_k <= 256, in
+either dtype); on the CPU the plain version takes any.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ import torch
 from torch import nn
 
 from wavthruvec_pytorch_tpu_torch.models.layers import Conv1d, LayerNorm, TorchLinear
-from wavthruvec_pytorch_tpu_torch.ops.flash_attention import HOPPER_D, flash_attention, head_dim_ok
+from wavthruvec_pytorch_tpu_torch.ops.flash_attention import flash_attention, head_dim_ok
 
 _MASK_VALUE = -1e9
 
@@ -49,10 +49,8 @@ class MultiHeadAttention(nn.Module):
         super().__init__()
         if (use_flash and device is not None and torch.device(device).type == "cuda"
                 and not head_dim_ok(d_k, dtype or torch.float32)):
-            raise NotImplementedError(
-                f"flash_attention=True on the card takes head dim d_k = {HOPPER_D} in bfloat16 "
-                f"and d_k <= 256 in float32, got d_k={d_k} in {dtype or torch.float32} "
-                "(ROADMAP.md section 3: bf16 flash head dims other than 224)")
+            raise ValueError(f"flash_attention=True on the card takes head dim d_k <= 256, got "
+                             f"d_k={d_k} in {dtype or torch.float32}")
         self.n_head, self.d_k, self.d_v = n_head, d_k, d_v
         self.use_flash = use_flash
         qkv_std = math.sqrt(2.0 / (d_model + d_k))

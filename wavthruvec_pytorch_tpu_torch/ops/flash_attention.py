@@ -15,10 +15,15 @@ input dtype before the product with v, as the TPU kernel does in bf16.
 CUDA tensor its forward is the forward kernel and its backward the two
 backward kernels, after one shared ``backward_inputs``; on a CPU tensor
 both are the plain version (the backward by autograd through it).  Any
-other device or dtype raises, and so does a CUDA shape the kernels are not
-built for (``kernel_shape_ok``: T % 64 == 0; float32 D <= 256; bfloat16
-D = 224, the head dim of both FFT stacks, for which the forward and dK/dV
-are written with Hopper's TMA and ``wgmma``).
+other device or dtype raises, and so does a CUDA shape the kernels do not
+take (``kernel_shape_ok``: T % 64 == 0 and D <= 256).  The forward (both
+dtypes) and the bf16 backward kernels are built for the head dims
+``WIDTHS``; the wrappers zero-pad any other D to the next of them and slice
+the results back, which is exact (padded columns add 0 to every q.k, and
+padded v columns give output columns that are dropped; ``sm_scale`` stays
+the caller's).  The f32 backward kernels take any D as it is.  The f32
+forward runs on the tensor cores at f32 accuracy (3xTF32), whatever
+``torch.backends.cuda.matmul.allow_tf32`` says, which governs cuBLAS only.
 """
 
 from __future__ import annotations
@@ -33,7 +38,8 @@ from wavthruvec_pytorch_tpu_torch.ops import kernel_build
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_D = 256
-HOPPER_D = 224  # the one head dim of the bf16 forward and dK/dV kernels
+WIDTHS = (64, 128, 224, 256)  # head dims the kernels are built for (csrc/flash_attn.cu)
+_SPLIT_ROWS, _SPLIT_KEYS = 128, 32  # the f32 forward's query rows a block, keys a tile
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seg: torch.Tensor,
@@ -57,7 +63,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seg
 def _lib() -> ctypes.CDLL:
     lib = kernel_build.load("flash_attn")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_fwd.argtypes = [ptr] * 6 + [i32] * 4 + [f32, i32, ptr]
+    lib.flash_fwd.argtypes = [ptr] * 6 + [i32] * 4 + [f32, i32, i32, ptr, ptr]
     lib.flash_bwd_dkv.argtypes = [ptr] * 9 + [i32] * 4 + [f32, i32, ptr]
     lib.flash_bwd_dq.argtypes = [ptr] * 8 + [i32] * 4 + [f32, i32, ptr]
     for fn in (lib.flash_fwd, lib.flash_bwd_dkv, lib.flash_bwd_dq):
@@ -66,18 +72,43 @@ def _lib() -> ctypes.CDLL:
 
 
 def head_dim_ok(D: int, dtype: torch.dtype) -> bool:
-    """Whether the kernels take head dim D in ``dtype``: float32 any
-    D <= 256; bfloat16 D = 224 only (the head dim of both FFT stacks, which
-    the wgmma forward and dK/dV kernels are built for)."""
-    if dtype == torch.float32:
-        return 1 <= D <= _MAX_D
-    return dtype == torch.bfloat16 and D == HOPPER_D
+    """Whether the kernels take head dim D in ``dtype``: any D <= 256 in
+    float32 or bfloat16 (a D outside ``WIDTHS`` is zero-padded to
+    ``kernel_width(D)``)."""
+    return dtype in _DTYPES and 1 <= D <= _MAX_D
+
+
+def kernel_width(D: int) -> int:
+    """The head dim of the kernel instance that runs head dim D: the least
+    of ``WIDTHS`` that is at least D."""
+    return next(w for w in WIDTHS if w >= D)
 
 
 def kernel_shape_ok(B: int, H: int, T: int, D: int, dtype: torch.dtype) -> bool:
     """Whether the kernels take q, k, v [B, H, T, D] in ``dtype``: T % 64 == 0
     and ``head_dim_ok``."""
     return min(B, H, T) >= 1 and T % 64 == 0 and head_dim_ok(D, dtype)
+
+
+def f32_splits(BH: int, T: int, n_sm: int) -> int:
+    """Key splits of the f32 forward for B * H = BH heads of length T on
+    ``n_sm`` SMs.  A block takes 128 query rows and one SM, so serving's
+    B * H = 2 gives 2 T / 128 blocks, too few for the card; each split adds
+    that many blocks over a share of the 32-key tiles.  Chooses the split
+    count s (every split non-empty, at most 32) that minimises
+    waves(s) * (tiles a split + 2), the 2 standing for a block's Q load and
+    its share of the merge; ties go to fewer splits."""
+    q_blocks = BH * -(-T // _SPLIT_ROWS)
+    tiles = T // _SPLIT_KEYS
+    best, best_cost = 1, None
+    for s in range(1, min(32, tiles) + 1):
+        per = -(-tiles // s)
+        if -(-tiles // per) != s:  # some split would be empty
+            continue
+        cost = -(-q_blocks * s // n_sm) * (per + 2)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = s, cost
+    return best
 
 
 def _check(q, k, v, seg, *more):
@@ -93,8 +124,8 @@ def _check(q, k, v, seg, *more):
             raise ValueError(f"k, v (and dout) must match q {q.dtype} {tuple(q.shape)} on "
                              f"{q.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
     if not kernel_shape_ok(B, H, T, D, q.dtype):
-        raise ValueError(f"flash attention kernels take T % 64 == 0 and D <= {_MAX_D} in "
-                         f"float32, D = {HOPPER_D} in bfloat16; got T={T}, D={D}, {q.dtype}")
+        raise ValueError(f"flash attention kernels take T % 64 == 0 and D <= {_MAX_D}; got "
+                         f"T={T}, D={D}, {q.dtype}")
     if tuple(seg.shape) != (B, T) or seg.dtype.is_floating_point or seg.device != q.device:
         raise ValueError(f"seg must be an integer [{B}, {T}] tensor on {q.device}, got "
                          f"{seg.dtype} {tuple(seg.shape)} on {seg.device}")
@@ -106,45 +137,61 @@ def _require_cuda(t: torch.Tensor) -> None:
         raise ValueError(f"flash attention kernels: unsupported device {t.device}")
 
 
-def _aligned(dtype: torch.dtype, *tensors) -> None:
-    """The bf16 kernels load by TMA and bulk copies: 16-byte aligned bases."""
+def _aligned(*tensors) -> None:
+    """The forward kernels and the bf16 backward load by TMA, bulk copies or
+    cp.async: 16-byte aligned bases."""
     for t in tensors:
-        if dtype == torch.bfloat16 and t.data_ptr() % 16 != 0:
+        if t.data_ptr() % 16 != 0:
             raise ValueError(f"flash attention kernels: a {t.dtype} {tuple(t.shape)} tensor is "
                              f"not 16-byte aligned (data_ptr {t.data_ptr():#x})")
 
 
-def _btkd(t: torch.Tensor) -> torch.Tensor:
-    """[B, H, T, D] -> the kernels' contiguous [B, T, H, D] (no copy for a
-    transposed view of one, as the model passes)."""
-    return t.transpose(1, 2).contiguous()
+def _btkd(t: torch.Tensor, width: int) -> torch.Tensor:
+    """[B, H, T, D] -> the kernels' contiguous [B, T, H, width], zero-padded
+    past D (no copy for a transposed view of a [B, T, H, D] tensor, as the
+    model passes, at width D)."""
+    x = t.transpose(1, 2)
+    if width == t.shape[-1]:
+        return x.contiguous()
+    padded = x.new_zeros(*x.shape[:-1], width)
+    padded[..., :t.shape[-1]] = x
+    return padded
 
 
 def flash_fwd(q, k, v, seg, sm_scale: float):
     """The forward kernel: q, k, v [B, H, T, D] CUDA f32 or bf16, seg [B, T]
-    -> (out [B, H, T, D], a transposed view of a [B, T, H, D] tensor; lse
-    [B, H, T] f32).  One launch."""
+    -> (out [B, H, T, D], a view of a [B, T, H, width] tensor; lse [B, H, T]
+    f32).  One call (in f32 with split keys, the kernel and its merge)."""
     _require_cuda(q)
     B, H, T, D = _check(q, k, v, seg)
-    qc, kc, vc = _btkd(q), _btkd(k), _btkd(v)
+    W = kernel_width(D)
+    qc, kc, vc = _btkd(q, W), _btkd(k, W), _btkd(v, W)
     out = torch.empty_like(qc)
     lse = torch.empty(B, H, T, device=q.device, dtype=torch.float32)
     seg32 = seg.to(torch.int32).contiguous()
-    _aligned(q.dtype, qc, kc, vc, seg32)
+    _aligned(qc, kc, vc, seg32)
+    nsplit, part = 1, None
+    if q.dtype == torch.float32:
+        n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+        nsplit = f32_splits(B * H, T, n_sm)
+        if nsplit > 1:
+            part = torch.empty(nsplit * B * H * T * (W + 2), device=q.device, dtype=torch.float32)
     lib = _lib()
     err = lib.flash_fwd(qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), seg32.data_ptr(),
-                        out.data_ptr(), lse.data_ptr(), B, H, T, D, float(sm_scale),
-                        int(q.dtype == torch.bfloat16),
+                        out.data_ptr(), lse.data_ptr(), B, H, T, W, float(sm_scale),
+                        int(q.dtype == torch.bfloat16), nsplit,
+                        None if part is None else part.data_ptr(),
                         torch.cuda.current_stream(q.device).cuda_stream)
     kernel_build.check(lib, err, "flash_fwd")
     flash_fwd.launches += 1
-    return out.transpose(1, 2), lse
+    return out[..., :D].transpose(1, 2), lse
 
 
 class BackwardInputs(NamedTuple):
     """What both backward kernels read, made once a backward: q, k, v, dout
-    in the kernels' [B, T, H, D] layout, int32 seg [B, T], lse and
-    delta = rowsum(dO * out) [B, H, T] f32."""
+    in the kernels' [B, T, H, width] layout (bf16: zero-padded to
+    ``kernel_width(D)``; f32: width D), int32 seg [B, T], lse and
+    delta = rowsum(dO * out) [B, H, T] f32; ``shape`` is (B, H, T, D)."""
     shape: Tuple[int, int, int, int]
     q: torch.Tensor
     k: torch.Tensor
@@ -163,9 +210,11 @@ def backward_inputs(q, k, v, seg, out, lse, dout) -> BackwardInputs:
         raise ValueError(f"lse must be float32 [{B}, {H}, {T}], got {lse.dtype} {tuple(lse.shape)}")
     # delta = rowsum(dO * out), outside the kernels as in the JAX package
     delta = (dout.float() * out.float()).sum(dim=-1).contiguous()
-    ins = BackwardInputs((B, H, T, D), _btkd(q), _btkd(k), _btkd(v),
-                         seg.to(torch.int32).contiguous(), _btkd(dout), lse.contiguous(), delta)
-    _aligned(q.dtype, ins.q, ins.k, ins.v, ins.seg, ins.dout, ins.lse, ins.delta)
+    W = kernel_width(D) if q.dtype == torch.bfloat16 else D
+    ins = BackwardInputs((B, H, T, D), _btkd(q, W), _btkd(k, W), _btkd(v, W),
+                         seg.to(torch.int32).contiguous(), _btkd(dout, W), lse.contiguous(), delta)
+    if q.dtype == torch.bfloat16:
+        _aligned(ins.q, ins.k, ins.v, ins.seg, ins.dout, ins.lse, ins.delta)
     return ins
 
 
@@ -174,16 +223,17 @@ def flash_bwd_dkv(ins: BackwardInputs, sm_scale: float):
     [B, H, T, D] in q's dtype.  One launch."""
     _require_cuda(ins.q)
     B, H, T, D = ins.shape
+    W = ins.q.shape[-1]
     dk, dv = torch.empty_like(ins.q), torch.empty_like(ins.q)
     lib = _lib()
     err = lib.flash_bwd_dkv(ins.q.data_ptr(), ins.k.data_ptr(), ins.v.data_ptr(),
                             ins.seg.data_ptr(), ins.dout.data_ptr(), ins.lse.data_ptr(),
-                            ins.delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, T, D,
+                            ins.delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, T, W,
                             float(sm_scale), int(ins.q.dtype == torch.bfloat16),
                             torch.cuda.current_stream(ins.q.device).cuda_stream)
     kernel_build.check(lib, err, "flash_bwd_dkv")
     flash_bwd_dkv.launches += 1
-    return dk.transpose(1, 2), dv.transpose(1, 2)
+    return dk[..., :D].transpose(1, 2), dv[..., :D].transpose(1, 2)
 
 
 def flash_bwd_dq(ins: BackwardInputs, sm_scale: float):
@@ -191,16 +241,17 @@ def flash_bwd_dq(ins: BackwardInputs, sm_scale: float):
     q's dtype.  One launch."""
     _require_cuda(ins.q)
     B, H, T, D = ins.shape
+    W = ins.q.shape[-1]
     dq = torch.empty_like(ins.q)
     lib = _lib()
     err = lib.flash_bwd_dq(ins.q.data_ptr(), ins.k.data_ptr(), ins.v.data_ptr(),
                            ins.seg.data_ptr(), ins.dout.data_ptr(), ins.lse.data_ptr(),
-                           ins.delta.data_ptr(), dq.data_ptr(), B, H, T, D, float(sm_scale),
+                           ins.delta.data_ptr(), dq.data_ptr(), B, H, T, W, float(sm_scale),
                            int(ins.q.dtype == torch.bfloat16),
                            torch.cuda.current_stream(ins.q.device).cuda_stream)
     kernel_build.check(lib, err, "flash_bwd_dq")
     flash_bwd_dq.launches += 1
-    return dq.transpose(1, 2)
+    return dq[..., :D].transpose(1, 2)
 
 
 # launches of each kernel
