@@ -30,11 +30,21 @@ below is fatal: nothing is caught.
    call of the port's ``entry()`` (its own seeded models, 256 frames).
 4. Launch counters, set to 0 just before phase 3: every Generator forward
    launches the fused ResBlock2 kernel 30 times, every Text2Vec forward the
-   BiGRU kernel once.
+   BiGRU kernel once, in one device launch (its persistent route), and the
+   step launches that saves are printed.
 5. Each kernel against its plain PyTorch version on the card, at the main
-   path's shapes (the 512-frame request's for the fused unit; B in {1, 2},
-   T in {512, 3000} for the BiGRU), with the times of the kernel, the plain
-   version and one PyTorch library call that computes the same function.
+   path's shapes, with the times of the kernel, the plain version and one
+   PyTorch library call that computes the same function, and ``ptxas``'s
+   report of both kernels (neither may spill).  The fused unit (3xTF32 on
+   the tensor cores) at each of the 512-frame request's 30 units, with its
+   bound at the CUDA cores' f32 rate and at 3xTF32's, and at
+   ``FUSED_EDGES`` (a width that is no multiple of 4, kernel sizes built
+   with k at run time, B = 2).  The BiGRU at
+   (B, T) in ``GRU_SHAPES``: serving, training and the long bucket, on its
+   persistent route and, timed in turns in the same run, on the
+   one-launch-a-step route, with the serial floor (T steps of the
+   persistent grid running its barriers and nothing else) beside its byte
+   and operation bounds.
 6. The full-size path on the card against the same path on the CPU (the
    kernels' plain versions) on a small request.
 7. Where the time of the 512-frame request goes, by stage (CUDA events
@@ -50,20 +60,22 @@ Then the Text2Vec training slice, on the same full-size Text2Vec config:
    second, peak device memory and the losses; every loss must be finite and
    the total loss must fall over the repeated batch.  Counters, set to 0
    just before the timed steps: one MAS launch, one BiGRU forward launch
-   and one BiGRU backward per step.  Then ``text2vec_loop.main`` trains 3
+   (one device launch) and one BiGRU backward per step.  Then ``text2vec_loop.main`` trains 3
    steps on the demo corpus (``data/demo/text2vec.json``).
 9. The MAS kernel against its plain version at (B, T, N) = (16, 1024, 64),
    (16, 3000, 128) and (4, 300, 300), variable lengths, exact zeros in the
    valid region: the hard maps must be equal.
 10. The BiGRU backward on the card against the CPU (B = 2, T = 512,
-    H = 1024), and its time at the training shape.
+    H = 1024), and cuDNN ``nn.GRU``'s forward + backward (f32) at B = 16,
+    T = 1024 and 3072, the library yardstick of the BiGRU's training work.
 11. One training step on the card against the CPU: seeded full-size
     weights, one small batch (B = 8), dropout 0.  Hard alignments and
     durations equal, losses and gradients within stated tolerances.
 12. Where a training step's time goes: forward, backward and optimizer
     (CUDA events), the MAS kernel, the BiGRU forward kernel and the plain
     BiGRU backward at the step's shapes, and ``torch.profiler``'s device
-    busy share and launch count.
+    busy share (kernel events only: user annotations' GPU spans left out) and
+    launch count.
 
 Then the long-bucket bf16 slice: the JAX package's own long-bucket training
 config ``artifacts/flash_longbucket/flash/longbucket/config.json`` (the
@@ -148,9 +160,13 @@ from wavthruvec_pytorch_tpu_torch.ops.fused_resblock import (
 )
 from wavthruvec_pytorch_tpu_torch.ops.gru import (
     GRURecurrence,
+    device_limits,
+    gru_barrier_loop,
     gru_bwd_plain,
     gru_fwd,
     gru_fwd_plain,
+    gru_fwd_plan,
+    gru_fwd_steps,
 )
 from wavthruvec_pytorch_tpu_torch.ops.flash_attention import (
     backward_inputs,
@@ -350,7 +366,7 @@ def serve(syn):
     torch.cuda.reset_peak_memory_stats()
 
     fused_conv_residual.launches = 0
-    gru_fwd.launches = gru_fwd.step_launches = 0
+    gru_fwd.launches = gru_fwd.step_launches = gru_fwd.time_steps = 0
     wavs = {}
     for name, texts, max_frames, pcm16 in requests:
         times = []
@@ -408,7 +424,12 @@ def serve(syn):
     n_forwards = REPEATS * len(requests) + 1
     check(launches["fused_resblock"] == 30 * n_forwards, f"launch counts {launches}")
     check(launches["gru_fwd"] == n_forwards, f"launch counts {launches}")
-    print(f"launches on the main path: {launches}")
+    # the BiGRU's serving shapes (B <= 2, H = 1024) take the persistent
+    # route: one device launch a call, not one a time step
+    check(launches["gru_fwd_steps"] == n_forwards, f"BiGRU device launches {launches}")
+    print(f"launches on the main path: {launches}; the persistent BiGRU ran "
+          f"{gru_fwd.time_steps} time steps in {gru_fwd.step_launches} launches, "
+          f"{gru_fwd.time_steps - gru_fwd.step_launches} step launches fewer than one a step")
     return launches
 
 
@@ -428,10 +449,40 @@ def fused_unit_cases(syn, frames: int):
     return cases
 
 
+def ptxas_report(source: str, kernels, no_spill=()) -> None:
+    """ptxas's register and spill report of each instance of ``kernels``
+    (names in ``csrc/<source>.cu``); those in ``no_spill`` must not spill."""
+    log = kernel_build.build_log(source).splitlines()
+    for i, line in enumerate(log):
+        if "entry function" not in line:
+            continue
+        for kern in kernels:
+            # the mangled name: its length, the name, then template arguments
+            m = re.search(f"{len(kern)}{kern}" + r"(I(?:Li\d+E)+E)?", line)
+            if m is None:
+                continue
+            args = ", ".join(re.findall(r"Li(\d+)E", m.group(1) or ""))
+            name = f"{kern}<{args}>" if args else kern
+            info = " ".join(x.strip() for x in log[i + 1:i + 4] if "registers" in x or "spill" in x)
+            print(f"  {name}: {info}")
+            if kern in no_spill:
+                spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", info)
+                check(spills is not None and spills.groups() == ("0", "0"), f"{name} spills: {info}")
+
+
+# (B, C, T, k, d) of the fused unit's edge cases in phase 5
+FUSED_EDGES = ((2, 18, 77, 5, 2), (1, 48, 100, 11, 3), (2, 256, 130, 9, 1))
+
+
 def check_fused(syn, frames: int = 512):
     g = torch.Generator(device="cuda").manual_seed(SEED)
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0, err=0.0)
-    print(f"fused ResBlock2 unit, kernel vs plain (atol {FUSED_ATOL}), B=1, {frames} frames:")
+    print("fused ResBlock2 kernel, ptxas (kernel<time rows, channels, warp rows, warp channels, "
+          "blocks an SM, taps (0: at run time)>):")
+    ptxas_report("fused_resblock", ("fused_resblock_kernel",), ("fused_resblock_kernel",))
+    print(f"fused ResBlock2 unit, kernel (3xTF32 mma.sync) vs plain (atol {FUSED_ATOL}), B=1, "
+          f"{frames} frames; bounds at the CUDA cores' f32 {PEAK_F32 / 1e12:.0f} TFLOP/s and at "
+          f"3xTF32's {PEAK_F32_TC / 1e12:.0f} TFLOP/s (three TF32 products a product):")
     for stage, C, T, k, d, conv in fused_unit_cases(syn, frames):
         w_t = conv.weight()  # [C_out, C_in, k]
         w = w_t.permute(2, 1, 0).contiguous()
@@ -452,21 +503,43 @@ def check_fused(syn, frames: int = 512):
         n_ops = 2.0 * k * C * C * T
         n_bytes = 4.0 * (2 * T * C + k * C * C + C)
         bms, by = bound_ms(n_bytes, n_ops, PEAK_F32)
+        tc, tc_by = bound_ms(n_bytes, n_ops, PEAK_F32_TC)
         print(f"  stage {stage} C={C:3d} T={T:6d} k={k:2d} d={d}: err {err:.2e}  kernel {ms:.3f} ms"
-              f"  plain {plain:.3f} ms  conv1d {lib:.3f} ms  bound {bms:.3f} ms ({by})"
-              f"  {n_ops / ms / 1e9:.1f} TFLOP/s")
+              f"  plain {plain:.3f} ms  conv1d {lib:.3f} ms  bound {bms:.3f} ms ({by}), 3xTF32 "
+              f"{tc:.3f} ms ({tc_by}, {100 * tc / ms:.1f}%)  {n_ops / ms / 1e9:.1f} TFLOP/s")
         tot["ms"] += ms
         tot["plain_ms"] += plain
         tot["library_ms"] += lib
         tot["bytes"] += n_bytes
         tot["ops"] += n_ops
         tot["err"] = max(tot["err"], err)
+    # off the Generator's shapes: a width that is no multiple of 4 (one-float
+    # copies), kernel sizes built with k at run time, partial tiles, B = 2
+    for B, C, T, k, d in FUSED_EDGES:
+        x = torch.randn((B, T, C), generator=g, device="cuda")
+        w = torch.randn((k, C, C), generator=g, device="cuda") * 0.01
+        b = torch.randn((C,), generator=g, device="cuda") * 0.01
+        got = fused_conv_residual(x, w, b, dilation=d, neg_slope=LRELU_SLOPE)
+        want = conv_residual_plain(x, w, b, dilation=d, neg_slope=LRELU_SLOPE)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        check(err <= FUSED_ATOL, f"fused unit B={B} C={C} T={T} k={k} d={d}: max |err| {err:.3g}")
+        print(f"  edge B={B} C={C:3d} T={T:6d} k={k:2d} d={d}: err {err:.2e}")
+        tot["err"] = max(tot["err"], err)
     bms, by = bound_ms(tot["bytes"], tot["ops"], PEAK_F32)
+    tc, tc_by = bound_ms(tot["bytes"], tot["ops"], PEAK_F32_TC)
     print(f"  30 units: kernel {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, "
-          f"conv1d {tot['library_ms']:.3f} ms, bound {bms:.3f} ms ({by}), "
+          f"conv1d {tot['library_ms']:.3f} ms ({tot['ms'] / tot['library_ms']:.2f}x), bound "
+          f"{bms:.3f} ms ({by}) at the CUDA cores' rate ({100 * bms / tot['ms']:.1f}%), "
+          f"{tc:.3f} ms ({tc_by}) at 3xTF32's ({100 * tc / tot['ms']:.1f}%), "
           f"{tot['ops'] / 1e9:.1f} GFLOP")
-    return dict(max_abs_err=tot["err"], ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=bms,
-                bound_by=by, library_ms=tot["library_ms"])
+    return dict(max_abs_err=tot["err"], ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tc,
+                bound_by=tc_by, library_ms=tot["library_ms"])
+
+
+# (B, T) of the BiGRU kernel checks: the serving requests, the training
+# batch and the long bucket
+GRU_SHAPES = ((1, 512), (2, 512), (1, 3000), (2, 3000), (TRAIN_B, TRAIN_T), (LONG_B, LONG_T))
 
 
 def check_gru(syn):
@@ -476,31 +549,57 @@ def check_gru(syn):
     lib_gru.load_state_dict(bigru.state_dict(), strict=True)
     g = torch.Generator(device="cuda").manual_seed(SEED)
     first = None
-    print(f"BiGRU recurrence, kernel vs plain (atol {GRU_ATOL}), D=2, H={H}:")
-    # serving requests, and the training batch, whose B = 16 takes the
-    # kernel through four passes of its 4-row batch tile
-    for B, T in ((1, 512), (2, 512), (1, 3000), (2, 3000), (TRAIN_B, TRAIN_T)):
+    print("BiGRU kernels, ptxas:")
+    ptxas_report("gru_fwd", ("gru_persistent_kernel", "gru_barrier_loop_kernel",
+                             "gru_step_kernel"), ("gru_persistent_kernel",))
+    n_sm, smem = device_limits(torch.device("cuda"))
+    print(f"BiGRU recurrence, kernel vs plain (atol {GRU_ATOL}), D=2, H={H}, on {n_sm} SMs with "
+          f"{smem} bytes of shared memory a block; the persistent route (one cooperative launch) "
+          f"and the steps route (one launch a step) timed in turns (persistent, steps, steps, "
+          f"persistent); the serial floor is T x a step of the persistent grid running barriers "
+          f"only:")
+    for B, T in GRU_SHAPES:
+        plan = gru_fwd_plan(2, B, H, n_sm, smem)
+        check(plan.route == "persistent", f"BiGRU B={B}: the planner picked {plan}")
         x = torch.randn((B, T, H), generator=g, device="cuda")
         gi, w_hh, b_hh = bigru.recurrence_inputs(x)
         w_hh = w_hh.to(torch.bfloat16)
         got = gru_fwd(gi, w_hh, b_hh)
+        got_steps = gru_fwd_steps(gi, w_hh, b_hh)
         want = gru_fwd_plain(gi, w_hh, b_hh)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
-        check(err <= GRU_ATOL, f"BiGRU B={B} T={T}: max |err| {err:.3g}")
-        ms = cuda_ms(lambda: gru_fwd(gi, w_hh, b_hh), 3)
+        err_steps = (got_steps - want).abs().max().item()
+        del got, got_steps, want
+        check(err <= GRU_ATOL and err_steps <= GRU_ATOL,
+              f"BiGRU B={B} T={T}: max |err| {err:.3g} persistent, {err_steps:.3g} steps")
+        runs = {"persistent": [], "steps": []}
+        for route, fn in (("persistent", gru_fwd), ("steps", gru_fwd_steps),
+                          ("steps", gru_fwd_steps), ("persistent", gru_fwd)):
+            runs[route].append(cuda_ms(lambda: fn(gi, w_hh, b_hh), 3))
+        ms, steps_ms = (float(np.mean(runs[r])) for r in ("persistent", "steps"))
+        floor = cuda_ms(lambda: gru_barrier_loop(2, B, T, H, "cuda"), 3) * T / max(T - 1, 1)
         plain = cuda_ms(lambda: gru_fwd_plain(gi, w_hh, b_hh), 1, warmup=0)
         lib = cuda_ms(lambda: lib_gru(x), 3)
         D, H3 = gi.shape[0], gi.shape[-1]
         n_bytes = 4.0 * gi.numel() + 2.0 * w_hh.numel() + 4.0 * b_hh.numel() + 4.0 * D * B * T * H
         n_ops = 2.0 * D * B * T * H * H3
         bms, by = bound_ms(n_bytes, n_ops, PEAK_BF16)
-        print(f"  B={B} T={T:4d}: err {err:.2e}  kernel {ms:.3f} ms ({1e3 * ms / T:.2f} us/step)"
-              f"  plain {plain:.3f} ms  cuDNN nn.GRU {lib:.3f} ms  bound {bms:.4f} ms ({by})")
+        serial = max(bms, floor)
+        print(f"  B={B:2d} T={T:4d}: err {err:.2e} (steps route {err_steps:.2e})  persistent "
+              f"{ms:.3f} ms ({1e3 * ms / T:.2f} us/step; runs {runs['persistent'][0]:.3f}, "
+              f"{runs['persistent'][1]:.3f})  steps route {steps_ms:.3f} ms ({1e3 * steps_ms / T:.2f}"
+              f" us/step; {steps_ms / ms:.2f}x)  plain {plain:.3f} ms  cuDNN nn.GRU {lib:.3f} ms  "
+              f"bound {bms:.4f} ms ({by}); serial floor {floor:.3f} ms ({1e3 * floor / T:.2f} "
+              f"us/step): bound {serial:.3f} ms ({'serial' if floor > bms else by}), "
+              f"{100 * serial / ms:.1f}% of it; {plan.blocks} blocks of {plan.units} units, "
+              f"{plan.smem} bytes of shared memory")
         if first is None:  # the 512-frame request's shape goes into the summary line
             first = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
                          library_ms=lib)
         first["max_abs_err"] = max(first["max_abs_err"], err)
+        del x, gi
+        torch.cuda.empty_cache()
     return first
 
 
@@ -529,6 +628,28 @@ def check_against_cpu(syn):
           f"latents max |err| {lat_err:.2e} (atol {LATENT_ATOL}), "
           f"wav max |err| {wav_err:.2e} (atol {WAV_ATOL}), wav max |y| {np.abs(wav_gpu).max():.3f}, "
           f"std {wav_gpu.std():.3f}")
+
+
+def device_events(prof) -> list:
+    """The profile's device work by name: kernels, copies and fills.  The
+    GPU spans of user annotations (``record_function`` labels such as
+    ``Optimizer.step#Lamb.step``, which also appear among the host events
+    under the same key) are dropped: they cover kernels that are counted
+    already, and would count their time twice and the gaps between them as
+    busy.  Prints what was dropped."""
+    events = prof.key_averages()
+    host_keys = {e.key for e in events if e.device_type != torch.autograd.DeviceType.CUDA}
+    kept, dropped = [], []
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        annotation = e.key in host_keys or getattr(e, "is_user_annotation", False)
+        (dropped if annotation else kept).append(e)
+    spans = ", ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
+                      for e in dropped)
+    print(f"  torch.profiler: {len(dropped)} user-annotation GPU spans left out of the busy sum"
+          f"{': ' + spans if spans else ''}")
+    return kept
 
 
 def profile_request(syn, max_frames: int = 512) -> None:
@@ -593,8 +714,7 @@ def profile_request(syn, max_frames: int = 512) -> None:
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
         request()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    kernels = device_events(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     n_launch = sum(e.count for e in kernels)
     print(f"  torch.profiler: {n_launch} kernel launches of {len(kernels)} kernels, device busy "
@@ -648,7 +768,7 @@ def run_step(trainer, batch):
 
 def reset_counters() -> None:
     mas_width1.launches = 0
-    gru_fwd.launches = gru_fwd.step_launches = 0
+    gru_fwd.launches = gru_fwd.step_launches = gru_fwd.time_steps = 0
     GRURecurrence.backward_calls = 0
     flash_fwd.launches = flash_bwd_dkv.launches = flash_bwd_dq.launches = 0
 
@@ -683,10 +803,14 @@ def timed_training(trainer, batch, frames: int, label: str, per_step: dict) -> d
         check(all(math.isfinite(v) for v in values), f"non-finite losses {values}")
         totals.append(values[0])
     launches = read_counters()
-    print(f"launches on the {label} path ({TIMED_STEPS} steps): {launches}, "
-          f"BiGRU step launches {gru_fwd.step_launches}")
+    print(f"launches on the {label} path ({TIMED_STEPS} steps): {launches}, BiGRU device "
+          f"launches {gru_fwd.step_launches} for {gru_fwd.time_steps} time steps "
+          f"({gru_fwd.time_steps - gru_fwd.step_launches} step launches fewer than one a step)")
     want = {k: TIMED_STEPS * per_step.get(k, 0) for k in launches}
     check(launches == want, f"{label} launch counts {launches}, not {want}")
+    # B = 16 at H = 1024 takes the persistent route: one device launch a call
+    check(gru_fwd.step_launches == launches["gru_fwd"],
+          f"{label}: {gru_fwd.step_launches} BiGRU device launches in {launches['gru_fwd']} calls")
     ms = float(np.median(times))
     print(f"{label} step: median {ms:.2f} ms of {TIMED_STEPS} (min {min(times):.2f}, max "
           f"{max(times):.2f}), {frames / (ms / 1e3):.0f} frames/s, peak device memory "
@@ -791,6 +915,22 @@ def check_gru_backward(bigru):
         check(err <= GRU_BWD_RTOL, f"BiGRU backward {name}: card vs CPU {err:.3g} of max")
     print(f"BiGRU backward (plain PyTorch), card vs CPU at B={B} T={T} H={H}: max |err| / max |g| "
           f"dgi {errs[0]:.2e}, dw_hh {errs[1]:.2e}, db_hh {errs[2]:.2e} (rtol {GRU_BWD_RTOL})")
+
+    # the library yardstick of the BiGRU's forward + backward: cuDNN's f32
+    # nn.GRU (TF32 off), with its input projection; timed only, never used
+    lib_gru = torch.nn.GRU(H, H, batch_first=True, bidirectional=True, device="cuda")
+    lib_gru.load_state_dict(bigru.state_dict(), strict=True)
+    params = list(lib_gru.parameters())
+    for T in (TRAIN_T, LONG_T):
+        x = torch.randn(TRAIN_B, T, H, device="cuda", requires_grad=True)
+        dout = torch.randn(TRAIN_B, T, 2 * H, device="cuda")
+
+        def fwd_bwd():
+            torch.autograd.grad(lib_gru(x)[0], [x] + params, dout)
+
+        ms = cuda_ms(fwd_bwd, 2)
+        print(f"  cuDNN nn.GRU forward + backward (f32) at B={TRAIN_B} T={T}: {ms:.3f} ms")
+        del x, dout
 
 
 def grad_spread(got, ref):
@@ -922,8 +1062,7 @@ def profile_step(trainer, batch) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
         timed_step()
     wall_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    kernels = device_events(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     n_launch = sum(e.count for e in kernels)
     print(f"  torch.profiler, one step: {n_launch} kernel launches of {len(kernels)} kernels, "
@@ -998,18 +1137,8 @@ def flash_ptxas() -> None:
     """ptxas's register and spill report of each instance of the Hopper and
     tensor-core kernels; the dQ and f32 forward instances must not spill."""
     print("flash kernels, ptxas (kernel<head dim>):")
-    log = kernel_build.build_log("flash_attn").splitlines()
-    for i, line in enumerate(log):
-        for kern in ("flash_fwd_bf16", "flash_bwd_dkv_bf16", "flash_bwd_dq_bf16", "flash_fwd_f32"):
-            width = re.search(kern + r"ILi(\d+)E", line) if "entry function" in line else None
-            if width is None:
-                continue
-            info = " ".join(x.strip() for x in log[i + 1:i + 4] if "registers" in x or "spill" in x)
-            print(f"  {kern}<{width.group(1)}>: {info}")
-            if kern in ("flash_bwd_dq_bf16", "flash_fwd_f32"):
-                spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", info)
-                check(spills is not None and spills.groups() == ("0", "0"),
-                      f"{kern}<{width.group(1)}> spills: {info}")
+    ptxas_report("flash_attn", ("flash_fwd_bf16", "flash_bwd_dkv_bf16", "flash_bwd_dq_bf16",
+                                "flash_fwd_f32"), ("flash_bwd_dq_bf16", "flash_fwd_f32"))
 
 
 def check_flash():

@@ -15,6 +15,8 @@ largest value (the attention), and for the block, whose projections round
 to bf16 in both packages at other sums, 3e-2.
 """
 
+import dataclasses
+import json
 import math
 
 import numpy as np
@@ -317,6 +319,29 @@ def test_flash_block_on_card_refuses_head_dim(d_k, dtype):
     for D in (1, 48, 224, 256):
         assert fa.head_dim_ok(D, torch.bfloat16) and fa.head_dim_ok(D, torch.float32)
     FFTBlock(2 * d_k, 64, 2, d_k, d_k, dropout=0.0, use_flash=True, dtype=dtype, device="cpu")
+
+
+@pytest.mark.parametrize("encoder_dim, decoder_dim, head", [(576, 448, 2), (448, 576, 2),
+                                                           (1152, 1152, 4)])
+def test_flash_config_past_head_dim_256_refused_on_cpu(tmp_path, encoder_dim, decoder_dim,
+                                                        head):
+    """A Text2Vec config with flash_attention=True whose head dim (d_model //
+    encoder_head, either stack) exceeds 256 is refused where the model is
+    built, on the CPU as on the card: ``check_ported`` raises before any
+    module is made.  The same config without flash, and the shipped d_k =
+    224, pass the gate."""
+    from wavthruvec_pytorch_tpu_torch.config import check_ported
+    from wavthruvec_pytorch_tpu_torch.models.text2vec import Text2Vec
+    raw = dict(encoder_dim=encoder_dim, decoder_dim=decoder_dim, encoder_head=head,
+               decoder_head=head, flash_attention=True)
+    path = tmp_path / "t2v.json"
+    path.write_text(json.dumps(raw))
+    cfg = load_config(Text2VecConfig, str(path))
+    assert max(encoder_dim, decoder_dim) // head == 288
+    with pytest.raises(NotImplementedError, match="d_k=288"):
+        Text2Vec(cfg, device="cpu")
+    check_ported(dataclasses.replace(cfg, flash_attention=False))
+    check_ported(dataclasses.replace(cfg, encoder_dim=448, decoder_dim=448, encoder_head=2))
 
 
 def test_flash_block_on_card_takes_padded_head_dim():

@@ -26,7 +26,17 @@ from wavthruvec_pytorch_tpu_torch.ops.fused_resblock import (
     conv_residual_plain,
     fused_conv_residual,
 )
-from wavthruvec_pytorch_tpu_torch.ops.gru import gru_fwd, gru_fwd_plain
+from wavthruvec_pytorch_tpu_torch.ops.gru import (
+    gru_fwd,
+    gru_fwd_plain,
+    gru_fwd_plan,
+    gru_fwd_steps,
+    persistent_smem,
+)
+
+# an H100's SMs and the shared memory a block may opt into
+H100_SMS, H100_SMEM = 132, 232448
+FUSED_ATOL = 1e-4  # the card's kernel-vs-plain tolerance of the unit (chip_smoke.py)
 
 
 def _t(a, dtype=torch.float32):
@@ -106,6 +116,67 @@ def test_fused_unit_wrapper_takes_plain_only_on_cpu():
         fused_conv_residual(x.to("meta"), w.to("meta"), b.to("meta"))
 
 
+def _tf32(a: torch.Tensor) -> torch.Tensor:
+    """a with its low 13 mantissa bits cleared: the TF32 value the tensor
+    cores read from an f32 register."""
+    return (a.view(torch.int32) & -8192).view(torch.float32)
+
+
+def test_fused_unit_3xtf32_split_holds_f32_tolerance(capsys):
+    """The kernel's arithmetic, emulated in torch at one full-size unit
+    (C = 256, k = 11, d = 3, T = 512, weights at the Generator's init scale):
+    lrelu(x) and w each split into hi (TF32) and lo = x - hi (read as TF32),
+    summed as lo hi + hi lo + hi hi in f32.  It lies within FUSED_ATOL of
+    ``conv_residual_plain``; one TF32 product (hi hi alone) is printed, not
+    asserted, as the record of why the split is needed."""
+    rng = np.random.default_rng(11)
+    C, k, d, T = 256, 11, 3, 512
+    x = _t(rng.standard_normal((1, T, C)))
+    w = _t(rng.standard_normal((k, C, C)) * 0.01)
+    b = _t(rng.standard_normal(C) * 0.01)
+    want = conv_residual_plain(x, w, b, dilation=d)
+
+    def conv(a, wk):
+        pad = (k * d - d) // 2
+        return torch.nn.functional.conv1d(a.transpose(1, 2), wk.permute(2, 1, 0), padding=pad,
+                                          dilation=d).transpose(1, 2)
+
+    a = torch.nn.functional.leaky_relu(x, 0.1)
+    a_hi, w_hi = _tf32(a), _tf32(w)
+    a_lo, w_lo = _tf32(a - a_hi), _tf32(w - w_hi)
+    three = conv(a_lo, w_hi) + conv(a_hi, w_lo) + conv(a_hi, w_hi) + b + x
+    one = conv(a_hi, w_hi) + b + x
+    err3 = float((three - want).abs().max())
+    err1 = float((one - want).abs().max())
+    with capsys.disabled():
+        print(f"\nfused unit C={C} k={k} d={d} T={T}: 3xTF32 max |err| {err3:.2e}, "
+              f"one TF32 product {err1:.2e} (FUSED_ATOL {FUSED_ATOL})")
+    assert err3 <= FUSED_ATOL
+
+
+@pytest.mark.parametrize("B", [1, 2, 16])
+def test_gru_plan_persistent_at_cbhg_shapes(B):
+    """At the CBHG's D = 2, H = 1024 the planner picks one persistent launch
+    on an H100: 16 units a block (64 blocks a direction), the block's 48
+    rows of bf16 w_hh (98,304 bytes) resident, within the card's SMs and a
+    block's shared memory."""
+    plan = gru_fwd_plan(2, B, 1024, H100_SMS, H100_SMEM)
+    assert plan.route == "persistent"
+    assert plan.blocks <= H100_SMS and plan.smem <= H100_SMEM
+    assert (plan.units, plan.blocks) == (16, 128)
+    assert plan.smem == persistent_smem(16, B, 1024) >= 3 * 16 * 1024 * 2
+
+
+@pytest.mark.parametrize("D, B, H", [(2, 16, 2048), (2, 4096, 1024), (4, 1, 1024)])
+def test_gru_plan_steps_where_weights_do_not_fit(D, B, H):
+    """Where no block size keeps a block's w_hh rows (and the step's gi) in
+    shared memory with one block an SM, the planner picks the
+    one-launch-a-step route, which takes any shape; it never raises."""
+    plan = gru_fwd_plan(D, B, H, H100_SMS, H100_SMEM)
+    assert plan.route == "steps" and plan.units == 8 and plan.smem == 0
+    assert plan.blocks == D * H // 8
+
+
 def _gru_inputs(D, B, T, H, seed=0):
     rng = np.random.default_rng(seed)
     gi = (rng.standard_normal((D, B, T, 3 * H)) * 0.5).astype(np.float32)
@@ -126,6 +197,23 @@ def test_gru_plain_matches_pallas_interpret(B, T):
     np.testing.assert_allclose(got, want, atol=1e-4)
     torch.testing.assert_close(torch.from_numpy(got),
                                gru_fwd_plain(_t(gi), _t(w_hh), _t(b_hh)), rtol=0, atol=0)
+
+
+def test_gru_wrappers_take_plain_only_on_cpu():
+    """gru_fwd runs the plain version on CPU tensors and launches nothing;
+    gru_fwd_steps (one route of the kernel, timed on the card) has no plain
+    path and refuses CPU tensors, as both refuse any other device."""
+    gi, w_hh, b_hh = (_t(a) for a in _gru_inputs(2, 1, 5, 16))
+    w_hh = w_hh.to(torch.bfloat16)
+    before = (gru_fwd.launches, gru_fwd.step_launches, gru_fwd.time_steps)
+    torch.testing.assert_close(gru_fwd(gi, w_hh, b_hh), gru_fwd_plain(gi, w_hh, b_hh),
+                               rtol=0, atol=0)
+    assert (gru_fwd.launches, gru_fwd.step_launches, gru_fwd.time_steps) == before
+    with pytest.raises(ValueError):
+        gru_fwd_steps(gi, w_hh, b_hh)
+    for fn in (gru_fwd, gru_fwd_steps):
+        with pytest.raises(ValueError):
+            fn(gi.to("meta"), w_hh.to("meta"), b_hh.to("meta"))
 
 
 def test_port_bigru_matches_jax_scan():

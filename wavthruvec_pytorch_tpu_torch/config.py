@@ -11,7 +11,8 @@ compatibility:
 * ``Text2VecConfig.flash_attention=True`` and ``compute_dtype="bfloat16"``
   are ported (the trainer computes in bf16, serving in f32, as in the JAX
   package); ``Vec2WavConfig.compute_dtype != "float32"`` and
-  ``attn_use_partial_padding=True`` are not ported yet and raise
+  ``attn_use_partial_padding=True`` are not ported yet, nor is
+  ``flash_attention=True`` with a head dim above 256; they raise
   ``NotImplementedError`` where a model is built.
 """
 
@@ -197,6 +198,10 @@ def load_config(cls, path: str):
     return cls(**kwargs)
 
 
+# the largest head dim the flash kernels take (ops/flash_attention.py)
+FLASH_MAX_HEAD_DIM = 256
+
+
 def check_ported(cfg) -> None:
     """Raise for a config flag whose JAX implementation is not ported yet."""
     if isinstance(cfg, Vec2WavConfig) and cfg.compute_dtype != "float32":
@@ -205,6 +210,16 @@ def check_ported(cfg) -> None:
             "Generator computes in float32 (ROADMAP.md, queue 1 item 3: the bf16 "
             "serving Generator)."
         )
+    if isinstance(cfg, Text2VecConfig) and cfg.flash_attention:
+        # both FFT stacks take d_k = d_model // encoder_head (models/text2vec.py)
+        d_k = max(cfg.encoder_dim, cfg.decoder_dim) // cfg.encoder_head
+        if d_k > FLASH_MAX_HEAD_DIM:
+            raise NotImplementedError(
+                f"flash_attention=True with head dim d_k={d_k} is not ported: the flash "
+                f"kernels take d_k <= {FLASH_MAX_HEAD_DIM} (ROADMAP.md, queue 1 item 12: "
+                "flash kernels past head dim 256).  The gate holds on every device, so the CPU "
+                "refuses what the card would."
+            )
     if getattr(cfg, "attn_use_partial_padding", False):
         raise NotImplementedError(
             "attn_use_partial_padding=True is not ported (ROADMAP.md, queue 1 item 7: "

@@ -70,7 +70,12 @@
 
 namespace {
 
+using hopper::cp_async16;
+using hopper::cp_async_commit;
+using hopper::cp_async_wait;
+using hopper::mma_3xtf32;
 using hopper::smem_u32;
+using hopper::split_tf32;
 
 constexpr int MAX_D = 256;
 constexpr uint32_t SMEM_MAX = 232448;  // dynamic shared memory a block may opt into
@@ -138,21 +143,6 @@ constexpr size_t x_smem() {
   return static_cast<size_t>(XQ + 2 * XK) * (HD + 4) * sizeof(float);
 }
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, uint32_t src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // Start copying rows [r0, r0 + rows) of one head (row stride rs floats) into
 // a shared [rows, HD + 4] tile; rows at or past `limit` are zero-filled.
 template <int HD>
@@ -165,33 +155,6 @@ __device__ __forceinline__ void x_load(float* dst, const float* src, int r0, int
     cp_async16(smem_u32(dst + r * (HD + 4) + c), src + static_cast<size_t>(in ? r0 + r : 0) * rs + c,
                in ? 16u : 0u);
   }
-}
-
-// hi: x with the low 13 mantissa bits cleared (TF32); lo = x - hi, exact
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  const uint32_t h = __float_as_uint(x) & 0xffffe000u;
-  hi = h;
-  lo = __float_as_uint(x - __uint_as_float(h));
-}
-
-// c += a b, m16n8k8, TF32 in, f32 accumulate.  A (16 x 8): a[0] (g, t),
-// a[1] (g + 8, t), a[2] (g, t + 4), a[3] (g + 8, t + 4); B (8 x 8): b0
-// (k = t, n = g), b1 (k = t + 4, n = g).
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a b at f32 accuracy from split operands, the small terms first
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ahi)[4],
-                                           const uint32_t (&alo)[4], uint32_t bhi0, uint32_t bhi1,
-                                           uint32_t blo0, uint32_t blo1) {
-  mma_tf32(c, alo, bhi0, bhi1);
-  mma_tf32(c, ahi, blo0, blo1);
-  mma_tf32(c, ahi, bhi0, bhi1);
 }
 
 // forward: one block per (128 query rows, b * H + h, split of the key

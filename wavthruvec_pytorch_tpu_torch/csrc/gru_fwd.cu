@@ -10,33 +10,297 @@
 //
 // Replaces: wavthruvec_pytorch_tpu/ops/gru_pallas.py, gru_fwd_pallas (Pallas
 // kernel _gru_fwd_kernel), which the CBHG BiGRU runs under gru_impl="pallas":
-// the same bf16 rounding of h and w_hh and the same f32 carry.
+// the same bf16 rounding of h and w_hh and the same f32 carry.  The TPU
+// kernel keeps w_hh resident in VMEM for the whole sequence.
 //
-// What bounds it on an H100: the serial chain of T steps, not bytes or flops.
-// The least work a step needs is reading w_hh (D*H*3H bf16 = 12.6 MB at
-// D = 2, H = 1024) and doing 2*D*B*H*3H flops; the whole recurrence's bound
-// from bytes read once is microseconds, but each step depends on the last.
-// This first design is simple and right:
-//   * one launch per time step, both directions in one grid; the host loop
-//     that issues the T launches runs in C, so Python pays one call per BiGRU;
-//   * one warp owns hidden unit j of one direction and computes its three
-//     gate dot products (rows j, H+j, 2H+j of w_hh transposed to [D, 3H, H],
-//     so every lane reads 16 contiguous bytes), reduces them with shuffles
-//     and writes h_new[j] itself, so a step needs no second pass;
-//   * h_{t-1} is read from the output's row t-1 (the output doubles as the
-//     carried state, no ping-pong buffers), and w_hh is re-read from L2 each
-//     step, where 12.6 MB fits in 50 MB.
-// A persistent kernel that keeps w_hh resident in shared memory across the
-// 132 SMs (about 95 KB each) with a grid barrier per step is later work.
+// What bounds it on an H100: the serial chain of T steps, not bytes or
+// operations.  Read once, w_hh (D*H*3H bf16 = 12.6 MB at D = 2, H = 1024) and
+// the 2*D*B*H*3H operations of a step take microseconds for the whole
+// sequence; but step t needs all of h_{t-1}.  So a step costs at least one
+// grid-wide exchange of h: its write, a barrier, and its read back from L2.
+//
+// Two routes, chosen by shape in ops/gru.py (gru_fwd_plan):
+//
+//   * persistent (the CBHG's shapes): ONE cooperative launch runs all T
+//     steps.  Each block owns U hidden units of one direction and keeps
+//     their 3U rows of w_hh^T [D, 3H, H] in shared memory for the whole
+//     launch (98,304 bytes at U = 16, H = 1024: 64 blocks a direction, 128
+//     for the card's 132 SMs), so w_hh is read from device memory once per
+//     call, not once per step.  A step in one block:
+//       1. cp.async (L2 only) bf16(h_{t-1}) of its direction, 16 batch rows
+//          at a time, from the exchange buffer hx [2, D, B, H] (double
+//          buffered by the parity of t);
+//       2. the [16, 3U] gate products on the tensor cores: mma.sync
+//          m16n8k16 bf16 with f32 accumulation, the batch as M, the 8 warps
+//          splitting K = H and summing their partials through shared memory.
+//          B = 1 takes the same path (15 zero rows): a step's products are a
+//          few hundred cycles either way, and one code path keeps the
+//          arithmetic (exact bf16 products, f32 sums) the same at every B;
+//       3. gi (prefetched by cp.async during the previous barrier) and b_hh
+//          added, the gates of its U units applied, h carried in f32 in
+//          shared memory;
+//       4. bf16 h written to hx, then the block's arrival at a
+//          per-direction barrier: an arrival counter in global memory
+//          (red.release.gpu / ld.acquire.gpu), so the two directions, which
+//          share nothing, never wait for each other;
+//       5. while the others arrive, the f32 y[d, b, t, units] written and
+//          the next step's gi prefetched; then the wait.
+//     cudaLaunchCooperativeKernel guarantees that every block is resident
+//     (or refuses the launch, which the caller raises on: nothing falls back).
+//   * steps (shapes whose w_hh slices do not fit in shared memory on the
+//     card's SMs, e.g. H = 2048 at D = 2): one launch a time step, the host
+//     loop in C; one warp owns hidden unit j of one direction and computes its
+//     three gate dot products from w_hh read through L2, reduces them with
+//     shuffles and writes h_new[j] itself; h_{t-1} is read from the output's
+//     row t-1.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int WARPS = 8;   // hidden units per block, one warp each
-constexpr int BT = 4;      // batch rows accumulated per pass over w_hh
+using hopper::cp_async16;
+using hopper::cp_async_commit;
+using hopper::cp_async_wait;
+using hopper::smem_u32;
+
+__device__ __forceinline__ float sigmoidf(float v) { return 1.f / (1.f + expf(-v)); }
+
+// ===========================================================================
+// persistent route
+// ===========================================================================
+
+constexpr int P_THREADS = 256;
+constexpr int P_WARPS = P_THREADS / 32;
+constexpr int BM = 16;  // batch rows a tile: the M of m16n8k16
+
+// Shared memory of the persistent kernel, in bytes (ops/gru.py
+// persistent_smem computes the same): w slice [3U][H + 8] bf16, h tile
+// [BM][H + 8] bf16 (8 columns of zeros pad K to a multiple of 16 and move
+// consecutive rows 4 banks apart), the warps' partial sums [WARPS][BM][3U]
+// f32, gi of the step [B][3U] f32, the f32 carry [B][U] and b_hh [3U] f32.
+__host__ __device__ inline size_t persistent_smem(int U, int B, int H) {
+  const size_t hp = static_cast<size_t>(H) + 8, r = 3 * static_cast<size_t>(U);
+  return 2 * r * hp + 2 * BM * hp + 4 * P_WARPS * BM * r + 4 * static_cast<size_t>(B) * r +
+         4 * static_cast<size_t>(B) * U + 4 * r;
+}
+
+// The per-direction barrier, in two halves so that work that no other block
+// waits for runs while it is in flight.  arrive: after a bar.sync that
+// follows the block's writes, thread 0 adds 1 with gpu-scope release
+// semantics (cumulative: it orders the writes the bar.sync made visible to
+// it).  wait: thread 0 polls with gpu-scope acquire loads until every block
+// of the direction has arrived `target` times in all; the bar.sync after it
+// orders the block's later reads after the others' writes.
+__device__ __forceinline__ void barrier_arrive(unsigned* counter) {
+  if (threadIdx.x == 0)
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n" ::"l"(counter) : "memory");
+}
+
+__device__ __forceinline__ void barrier_wait(unsigned* counter, unsigned target) {
+  if (threadIdx.x == 0) {
+    unsigned seen;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(seen) : "l"(counter) : "memory");
+    } while (seen < target);
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// c += a b, m16n8k16, bf16 in, f32 accumulate.  With g = lane / 4 and
+// t = lane % 4: a[0] (row g, k 2t..2t+1), a[1] (g + 8, 2t), a[2] (g, 2t + 8),
+// a[3] (g + 8, 2t + 8); b0 (k 2t..2t+1, n = g), b1 (k 2t + 8.., n = g);
+// c[0], c[1] (row g, n 2t, 2t + 1), c[2], c[3] (row g + 8).
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One block per (direction, U consecutive hidden units); grid D * nbd.
+// gi [D, B, T, 3H] f32; w [D, 3H, H] bf16; bh [D, 3H] f32; y [D, B, T, H]
+// f32; hx [2, D, B, H] bf16 scratch; counter [D] zeroed.
+template <int U>
+__global__ void __launch_bounds__(P_THREADS, 1)
+gru_persistent_kernel(const float* __restrict__ gi, const __nv_bfloat16* __restrict__ w,
+                      const float* __restrict__ bh, float* __restrict__ y,
+                      __nv_bfloat16* __restrict__ hx, unsigned* __restrict__ counter, int D,
+                      int B, int T, int H, int nbd) {
+  constexpr int R = 3 * U;   // gate rows of the block
+  constexpr int NT = R / 8;  // n-tiles of m16n8k16
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int hp = H + 8;
+  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* hs = ws + R * hp;
+  float* red = reinterpret_cast<float*>(hs + BM * hp);
+  float* gis = red + P_WARPS * BM * R;
+  float* h32 = gis + B * R;
+  float* bhs = h32 + B * U;
+
+  const int d = blockIdx.x / nbd;
+  const int j0 = (blockIdx.x % nbd) * U;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int cpr = H / 8;  // 16-byte chunks of a bf16 row
+  const int ksteps = (H + 15) / 16;
+  unsigned* ctr = counter + d;
+
+  // the block's rows of w^T, local row gate * U + u <- row gate * H + j0 + u
+  for (int i = tid; i < R * cpr; i += P_THREADS) {
+    const int r = i / cpr, c = (i - r * cpr) * 8;
+    const int gate = r / U, u = r - gate * U;
+    const bool in = j0 + u < H;
+    const __nv_bfloat16* src =
+        w + (static_cast<size_t>(d) * 3 * H + gate * H + (in ? j0 + u : 0)) * H + c;
+    cp_async16(smem_u32(ws + r * hp + c), src, in ? 16u : 0u);
+  }
+  for (int r = tid; r < R; r += P_THREADS)  // the 8 pad columns
+    *reinterpret_cast<uint4*>(ws + r * hp + H) = make_uint4(0, 0, 0, 0);
+  for (int i = tid; i < BM * hp / 8; i += P_THREADS)  // the h tile, pad columns included
+    reinterpret_cast<uint4*>(hs)[i] = make_uint4(0, 0, 0, 0);
+  for (int i = tid; i < R; i += P_THREADS) {
+    const int gate = i / U, u = i - gate * U;
+    bhs[i] = j0 + u < H ? bh[static_cast<size_t>(d) * 3 * H + gate * H + j0 + u] : 0.f;
+  }
+
+  // gi of step t for every batch row: [B][3U], runs of U floats
+  const int cpg = U / 4;
+  auto load_gi = [&](int t) {
+    for (int i = tid; i < B * 3 * cpg; i += P_THREADS) {
+      const int b = i / (3 * cpg), rem = i - b * 3 * cpg;
+      const int gate = rem / cpg, c = (rem - gate * cpg) * 4;
+      const bool in = j0 + c < H;
+      const float* src =
+          gi + ((static_cast<size_t>(d) * B + b) * T + t) * 3 * H + gate * H + (in ? j0 + c : 0);
+      cp_async16(smem_u32(gis + b * R + gate * U + c), src, in ? 16u : 0u);
+    }
+  };
+  load_gi(0);
+  cp_async_commit();
+
+  for (int t = 0; t < T; ++t) {
+    const __nv_bfloat16* h_in = hx + (static_cast<size_t>((t + 1) & 1) * D + d) * B * H;
+    __nv_bfloat16* h_out = hx + (static_cast<size_t>(t & 1) * D + d) * B * H;
+    for (int b0 = 0; b0 < B; b0 += BM) {
+      if (t > 0) {
+        // the tile's real rows; past B, rows another tile of this step
+        // wrote are zero-filled (with one tile they stay zero from the start)
+        const int rows = B > BM ? BM : B;
+        for (int i = tid; i < rows * cpr; i += P_THREADS) {
+          const int r = i / cpr, c = (i - r * cpr) * 8;
+          const bool in = b0 + r < B;
+          cp_async16(smem_u32(hs + r * hp + c), h_in + static_cast<size_t>(in ? b0 + r : 0) * H + c,
+                     in ? 16u : 0u);
+        }
+        cp_async_commit();
+      }
+      cp_async_wait<0>();  // h tile, and this step's gi (and w at t = 0)
+      __syncthreads();
+
+      if (t > 0) {
+        float acc[NT][4];
+#pragma unroll
+        for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+        for (int ks = warp; ks < ksteps; ks += P_WARPS) {
+          const int k0 = ks * 16 + 2 * tq;
+          const uint32_t a[4] = {lds32(hs + g * hp + k0), lds32(hs + (g + 8) * hp + k0),
+                                 lds32(hs + g * hp + k0 + 8), lds32(hs + (g + 8) * hp + k0 + 8)};
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            const __nv_bfloat16* wr = ws + (n * 8 + g) * hp + k0;
+            mma_bf16(acc[n], a, lds32(wr), lds32(wr + 8));
+          }
+        }
+        float* rw = red + warp * BM * R;
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const int col = n * 8 + 2 * tq;
+          *reinterpret_cast<float2*>(rw + g * R + col) = make_float2(acc[n][0], acc[n][1]);
+          *reinterpret_cast<float2*>(rw + (g + 8) * R + col) = make_float2(acc[n][2], acc[n][3]);
+        }
+        __syncthreads();
+      }
+
+      for (int p = tid; p < BM * U; p += P_THREADS) {
+        const int r = p / U, u = p - r * U;
+        const int b = b0 + r, j = j0 + u;
+        if (b >= B || j >= H) continue;
+        float s_r = 0.f, s_z = 0.f, s_n = 0.f;
+        if (t > 0) {
+#pragma unroll
+          for (int v = 0; v < P_WARPS; ++v) {
+            const float* rv = red + (v * BM + r) * R;
+            s_r += rv[u];
+            s_z += rv[U + u];
+            s_n += rv[2 * U + u];
+          }
+        }
+        const float* gg = gis + b * R;
+        const float rg = sigmoidf(gg[u] + (s_r + bhs[u]));
+        const float zg = sigmoidf(gg[U + u] + (s_z + bhs[U + u]));
+        const float ng = tanhf(gg[2 * U + u] + rg * (s_n + bhs[2 * U + u]));
+        const float h_prev = t > 0 ? h32[b * U + u] : 0.f;
+        const float h = (1.f - zg) * ng + zg * h_prev;
+        h32[b * U + u] = h;
+        h_out[static_cast<size_t>(b) * H + j] = __float2bfloat16(h);
+      }
+      __syncthreads();  // the tile's h is written; hs and red are free again
+    }
+    if (t + 1 < T) barrier_arrive(ctr);
+    // while the other blocks arrive: the f32 output (no other block reads
+    // it) and the next step's gi
+    for (int p = tid; p < B * U; p += P_THREADS) {
+      const int b = p / U, u = p - b * U;
+      if (j0 + u < H) y[((static_cast<size_t>(d) * B + b) * T + t) * H + j0 + u] = h32[p];
+    }
+    if (t + 1 < T) {
+      load_gi(t + 1);
+      cp_async_commit();
+      barrier_wait(ctr, static_cast<unsigned>(t + 1) * nbd);
+    }
+  }
+}
+
+// The serial floor: the persistent grid with the same shared memory (so one
+// block an SM), running T - 1 barriers and nothing else.
+__global__ void __launch_bounds__(P_THREADS, 1)
+gru_barrier_loop_kernel(unsigned* __restrict__ counter, int T, int nbd) {
+  unsigned* ctr = counter + blockIdx.x / nbd;
+  for (int t = 0; t + 1 < T; ++t) {
+    __syncthreads();
+    barrier_arrive(ctr);
+    barrier_wait(ctr, static_cast<unsigned>(t + 1) * nbd);
+  }
+}
+
+template <int U>
+cudaError_t launch_persistent(const float* gi, const __nv_bfloat16* w, const float* bh, float* y,
+                              __nv_bfloat16* hx, unsigned* counter, int D, int B, int T, int H,
+                              size_t smem, cudaStream_t stream) {
+  const void* fn = reinterpret_cast<const void*>(gru_persistent_kernel<U>);
+  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  int nbd = (H + U - 1) / U;
+  void* args[] = {&gi, &w, &bh, &y, &hx, &counter, &D, &B, &T, &H, &nbd};
+  return cudaLaunchCooperativeKernel(fn, dim3(D * nbd), dim3(P_THREADS), args, smem, stream);
+}
+
+// ===========================================================================
+// steps route: one launch a time step
+// ===========================================================================
+
+constexpr int S_WARPS = 8;  // hidden units per block, one warp each
+constexpr int BT = 4;       // batch rows accumulated per pass over w_hh
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16(v));
@@ -52,16 +316,13 @@ __device__ __forceinline__ void unpack8(const uint4 u, float* f) {
   }
 }
 
-__device__ __forceinline__ float sigmoidf(float v) { return 1.f / (1.f + expf(-v)); }
-
-// gi: [D, B, T, 3H] f32; w: [D, 3H, H] bf16; bh: [D, 3H] f32;
 // y: [D, B, T, H] f32, rows 0..t-1 already written.  Writes row t.
-__global__ void __launch_bounds__(WARPS * 32)
+__global__ void __launch_bounds__(S_WARPS * 32)
 gru_step_kernel(const float* __restrict__ gi, const __nv_bfloat16* __restrict__ w,
                 const float* __restrict__ bh, float* __restrict__ y,
                 int B, int T, int H, int t) {
   const int lane = threadIdx.x % 32;
-  const int j = blockIdx.x * WARPS + threadIdx.x / 32;
+  const int j = blockIdx.x * S_WARPS + threadIdx.x / 32;
   const int d = blockIdx.y;
   if (j >= H) return;
   const size_t HH = static_cast<size_t>(H) * H;
@@ -133,15 +394,68 @@ gru_step_kernel(const float* __restrict__ gi, const __nv_bfloat16* __restrict__ 
 
 extern "C" {
 
-// gi: [D, B, T, 3H] f32 contiguous; w: [D, 3H, H] bf16 contiguous (w_hh
-// transposed); bh: [D, 3H] f32; y: [D, B, T, H] f32, written.  H % 8 == 0.
+// The current device's SM count and the shared memory a block may opt into,
+// for the route planner.  Returns a cudaError_t (0 on success).
+int gru_fwd_device_limits(int* n_sm, int* smem_optin) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return static_cast<int>(e);
+}
+
+// Persistent route.  gi: [D, B, T, 3H] f32 contiguous; w: [D, 3H, H] bf16
+// contiguous (w_hh transposed); bh: [D, 3H] f32; y: [D, B, T, H] f32,
+// written; hx: [2, D, B, H] bf16 scratch; counter: [D] u32, zeroed.
+// H % 8 == 0; U (units a block) one of 8, 16, 24, 32; smem must equal
+// persistent_smem(U, B, H) (the planner's figure).  One cooperative launch
+// on `stream`; returns its cudaError_t (0 on success).
+int gru_fwd_persistent(const void* gi, const void* w, const void* bh, void* y, void* hx,
+                       void* counter, int D, int B, int T, int H, int U, long long smem,
+                       void* stream) {
+  if (static_cast<size_t>(smem) != persistent_smem(U, B, H) || H % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* g = static_cast<const float*>(gi);
+  const __nv_bfloat16* wt = static_cast<const __nv_bfloat16*>(w);
+  const float* b = static_cast<const float*>(bh);
+  float* out = static_cast<float*>(y);
+  __nv_bfloat16* h = static_cast<__nv_bfloat16*>(hx);
+  unsigned* c = static_cast<unsigned*>(counter);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t sm = static_cast<size_t>(smem);
+  switch (U) {
+    case 8: return static_cast<int>(launch_persistent<8>(g, wt, b, out, h, c, D, B, T, H, sm, s));
+    case 16: return static_cast<int>(launch_persistent<16>(g, wt, b, out, h, c, D, B, T, H, sm, s));
+    case 24: return static_cast<int>(launch_persistent<24>(g, wt, b, out, h, c, D, B, T, H, sm, s));
+    case 32: return static_cast<int>(launch_persistent<32>(g, wt, b, out, h, c, D, B, T, H, sm, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The persistent route's serial floor: the same grid (D * nbd blocks of 256
+// threads, `smem` bytes each) running T - 1 per-direction barriers.
+// counter: [D] u32, zeroed.
+int gru_fwd_barrier_loop(void* counter, int D, int nbd, int T, long long smem, void* stream) {
+  const void* fn = reinterpret_cast<const void*>(gru_barrier_loop_kernel);
+  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  unsigned* c = static_cast<unsigned*>(counter);
+  void* args[] = {&c, &T, &nbd};
+  return static_cast<int>(cudaLaunchCooperativeKernel(fn, dim3(D * nbd), dim3(P_THREADS), args,
+                                                      static_cast<size_t>(smem),
+                                                      static_cast<cudaStream_t>(stream)));
+}
+
+// Steps route: the same arguments as gru_fwd_persistent without the scratch.
 // Issues T launches on `stream`; returns the first cudaError_t (0 on success).
-int gru_fwd_forward(const void* gi, const void* w, const void* bh, void* y,
-                    int D, int B, int T, int H, void* stream) {
-  const dim3 grid((H + WARPS - 1) / WARPS, D);
+int gru_fwd_steps(const void* gi, const void* w, const void* bh, void* y,
+                  int D, int B, int T, int H, void* stream) {
+  const dim3 grid((H + S_WARPS - 1) / S_WARPS, D);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   for (int t = 0; t < T; ++t) {
-    gru_step_kernel<<<grid, WARPS * 32, 0, s>>>(
+    gru_step_kernel<<<grid, S_WARPS * 32, 0, s>>>(
         static_cast<const float*>(gi), static_cast<const __nv_bfloat16*>(w),
         static_cast<const float*>(bh), static_cast<float*>(y), B, T, H, t);
     const cudaError_t e = cudaGetLastError();

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks for hand-written kernels: mbarriers, TMA
-// loads, named barriers, register reallocation and wgmma, as inline PTX.
+// loads, named barriers, register reallocation, cp.async, 3xTF32 mma.sync and
+// wgmma, as inline PTX.
 // Included by the kernels under csrc/; the library hash covers this file.
 //
 // Shared-memory tiles are bf16 [rows, cols] in boxes of 32 columns (64
@@ -100,6 +101,70 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
 
 __device__ __forceinline__ void named_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// --- cp.async ------------------------------------------------------------------
+
+// 16 bytes global -> shared through L2 only (.cg bypasses L1, so data that
+// another SM wrote before a gpu-scope release/acquire is seen); src_bytes 0
+// writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+// 4 bytes global -> shared, for rows that are not 16-byte aligned
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// --- f32 accuracy on the TF32 tensor cores: 3xTF32 with mma.sync -------------
+//
+// One TF32 product keeps 10 mantissa bits.  Each operand x is split into
+// hi = x with its low 13 mantissa bits cleared (a TF32 value) and lo = x - hi
+// (exact in f32; the tensor core reads its top 19 bits), and a product is
+// summed as lo_a hi_b + hi_a lo_b + hi_a hi_b in f32 (CUTLASS's
+// OpMultiplyAddFastF32 scheme): about 2^-20 of each term, f32 accuracy at
+// three times TF32's work.
+
+// hi: x with the low 13 mantissa bits cleared (TF32); lo = x - hi, exact
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  const uint32_t h = __float_as_uint(x) & 0xffffe000u;
+  hi = h;
+  lo = __float_as_uint(x - __uint_as_float(h));
+}
+
+// c += a b, m16n8k8, TF32 in, f32 accumulate.  With g = lane / 4 and
+// t = lane % 4: A (16 x 8): a[0] (g, t), a[1] (g + 8, t), a[2] (g, t + 4),
+// a[3] (g + 8, t + 4); B (8 x 8): b0 (k = t, n = g), b1 (k = t + 4, n = g);
+// C (16 x 8): c[0], c[1] (g, 2 t and 2 t + 1), c[2], c[3] (g + 8, the same).
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b at f32 accuracy from split operands, the small terms first
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ahi)[4],
+                                           const uint32_t (&alo)[4], uint32_t bhi0, uint32_t bhi1,
+                                           uint32_t blo0, uint32_t blo1) {
+  mma_tf32(c, alo, bhi0, bhi1);
+  mma_tf32(c, ahi, blo0, blo1);
+  mma_tf32(c, ahi, bhi0, bhi1);
 }
 
 // --- wgmma -------------------------------------------------------------------

@@ -33,11 +33,12 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from wavthruvec_pytorch_tpu_torch.config import FLASH_MAX_HEAD_DIM
 from wavthruvec_pytorch_tpu_torch.ops import kernel_build
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 _DTYPES = (torch.float32, torch.bfloat16)
-_MAX_D = 256
+_MAX_D = FLASH_MAX_HEAD_DIM
 WIDTHS = (64, 128, 224, 256)  # head dims the kernels are built for (csrc/flash_attn.cu)
 _SPLIT_ROWS, _SPLIT_KEYS = 128, 32  # the f32 forward's query rows a block, keys a tile
 

@@ -5,7 +5,10 @@ JAX counterpart: ``wavthruvec_pytorch_tpu/ops/gru_pallas.py``
 (``gru_fwd_pallas``): torch nn.GRU gates, h0 = 0, ``h`` and ``w_hh``
 rounded to bf16 for the hidden matmul with f32 accumulation, h carried in
 f32.  The port's BiGRU always runs this function: on CUDA tensors it
-launches the kernel, on CPU tensors it runs ``gru_fwd_plain``.
+launches the kernel, on CPU tensors it runs ``gru_fwd_plain``.  On the card
+``gru_fwd_plan`` picks the kernel's route by shape: one persistent
+cooperative launch with ``w_hh`` resident in shared memory (the CBHG's
+shapes), or one launch a time step where the weights do not fit.
 
 ``GRURecurrence`` makes the recurrence differentiable: its forward is
 ``gru_fwd``, its backward ``gru_bwd_plain``, plain PyTorch, as the JAX
@@ -16,6 +19,7 @@ package's backward ``_gru_stacked_bwd`` (models/layers.py:795-840) is a
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -42,21 +46,86 @@ def gru_fwd_plain(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor) -> t
     return torch.stack(ys, dim=2)
 
 
+# the persistent kernel's block (csrc/gru_fwd.cu): threads, warps, batch rows
+# a tile, and the hidden units a block may own (its template instances)
+_P_WARPS, _BM = 8, 16
+PERSISTENT_UNITS = (8, 16, 24, 32)
+_STEP_UNITS = 8  # the steps route's hidden units a block, one warp each
+
+
+class GRUPlan(NamedTuple):
+    """How ``gru_fwd`` runs a shape on the card: ``route`` "persistent" (one
+    cooperative launch for all T steps, ``units`` hidden units of one
+    direction a block, their ``w_hh`` rows resident in ``smem`` bytes of
+    shared memory) or "steps" (one launch a time step, ``units`` hidden
+    units a block, no dynamic shared memory); ``blocks`` a launch."""
+
+    route: str
+    blocks: int
+    units: int
+    smem: int
+
+
+def persistent_smem(U: int, B: int, H: int) -> int:
+    """Shared-memory bytes of the persistent kernel (``persistent_smem`` in
+    csrc/gru_fwd.cu): the [3U, H + 8] bf16 ``w_hh`` slice, a [16, H + 8]
+    bf16 h tile, the 8 warps' [16, 3U] f32 partial sums, gi [B, 3U], the f32
+    carry [B, U] and b_hh [3U]."""
+    hp, r = H + 8, 3 * U
+    return 2 * r * hp + 2 * _BM * hp + 4 * _P_WARPS * _BM * r + 4 * B * r + 4 * B * U + 4 * r
+
+
+def gru_fwd_plan(D: int, B: int, H: int, n_sm: int, smem_bytes: int) -> GRUPlan:
+    """The route for D directions of H units at batch B on a card with
+    ``n_sm`` SMs and ``smem_bytes`` of shared memory a block.  Persistent
+    when some ``U`` in ``PERSISTENT_UNITS`` gives at most one block an SM
+    (D * ceil(H / U) <= n_sm, so the cooperative launch is resident) and its
+    shared memory fits; the smallest such U (the most blocks).  Otherwise
+    the steps route, which takes any D, B and H % 8 == 0.  A choice by
+    shape, made before the launch."""
+    for U in PERSISTENT_UNITS:
+        blocks = D * -(-H // U)
+        if blocks > n_sm:
+            continue
+        smem = persistent_smem(U, B, H)
+        if smem <= smem_bytes:
+            return GRUPlan("persistent", blocks, U, smem)
+        break  # a larger U only needs more shared memory
+    return GRUPlan("steps", D * -(-H // _STEP_UNITS), _STEP_UNITS, 0)
+
+
 def _lib() -> ctypes.CDLL:
     lib = kernel_build.load("gru_fwd")
-    fn = lib.gru_fwd_forward
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.gru_fwd_device_limits.argtypes = [ctypes.POINTER(i32), ctypes.POINTER(i32)]
+    lib.gru_fwd_persistent.argtypes = [ptr] * 6 + [i32] * 5 + [ctypes.c_longlong, ptr]
+    lib.gru_fwd_barrier_loop.argtypes = [ptr] + [i32] * 3 + [ctypes.c_longlong, ptr]
+    lib.gru_fwd_steps.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
+    for fn in (lib.gru_fwd_device_limits, lib.gru_fwd_persistent, lib.gru_fwd_barrier_loop,
+               lib.gru_fwd_steps):
+        fn.restype = ctypes.c_int
     return lib
 
 
-def gru_fwd(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor) -> torch.Tensor:
-    """gi [D, B, T, 3H] f32 contiguous, w_hh [D, H, 3H] bf16 (any strides),
-    b_hh [D, 3H] f32 contiguous -> [D, B, T, H] f32.  CPU tensors take
-    ``gru_fwd_plain``; CUDA tensors launch the kernel (T step launches,
-    issued from C); anything else raises."""
-    if gi.device.type == "cpu":
-        return gru_fwd_plain(gi, w_hh, b_hh)
+_limits: Dict[int, Tuple[int, int]] = {}
+
+
+def device_limits(device: torch.device) -> Tuple[int, int]:
+    """(SMs, shared-memory bytes a block may opt into) of a CUDA device."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _limits:
+        lib = _lib()
+        n_sm, smem = ctypes.c_int(), ctypes.c_int()
+        with torch.cuda.device(index):
+            kernel_build.check(lib, lib.gru_fwd_device_limits(ctypes.byref(n_sm),
+                                                              ctypes.byref(smem)),
+                               "gru_fwd_device_limits")
+        _limits[index] = (n_sm.value, smem.value)
+    return _limits[index]
+
+
+def _checked_shape(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor):
+    """(D, B, T, H) of CUDA tensors the kernel takes; raises otherwise."""
     if gi.device.type != "cuda":
         raise ValueError(f"gru_fwd: unsupported device {gi.device}")
     if gi.dim() != 4 or gi.shape[-1] % 3 != 0:
@@ -77,21 +146,77 @@ def gru_fwd(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor) -> torch.T
     for name, t in (("w_hh", w_hh), ("b_hh", b_hh)):
         if t.device != gi.device:
             raise ValueError(f"{name} is on {t.device}, gi on {gi.device}")
+    return D, B, T, H
+
+
+def _launch(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor, plan: GRUPlan) -> torch.Tensor:
+    """Run checked CUDA tensors on ``plan``'s route; an empty output
+    launches nothing."""
+    D, B, T, H = gi.shape[0], gi.shape[1], gi.shape[2], gi.shape[3] // 3
+    y = torch.empty(D, B, T, H, device=gi.device, dtype=torch.float32)
+    if y.numel() == 0:
+        return y
     lib = _lib()
     w_t = w_hh.transpose(1, 2).contiguous()  # [D, 3H, H]: no copy for a transposed view
-    y = torch.empty(D, B, T, H, device=gi.device, dtype=torch.float32)
     stream = torch.cuda.current_stream(gi.device).cuda_stream
-    err = lib.gru_fwd_forward(gi.data_ptr(), w_t.data_ptr(), b_hh.data_ptr(),
-                              y.data_ptr(), D, B, T, H, stream)
-    kernel_build.check(lib, err, "gru_fwd_forward")
+    if plan.route == "persistent":
+        hx = torch.empty(2, D, B, H, device=gi.device, dtype=torch.bfloat16)
+        counter = torch.zeros(D, device=gi.device, dtype=torch.int32)
+        err = lib.gru_fwd_persistent(gi.data_ptr(), w_t.data_ptr(), b_hh.data_ptr(),
+                                     y.data_ptr(), hx.data_ptr(), counter.data_ptr(),
+                                     D, B, T, H, plan.units, plan.smem, stream)
+        kernel_build.check(lib, err, "gru_fwd_persistent")
+        gru_fwd.step_launches += 1
+    else:
+        err = lib.gru_fwd_steps(gi.data_ptr(), w_t.data_ptr(), b_hh.data_ptr(),
+                                y.data_ptr(), D, B, T, H, stream)
+        kernel_build.check(lib, err, "gru_fwd_steps")
+        gru_fwd.step_launches += T
     gru_fwd.launches += 1
-    gru_fwd.step_launches += T
+    gru_fwd.time_steps += T
     return y
 
 
-# calls that launched the kernel, and the per-step launches they issued
+def gru_fwd(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor) -> torch.Tensor:
+    """gi [D, B, T, 3H] f32 contiguous, w_hh [D, H, 3H] bf16 (any strides),
+    b_hh [D, 3H] f32 contiguous -> [D, B, T, H] f32.  CPU tensors take
+    ``gru_fwd_plain``; CUDA tensors launch the kernel on the route
+    ``gru_fwd_plan`` picks for the shape; anything else raises."""
+    if gi.device.type == "cpu":
+        return gru_fwd_plain(gi, w_hh, b_hh)
+    D, B, T, H = _checked_shape(gi, w_hh, b_hh)
+    return _launch(gi, w_hh, b_hh, gru_fwd_plan(D, B, H, *device_limits(gi.device)))
+
+
+def gru_fwd_steps(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor) -> torch.Tensor:
+    """``gru_fwd`` on the one-launch-a-step route whatever the shape, CUDA
+    tensors only: to time that route beside the planner's (the main path
+    never calls it)."""
+    D, B, T, H = _checked_shape(gi, w_hh, b_hh)
+    return _launch(gi, w_hh, b_hh, GRUPlan("steps", D * -(-H // _STEP_UNITS), _STEP_UNITS, 0))
+
+
+# calls that launched the kernel, the device launches they issued (1 a call
+# on the persistent route, T on the steps route) and the time steps they ran
 gru_fwd.launches = 0
 gru_fwd.step_launches = 0
+gru_fwd.time_steps = 0
+
+
+def gru_barrier_loop(D: int, B: int, T: int, H: int, device) -> None:
+    """The persistent route's serial floor at (D, B, T, H): its grid and
+    shared memory, running the T - 1 per-direction barriers and nothing
+    else (to time; the main path never calls it).  Raises if the shape
+    takes the steps route."""
+    device = torch.device(device)
+    plan = gru_fwd_plan(D, B, H, *device_limits(device))
+    if plan.route != "persistent":
+        raise ValueError(f"gru_barrier_loop: ({D}, {B}, {H}) takes the {plan.route} route")
+    lib = _lib()
+    counter = torch.zeros(D, device=device, dtype=torch.int32)
+    err = lib.gru_fwd_barrier_loop(counter.data_ptr(), D, plan.blocks // D, T, plan.smem,
+                                   torch.cuda.current_stream(device).cuda_stream)
+    kernel_build.check(lib, err, "gru_fwd_barrier_loop")
 
 
 def gru_bwd_plain(dys: torch.Tensor, gi: torch.Tensor, hprev: torch.Tensor,
