@@ -99,10 +99,13 @@ text bucket 768, frame bucket 3072), read where it lies:
     kernels at the edges: T = 384 with a length of 201 (a 128-query tile
     straddles the real/pad boundary), T = 320 (the last 128-query tile is
     half outside) and T = 256 (the shortest length the model's gate
-    passes); and bf16 at head dims 64, 128, 256 and 96 (run zero-padded to
-    128) at T = 384.  ``ptxas``'s register and spill report of
-    every instance of the Hopper and tensor-core kernels is printed again;
-    the dQ and f32 forward instances must not spill.
+    passes); and head dims 64, 128, 256 and 96 (run zero-padded to 128) at
+    T = 384: the forward in bf16, the backward in both dtypes.  The f32
+    backward kernels (3xTF32 ``mma.sync``) print their TFLOP/s and share of
+    the 3xTF32 bound at both shapes beside SDPA's f32 backward.  ``ptxas``'s
+    register and spill report of every instance of the Hopper and
+    tensor-core kernels is printed again; the bf16 dQ and every f32
+    instance (forward, dK/dV, dQ) must not spill.
 14. Training: ``Text2VecTrainer`` (bf16) takes ``WARMUP_STEPS`` then
     ``TIMED_STEPS`` steps on one synthetic batch at B = 16, N = 768,
     T = 3072 (3-4 frames per character); counters, set to 0 just before the
@@ -116,11 +119,22 @@ text bucket 768, frame bucket 3072), read where it lies:
     weights, B = 8, N = 256, T = 512 (both stacks take the flash gate, so the
     CPU runs the plain version), a diagonal prior that leaves MAS no
     near-ties.  Hard alignments and durations equal, losses and gradients
-    within stated tolerances.
+    within stated tolerances.  Then the f32 flash step on the same weights
+    and batch, card against CPU (8 launches of each flash kernel on the
+    card), at the f32 step's tolerances (``STEP_LOSS_RTOL``,
+    ``STEP_GRAD_GLOBAL_RTOL``, ``STEP_GRAD_RTOL``).
 16. Serving with the long-bucket config in f32 (only ``vocab_path`` set to
     the demo vocabulary, whose ids lie below 803): one request through
     ``Synthesizer.synthesize`` padded to 768 characters and 3072 frames,
     8 flash forward launches.
+17. Training in f32: the long-bucket config with ``compute_dtype`` float32
+    (flash, dropout 0, N = 768, T = 3072 as the file says) at B = 8, not
+    its 16, since f32 activations take about twice the bf16 step's memory;
+    ``WARMUP_STEPS`` then ``TIMED_STEPS`` steps, counters set to 0 just
+    before the timed steps: per step 8 flash forward, 8 dK/dV and 8 dQ
+    launches (the f32 kernels), 1 MAS and 1 BiGRU forward launch; then its
+    time split and profile as in phase 12, with the flash kernels' device
+    time.
 
 Every float32 product and convolution in this run is full float32: TF32 is
 off for matmuls and cuDNN.  The second-to-last line is a JSON object with
@@ -230,6 +244,7 @@ STEP_GRAD_RTOL = 3e-2
 # the long-bucket bf16 slice
 LONG_CFG = ("artifacts", "flash_longbucket", "flash", "longbucket", "config.json")
 LONG_B, LONG_N, LONG_T = 16, 768, 3072
+LONG_F32_B = 8  # the f32 long-bucket step's batch: f32 activations take ~2x bf16's
 FLASH_H, FLASH_D = 2, 224  # heads and head dim of both FFT stacks
 # flash kernels vs plain, max |err| / max |plain|: in bf16 the kernels round
 # the running (not the final) probabilities and dS to bf16 before their
@@ -1124,8 +1139,9 @@ def rel_err(got, want) -> float:
 # edge cases of phase 13, in both dtypes: (label, T, lengths)
 FLASH_EDGES = (("straddling tile", 384, (384, 201)), ("half tile", 320, (320, 201)),
                ("shortest gated", 256, (256, 131)))
-# bf16 head dims of phase 13 besides the model's 224: the other instantiated
-# widths, and one the wrapper zero-pads (96 -> 128); at T = 384, lengths 384, 201
+# head dims of phase 13 besides the model's 224 (the forward in bf16, the
+# backward in both dtypes): the other instantiated widths, and one the
+# wrapper zero-pads (96 -> 128); at T = 384, lengths 384, 201
 FLASH_HEAD_DIMS = (64, 128, 256, 96)
 
 
@@ -1135,10 +1151,11 @@ def rate(n_ops: float, ms: float, bms: float) -> str:
 
 def flash_ptxas() -> None:
     """ptxas's register and spill report of each instance of the Hopper and
-    tensor-core kernels; the dQ and f32 forward instances must not spill."""
+    tensor-core kernels; the bf16 dQ and every f32 instance must not spill."""
     print("flash kernels, ptxas (kernel<head dim>):")
-    ptxas_report("flash_attn", ("flash_fwd_bf16", "flash_bwd_dkv_bf16", "flash_bwd_dq_bf16",
-                                "flash_fwd_f32"), ("flash_bwd_dq_bf16", "flash_fwd_f32"))
+    f32 = ("flash_fwd_f32", "flash_bwd_dkv_f32", "flash_bwd_dq_f32")
+    ptxas_report("flash_attn", ("flash_fwd_bf16", "flash_bwd_dkv_bf16", "flash_bwd_dq_bf16") + f32,
+                 ("flash_bwd_dq_bf16",) + f32)
 
 
 def check_flash():
@@ -1210,7 +1227,8 @@ def check_flash():
               for dtype in (torch.bfloat16, torch.float32)]
     cases += [(label, len(lens), None, T, dtype, lens, FLASH_D) for label, T, lens in FLASH_EDGES
               for dtype in (torch.bfloat16, torch.float32)]
-    cases += [("head dim", 2, None, 384, torch.bfloat16, (384, 201), D) for D in FLASH_HEAD_DIMS]
+    cases += [("head dim", 2, None, 384, dtype, (384, 201), D) for D in FLASH_HEAD_DIMS
+              for dtype in (torch.bfloat16, torch.float32)]
     for label, B_cmp, B, T, dtype, lens, D in cases:
         q, k, v, seg = flash_case(B_cmp, T, dtype, SEED + 1, lens, D)
         scale_d = 1.0 / math.sqrt(D)
@@ -1249,11 +1267,19 @@ def check_flash():
               f"backward {times['sdpa']:.3f} ms, SDPA backward alone {times['sdpa_bwd']:.3f} ms; "
               f"the backward (preparation + dK/dV + dQ) {total:.3f} ms, "
               f"{total / times['sdpa_bwd']:.2f}x SDPA's backward")
-        timed = dtype == torch.bfloat16  # the training path's dtype gives the kernels line's times
-        record("flash_bwd_dkv", max(abs_err["dk"], abs_err["dv"]),
-               *((times["call_dkv"], times["plain"], b_dkv, by_dkv, times["sdpa"]) if timed else ()))
-        record("flash_bwd_dq", abs_err["dq"],
-               *((times["call_dq"], times["plain"], b_dq, by_dq, times["sdpa"]) if timed else ()))
+        # the bf16 step's dtype gives the kernels line's times; f32 under f32_ keys
+        for name, err, call, bms, by in (
+                ("flash_bwd_dkv", max(abs_err["dk"], abs_err["dv"]), times["call_dkv"], b_dkv,
+                 by_dkv),
+                ("flash_bwd_dq", abs_err["dq"], times["call_dq"], b_dq, by_dq)):
+            if dtype == torch.bfloat16:
+                record(name, err, call, times["plain"], bms, by, times["sdpa"])
+                continue
+            record(name, err)
+            row = rows[name]
+            if "f32_ms" not in row:
+                row.update(f32_ms=call, f32_plain_ms=times["plain"], f32_bound_ms=bms,
+                           f32_bound_by=by, f32_sdpa_bwd_ms=times["sdpa_bwd"])
     return rows
 
 
@@ -1316,6 +1342,28 @@ def train_long(dev):
     return trainer, host, batch, launches
 
 
+def train_long_f32(dev):
+    """Phase 17: the long-bucket step in f32 (``compute_dtype`` float32, the
+    rest as the config says) at B = ``LONG_F32_B``."""
+    cfg = dataclasses.replace(long_config(), compute_dtype="float32")
+    check(cfg.flash_attention and cfg.dropout == 0.0, f"{'/'.join(LONG_CFG)}: not flash, dropout 0")
+    torch.manual_seed(SEED)
+    trainer = Text2VecTrainer(cfg, device=dev)
+    check(trainer.model.decoder.layer_stack[0].slf_attn.w_qs.compute_dtype is None,
+          "the trainer did not build an f32 model")
+    host = synthetic_batch(cfg, LONG_F32_B, LONG_N, LONG_T, SEED)
+    batch = trainer.to_device(host)
+    frames = int(host["output_lengths"].sum())
+    print(f"f32 long-bucket training: {'/'.join(LONG_CFG)} with compute_dtype float32, flash "
+          f"attention, B={LONG_F32_B} (cut from the config's {LONG_B}: f32 activations take about "
+          f"twice the bf16 step's memory) N={LONG_N} T={LONG_T}, {frames} real frames, dropout "
+          f"{cfg.dropout}, lr {cfg.learning_rate}")
+    launches = timed_training(trainer, batch, frames, "f32 long-bucket training",
+                              dict(mas=1, gru_fwd=1, gru_bwd=1, flash_fwd=8, flash_bwd_dkv=8,
+                                   flash_bwd_dq=8))
+    return trainer, batch, launches
+
+
 def dense_long_step(dev, host) -> None:
     """The long-bucket step through the dense attention branch
     (``flash_attention=False``, the rest as the config says): its step time
@@ -1341,7 +1389,8 @@ def dense_long_step(dev, host) -> None:
 
 def check_flash_step_against_cpu():
     """Phase 15: one bf16 flash step, card against CPU; the CPU's f32 step
-    on the same weights measures bf16's own noise in the gradients."""
+    on the same weights measures bf16's own noise in the gradients.  Then
+    the card's f32 flash step against that CPU f32 step."""
     cfg = long_config()
     torch.manual_seed(SEED + 2)
     state = Text2Vec(cfg, device="cpu").state_dict()
@@ -1353,7 +1402,8 @@ def check_flash_step_against_cpu():
     t0 = time.perf_counter()
     cpu = step_result(cfg, state, host, "cpu", torch.bfloat16)
     cpu_s = time.perf_counter() - t0
-    f32 = step_result(cfg, state, host, "cpu")["grads"]
+    cpu_f32 = step_result(cfg, state, host, "cpu")  # no dtype: an f32 model, flash as configured
+    f32 = cpu_f32["grads"]
     loss_err = compare_steps(card, cpu, BF16_STEP_LOSS_RTOL)
     zeros = {n: torch.zeros_like(g) for n, g in f32.items()}
     print(f"bf16 flash training step, card vs CPU (B={BF16_CHECK_B} N={BF16_CHECK_N} "
@@ -1370,6 +1420,22 @@ def check_flash_step_against_cpu():
         print(f"  {mod} ({len(names)} tensors): {err / norm:.2e} against {noise / norm:.2e}")
         check(err <= bound, f"bf16 gradients of {mod}: card vs CPU {err / norm:.3g}, "
                             f"bf16 vs f32 {noise / norm:.3g} of the norm")
+
+    reset_counters()
+    card_f32 = step_result(cfg, state, host, "cuda")
+    check(flash_fwd.launches == flash_bwd_dkv.launches == flash_bwd_dq.launches == 8,
+          f"card f32 step: flash launches {read_counters()}")
+    loss_err = compare_steps(card_f32, cpu_f32, STEP_LOSS_RTOL)
+    total_err, worst, worst_name = grad_spread(card_f32["grads"], f32)
+    check(total_err <= STEP_GRAD_GLOBAL_RTOL, f"f32 flash step gradients: card vs CPU "
+                                              f"{total_err:.3g} of the norm")
+    check(worst <= STEP_GRAD_RTOL, f"f32 flash step gradient {worst_name}: card vs CPU "
+                                   f"{worst:.3g} of its norm")
+    print(f"f32 flash training step, card vs CPU (same weights and batch; 8 launches of each "
+          f"flash kernel on the card): hard alignment and durations equal, losses {loss_err:.2e} "
+          f"(rtol {STEP_LOSS_RTOL}), {len(f32)} gradients: ||card - CPU|| / ||CPU|| "
+          f"{total_err:.2e} in all (rtol {STEP_GRAD_GLOBAL_RTOL}), worst tensor {worst:.2e} in "
+          f"{worst_name} (rtol {STEP_GRAD_RTOL})")
 
 
 def serve_long(dev):
@@ -1444,6 +1510,10 @@ def main() -> int:
     check_flash_step_against_cpu()
     with torch.inference_mode():
         serve_long(dev)
+    torch.cuda.empty_cache()
+    trainer, batch, _ = train_long_f32(dev)
+    profile_step(trainer, batch)
+    del trainer, batch
 
     kernels = [
         dict(name="fused_resblock", route="cuda",
@@ -1466,8 +1536,10 @@ def main() -> int:
                             replaces=f"{flash_src}:{line}", launches=long_launches[name],
                             **flash[name]))
     for kern in kernels:
-        check(all(math.isfinite(kern[key]) for key in ("ms", "plain_ms", "bound_ms")),
-              f"{kern['name']}: non-finite time")
+        keys = ("ms", "plain_ms", "bound_ms") + (("f32_ms", "f32_plain_ms", "f32_bound_ms",
+                                                   "f32_sdpa_bwd_ms")
+                                                  if kern["name"].startswith("flash_bwd") else ())
+        check(all(math.isfinite(kern[key]) for key in keys), f"{kern['name']}: non-finite time")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,9 @@ both FFT stacks pass the flash gate: the port runs the flash kernels' plain
 version, JAX (whose gate asks for a TPU) its dense branch.  The priors are
 diagonal (1 at text position floor(i n / t) of frame i, 1e-4 elsewhere): any
 path but the diagonal costs 9.2 a frame in log-probability, so MAS has no
-near-ties, and hard alignments and durations must be equal.
+near-ties, and hard alignments and durations must be equal.  The same model,
+weights and batch in f32 (``compute_dtype="float32"``, still flash) make the
+f32 flash step, held to the f32 step's tolerances of ``test_torch_train.py``.
 
 Tolerances.  A layer: 2^-8 of its largest output, one bf16 rounding (the
 sums are f32 in both; observed equal).  The step: bf16 rounds at other sums in
@@ -71,6 +73,17 @@ JCFG = dataclasses.replace(
     max_seq_len=T_BUCKET, text_buckets=(N_BUCKET,), frame_buckets=(T_BUCKET,),
     grad_clip_every=1, learning_rate=0.01, compute_dtype="bfloat16", flash_attention=True)
 CFG = Text2VecConfig(**{f.name: getattr(JCFG, f.name) for f in dataclasses.fields(Text2VecConfig)})
+# the same model, batch and buckets in f32 with flash, held as the f32 step of
+# test_torch_train.py: losses rtol 1e-5, gradients atol 1e-3 of each tensor's largest
+JCFG_F32 = dataclasses.replace(JCFG, compute_dtype="float32")
+CFG_F32 = dataclasses.replace(CFG, compute_dtype="float32")
+F32_LOSS_RTOL = 1e-5
+F32_GRAD_RTOL = 1e-3
+# ... except below the BiGRU's bf16 rounding of h, held as chip_smoke.py holds the
+# card's f32 step (STEP_GRAD_RTOL, STEP_GRAD_GLOBAL_RTOL): ||port - JAX|| / ||JAX||
+F32_FLIP_MODULES = ("postnet", "encoder.speaker_encoder")
+F32_FLIP_GRAD_RTOL = 3e-2
+F32_FLIP_GRAD_GLOBAL_RTOL = 5e-3
 
 
 def _bf16_values(shape, seed, scale=1.0):
@@ -140,18 +153,16 @@ STEP_LENGTHS = [(256, 512), (200, 380), (130, 250), (170, 330), (240, 470), (150
                 (190, 300), (228, 400)]
 
 
-@pytest.fixture(scope="module")
-def bf16_step():
-    """One bf16 + flash training step of each package on the same weights
-    and batch; the JAX side is ``train_step``'s loss under
-    ``value_and_grad`` with ``Text2Vec(cfg, dtype=jnp.bfloat16)``, as
-    ``init_state`` builds it for ``compute_dtype="bfloat16"``."""
-    batch = make_padded_batch(_items(STEP_LENGTHS, seed=11), CFG)
-    assert batch["text"].shape == (8, N_BUCKET) and batch["feat_target"].shape[1] == T_BUCKET
+def _jax_step(jcfg, batch, dtype):
+    """JAX's side of one training step: ``train_step``'s loss under
+    ``value_and_grad`` with ``Text2Vec(jcfg, dtype=dtype)`` (as ``init_state``
+    builds it for the config's ``compute_dtype``) on seeded weights ->
+    (losses, outputs, gradients and the starting weights in the port's key
+    layout)."""
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     args = tuple(jb[k] for k in ("text", "src_pos", "feat_target", "input_lengths",
                                  "output_lengths", "feat_pos"))
-    model = JText2Vec(JCFG, dtype=jnp.bfloat16)
+    model = JText2Vec(jcfg, dtype=dtype)
     shapes = jax.eval_shape(lambda key: model.init(
         {"params": key, "dropout": key}, *args, attn_prior=jb["attn_prior"],
         deterministic=True, train_bn=False), jax.random.PRNGKey(0))
@@ -167,19 +178,39 @@ def bf16_step():
                                    jb["feat_target"], out["duration_predictor_output"],
                                    out["duration"])
         b = jlosses.attention_binarization_loss(out["attn"], out["attn_soft"])
-        total = w + p + d + JCFG.binarization_loss_weight * b
+        total = w + p + d + jcfg.binarization_loss_weight * b
         return total, ((total, w, p, d, b), out)
 
     (_, (jloss, jout)), jgrads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
+    start = weights.text2vec_state_dict({"params": params, "batch_stats": stats}, jcfg)
+    grads = weights.text2vec_state_dict({"params": _np(jgrads), "batch_stats": stats}, jcfg)
+    return [float(v) for v in jloss], _np(jout), grads, start
 
-    start = weights.text2vec_state_dict({"params": params, "batch_stats": stats}, JCFG)
-    trainer = Text2VecTrainer(CFG, device="cpu")  # bf16 from compute_dtype
-    trainer.model.load_state_dict(start, strict=True)
+
+def _port_step(trainer, batch):
+    """The port's forward and backward on ``batch`` (the flash kernels' plain
+    version: no kernel launches) -> (losses, outputs, gradients)."""
     launches = (fa.flash_fwd.launches, fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches)
     total, metrics, out = trainer.forward(trainer.to_device(batch))
     trainer.backward(total)
     assert (fa.flash_fwd.launches, fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches) == launches
     grads = {n: p.grad.clone() for n, p in trainer.model.named_parameters() if p.grad is not None}
+    return [metrics[k].item() for k in metrics], out, grads
+
+
+@pytest.fixture(scope="module")
+def bf16_step():
+    """One bf16 + flash training step of each package on the same weights
+    and batch; the JAX side is ``train_step``'s loss under
+    ``value_and_grad`` with ``Text2Vec(cfg, dtype=jnp.bfloat16)``, as
+    ``init_state`` builds it for ``compute_dtype="bfloat16"``."""
+    batch = make_padded_batch(_items(STEP_LENGTHS, seed=11), CFG)
+    assert batch["text"].shape == (8, N_BUCKET) and batch["feat_target"].shape[1] == T_BUCKET
+    jax_losses, jax_out, jax_grads, start = _jax_step(JCFG, batch, jnp.bfloat16)
+
+    trainer = Text2VecTrainer(CFG, device="cpu")  # bf16 from compute_dtype
+    trainer.model.load_state_dict(start, strict=True)
+    losses, out, grads = _port_step(trainer, batch)
     trainer.apply_gradients()
 
     # the f32 step on the same weights: the reference for bf16's own noise
@@ -187,11 +218,8 @@ def bf16_step():
     f32.model.load_state_dict(start, strict=True)
     f32.backward(f32.forward(f32.to_device(batch))[0])
     f32_grads = {n: p.grad for n, p in f32.model.named_parameters() if p.grad is not None}
-    return dict(jax_losses=[float(v) for v in jloss], jax_out=_np(jout),
-                jax_grads=weights.text2vec_state_dict({"params": _np(jgrads),
-                                                       "batch_stats": stats}, JCFG),
-                losses=[metrics[k].item() for k in metrics], out=out, grads=grads,
-                f32_grads=f32_grads, trainer=trainer)
+    return dict(jax_losses=jax_losses, jax_out=jax_out, jax_grads=jax_grads, losses=losses,
+                out=out, grads=grads, f32_grads=f32_grads, trainer=trainer)
 
 
 def test_bf16_step_alignment_and_outputs(bf16_step):
@@ -244,6 +272,88 @@ def test_bf16_step_gradients(bf16_step):
     print(f"all {len(names)} gradients: ||port - JAX|| {err / norm:.3g}, ||JAX - f32|| "
           f"{noise / norm:.3g} of ||f32||")
     assert err <= GRAD_NOISE_FACTOR_GLOBAL * noise
+
+
+@pytest.fixture(scope="module")
+def f32_step():
+    """One f32 + flash training step of each package on the bf16 step's
+    weights and batch: ``compute_dtype="float32"``, ``flash_attention=True``
+    (the port's plain flash version, JAX's dense branch)."""
+    batch = make_padded_batch(_items(STEP_LENGTHS, seed=11), CFG_F32)
+    jax_losses, jax_out, jax_grads, start = _jax_step(JCFG_F32, batch, jnp.float32)
+    trainer = Text2VecTrainer(CFG_F32, device="cpu")
+    trainer.model.load_state_dict(start, strict=True)
+    losses, out, grads = _port_step(trainer, batch)
+    # the port's dense branch on the same weights, for the gradients' printout
+    dense = Text2VecTrainer(dataclasses.replace(CFG_F32, flash_attention=False), device="cpu")
+    dense.model.load_state_dict(start, strict=True)
+    return dict(jax_losses=jax_losses, jax_out=jax_out, jax_grads=jax_grads, losses=losses,
+                out=out, grads=grads, dense_grads=_port_step(dense, batch)[2], trainer=trainer)
+
+
+def test_f32_flash_step_alignment_and_outputs(f32_step):
+    """The f32 model takes the flash branch in both stacks; hard alignment
+    and durations equal JAX's exactly, and every output is f32."""
+    attn = f32_step["trainer"].model.decoder.layer_stack[0].slf_attn
+    assert attn.use_flash and attn.w_qs.compute_dtype is None
+    out, jout = f32_step["out"], f32_step["jax_out"]
+    np.testing.assert_array_equal(out["attn"].numpy(), jout["attn"])
+    np.testing.assert_array_equal(out["duration"].numpy(), jout["duration"])
+    for k in ("feat_output", "feat_postnet_output", "duration_predictor_output", "attn_soft"):
+        assert out[k].dtype == torch.float32 and str(jout[k].dtype) == "float32", k
+        err = np.abs(out[k].detach().numpy() - jout[k]).max()
+        print(f"{k}: max |port - JAX| {err:.3g} (max |JAX| {np.abs(jout[k]).max():.3g})")
+
+
+def test_f32_flash_step_losses(f32_step):
+    """The five losses == JAX's: rtol 1e-5, as the f32 step of
+    ``test_torch_train.py``."""
+    print("losses port", f32_step["losses"], "JAX", f32_step["jax_losses"])
+    np.testing.assert_allclose(f32_step["losses"], f32_step["jax_losses"], rtol=F32_LOSS_RTOL)
+
+
+def test_f32_flash_step_gradients(f32_step):
+    """Every gradient == JAX's mapped through the weight bridge.  Outside the
+    postnet and ECAPA: the f32 step's rule of ``test_torch_train.py``, atol
+    1e-3 times the tensor's largest JAX gradient plus 1e-6.  The postnet's
+    (below its BiGRU) and ECAPA's gradients are held as ``chip_smoke.py``
+    holds the card's f32 step: ||port - JAX|| / ||JAX|| at most 3e-2 per
+    tensor and 5e-3 over all tensors.  At T = 512 the BiGRU's bf16 rounding
+    of h flips on f32 sums taken in another order, and the flips move single
+    elements there by more than 1e-3 of the largest, whatever attention
+    does: the printout gives the worst max |error| / max |g| there of the
+    port's flash and dense branches against JAX, and between the two."""
+    grads, want, dense = f32_step["grads"], f32_step["jax_grads"], f32_step["dense_grads"]
+    assert grads and set(grads) <= set(want)
+    worst, worst_norm, sq_err, sq_ref = 0.0, 0.0, 0.0, 0.0
+    for name, g in grads.items():
+        assert g.dtype == torch.float32, name
+        ref = want[name]
+        scale = float(ref.abs().max())
+        diff = float((g - ref).norm())
+        sq_err, sq_ref = sq_err + diff ** 2, sq_ref + float(ref.norm()) ** 2
+        if _module(name) in F32_FLIP_MODULES:
+            if scale > 1e-5:
+                worst_norm = max(worst_norm, diff / float(ref.norm()))
+                assert diff <= F32_FLIP_GRAD_RTOL * float(ref.norm()), name
+            continue
+        if scale > 1e-5:
+            worst = max(worst, float((g - ref).abs().max()) / scale)
+        np.testing.assert_allclose(g.numpy(), ref.numpy(), atol=F32_GRAD_RTOL * scale + 1e-6,
+                                   err_msg=name)
+    total = (sq_err / sq_ref) ** 0.5
+    print(f"{len(grads)} gradients: worst max |port - JAX| / max |g| {worst:.3g} outside "
+          f"{F32_FLIP_MODULES}, worst ||port - JAX|| / ||JAX|| {worst_norm:.3g} inside; "
+          f"{total:.3g} over all")
+    inside = [n for n in grads if _module(n) in F32_FLIP_MODULES
+              and float(want[n].abs().max()) > 1e-5]
+
+    def worst_max(a, b):
+        return max(float((a[n] - b[n]).abs().max() / b[n].abs().max()) for n in inside)
+
+    print(f"inside, worst max |error| / max |g|: flash vs JAX {worst_max(grads, want):.3g}, "
+          f"dense vs JAX {worst_max(dense, want):.3g}, flash vs dense {worst_max(grads, dense):.3g}")
+    assert total <= F32_FLIP_GRAD_GLOBAL_RTOL
 
 
 def test_check_ported_admits_long_bucket_config():

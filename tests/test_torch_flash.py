@@ -268,9 +268,10 @@ def test_head_dim_padding_is_exact(D):
 
 def test_backward_inputs_shared():
     """``backward_inputs``, made once a backward for both kernels: q, k, v
-    and dout in the kernels' contiguous [B, T, H, D] layout (bf16: zero-padded
-    to ``kernel_width(D)``), int32 segment ids, and delta = rowsum(dout * out)
-    in f32 (against float64, 1e-5 of the row's sum of |terms|).  It raises for
+    and dout in the kernels' contiguous [B, T, H, D] layout (both dtypes
+    zero-padded to ``kernel_width(D)``), int32 segment ids, and delta =
+    rowsum(dout * out) in f32 (against float64, 1e-5 of the row's sum of
+    |terms|).  It raises for
     a head dim above 256, and the kernels refuse CPU inputs."""
     rng = np.random.default_rng(4)
     B, H, T, D = 2, 2, 64, 224
@@ -295,7 +296,9 @@ def test_backward_inputs_shared():
     assert not small.q[..., 48:].any() and not small.dout[..., 48:].any()
     f32 = fa.backward_inputs(*(t[..., :48].float() for t in (q, k, v)), seg,
                              out[..., :48].float(), lse, dout[..., :48].float())
-    assert f32.q.shape == (B, T, H, 48)  # the f32 backward kernels take any D
+    assert f32.q.shape == (B, T, H, 64)  # zero-padded to kernel_width(48), as bf16
+    assert torch.equal(f32.q[..., :48], q[..., :48].float().transpose(1, 2))
+    assert not f32.q[..., 48:].any() and not f32.dout[..., 48:].any()
     wide = torch.zeros(B, H, T, 288, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="D <= 256"):
         fa.backward_inputs(wide, wide, wide, seg, wide, lse, wide)

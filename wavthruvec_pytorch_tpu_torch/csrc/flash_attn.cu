@@ -23,19 +23,19 @@
 // which the JAX package calls at wavthruvec_pytorch_tpu/models/fft_block.py
 // :106-134: _flash_attention_impl (pallas_call :758), _flash_attention_bwd_dkv
 // (:1121) and _flash_attention_bwd_dq (:1456).  The JAX package zero-pads a
-// head dim above 128 to a multiple of 128 for it (224 -> 256).  Here the
-// forward (both dtypes) and the bf16 backward are templates on the head dim
-// HD, built for HD = 64, 128, 224 and 256 (a multiple of 32: a TMA box is 32
-// columns, a wgmma k-step 16); the wrapper zero-pads any other D <= 256 to
-// the next of them, which is exact (padded columns add 0 to every q.k;
-// padded v columns give output columns that are dropped).  The f32
-// backward takes any D <= 256 as it is.
+// head dim above 128 to a multiple of 128 for it (224 -> 256).  Here every
+// kernel is a template on the head dim HD, built for HD = 64, 128, 224 and
+// 256 (a multiple of 32: a TMA box is 32 columns, a wgmma k-step 16; the f32
+// backward splits dQ's columns in halves of 8-column tiles); the wrapper
+// zero-pads any other D <= 256 to the next of them, which is exact (padded
+// columns add 0 to every q.k; padded v columns give output columns that are
+// dropped).
 //
 // What bounds them on an H100: at T = 3072, D = 224 the products (4 T^2 D
 // operations a head forward, 10 T^2 D backward) put them far above the
 // byte bound, so operations bound them: 989 TFLOP/s on bf16 tensor cores;
 // for f32, three TF32 products per product (below) at 495 TFLOP/s, i.e.
-// 165 TFLOP/s of f32-accurate work.  Three designs:
+// 165 TFLOP/s of f32-accurate work.  Two designs:
 //
 //   * bf16 (training), all three kernels: Hopper's own path.  One producer
 //     warpgroup streams tiles by TMA (64-byte swizzle, 32-column boxes) into
@@ -49,11 +49,10 @@
 //     each product is computed once.  Scores are taken in base 2
 //     (x = s sm_scale log2 e) with the mask at MASK in that domain, still
 //     finite.
-//   * f32 forward (serving): 3xTF32 on the tensor cores (below).
-//   * f32 backward: f32 FMAs on the CUDA cores, one block of 256 threads per
-//     (b, h, tile of rows), each thread holding a block of scores and a strip
-//     of output rows in registers; shared rows padded to an odd number of
-//     words, so 16 threads reading 16 rows at one column hit 16 banks.
+//   * f32 forward (serving) and f32 backward (f32 training): 3xTF32 on the
+//     tensor cores with mma.sync, operands split in registers (below).  The
+//     backward pairs warps as the bf16 dK/dV does, so each product is
+//     computed once, and streams its tiles by cp.async.
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
@@ -347,260 +346,346 @@ flash_fwd_f32_merge(const float* __restrict__ part_o, const float* __restrict__ 
 }
 
 // ===========================================================================
-// f32 backward: CUDA-core kernels
+// f32 backward: 3xTF32 on the tensor cores (mma.sync m16n8k8)
 // ===========================================================================
+//
+// Both kernels take the forward's operand scheme: each A and B fragment is
+// read once from an f32 shared tile (rows of HD + 4 words, so each fragment
+// load of a warp hits 32 banks) and split into TF32 hi and lo in registers;
+// a tile of P or dS that feeds the next product stays in registers as its A
+// operand, the 8 columns of each k-step summed in the order (0, 2, 4, 6, 1,
+// 3, 5, 7) with the B operand's rows in that order.  Scores are in base 2
+// (x = s sm_scale log2 e, P = exp2(x - lse log2 e)) with masked scores at
+// MASK.  The second product of a tile (dV, dK or dQ) sums over the tile's 16
+// rows into fresh registers, which are added to the running sum on the CUDA
+// cores: the tensor cores' adds truncate, and the running sums run over up
+// to T = 3072 rows.
+//
+// A block is 8 warps: 4 pairs over 16 rows each.  The two warps of a pair
+// split the products, so each is computed once and a thread holds one
+// accumulator of 16 rows:
+//
+//   dK/dV: one block per (64 keys, b * H + h), keys as the M rows.  K and V
+//     stay in shared memory; Q, dO and their lse, delta and segment ids
+//     stream in tiles of 16 queries through a two-stage cp.async ring.
+//     Warp 0 of a pair computes S^T = K Q^T, P^T and dV += P^T dO; warp 1
+//     computes dP^T = V dO^T, takes P^T through shared memory (lane i of one
+//     holds the very elements lane i of the other does), dS^T = P^T (dP^T -
+//     delta) sm_scale and dK += dS^T Q.  Q and dO rows are read as the
+//     forward reads K in the first product and as it reads V in the second.
+//   dQ: one block per (64 queries, b * H + h), queries as the M rows, the
+//     forward's own layout.  Q and dO stay in shared memory; K, V and the key
+//     segment ids stream in tiles of 16 keys through a two-stage ring.  Warp
+//     0 of a pair computes S = Q K^T and P, warp 1 dP = dO V^T; they swap P
+//     and dP through shared memory, both form dS = P (dP - delta) sm_scale,
+//     and each sums dQ += dS K over half of the HD columns.
+//
+// At HD = 224 the K and V (Q and dO) tiles take 116,736 bytes, a stage
+// 29,376 (dK/dV) or 29,248 (dQ), one block an SM; both kernels are checked
+// against SMEM_MAX below for every HD.
 
-constexpr int NT = 256;        // threads per block: 16 x 16
-constexpr int NC = MAX_D / 16; // output columns per thread: 16 * NC >= D
+constexpr int BT = 256;  // threads of a backward block: 8 warps, 4 pairs
 
-// Row stride of a shared f32 [rows, D] tile: an odd number of words.
-__host__ __device__ __forceinline__ int f32_ld(int D) { return D + 1; }
+// Start copying n (a multiple of 4) contiguous 4-byte values into shared
+// memory; both addresses 16-byte aligned.
+__device__ __forceinline__ void row_load(void* dst, const void* src, int n) {
+  for (int i = threadIdx.x; i < n / 4; i += BT)
+    cp_async16(smem_u32(static_cast<char*>(dst) + 16 * i), static_cast<const char*>(src) + 16 * i,
+               16u);
+}
 
-// Copy rows [r0, r0 + rows) of one head of a [B, T, H, D] tensor (row
-// stride H * D) into a shared tile.
-__device__ __forceinline__ void load_tile(float* dst, const float* src, int r0, int rows, int D,
-                                          int ld, size_t row_stride) {
-  for (int idx = threadIdx.x; idx < rows * D; idx += NT) {
-    const int r = idx / D, d = idx - r * D;
-    dst[r * ld + d] = src[static_cast<size_t>(r0 + r) * row_stride + d];
+// Shared memory of the f32 backward kernels, in floats: a resident pair of
+// [R, HD + 4] tiles, then two stages of two streamed [N, HD + 4] tiles and
+// ROWS arrays of N 4-byte values, then XBUF floats of exchange buffers.
+template <int HD, int R, int N, int ROWS, int XBUF>
+struct F32BwdLayout {
+  static constexpr int LD = HD + 4;
+  static constexpr size_t TILE = static_cast<size_t>(N) * LD;
+  static constexpr size_t STAGE = 2 * TILE + ROWS * N;
+  static constexpr size_t A = 0, B = static_cast<size_t>(R) * LD, S0 = 2 * B;
+  static constexpr size_t X = S0 + 2 * STAGE;
+  static constexpr size_t SMEM = (X + XBUF) * sizeof(float);
+  static_assert(SMEM <= SMEM_MAX, "f32 backward shared memory");
+  static_assert((LD * 4) % 16 == 0 && (STAGE * 4) % 16 == 0, "cp.async alignment");
+};
+
+constexpr int FB_ROWS = 64;  // keys (dK/dV) or queries (dQ) a block
+constexpr int FB_N = 16;     // queries (dK/dV) or keys (dQ) a streamed tile
+constexpr int FB_NS = FB_N / 8;
+// dK/dV: K, V resident; Q, dO, lse, delta, seg streamed; P^T [4][FB_NS * 4][32]
+template <int HD>
+using DkvF32 = F32BwdLayout<HD, FB_ROWS, FB_N, 3, 4 * FB_NS * 4 * 32>;
+// dQ: Q, dO resident; K, V, seg streamed; P and dP [4][2][FB_NS * 4][32]
+template <int HD>
+using DqF32 = F32BwdLayout<HD, FB_ROWS, FB_N, 1, 8 * FB_NS * 4 * 32>;
+
+// s = A B^T over HD for 16 rows: `ta` points at A's element (g, t) (row
+// stride LD), `tb` at the streamed tile's row 0; B's rows 8 n + g of the
+// 16-row tile, read as the forward reads K.  The hi-hi and the two cross
+// terms go to separate accumulators, and so do even and odd k-steps: each
+// score sums four chains of 14-28 tensor-core adds on the CUDA cores rather
+// than one of 84 (at HD = 224), which keeps the adds' truncation smaller.
+template <int HD>
+__device__ __forceinline__ void scores_f32(float (&s)[FB_NS][4], const float* ta,
+                                           const float* tb) {
+  constexpr int LD = HD + 4;
+  static_assert(HD % 16 == 0, "k-steps in even and odd pairs");
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  float hh[2][FB_NS][4], hl[2][FB_NS][4];
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+#pragma unroll
+    for (int n = 0; n < FB_NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) hh[p][n][e] = hl[p][n][e] = 0.f;
+#pragma unroll 2
+  for (int k2 = 0; k2 < HD; k2 += 16) {
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int kk = k2 + 8 * p;
+      uint32_t ah[4], al[4];
+      split_tf32(ta[kk], ah[0], al[0]);
+      split_tf32(ta[kk + 8 * LD], ah[1], al[1]);
+      split_tf32(ta[kk + 4], ah[2], al[2]);
+      split_tf32(ta[kk + 8 * LD + 4], ah[3], al[3]);
+#pragma unroll
+      for (int n = 0; n < FB_NS; ++n) {
+        const float* bp = tb + (8 * n + g) * LD + kk + t;
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(bp[0], bh0, bl0);
+        split_tf32(bp[4], bh1, bl1);
+        hopper::mma_tf32(hl[p][n], al, bh0, bh1);
+        hopper::mma_tf32(hl[p][n], ah, bl0, bl1);
+        hopper::mma_tf32(hh[p][n], ah, bh0, bh1);
+      }
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < FB_NS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = (hl[0][n][e] + hl[1][n][e]) + (hh[0][n][e] + hh[1][n][e]);
+}
+
+// acc[n] += x B over the tile's 16 rows, NO 8-column tiles of B: x (16 x 16,
+// accumulator layout) is the A operand in the key order above, `vb` points
+// at B's row 2 t, column g (the forward's V read); each 8-column tile is
+// summed into fresh registers first.
+template <int HD, int NO>
+__device__ __forceinline__ void accumulate_f32(float (&acc)[NO][4], const float (&x)[FB_NS][4],
+                                               const float* vb) {
+  constexpr int LD = HD + 4;
+  uint32_t xh[FB_NS][4], xl[FB_NS][4];
+#pragma unroll
+  for (int ks = 0; ks < FB_NS; ++ks) {
+    split_tf32(x[ks][0], xh[ks][0], xl[ks][0]);
+    split_tf32(x[ks][2], xh[ks][1], xl[ks][1]);
+    split_tf32(x[ks][1], xh[ks][2], xl[ks][2]);
+    split_tf32(x[ks][3], xh[ks][3], xl[ks][3]);
+  }
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int ks = 0; ks < FB_NS; ++ks) {
+      uint32_t bh0, bl0, bh1, bl1;
+      split_tf32(vb[8 * ks * LD + 8 * n], bh0, bl0);
+      split_tf32(vb[(8 * ks + 1) * LD + 8 * n], bh1, bl1);
+      mma_3xtf32(part, xh[ks], xl[ks], bh0, bh1, bl0, bl1);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
   }
 }
 
-// dK, dV: one block per (tile of BK_ key rows, b * H + h), looping over
-// query tiles of BQ_ rows
-constexpr int BK_ = 32, BQ_ = 64;
+// Write a 16-row accumulator of NO 8-column tiles: rows r and r + 8 (row
+// stride rs floats from `base`), columns 8 n + 2 t, + 1.
+template <int NO>
+__device__ __forceinline__ void store_f32(float* base, size_t rs, int r,
+                                          const float (&acc)[NO][4]) {
+  const int t = threadIdx.x % 4;
+  float* pa = base + static_cast<size_t>(r) * rs + 2 * t;
+  float* pb = pa + 8 * rs;
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    *reinterpret_cast<float2*>(pa + 8 * n) = make_float2(acc[n][0], acc[n][1]);
+    *reinterpret_cast<float2*>(pb + 8 * n) = make_float2(acc[n][2], acc[n][3]);
+  }
+}
 
-__global__ void __launch_bounds__(NT)
+// dK, dV: one block per (64 keys, b * H + h)
+template <int HD>
+__global__ void __launch_bounds__(BT, 1)
 flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const int* __restrict__ seg,
                   const float* __restrict__ dout, const float* __restrict__ lse,
                   const float* __restrict__ delta, float* __restrict__ dk,
-                  float* __restrict__ dv, int H, int T_, int D, float sm_scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int ld = f32_ld(D);
-  float* Ks = reinterpret_cast<float*>(smem);
-  float* Vs = Ks + BK_ * ld;
-  float* Qs = Vs + BK_ * ld;
-  float* dOs = Qs + BQ_ * ld;
-  float* Ps = dOs + BQ_ * ld;  // [BK_, BQ_ + 1]
-  float* dSs = Ps + BK_ * (BQ_ + 1);
-  float* lse_s = dSs + BK_ * (BQ_ + 1);
-  float* delta_s = lse_s + BQ_;
-  int* segq = reinterpret_cast<int*>(delta_s + BQ_);
+                  float* __restrict__ dv, int H, int T_, float scale_log2, float sm_scale) {
+  using L = DkvF32<HD>;
+  constexpr int LD = L::LD, NO = HD / 8;
+  extern __shared__ __align__(16) float xs[];
 
   const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
-  const int k0 = blockIdx.x * BK_;
-  const size_t rs = static_cast<size_t>(H) * D;
-  const size_t base = static_cast<size_t>(b) * T_ * rs + static_cast<size_t>(h) * D;
-  const int tc = threadIdx.x / 16;  // key rows tc, tc + 16
-  const int tr = threadIdx.x % 16;  // query columns tr + 16 j; output columns tr + 16 cc
+  const int k0 = blockIdx.x * FB_ROWS, nqt = T_ / FB_N;
+  const size_t rs = static_cast<size_t>(H) * HD;
+  const size_t head = static_cast<size_t>(b) * T_ * rs + static_cast<size_t>(h) * HD;
+  const size_t rows = static_cast<size_t>(bh) * T_;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int pair = warp % 4, role = warp / 4;  // role 0: S^T, P^T, dV; 1: dP^T, dS^T, dK
+  const int* segb = seg + static_cast<size_t>(b) * T_;
+  const int kr = k0 + 16 * pair + g;  // this thread's key rows kr, kr + 8
+  const int segk0 = segb[kr], segk1 = segb[kr + 8];
 
-  load_tile(Ks, k + base, k0, BK_, D, ld, rs);
-  load_tile(Vs, v + base, k0, BK_, D, ld, rs);
-  int segk[2];
-  float dK[2][NC], dV[2][NC];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    segk[i] = seg[static_cast<size_t>(b) * T_ + k0 + tc + 16 * i];
-#pragma unroll
-    for (int c = 0; c < NC; ++c) dK[i][c] = dV[i][c] = 0.f;
-  }
+  // stage s: Q, dO [FB_N][LD], lse, delta f32 and seg int [FB_N]
+  auto load_tile = [&](int j) {
+    float* st = xs + L::S0 + (j & 1) * L::STAGE;
+    x_load<HD>(st, q + head, j * FB_N, FB_N, T_, rs);
+    x_load<HD>(st + L::TILE, dout + head, j * FB_N, FB_N, T_, rs);
+    row_load(st + 2 * L::TILE, lse + rows + j * FB_N, FB_N);
+    row_load(st + 2 * L::TILE + FB_N, delta + rows + j * FB_N, FB_N);
+    row_load(st + 2 * L::TILE + 2 * FB_N, segb + j * FB_N, FB_N);
+    cp_async_commit();
+  };
+  x_load<HD>(xs + L::A, k + head, k0, FB_ROWS, T_, rs);
+  x_load<HD>(xs + L::B, v + head, k0, FB_ROWS, T_, rs);
+  load_tile(0);  // one group with K and V
 
-  for (int q0 = 0; q0 < T_; q0 += BQ_) {
-    __syncthreads();
-    load_tile(Qs, q + base, q0, BQ_, D, ld, rs);
-    load_tile(dOs, dout + base, q0, BQ_, D, ld, rs);
-    if (threadIdx.x < BQ_) {
-      const size_t r = static_cast<size_t>(bh) * T_ + q0 + threadIdx.x;
-      lse_s[threadIdx.x] = lse[r];
-      delta_s[threadIdx.x] = delta[r];
-      segq[threadIdx.x] = seg[static_cast<size_t>(b) * T_ + q0 + threadIdx.x];
-    }
-    __syncthreads();
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  const float* ta = xs + (role == 0 ? L::A : L::B) + (16 * pair + g) * LD + t;
+  float* xbuf = xs + L::X + pair * (FB_NS * 4 * 32) + lane;
 
-    float s[2][4], dp[2][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float kk[2], vv[2], qq[4], oo[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        kk[i] = Ks[(tc + 16 * i) * ld + d];
-        vv[i] = Vs[(tc + 16 * i) * ld + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        qq[j] = Qs[(tr + 16 * j) * ld + d];
-        oo[j] = dOs[(tr + 16 * j) * ld + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(kk[i], qq[j], s[i][j]);
-          dp[i][j] = fmaf(vv[i], oo[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = tr + 16 * j;
-        float x = s[i][j] * sm_scale;
-        if (segk[i] != segq[r]) x = MASK;
-        const float p = expf(x - lse_s[r]);
-        Ps[(tc + 16 * i) * (BQ_ + 1) + r] = p;
-        dSs[(tc + 16 * i) * (BQ_ + 1) + r] = p * (dp[i][j] - delta_s[r]) * sm_scale;
-      }
-    __syncthreads();
+  for (int j = 0; j < nqt; ++j) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile j is in; every warp is done with tile j - 1 and its buffers
+    if (j + 1 < nqt) load_tile(j + 1);
+    const float* st = xs + L::S0 + (j & 1) * L::STAGE;
+    const float* lse_s = st + 2 * L::TILE;
+    const float* delta_s = lse_s + FB_N;
+    const int* segq = reinterpret_cast<const int*>(lse_s + 2 * FB_N);
 
-    for (int r = 0; r < BQ_; ++r) {
-      float p[2], ds[2];
+    // S^T = K Q^T (role 0) or dP^T = V dO^T (role 1); this thread: keys kr
+    // (e < 2) and kr + 8, queries 8 n + 2 t (+ 1 for odd e)
+    float s[FB_NS][4];
+    scores_f32<HD>(s, ta, st + (role == 0 ? 0 : L::TILE));
+    if (role == 0) {
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        p[i] = Ps[(tc + 16 * i) * (BQ_ + 1) + r];
-        ds[i] = dSs[(tc + 16 * i) * (BQ_ + 1) + r];
-      }
+      for (int n = 0; n < FB_NS; ++n) {
+        const int c = 8 * n + 2 * t;
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_s + c);
+        const int2 sq = *reinterpret_cast<const int2*>(segq + c);
 #pragma unroll
-      for (int cc = 0; cc < NC; ++cc) {
-        const int d = tr + 16 * cc;
-        if (d < D) {
-          const float o = dOs[r * ld + d];
-          const float qv = Qs[r * ld + d];
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            dV[i][cc] = fmaf(p[i], o, dV[i][cc]);
-            dK[i][cc] = fmaf(ds[i], qv, dK[i][cc]);
-          }
+        for (int e = 0; e < 4; ++e) {
+          float x = s[n][e] * scale_log2;
+          if ((e < 2 ? segk0 : segk1) != ((e & 1) ? sq.y : sq.x)) x = MASK;
+          s[n][e] = ex2(x - ((e & 1) ? l2.y : l2.x) * LOG2E);
+          xbuf[(4 * n + e) * 32] = s[n][e];
         }
       }
-    }
-  }
-
+      hopper::named_arrive(1 + pair, 64);
+    } else {
+      hopper::named_sync(1 + pair, 64);
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const size_t off = base + static_cast<size_t>(k0 + tc + 16 * i) * rs;
+      for (int n = 0; n < FB_NS; ++n) {
+        const float2 dl = *reinterpret_cast<const float2*>(delta_s + 8 * n + 2 * t);
 #pragma unroll
-    for (int cc = 0; cc < NC; ++cc) {
-      const int d = tr + 16 * cc;
-      if (d < D) {
-        dk[off + d] = dK[i][cc];
-        dv[off + d] = dV[i][cc];
+        for (int e = 0; e < 4; ++e)
+          s[n][e] = xbuf[(4 * n + e) * 32] * (s[n][e] - ((e & 1) ? dl.y : dl.x)) * sm_scale;
       }
     }
+
+    // dV += P^T dO (role 0) or dK += dS^T Q (role 1)
+    accumulate_f32<HD>(acc, s, st + (role == 0 ? L::TILE : 0) + 2 * t * LD + g);
   }
+
+  const size_t out = head + static_cast<size_t>(k0 + 16 * pair) * rs;
+  store_f32<NO>((role == 0 ? dv : dk) + out, rs, g, acc);
 }
 
-// dQ: one block per (tile of QQ query rows, b * H + h), looping over key
-// tiles of QK rows
-constexpr int QQ = 64, QK = 32;
-
-__global__ void __launch_bounds__(NT)
+// dQ: one block per (64 queries, b * H + h)
+template <int HD>
+__global__ void __launch_bounds__(BT, 1)
 flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const int* __restrict__ seg,
                  const float* __restrict__ dout, const float* __restrict__ lse,
-                 const float* __restrict__ delta, float* __restrict__ dq, int H, int T_, int D,
-                 float sm_scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int ld = f32_ld(D);
-  float* Qs = reinterpret_cast<float*>(smem);
-  float* dOs = Qs + QQ * ld;
-  float* Ks = dOs + QQ * ld;
-  float* Vs = Ks + QK * ld;
-  float* dSs = Vs + QK * ld;  // [QQ, QK + 1]
-  int* segk = reinterpret_cast<int*>(dSs + QQ * (QK + 1));
+                 const float* __restrict__ delta, float* __restrict__ dq, int H, int T_,
+                 float scale_log2, float sm_scale) {
+  using L = DqF32<HD>;
+  constexpr int LD = L::LD, NO = HD / 16;  // 8-column tiles of a half of dQ's columns
+  constexpr int XB = FB_NS * 4 * 32;
+  extern __shared__ __align__(16) float xs[];
 
   const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
-  const int q0 = blockIdx.x * QQ;
-  const size_t rs = static_cast<size_t>(H) * D;
-  const size_t base = static_cast<size_t>(b) * T_ * rs + static_cast<size_t>(h) * D;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int q0 = blockIdx.x * FB_ROWS, nkt = T_ / FB_N;
+  const size_t rs = static_cast<size_t>(H) * HD;
+  const size_t head = static_cast<size_t>(b) * T_ * rs + static_cast<size_t>(h) * HD;
+  const size_t rows = static_cast<size_t>(bh) * T_;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int pair = warp % 4, role = warp / 4;  // role 0: S, P; 1: dP; both: dS, half of dQ
+  const int* segb = seg + static_cast<size_t>(b) * T_;
+  const int ra = q0 + 16 * pair + g, rb = ra + 8;  // this thread's query rows
+  const int sqa = segb[ra], sqb = segb[rb];
+  const float la = lse[rows + ra] * LOG2E, lb = lse[rows + rb] * LOG2E;
+  const float da = delta[rows + ra], db = delta[rows + rb];
 
-  load_tile(Qs, q + base, q0, QQ, D, ld, rs);
-  load_tile(dOs, dout + base, q0, QQ, D, ld, rs);
-  int segq[4];
-  float lse_r[4], delta_r[4], dQ[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    segq[i] = seg[static_cast<size_t>(b) * T_ + r];
-    lse_r[i] = lse[static_cast<size_t>(bh) * T_ + r];
-    delta_r[i] = delta[static_cast<size_t>(bh) * T_ + r];
-#pragma unroll
-    for (int c = 0; c < NC; ++c) dQ[i][c] = 0.f;
-  }
+  // stage s: K, V [FB_N][LD], seg int [FB_N]
+  auto load_tile = [&](int j) {
+    float* st = xs + L::S0 + (j & 1) * L::STAGE;
+    x_load<HD>(st, k + head, j * FB_N, FB_N, T_, rs);
+    x_load<HD>(st + L::TILE, v + head, j * FB_N, FB_N, T_, rs);
+    row_load(st + 2 * L::TILE, segb + j * FB_N, FB_N);
+    cp_async_commit();
+  };
+  x_load<HD>(xs + L::A, q + head, q0, FB_ROWS, T_, rs);
+  x_load<HD>(xs + L::B, dout + head, q0, FB_ROWS, T_, rs);
+  load_tile(0);  // one group with Q and dO
 
-  for (int k0 = 0; k0 < T_; k0 += QK) {
-    __syncthreads();
-    load_tile(Ks, k + base, k0, QK, D, ld, rs);
-    load_tile(Vs, v + base, k0, QK, D, ld, rs);
-    if (threadIdx.x < QK) segk[threadIdx.x] = seg[static_cast<size_t>(b) * T_ + k0 + threadIdx.x];
-    __syncthreads();
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  const float* ta = xs + (role == 0 ? L::A : L::B) + (16 * pair + g) * LD + t;
+  float* xmine = xs + L::X + (2 * pair + role) * XB + lane;
+  const float* xother = xs + L::X + (2 * pair + (role ^ 1)) * XB + lane;
 
-    float s[4][2], dp[4][2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) s[i][j] = dp[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qq[4], oo[4], kk[2], vv[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qq[i] = Qs[(ty + 16 * i) * ld + d];
-        oo[i] = dOs[(ty + 16 * i) * ld + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        kk[j] = Ks[(tx + 16 * j) * ld + d];
-        vv[j] = Vs[(tx + 16 * j) * ld + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          s[i][j] = fmaf(qq[i], kk[j], s[i][j]);
-          dp[i][j] = fmaf(oo[i], vv[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int c = tx + 16 * j;
-        float x = s[i][j] * sm_scale;
-        if (segq[i] != segk[c]) x = MASK;
-        const float p = expf(x - lse_r[i]);
-        dSs[(ty + 16 * i) * (QK + 1) + c] = p * (dp[i][j] - delta_r[i]) * sm_scale;
-      }
-    __syncthreads();
+  for (int j = 0; j < nkt; ++j) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile j is in; every warp is done with tile j - 1 and its buffers
+    if (j + 1 < nkt) load_tile(j + 1);
+    const float* st = xs + L::S0 + (j & 1) * L::STAGE;
 
-    for (int c = 0; c < QK; ++c) {
-      float ds[4];
+    // S = Q K^T (role 0) or dP = dO V^T (role 1); this thread: query rows ra
+    // (e < 2) and rb, keys 8 n + 2 t (+ 1 for odd e)
+    float s[FB_NS][4];
+    scores_f32<HD>(s, ta, st + (role == 0 ? 0 : L::TILE));
+    if (role == 0) {
+      const int* segk = reinterpret_cast<const int*>(st + 2 * L::TILE);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = dSs[(ty + 16 * i) * (QK + 1) + c];
+      for (int n = 0; n < FB_NS; ++n) {
+        const int2 sk = *reinterpret_cast<const int2*>(segk + 8 * n + 2 * t);
 #pragma unroll
-      for (int cc = 0; cc < NC; ++cc) {
-        const int d = tx + 16 * cc;
-        if (d < D) {
-          const float kv = Ks[c * ld + d];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) dQ[i][cc] = fmaf(ds[i], kv, dQ[i][cc]);
+        for (int e = 0; e < 4; ++e) {
+          float x = s[n][e] * scale_log2;
+          if ((e < 2 ? sqa : sqb) != ((e & 1) ? sk.y : sk.x)) x = MASK;
+          s[n][e] = ex2(x - (e < 2 ? la : lb));
         }
       }
     }
+#pragma unroll
+    for (int i = 0; i < 4 * FB_NS; ++i) xmine[i * 32] = s[i / 4][i % 4];
+    hopper::named_sync(1 + pair, 64);
+    // dS = P (dP - delta) sm_scale, the same in both warps of the pair
+#pragma unroll
+    for (int i = 0; i < 4 * FB_NS; ++i) {
+      const float o = xother[i * 32], mine = s[i / 4][i % 4];
+      const float p = role == 0 ? mine : o, dp = role == 0 ? o : mine;
+      s[i / 4][i % 4] = p * (dp - ((i & 2) ? db : da)) * sm_scale;
+    }
+
+    // dQ[:, half] += dS K[:, half]
+    accumulate_f32<HD>(acc, s, st + 2 * t * LD + role * (HD / 2) + g);
   }
 
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float* o = dq + base + static_cast<size_t>(q0 + ty + 16 * i) * rs;
-#pragma unroll
-    for (int cc = 0; cc < NC; ++cc) {
-      const int d = tx + 16 * cc;
-      if (d < D) o[d] = dQ[i][cc];
-    }
-  }
+  store_f32<NO>(dq + head + role * (HD / 2) + static_cast<size_t>(q0 + 16 * pair) * rs, rs, g, acc);
 }
 
 // ===========================================================================
@@ -1193,10 +1278,9 @@ extern "C" {
 
 // All tensors contiguous: q, k, v, out, dout, dq, dk, dv [B, T, H, D] in
 // bf16 (is_bf16 = 1) or f32; seg [B, T] int32 (keys and queries attend
-// where their ids are equal); lse, delta [B, H, T] f32.  T % 64 == 0; the
-// forward (both dtypes) and the bf16 backward take D in {64, 128, 224, 256}
-// (the caller zero-pads other head dims), the f32 backward any D <= 256; the
-// bf16 kernels every pointer 16-byte aligned.  The f32 forward splits the
+// where their ids are equal); lse, delta [B, H, T] f32.  T % 64 == 0; every
+// kernel takes D in {64, 128, 224, 256} (the caller zero-pads other head
+// dims) and pointers 16-byte aligned.  The f32 forward splits the
 // keys nsplit ways (1 <= nsplit <= 32, every split non-empty), with
 // nsplit * B * H * T * (D + 2) floats of scratch at `part` when nsplit > 1.
 // Each returns the first cudaError_t (0 on success), cudaErrorInvalidValue
@@ -1262,10 +1346,14 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* seg, 
                     mv, mdo, seg, lse, delta, dk, dv, H, T, sm_scale * LOG2E, sm_scale);
     });
   }
-  const size_t smem = (2 * BK_ + 2 * BQ_) * f32_ld(D) * sizeof(float) +
-                      (2 * BK_ * (BQ_ + 1) + 2 * BQ_) * sizeof(float) + BQ_ * sizeof(int);
-  return launch(flash_bwd_dkv_f32, dim3(T / BK_, B * H), NT, smem, s, q, k, v, seg, dout, lse,
-                delta, dk, dv, H, T, D, sm_scale);
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout) || !aligned16(seg) ||
+      !aligned16(lse) || !aligned16(delta))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  return by_width(D, [&](auto width) {
+    constexpr int HD = decltype(width)::value;
+    return launch(flash_bwd_dkv_f32<HD>, dim3(T / FB_ROWS, B * H), BT, DkvF32<HD>::SMEM, s, q, k,
+                  v, seg, dout, lse, delta, dk, dv, H, T, sm_scale * LOG2E, sm_scale);
+  });
 }
 
 int flash_bwd_dq(const void* q, const void* k, const void* v, const void* seg, const void* dout,
@@ -1288,10 +1376,14 @@ int flash_bwd_dq(const void* q, const void* k, const void* v, const void* seg, c
                     mq, mk, mv, mdo, seg, lse, delta, dq, H, T, sm_scale * LOG2E, sm_scale);
     });
   }
-  const size_t smem = (2 * QQ + 2 * QK) * f32_ld(D) * sizeof(float) +
-                      QQ * (QK + 1) * sizeof(float) + QK * sizeof(int);
-  return launch(flash_bwd_dq_f32, dim3(T / QQ, B * H), NT, smem, s, q, k, v, seg, dout, lse,
-                delta, dq, H, T, D, sm_scale);
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout) || !aligned16(seg) ||
+      !aligned16(lse) || !aligned16(delta))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  return by_width(D, [&](auto width) {
+    constexpr int HD = decltype(width)::value;
+    return launch(flash_bwd_dq_f32<HD>, dim3(T / FB_ROWS, B * H), BT, DqF32<HD>::SMEM, s, q, k, v,
+                  seg, dout, lse, delta, dq, H, T, sm_scale * LOG2E, sm_scale);
+  });
 }
 
 const char* wtv_error_string(int err) {

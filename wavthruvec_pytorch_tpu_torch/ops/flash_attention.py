@@ -16,14 +16,14 @@ CUDA tensor its forward is the forward kernel and its backward the two
 backward kernels, after one shared ``backward_inputs``; on a CPU tensor
 both are the plain version (the backward by autograd through it).  Any
 other device or dtype raises, and so does a CUDA shape the kernels do not
-take (``kernel_shape_ok``: T % 64 == 0 and D <= 256).  The forward (both
-dtypes) and the bf16 backward kernels are built for the head dims
-``WIDTHS``; the wrappers zero-pad any other D to the next of them and slice
-the results back, which is exact (padded columns add 0 to every q.k, and
-padded v columns give output columns that are dropped; ``sm_scale`` stays
-the caller's).  The f32 backward kernels take any D as it is.  The f32
-forward runs on the tensor cores at f32 accuracy (3xTF32), whatever
-``torch.backends.cuda.matmul.allow_tf32`` says, which governs cuBLAS only.
+take (``kernel_shape_ok``: T % 64 == 0 and D <= 256).  Every kernel, in
+both dtypes, is built for the head dims ``WIDTHS``; the wrappers zero-pad
+any other D to the next of them and slice the results back, which is exact
+(padded columns add 0 to every q.k, and padded v columns give output
+columns that are dropped; ``sm_scale`` stays the caller's).  The f32
+kernels, forward and backward, run on the tensor cores at f32 accuracy
+(3xTF32), whatever ``torch.backends.cuda.matmul.allow_tf32`` says, which
+governs cuBLAS only.
 """
 
 from __future__ import annotations
@@ -139,8 +139,8 @@ def _require_cuda(t: torch.Tensor) -> None:
 
 
 def _aligned(*tensors) -> None:
-    """The forward kernels and the bf16 backward load by TMA, bulk copies or
-    cp.async: 16-byte aligned bases."""
+    """Every kernel loads by TMA, bulk copies or cp.async: 16-byte aligned
+    bases."""
     for t in tensors:
         if t.data_ptr() % 16 != 0:
             raise ValueError(f"flash attention kernels: a {t.dtype} {tuple(t.shape)} tensor is "
@@ -190,8 +190,8 @@ def flash_fwd(q, k, v, seg, sm_scale: float):
 
 class BackwardInputs(NamedTuple):
     """What both backward kernels read, made once a backward: q, k, v, dout
-    in the kernels' [B, T, H, width] layout (bf16: zero-padded to
-    ``kernel_width(D)``; f32: width D), int32 seg [B, T], lse and
+    in the kernels' [B, T, H, width] layout (zero-padded to
+    ``kernel_width(D)``), int32 seg [B, T], lse and
     delta = rowsum(dO * out) [B, H, T] f32; ``shape`` is (B, H, T, D)."""
     shape: Tuple[int, int, int, int]
     q: torch.Tensor
@@ -211,11 +211,10 @@ def backward_inputs(q, k, v, seg, out, lse, dout) -> BackwardInputs:
         raise ValueError(f"lse must be float32 [{B}, {H}, {T}], got {lse.dtype} {tuple(lse.shape)}")
     # delta = rowsum(dO * out), outside the kernels as in the JAX package
     delta = (dout.float() * out.float()).sum(dim=-1).contiguous()
-    W = kernel_width(D) if q.dtype == torch.bfloat16 else D
+    W = kernel_width(D)
     ins = BackwardInputs((B, H, T, D), _btkd(q, W), _btkd(k, W), _btkd(v, W),
                          seg.to(torch.int32).contiguous(), _btkd(dout, W), lse.contiguous(), delta)
-    if q.dtype == torch.bfloat16:
-        _aligned(ins.q, ins.k, ins.v, ins.seg, ins.dout, ins.lse, ins.delta)
+    _aligned(ins.q, ins.k, ins.v, ins.seg, ins.dout, ins.lse, ins.delta)
     return ins
 
 
