@@ -62,9 +62,15 @@ Then the Text2Vec training slice, on the same full-size Text2Vec config:
    just before the timed steps: one MAS launch, one BiGRU forward launch
    (one device launch) and one BiGRU backward per step.  Then ``text2vec_loop.main`` trains 3
    steps on the demo corpus (``data/demo/text2vec.json``).
-9. The MAS kernel against its plain version at (B, T, N) = (16, 1024, 64),
-   (16, 3000, 128) and (4, 300, 300), variable lengths, exact zeros in the
-   valid region: the hard maps must be equal.
+9. The MAS kernel against its plain version, variable lengths, exact
+   zeros in the valid region, the hard maps equal in every cell: at
+   (B, T, N) = (16, 1024, 64) (the training step's), (16, 3000, 128),
+   (4, 300, 300) and (16, 3072, 768) (the long bucket's), timed, with the
+   bytes bound and the serial floor (the longest item's rows times one
+   row's dependent step, from ``mas_row_chain``); and at the edges: N = 1,
+   N = 1024 at (16, 3072), T = 1, a batch with out_len 0, in_len 0 and
+   in_len > out_len items, and the "sharp" input, whose best path runs
+   through exact zeros and leaves the map.
 10. The BiGRU backward on the card against the CPU (B = 2, T = 512,
     H = 1024), and cuDNN ``nn.GRU``'s forward + backward (f32) at B = 16,
     T = 1024 and 3072, the library yardstick of the BiGRU's training work.
@@ -113,8 +119,7 @@ text bucket 768, frame bucket 3072), read where it lies:
     launch and 1 BiGRU forward launch; then its time split and profile as in
     phase 12, with the flash kernels' device time; then two steps of the
     same config through the dense attention branch, for their time and peak
-    memory.  MAS is also held against its plain version at (16, 3072, 768),
-    where its take-left bits no longer fit shared memory.
+    memory.
 15. One bf16 flash step on the card against the CPU: seeded full-size
     weights, B = 8, N = 256, T = 512 (both stacks take the flash gate, so the
     CPU runs the plain version), a diagonal prior that leaves MAS no
@@ -144,6 +149,7 @@ one entry per kernel; the last line is
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import math
@@ -189,7 +195,15 @@ from wavthruvec_pytorch_tpu_torch.ops.flash_attention import (
     flash_bwd_dq,
     flash_fwd,
 )
-from wavthruvec_pytorch_tpu_torch.ops.mas import mas_width1, mas_width1_plain
+from wavthruvec_pytorch_tpu_torch.ops.mas import MAX_K as MAS_MAX_K
+from wavthruvec_pytorch_tpu_torch.ops.mas import MAX_N as MAS_MAX_N
+from wavthruvec_pytorch_tpu_torch.ops.mas import (
+    mas_plan,
+    mas_row_chain,
+    mas_width1,
+    mas_width1_plain,
+    shared_limit,
+)
 from wavthruvec_pytorch_tpu_torch.text import TextFrontend
 from wavthruvec_pytorch_tpu_torch.train import text2vec_loop
 from wavthruvec_pytorch_tpu_torch.train.text2vec_train import (
@@ -859,54 +873,122 @@ def train(dev):
 
 def mas_inputs(B: int, T: int, N: int, seed: int):
     """A soft alignment on the card that looks like ConvAttention's: a
-    diagonal band per item, and exact zeros where the softmax underflows."""
+    diagonal band per item, exact zeros where the softmax underflows, lengths
+    in [N/2, N] and [T/2, T] with item 0 full.  Returns (attn, in_lens,
+    out_lens, share of exact zeros in the valid region)."""
     rng = np.random.default_rng(seed)
     in_lens = rng.integers(N // 2, N + 1, B)
     out_lens = rng.integers(T // 2, T + 1, B)
     in_lens[0], out_lens[0] = N, T
     i = np.arange(T)[None, :, None]
     j = np.arange(N)[None, None, :]
-    centre = i * (in_lens / out_lens)[:, None, None]
+    centre = i * (in_lens / np.maximum(out_lens, 1))[:, None, None]
     logits = rng.standard_normal((B, T, N)) * 2.0 - (j - centre) ** 2 / 2.0
     attn = torch.softmax(torch.tensor(logits, dtype=torch.float32, device="cuda"), dim=-1)
-    valid = (torch.tensor(i < out_lens[:, None, None], device="cuda")
-             & torch.tensor(j < in_lens[:, None, None], device="cuda"))
+    valid = torch.tensor((i < out_lens[:, None, None]) & (j < in_lens[:, None, None]),
+                         device="cuda")
     zeros = float((attn[valid] == 0).float().mean())
-    check(zeros > 0.2, f"MAS input has {zeros:.2f} exact zeros in the valid region")
-    lens = (torch.tensor(in_lens, dtype=torch.int32, device="cuda"),
+    return (attn, torch.tensor(in_lens, dtype=torch.int32, device="cuda"),
+            torch.tensor(out_lens, dtype=torch.int32, device="cuda"), zeros)
+
+
+def sharp_mas_inputs(B: int, T: int, N: int, seed: int):
+    """ConvAttention at temperature 0.0005: a softmax over text of logits in
+    the hundreds underflows to exact zeros, on the best path too, so paths
+    tie at -1e30 and the backtrack can leave the map (as in
+    ``tests/test_torch_mas.py``'s "sharp" case).  Variable lengths."""
+    rng = np.random.default_rng(seed)
+    logits = rng.standard_normal((B, T, N)) * 200.0
+    attn = torch.softmax(torch.tensor(logits, dtype=torch.float32, device="cuda"), dim=-1)
+    in_lens = rng.integers(N // 2, N + 1, B)
+    out_lens = rng.integers(T // 2, T + 1, B)
+    in_lens[0], out_lens[0] = N, T
+    return (attn, torch.tensor(in_lens, dtype=torch.int32, device="cuda"),
             torch.tensor(out_lens, dtype=torch.int32, device="cuda"))
-    return attn, lens, zeros
+
+
+def mas_equal(attn, il, ol, label: str):
+    """The kernel's map against the plain version's on the same inputs:
+    equal in every cell.  Returns (the kernel's map, max |err|)."""
+    got = mas_width1(attn, il, ol)
+    want = mas_width1_plain(attn, il, ol)
+    torch.cuda.synchronize()
+    n_diff = int((got != want).sum())
+    check(n_diff == 0, f"MAS {label}: {n_diff} cells differ from the plain version")
+    return got, float((got - want).abs().max()) if got.numel() else 0.0
 
 
 def check_mas():
+    """Phase 9: the MAS kernel against its plain version, bit for bit, at the
+    main path's shapes (timed, with the bytes bound and the serial floor)
+    and at the edges."""
+    smem = shared_limit(torch.device("cuda"))
+    lib_bytes = kernel_build.load("mas").mas_shared_bytes
+    lib_bytes.argtypes, lib_bytes.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_size_t
+    # the serial floor: one row's dependent step on the chain warp, timed
+    # over a long run of rows with no loads, logs or stores
+    row_ns = {}
+    for k in range(1, MAS_MAX_K + 1):
+        rows = 32768
+        row_ns[k] = 1e6 * cuda_ms(lambda: mas_row_chain(rows, k), 5) / rows
+    print("MAS serial floor, one row's dependent step (a shuffle, compares, max, add, take-left "
+          "bits): "
+          + ", ".join(f"k={k} {ns:.1f} ns" for k, ns in row_ns.items()))
+    print("MAS, kernel vs plain (equal), variable lengths; bound = max(bytes, serial floor = "
+          "the longest item's rows x one row's step):")
     first = None
-    print("MAS, kernel vs plain (equal), variable lengths:")
-    # the training shape, the largest buckets, and a width that is no
-    # multiple of 32 and spans ten warps
-    # multiple of 32 and spans ten warps; the long bucket, whose take-left
-    # bits (294,912 bytes) exceed a block's shared memory
+    # the training shape, the largest buckets, a width that is no multiple
+    # of 32, and the long bucket
     for B, T, N in ((TRAIN_B, TRAIN_T, TRAIN_N), (16, 3000, 128), (4, 300, 300),
                     (LONG_B, LONG_T, LONG_N)):
-        attn, (il, ol), zeros = mas_inputs(B, T, N, SEED)
-        got = mas_width1(attn, il, ol)
-        want = mas_width1_plain(attn, il, ol)
-        torch.cuda.synchronize()
-        n_diff = int((got != want).sum())
-        err = float((got - want).abs().max())
-        check(n_diff == 0, f"MAS B={B} T={T} N={N}: {n_diff} cells differ from the plain version")
-        ms = cuda_ms(lambda: mas_width1(attn, il, ol), 10)
+        attn, il, ol, zeros = mas_inputs(B, T, N, SEED)
+        check(zeros > 0.2, f"MAS input has {zeros:.2f} exact zeros in the valid region")
+        plan = mas_plan(T, N, smem)
+        check(plan.smem == lib_bytes(T, plan.k), f"MAS plan {plan}: shared memory other than "
+              f"the kernel's {lib_bytes(T, plan.k)}")
+        _, err = mas_equal(attn, il, ol, f"B={B} T={T} N={N}")
+        ms = cuda_ms(lambda: mas_width1(attn, il, ol), 20, queued=True)
         plain = cuda_ms(lambda: mas_width1_plain(attn, il, ol), 1, warmup=0)
-        rows = int(ol.sum())
         # read: the valid cells of the rows walked; written: the whole map
         n_bytes = 4.0 * int((ol.long() * il.long()).sum()) + 4.0 * B * T * N + 8.0 * B
-        n_ops = 5.0 * rows * N  # log, clamp, compare, max, add per cell walked
+        n_ops = 5.0 * int(ol.sum()) * N  # log, clamp, compare, max, add per cell walked
         bms, by = bound_ms(n_bytes, n_ops, PEAK_F32)
-        print(f"  B={B} T={T:4d} N={N:3d}: {zeros:.0%} exact zeros, equal; kernel {ms:.3f} ms "
-              f"({1e3 * ms / T:.3f} us/row), plain {plain:.1f} ms, bound {bms:.4f} ms ({by})")
+        floor = 1e-6 * row_ns[plan.k] * int(ol.max())
+        print(f"  B={B} T={T:4d} N={N:3d}: {zeros:.0%} exact zeros, equal; kernel {ms:.4f} ms "
+              f"({1e3 * ms / T:.3f} us/row), plain {plain:.1f} ms; bytes bound {bms:.4f} ms "
+              f"({by}), serial floor {floor:.4f} ms: {100 * max(bms, floor) / ms:.1f}% of the "
+              f"larger; plan: clusters of {plan.cluster}, {32 * plan.k} columns a block, "
+              f"{plan.smem} bytes of shared memory")
         if first is None:  # the training step's shape goes into the summary line
             first = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-                         library_ms=None)
+                         library_ms=None, serial_floor_ms=floor)
         first["max_abs_err"] = max(first["max_abs_err"], err)
+        del attn
+        torch.cuda.empty_cache()
+
+    # the edges: one text position; the widest N at the long bucket's T; one
+    # frame; a batch with out_len 0, in_len 0 and in_len > out_len; the
+    # sharp input, whose best path goes through exact zeros
+    for B, T, N in ((4, 64, 1), (LONG_B, LONG_T, MAS_MAX_N), (2, 1, 5)):
+        attn, il, ol, _ = mas_inputs(B, T, N, SEED)
+        mas_equal(attn, il, ol, f"B={B} T={T} N={N}")
+        print(f"  edge B={B} T={T} N={N}: equal; plan {mas_plan(T, N, smem)}")
+        del attn
+    attn, _, _, _ = mas_inputs(5, 256, 96, SEED)
+    il = torch.tensor([96, 0, 90, 40, 96], dtype=torch.int32, device="cuda")
+    ol = torch.tensor([256, 200, 40, 0, 1], dtype=torch.int32, device="cuda")
+    got, _ = mas_equal(attn, il, ol, "lengths (in_len 0, in_len > out_len, out_len 0 and 1)")
+    check(int(got[3].sum()) == 0 and int(got[1].sum()) == 1 and float(got[1, 0, 0]) == 1.0,
+          "MAS: an item with out_len 0 must stay 0, one with in_len 0 hold opt[0, 0] alone")
+    print(f"  edge lengths in_len {il.tolist()}, out_len {ol.tolist()}: equal")
+    attn, il, ol = sharp_mas_inputs(8, 512, 96, SEED)
+    got, _ = mas_equal(attn, il, ol, "sharp")
+    rows_hit = got.sum(-1)
+    frames = torch.arange(attn.shape[1], device="cuda")[None] < ol.long()[:, None]
+    left = int((rows_hit[frames] == 0).sum())
+    check(left > 0, "MAS sharp input: no backtrack left the map, so the edge was not exercised")
+    print(f"  edge sharp (B=8 T=512 N=96, {float((attn == 0).float().mean()):.0%} exact zeros): "
+          f"equal; {left} valid frames without a text position (the backtrack left the map)")
     return first
 
 

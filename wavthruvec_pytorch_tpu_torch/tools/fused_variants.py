@@ -22,7 +22,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import os
-import subprocess
 import sys
 
 import numpy as np
@@ -31,6 +30,7 @@ import torch
 from wavthruvec_pytorch_tpu_torch.config import Vec2WavConfig, load_config, repo_path
 from wavthruvec_pytorch_tpu_torch.ops import kernel_build
 from wavthruvec_pytorch_tpu_torch.ops.fused_resblock import conv_residual_plain, fused_conv_residual
+from wavthruvec_pytorch_tpu_torch.tools import finish_builds, queued_ms, start_build
 
 FUSED_ATOL = 1e-4
 SLOPE = 0.1
@@ -70,24 +70,19 @@ extern "C" int variant_forward(const float* x, const float* w, const float* b, f
 def build():
     """One library a tile, all nvcc processes at once."""
     os.makedirs(OUT_DIR, exist_ok=True)
-    procs = {}
+    builds = {}
     for name, tile in TILES.items():
         src = os.path.join(OUT_DIR, f"variant_{name}.cu")
         with open(src, "w") as f:
             f.write(variant_source(tile))
-        cmd = [kernel_build._nvcc(), *kernel_build.NVCC_FLAGS, "-I", kernel_build.SRC_DIR,
-               "-o", os.path.join(OUT_DIR, f"libvariant_{name}.so"), src]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                       text=True)
+        lib = os.path.join(OUT_DIR, f"libvariant_{name}.so")
+        builds[name] = (start_build(src, lib), lib)
     fns = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
+    for name, (lib, log) in finish_builds(builds).items():
         spills = sorted({line.strip() for line in log.splitlines()
                          if "spill" in line and not line.strip().startswith("0 bytes")})
         print(f"built {name}: spills {spills or 'none'}")
-        fn = ctypes.CDLL(os.path.join(OUT_DIR, f"libvariant_{name}.so")).variant_forward
+        fn = lib.variant_forward
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,
                                                                      ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -105,19 +100,6 @@ def units(cfg: Vec2WavConfig, frames: int):
         for k, dils in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes):
             out += [(C, T, k, d) for d in dils[:2]]
     return out
-
-
-def queued_ms(fn, reps: int = REPS) -> float:
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    torch.cuda._sleep(50_000_000)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def main() -> int:
@@ -162,7 +144,7 @@ def main() -> int:
         order = list(calls)
         for r in range(args.rounds):
             for v in (order if r % 2 == 0 else order[::-1]):
-                rounds[v].append(queued_ms(calls[v]))
+                rounds[v].append(queued_ms(calls[v], REPS))
         med = {v: float(np.median(rounds[v])) for v in calls}
         for v in calls:
             times[v].append(med[v])
