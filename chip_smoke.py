@@ -141,6 +141,31 @@ text bucket 768, frame bucket 3072), read where it lies:
     time split and profile as in phase 12, with the flash kernels' device
     time.
 
+Then the Vec2Wav GAN training slice, on ``data/demo/vec2wav.json`` (the
+512-channel Generator, x320; MPD periods 13, 17, 19; the MSD's three
+scales), with seeded random weights and conv_post's gain set as in phase 2
+(measured in train mode):
+
+18. Training: a ``GANTrainer`` takes ``WARMUP_STEPS`` then ``TIMED_STEPS``
+    D/G steps on one batch built as the JAX package's ``bench_v2w`` builds
+    it: B = 2, T = 256 latent frames (81,920 samples an item), audio
+    N(0, 0.1^2), the mel target from the port's host mel op.  Prints the
+    median step (CUDA events), seconds of audio trained per second, peak
+    device memory and the four scalars; every scalar must be finite and the
+    mel loss must fall over those 7 steps (first against last).  Then the
+    step's split (G forward; D forward + backward + AdamW; G loss +
+    backward + AdamW), each discriminator's forward + backward alone, and
+    ``torch.profiler``'s busy share, launches and top kernels.  Then B = 8,
+    T = 256, timed only.  The fused ResBlock2 kernel must not launch: the
+    trainer's Generator is ``fused=False``.
+19. One full-size GAN step on the card against the CPU: B = 2, T = 32,
+    the same weights and noise.  Losses within ``STEP_LOSS_RTOL``, the
+    gradients by ``STEP_GRAD_GLOBAL_RTOL`` over all and ``STEP_GRAD_RTOL``
+    per tensor (the upsamplers' biases, 0 but for rounding, only in the
+    former), every running statistic and spectral vector after the step
+    within ``GAN_STATE_RTOL``.
+20. ``vec2wav_loop.main`` trains 3 steps on the demo corpus.
+
 Every float32 product and convolution in this run is full float32: TF32 is
 off for matmuls and cuDNN.  The second-to-last line is a JSON object with
 one entry per kernel; the last line is
@@ -169,10 +194,16 @@ from wavthruvec_pytorch_tpu_torch.config import (
     repo_path,
 )
 from wavthruvec_pytorch_tpu_torch.data.prior import beta_binomial_prior_distribution
+from wavthruvec_pytorch_tpu_torch.data.vocoder_data import mel_spectrogram_np
 from wavthruvec_pytorch_tpu_torch.entry import entry
 from wavthruvec_pytorch_tpu_torch.infer.synthesize import Synthesizer
 from wavthruvec_pytorch_tpu_torch.models.text2vec import Text2Vec
-from wavthruvec_pytorch_tpu_torch.models.vec2wav import LRELU_SLOPE, Generator
+from wavthruvec_pytorch_tpu_torch.models.vec2wav import (
+    LRELU_SLOPE,
+    Generator,
+    MultiPeriodDiscriminator,
+    MultiScaleDiscriminator,
+)
 from wavthruvec_pytorch_tpu_torch.ops import kernel_build
 from wavthruvec_pytorch_tpu_torch.ops.fused_resblock import (
     conv_residual_plain,
@@ -205,12 +236,14 @@ from wavthruvec_pytorch_tpu_torch.ops.mas import (
     shared_limit,
 )
 from wavthruvec_pytorch_tpu_torch.text import TextFrontend
-from wavthruvec_pytorch_tpu_torch.train import text2vec_loop
+from wavthruvec_pytorch_tpu_torch.train import text2vec_loop, vec2wav_loop
 from wavthruvec_pytorch_tpu_torch.train.text2vec_train import (
     SCALAR_KEYS,
     Text2VecTrainer,
     make_padded_batch,
 )
+from wavthruvec_pytorch_tpu_torch.train.vec2wav_train import SCALAR_KEYS as GAN_KEYS
+from wavthruvec_pytorch_tpu_torch.train.vec2wav_train import GANTrainer
 
 SEED = 0
 FRAMES_PER_CHAR = 8.0  # ~0.16 s of speech per character at 50 latent frames/s
@@ -277,6 +310,20 @@ BF16_CHECK_B, BF16_CHECK_N, BF16_CHECK_T = 8, 256, 512
 BF16_STEP_LOSS_RTOL = 2e-2
 BF16_GRAD_NOISE = 2.0
 BF16_GRAD_NOISE_ALL = 1.5
+
+# the Vec2Wav GAN slice: the JAX package's bench shapes (infer/train_bench.py
+# bench_v2w, sweep_v2w's first two rows), B x latent frames (x320 samples)
+GAN_B, GAN_T = 2, 256
+GAN_SWEEP_B = 8
+# the card-vs-CPU GAN step: B x frames
+GAN_CHECK_B, GAN_CHECK_T = 2, 32
+# the upsamplers' biases feed a batch-statistics BatchNorm, which removes any
+# constant: their gradient is 0 but for rounding, so the per-tensor
+# STEP_GRAD_RTOL does not apply to them (they stay in the global norm)
+GAN_ZERO_GRAD = re.compile(r"gen\.ups\.\d+\.bias")
+# BatchNorm running statistics and spectral vectors after the step, card vs
+# CPU: max |card - CPU| / max |CPU| of each buffer
+GAN_STATE_RTOL = 1e-4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1554,6 +1601,254 @@ def serve_long(dev):
           f"{audio_s / (ms / 1e3):.1f}, 8 flash forward launches a request")
 
 
+def gan_config() -> Vec2WavConfig:
+    return load_config(Vec2WavConfig, repo_path("data", "demo", "vec2wav.json"))
+
+
+def gan_batch(cfg, B: int, T: int, seed: int) -> dict:
+    """``bench_v2w``'s batch: audio N(0, 0.1^2) of T x 320 samples an item,
+    N(0, 1) latents and speaker embeddings, and the mel target from the
+    port's host mel op."""
+    rng = np.random.default_rng(seed)
+    audio = (rng.standard_normal((B, T * cfg.total_upsample, 1)) * 0.1).astype(np.float32)
+    mel = np.stack([mel_spectrogram_np(a[:, 0], cfg.n_fft, cfg.num_mels, cfg.sampling_rate,
+                                       cfg.hop_size, cfg.win_size, cfg.fmin, cfg.fmax_for_loss)
+                    for a in audio])
+    return {"wv_feat": rng.standard_normal((B, T, cfg.n_feat_dim)).astype(np.float32),
+            "spk_emb": rng.standard_normal((B, cfg.spk_dim)).astype(np.float32),
+            "audio": audio, "mel_loss": mel}
+
+
+def gan_modules(cfg, dev, seed: int):
+    """Seeded random Generator (``fused=False``), MPD and MSD on ``dev``;
+    conv_post's gain is set so that, in train mode on a probe batch, the
+    waveform before the tanh has a standard deviation of ``WAV_STD`` (as
+    phase 2 sets the serving Generator's).  The probe runs under no_grad, in
+    a copy, so the modules' statistics and spectral vectors stay at init."""
+    torch.manual_seed(seed)
+    gen = Generator(cfg, device="cpu", fused=False)
+    mpd = MultiPeriodDiscriminator(cfg, cfg.disc_pair_batched, device="cpu")
+    msd = MultiScaleDiscriminator(cfg.disc_pair_batched, device="cpu")
+    probe = gan_batch(cfg, 1, 64, seed)
+    seen = {}
+    copy = Generator(cfg, device="cpu", fused=False)
+    copy.load_state_dict(gen.state_dict())
+    hook = copy.conv_post.register_forward_hook(
+        lambda mod, args, out: seen.update(std=(out - mod.bias).std().item()))
+    with torch.no_grad():
+        copy.train()(torch.tensor(probe["wv_feat"]), torch.tensor(probe["spk_emb"]),
+                     torch.randn(1, cfg.noise_dim, generator=torch.Generator().manual_seed(seed)))
+    hook.remove()
+    check(seen["std"] > 0, "the random Generator's output does not depend on its input")
+    with torch.no_grad():
+        gen.conv_post.weight_g.mul_(WAV_STD / seen["std"])
+    return tuple(m.to(dev) for m in (gen, mpd, msd))
+
+
+def gan_trainer(cfg, dev, seed: int = SEED) -> GANTrainer:
+    gen, mpd, msd = gan_modules(cfg, dev, seed)
+    return GANTrainer(cfg, device=dev, seed=seed, generator=gen, mpd=mpd, msd=msd)
+
+
+def timed_gan(trainer, batch, label: str, steps: int) -> list:
+    """``WARMUP_STEPS`` then ``steps`` timed steps on one device batch;
+    prints the median step, seconds of audio trained per second and peak
+    device memory.  Returns every step's scalars (warm-up ones first)."""
+    cfg = trainer.cfg
+    history = []
+    for _ in range(WARMUP_STEPS):
+        metrics = trainer.step(batch)
+        history.append([metrics[k].item() for k in GAN_KEYS])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(steps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = trainer.step(batch)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        history.append([metrics[k].item() for k in GAN_KEYS])
+    B, L = batch["audio"].shape[:2]
+    ms = float(np.median(times))
+    audio_s = B * L / cfg.sampling_rate
+    print(f"{label} step: median {ms:.2f} ms of {steps} (min {min(times):.2f}, max "
+          f"{max(times):.2f}), {audio_s / (ms / 1e3):.2f} s of audio trained per second "
+          f"({audio_s:.2f} s a step), peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print("  last step: " + ", ".join(f"{k} {v:.4f}" for k, v in zip(GAN_KEYS, history[-1])))
+    check(all(math.isfinite(v) for h in history for v in h), f"{label}: non-finite {history}")
+    return history
+
+
+def train_gan(dev):
+    """Phase 18: the full-size GAN step at B = ``GAN_B`` (timed, learning
+    checked, profiled), then at B = ``GAN_SWEEP_B`` (timed)."""
+    cfg = gan_config()
+    trainer = gan_trainer(cfg, dev)
+    host = gan_batch(cfg, GAN_B, GAN_T, SEED)
+    batch = trainer.to_device(host)
+    print(f"GAN training: data/demo/vec2wav.json, Generator "
+          f"{sum(p.numel() for p in trainer.gen_params) / 1e6:.2f} M and discriminators "
+          f"{sum(p.numel() for p in trainer.disc_params) / 1e6:.2f} M trained parameters, "
+          f"B={GAN_B} T={GAN_T} ({GAN_T * cfg.total_upsample} samples an item), "
+          f"pair_batched {cfg.disc_pair_batched}, lr {cfg.learning_rate}")
+    fused_conv_residual.launches = 0
+    history = timed_gan(trainer, batch, f"GAN B={GAN_B}", TIMED_STEPS)
+    mel = [h[GAN_KEYS.index("mel_loss")] for h in history]
+    print(f"  mel loss over {len(mel)} steps of one batch, which must fall from the first to the "
+          f"last ({mel[0]:.4f} -> {mel[-1]:.4f}): " + " ".join(f"{v:.4f}" for v in mel))
+    check(mel[-1] < mel[0], f"the mel loss did not fall over {len(mel)} steps: {mel}")
+    profile_gan_step(trainer, batch)
+    del trainer, batch
+    torch.cuda.empty_cache()
+
+    trainer = gan_trainer(cfg, dev)
+    batch = trainer.to_device(gan_batch(cfg, GAN_SWEEP_B, GAN_T, SEED))
+    timed_gan(trainer, batch, f"GAN B={GAN_SWEEP_B}", TIMED_STEPS)
+    check(fused_conv_residual.launches == 0,
+          f"{fused_conv_residual.launches} fused ResBlock2 launches in GAN training")
+    del trainer, batch
+    torch.cuda.empty_cache()
+
+
+def profile_gan_step(trainer, batch) -> None:
+    """Where one GAN step's time goes: the Generator's forward, the D step
+    (forward, backward, AdamW) and the G step (mel and D forwards, backward,
+    AdamW) by CUDA events; each discriminator's forward + backward alone;
+    then ``torch.profiler``'s busy share, launches and top kernels."""
+    def timed_step():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        y_mel = trainer.mel_target(batch)
+        y_hat = trainer.generate(batch)
+        ev[1].record()
+        trainer.d_step(batch, y_hat)
+        ev[2].record()
+        trainer.g_step(batch, y_hat, y_mel)
+        ev[3].record()
+        torch.cuda.synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+
+    runs = sorted((timed_step() for _ in range(3)), key=sum)
+    gen_ms, d_ms, g_ms = runs[1]
+    step_ms = gen_ms + d_ms + g_ms
+    print(f"GAN step split (median of 3, CUDA events): G forward {gen_ms:.2f} ms, D forward + "
+          f"backward + AdamW {d_ms:.2f} ms, G loss + backward + AdamW {g_ms:.2f} ms, "
+          f"{step_ms:.2f} ms in all")
+    y, y_hat = batch["audio"], trainer.generate(batch).detach()
+    for name, disc in (("MPD", trainer.mpd), ("MSD", trainer.msd)):
+        def fwd_bwd(disc=disc):
+            r, g, _, _ = disc(y, y_hat)
+            sum(torch.mean((1.0 - a) ** 2) + torch.mean(b ** 2) for a, b in zip(r, g)).backward()
+        ms = cuda_ms(fwd_bwd, 3)
+        print(f"  {name} forward + backward on (y, y_hat): {ms:.2f} ms "
+              f"({100 * ms / step_ms:.1f}% of the step; the step runs it twice, the G step's "
+              f"backward without weight gradients)")
+    trainer.opt_d.zero_grad(set_to_none=True)
+    msd_layers(trainer.msd.discriminators[1], torch.cat([y, y_hat]).transpose(1, 2))
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+        profiled_ms = sum(timed_step())
+    kernels = device_events(prof)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    n_launch = sum(e.count for e in kernels)
+    print(f"  torch.profiler, one step: {n_launch} kernel launches of {len(kernels)} kernels, "
+          f"device busy {busy_ms:.2f} ms = {100 * busy_ms / step_ms:.1f}% of the uninstrumented "
+          f"{step_ms:.2f} ms step ({100 * busy_ms / profiled_ms:.1f}% of the profiled step's "
+          f"own {profiled_ms:.2f} ms, CUDA events)")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:6d}  {e.key[:100]}")
+
+
+def msd_layers(disc, x) -> None:
+    """Each conv of one MSD scale (``disc``, weight-normed) at the step's
+    shapes (x [2B, 1, L], the pair-batched input of the first scale):
+    forward, and forward + backward (input and weight gradients), by CUDA
+    events, with its operations and rate against the f32 peak."""
+    print(f"  MSD convolutions at the first scale's shapes (x {tuple(x.shape)}), cuDNN f32:")
+    for conv in disc.convs:
+        w = conv.weight().detach().requires_grad_()
+        xin = x.detach().requires_grad_()
+        kw = dict(stride=conv.stride, padding=conv.padding, groups=conv.groups)
+        out = F.conv1d(xin, w, conv.bias, **kw)
+        dout = torch.randn_like(out)
+        fwd = cuda_ms(lambda: F.conv1d(xin, w, conv.bias, **kw), 3)
+        both = cuda_ms(lambda: torch.autograd.grad(F.conv1d(xin, w, conv.bias, **kw),
+                                                   (xin, w), dout), 3)
+        flop = 2.0 * out.numel() * w.shape[1] * w.shape[2]
+        print(f"    {x.shape[1]:4d} -> {w.shape[0]:4d}, k {w.shape[2]:2d}, stride {conv.stride}, "
+              f"groups {conv.groups:2d}: forward {fwd:7.3f} ms ({flop / fwd / 1e9:5.1f} TFLOP/s), "
+              f"forward + backward {both:7.3f} ms ({3 * flop / both / 1e9:5.1f} TFLOP/s, "
+              f"{100 * 3 * flop / (both / 1e3) / PEAK_F32:4.1f}% of f32 peak)")
+        with torch.no_grad():
+            x = F.leaky_relu(out, LRELU_SLOPE)
+
+
+def gan_step_result(cfg, states, host, noise, dev) -> dict:
+    """One GAN step from the weights ``states`` on ``dev``: its scalars, the
+    gradients it left (the D step's on the discriminators, the G step's on
+    the Generator) and the buffers after it, on the host."""
+    gen = Generator(cfg, device=dev, fused=False)
+    mpd = MultiPeriodDiscriminator(cfg, cfg.disc_pair_batched, device=dev)
+    msd = MultiScaleDiscriminator(cfg.disc_pair_batched, device=dev)
+    for m, sd in zip((gen, mpd, msd), states):
+        m.load_state_dict(sd, strict=True)
+    trainer = GANTrainer(cfg, device=dev, generator=gen, mpd=mpd, msd=msd)
+    metrics = trainer.step(host, noise=noise)
+    modules = {"gen": gen, "mpd": mpd, "msd": msd}
+    return dict(
+        losses=[metrics[k].item() for k in GAN_KEYS],
+        grads={f"{n}.{k}": p.grad.cpu() for n, m in modules.items()
+               for k, p in m.named_parameters()},
+        buffers={f"{n}.{k}": b.cpu() for n, m in modules.items() for k, b in m.named_buffers()
+                 if b.is_floating_point()})
+
+
+def check_gan_step_against_cpu():
+    """Phase 19: one full-size GAN step on the card against the CPU, the
+    same seeded weights, batch and noise, TF32 off."""
+    cfg = gan_config()
+    states = [{k: v.cpu() for k, v in m.state_dict().items()}
+              for m in gan_modules(cfg, "cpu", SEED + 3)]
+    host = gan_batch(cfg, GAN_CHECK_B, GAN_CHECK_T, SEED + 3)
+    noise = torch.randn(GAN_CHECK_B, cfg.noise_dim, generator=torch.Generator().manual_seed(SEED))
+    card = gan_step_result(cfg, states, host, noise, "cuda")
+    t0 = time.perf_counter()
+    cpu = gan_step_result(cfg, states, host, noise, "cpu")
+    cpu_s = time.perf_counter() - t0
+    loss_err = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(card["losses"], cpu["losses"]))
+    check(loss_err <= STEP_LOSS_RTOL, f"GAN step losses differ by {loss_err:.3g} (relative)")
+    total_err, _, _ = grad_spread(card["grads"], cpu["grads"])
+    kept = {n: g for n, g in cpu["grads"].items() if not GAN_ZERO_GRAD.fullmatch(n)}
+    _, worst, worst_name = grad_spread(card["grads"], kept)
+    check(total_err <= STEP_GRAD_GLOBAL_RTOL, f"GAN gradients: card vs CPU {total_err:.3g} of "
+                                              f"the norm")
+    check(worst <= STEP_GRAD_RTOL, f"GAN gradient {worst_name}: card vs CPU {worst:.3g} of its "
+                                   f"norm")
+    state_err, state_name = 0.0, ""
+    for n, b in cpu["buffers"].items():
+        err = float((card["buffers"][n] - b).abs().max()) / max(float(b.abs().max()), 1e-12)
+        if err > state_err:
+            state_err, state_name = err, n
+    check(state_err <= GAN_STATE_RTOL, f"GAN step buffer {state_name}: card vs CPU {state_err:.3g}")
+    print(f"GAN step, card vs CPU (full size, B={GAN_CHECK_B} T={GAN_CHECK_T}, the same noise; "
+          f"CPU {cpu_s:.1f} s): losses {loss_err:.2e} (rtol {STEP_LOSS_RTOL}), "
+          f"{len(cpu['grads'])} gradients: ||card - CPU|| / ||CPU|| {total_err:.2e} in all (rtol "
+          f"{STEP_GRAD_GLOBAL_RTOL}), worst tensor {worst:.2e} in {worst_name} (rtol "
+          f"{STEP_GRAD_RTOL}); {len(cpu['buffers'])} running statistics and spectral vectors "
+          f"after the step: worst {state_err:.2e} in {state_name} (rtol {GAN_STATE_RTOL})")
+
+
+def train_gan_loop():
+    """Phase 20: ``vec2wav_loop.main`` trains 3 steps on the demo corpus."""
+    history = vec2wav_loop.main(gan_config(), 3)
+    check(len(history) == 3 and all(math.isfinite(v) for h in history for v in h.values()),
+          f"vec2wav_loop: {history}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: PyTorch sees no CUDA device; this script runs on an NVIDIA GPU",
@@ -1596,6 +1891,11 @@ def main() -> int:
     trainer, batch, _ = train_long_f32(dev)
     profile_step(trainer, batch)
     del trainer, batch
+    torch.cuda.empty_cache()
+
+    train_gan(dev)
+    check_gan_step_against_cpu()
+    train_gan_loop()
 
     kernels = [
         dict(name="fused_resblock", route="cuda",

@@ -137,7 +137,7 @@ def test_spectral_norm_dense_eval():
     x = _x((3, 10))
     jm = jl.SpectralNormDense(12, update_stats=False)
     jv = jm.init(jax.random.PRNGKey(8), jnp.asarray(x))
-    tm = _load(tl.SpectralNormDense(10, 12, device="cpu"), jv, [("snlin", "m", "m")])
+    tm = _load(tl.SpectralNormDense(10, 12, device="cpu").eval(), jv, [("snlin", "m", "m")])
     np.testing.assert_allclose(*_run(jm, jv, tm, x), atol=ATOL)
 
 

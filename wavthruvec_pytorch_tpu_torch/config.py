@@ -13,7 +13,8 @@ compatibility:
   package); ``Vec2WavConfig.compute_dtype != "float32"`` and
   ``attn_use_partial_padding=True`` are not ported yet, nor is
   ``flash_attention=True`` with a head dim above 256; they raise
-  ``NotImplementedError`` where a model is built.
+  ``NotImplementedError`` where a model is built.  GAN training refuses
+  ``Vec2WavConfig.split=True`` and ``device_resident_data=True`` too.
 """
 
 from __future__ import annotations
@@ -202,14 +203,22 @@ def load_config(cls, path: str):
 FLASH_MAX_HEAD_DIM = 256
 
 
-def check_ported(cfg) -> None:
-    """Raise for a config flag whose JAX implementation is not ported yet."""
+def check_ported(cfg, training: bool = False) -> None:
+    """Raise for a config flag whose JAX implementation is not ported yet;
+    ``training`` adds the flags that only GAN training reads."""
     if isinstance(cfg, Vec2WavConfig) and cfg.compute_dtype != "float32":
         raise NotImplementedError(
             f"Vec2WavConfig.compute_dtype={cfg.compute_dtype!r} is not ported; the "
-            "Generator computes in float32 (ROADMAP.md, queue 1 item 3: the bf16 "
-            "serving Generator)."
+            "Generator, the discriminators and the GAN step compute in float32 (ROADMAP.md, "
+            "queue 1 item 3: the bf16 serving Generator and the bf16 GAN step)."
         )
+    if training and isinstance(cfg, Vec2WavConfig):
+        for flag in ("split", "device_resident_data"):
+            if getattr(cfg, flag):
+                raise NotImplementedError(
+                    f"Vec2WavConfig.{flag}=True is not ported; GAN training takes whole "
+                    "utterances from the host loader (ROADMAP.md, queue 1 item 9: windowed "
+                    "training and the device-resident vocoder data).")
     if isinstance(cfg, Text2VecConfig) and cfg.flash_attention:
         # both FFT stacks take d_k = d_model // encoder_head (models/text2vec.py)
         d_k = max(cfg.encoder_dim, cfg.decoder_dim) // cfg.encoder_head

@@ -4,8 +4,11 @@ Every layer takes and returns the JAX layout ``[B, T, C]`` (``[B, C]`` for
 dense inputs) and transposes internally where ``F.conv1d`` wants
 ``[B, C, T]``.  Parameter and buffer names are the torch reference's, the
 keys that ``weights.py`` emits, so state dicts load with ``strict=True``.
-BatchNorm follows the module's train/eval mode with flax's semantics;
-spectral norm uses its stored ``u``, ``v`` without iterating.
+The discriminators' layers also take torch's layout: ``WNConv1d.conv`` and
+``SpectralNormConv1d.conv`` ``[B, C, T]``, ``WNConv2d`` ``[B, C, H, W]``.
+BatchNorm and spectral norm follow the module's train/eval mode: flax's
+batch statistics, and one power iteration of spectral norm per training
+forward (eval mode uses the stored ``u``, ``v`` without iterating).
 
 Compute dtype, flax's rule (``dtype`` of ``nn.Dense``, ``nn.Conv``,
 ``nn.LayerNorm``, ``nn.BatchNorm``): a layer built with ``dtype`` casts its
@@ -202,40 +205,68 @@ def _norm_except(v: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 class WNConv1d(nn.Module):
-    """weight_norm(Conv1d) over ``[B, T, C]``: ``weight_g`` [out, 1, 1],
-    ``weight_v`` [out, in, k], ``bias`` [out]; the norm is per output channel.
-    ``w_std`` selects HiFi-GAN's N(0, w_std) init of ``v``; ``g`` starts at
-    ``||v||``."""
+    """weight_norm(Conv1d) over ``[B, T, C]`` (``conv``: over ``[B, C, T]``):
+    ``weight_g`` [out, 1, 1], ``weight_v`` [out, in / groups, k], ``bias``
+    [out]; the norm is per output channel.  ``w_std`` selects HiFi-GAN's
+    N(0, w_std) init of ``v``; ``g`` starts at ``||v||``."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  padding: int = 0, dilation: int = 1, bias: bool = True,
-                 w_std: float | None = None, device=None):
+                 w_std: float | None = None, stride: int = 1, groups: int = 1, device=None):
         super().__init__()
         self.padding = padding
         self.dilation = dilation
-        v = torch.empty(out_channels, in_channels, kernel_size, device=device)
+        self.stride = stride
+        self.groups = groups
+        fan_in = in_channels // groups * kernel_size
+        v = torch.empty(out_channels, in_channels // groups, kernel_size, device=device)
         if w_std is not None:
             nn.init.normal_(v, 0.0, w_std)
         else:
-            bound = 1.0 / math.sqrt(in_channels * kernel_size)
-            nn.init.uniform_(v, -bound, bound)
+            nn.init.uniform_(v, -1.0 / math.sqrt(fan_in), 1.0 / math.sqrt(fan_in))
         self.weight_v = nn.Parameter(v)
         self.weight_g = nn.Parameter(_norm_except(v, 0).clone())
         if bias:
-            bound = 1.0 / math.sqrt(in_channels * kernel_size)
+            bound = 1.0 / math.sqrt(fan_in)
             self.bias = nn.Parameter(
                 torch.empty(out_channels, device=device).uniform_(-bound, bound))
         else:
             self.bias = None
 
     def weight(self) -> torch.Tensor:
-        """The weight-normed kernel g * v / ||v||, torch layout [out, in, k]."""
+        """The weight-normed kernel g * v / ||v||, torch layout [out, in / groups, k]."""
         return self.weight_g * self.weight_v / _norm_except(self.weight_v, 0)
 
+    def conv(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, C_in, T] -> [B, C_out, T_out]."""
+        return F.conv1d(x, self.weight(), self.bias, stride=self.stride, padding=self.padding,
+                        dilation=self.dilation, groups=self.groups)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv1d(x.transpose(1, 2), self.weight(), self.bias,
-                     padding=self.padding, dilation=self.dilation)
-        return y.transpose(1, 2).contiguous()
+        return self.conv(x.transpose(1, 2)).transpose(1, 2).contiguous()
+
+
+class WNConv2d(nn.Module):
+    """weight_norm(Conv2d) over ``[B, C, H, W]`` (the MPD's stacks; JAX
+    package: models/layers.py ``WNConv2d``, which takes NHWC): ``weight_g``
+    [out, 1, 1, 1], ``weight_v`` [out, in, kh, kw], ``bias`` [out]; the norm
+    is over (in, kh, kw) for each output channel."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size, stride=(1, 1),
+                 padding=(0, 0), device=None):
+        super().__init__()
+        self.stride = tuple(stride)
+        self.padding = tuple(padding)
+        kh, kw = kernel_size
+        bound = 1.0 / math.sqrt(in_channels * kh * kw)
+        v = torch.empty(out_channels, in_channels, kh, kw, device=device).uniform_(-bound, bound)
+        self.weight_v = nn.Parameter(v)
+        self.weight_g = nn.Parameter(_norm_except(v, 0).clone())
+        self.bias = nn.Parameter(torch.empty(out_channels, device=device).uniform_(-bound, bound))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight_g * self.weight_v / _norm_except(self.weight_v, 0)
+        return F.conv2d(x, w, self.bias, stride=self.stride, padding=self.padding)
 
 
 class WNConvTranspose1d(nn.Module):
@@ -262,10 +293,39 @@ class WNConvTranspose1d(nn.Module):
         return y.transpose(1, 2).contiguous()
 
 
-class SpectralNormDense(nn.Module):
-    """spectral_norm(Linear) in eval mode: ``weight_orig`` / sigma with
-    sigma = u . (W v) from the stored ``weight_u``, ``weight_v`` and no power
-    iteration (JAX package: models/layers.py:625-631)."""
+def _l2n(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """``v / max(||v||, eps)`` (JAX package: models/layers.py ``_l2n``)."""
+    return v / torch.clamp(torch.linalg.vector_norm(v), min=eps)
+
+
+class _SpectralNorm(nn.Module):
+    """spectral_norm's state and sigma: ``weight_orig``, ``bias`` and the
+    buffers ``weight_u`` [out], ``weight_v`` [numel / out].  In train mode each
+    call takes one power iteration from the stored vectors, ``v <- n(W^T u)``,
+    ``u <- n(W v)``, and stores the new ones; in eval mode it uses the stored
+    ones.  sigma = u . (W v), with u and v out of the graph and W in it
+    (JAX package: models/layers.py:567-700)."""
+
+    def _init_vectors(self, out_features: int, dim_v: int, device) -> None:
+        self.register_buffer("weight_u", _l2n(torch.randn(out_features, device=device)))
+        self.register_buffer("weight_v", _l2n(torch.randn(dim_v, device=device)))
+
+    def sigma(self) -> torch.Tensor:
+        w = self.weight_orig.reshape(self.weight_orig.shape[0], -1)
+        if self.training:
+            with torch.no_grad():
+                v = _l2n(torch.mv(w.t(), self.weight_u))
+                u = _l2n(torch.mv(w, v))
+                self.weight_u.copy_(u)
+                self.weight_v.copy_(v)
+        else:
+            # clones: a later training call updates the buffers in place
+            u, v = self.weight_u.clone(), self.weight_v.clone()
+        return torch.dot(u, torch.mv(w, v))
+
+
+class SpectralNormDense(_SpectralNorm):
+    """spectral_norm(Linear): ``weight_orig`` [out, in] / sigma."""
 
     def __init__(self, in_features: int, out_features: int,
                  w_mean: float = 0.0, w_std: float | None = None, device=None):
@@ -278,14 +338,36 @@ class SpectralNormDense(nn.Module):
             nn.init.normal_(w, w_mean, w_std)
         self.weight_orig = nn.Parameter(w)
         self.bias = nn.Parameter(torch.zeros(out_features, device=device))
-        self.register_buffer(
-            "weight_u", F.normalize(torch.randn(out_features, device=device), dim=0, eps=1e-12))
-        self.register_buffer(
-            "weight_v", F.normalize(torch.randn(in_features, device=device), dim=0, eps=1e-12))
+        self._init_vectors(out_features, in_features, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        sigma = torch.dot(self.weight_u, torch.mv(self.weight_orig, self.weight_v))
-        return F.linear(x, self.weight_orig / sigma, self.bias)
+        return F.linear(x, self.weight_orig / self.sigma(), self.bias)
+
+
+class SpectralNormConv1d(_SpectralNorm):
+    """spectral_norm(Conv1d) (the MSD's first scale): ``weight_orig``
+    [out, in / groups, k], its power iteration over the weight as
+    [out, in / groups * k].  ``forward`` takes ``[B, T, C]``, ``conv``
+    ``[B, C, T]``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int, stride: int = 1,
+                 padding: int = 0, groups: int = 1, device=None):
+        super().__init__()
+        self.stride = stride
+        self.padding = padding
+        self.groups = groups
+        bound = 1.0 / math.sqrt(in_channels // groups * kernel_size)
+        w = torch.empty(out_channels, in_channels // groups, kernel_size, device=device)
+        self.weight_orig = nn.Parameter(w.uniform_(-bound, bound))
+        self.bias = nn.Parameter(torch.empty(out_channels, device=device).uniform_(-bound, bound))
+        self._init_vectors(out_channels, in_channels // groups * kernel_size, device)
+
+    def conv(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv1d(x, self.weight_orig / self.sigma(), self.bias, stride=self.stride,
+                        padding=self.padding, groups=self.groups)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x.transpose(1, 2)).transpose(1, 2).contiguous()
 
 
 class BiGRU(nn.Module):

@@ -1,7 +1,7 @@
-"""Vec2Wav generator: HiFi-GAN with Conditional BatchNorm speaker/noise
-conditioning, inference only (JAX package: models/vec2wav.py
-``ConditionalBatchNorm``, ``ResBlock1``, ``ResBlock2``, ``Generator``;
-reference: vec2wav/models.py:13-156, vec2wav/modules.py:5-30).
+"""Vec2Wav: the HiFi-GAN generator with Conditional BatchNorm speaker/noise
+conditioning, the multi-period and multi-scale discriminators and the GAN
+losses (JAX package: models/vec2wav.py; reference: vec2wav/models.py:13-309,
+vec2wav/modules.py:5-30).
 
 Reference quirks kept:
 
@@ -9,16 +9,27 @@ Reference quirks kept:
   the first two dilations (1, 3) of each entry;
 * the activation before ``conv_post`` is leaky_relu with slope 0.01, not 0.1;
 * Conditional BatchNorm channel counts follow the config;
-* the ResBlocks of a stage are averaged: ``xs / num_kernels``.
+* the ResBlocks of a stage are averaged: ``xs / num_kernels``;
+* the discriminators' widths are fixed (32 to 1024 channels in the MPD,
+  128 to 1024 with k = 41 and 16 groups in the MSD), whatever the config.
 
-Every ResBlock2 unit (``x + conv(lrelu(x))``) runs through
+``Generator(fused=True)`` (the default, what serving builds) runs every
+ResBlock2 unit (``x + conv(lrelu(x))``) through
 ``ops.fused_resblock.fused_conv_residual``: on the card the hand-written
-kernel, on the CPU its plain version.
+kernel, on the CPU its plain version; it is built in eval mode and runs under
+``torch.inference_mode()``.  ``Generator(fused=False)`` is the one that
+trains, as in the JAX package: its units are plain ``WNConv1d`` calls, and
+its train/eval modes are honoured.
+
+Layouts: the Generator takes and returns ``[B, T, C]`` and ``[B, L, 1]``;
+the discriminators take waveforms ``[B, L, 1]`` and compute in torch's
+layout, so their feature maps are ``[B, C, H, W]`` (MPD) and ``[B, C, T]``
+(MSD), the JAX package's transposed.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -28,8 +39,10 @@ from wavthruvec_pytorch_tpu_torch.config import Vec2WavConfig, check_ported
 from wavthruvec_pytorch_tpu_torch.device import resolve_device
 from wavthruvec_pytorch_tpu_torch.models.layers import (
     BatchNorm,
+    SpectralNormConv1d,
     SpectralNormDense,
     WNConv1d,
+    WNConv2d,
     WNConvTranspose1d,
 )
 from wavthruvec_pytorch_tpu_torch.ops.fused_resblock import fused_conv_residual
@@ -80,12 +93,15 @@ class ResBlock1(nn.Module):
 
 
 class ResBlock2(nn.Module):
-    """2 x fused (lrelu -> dilated conv -> + residual) units (models.py:53-70)."""
+    """2 x (lrelu -> dilated conv -> + residual) units (models.py:53-70):
+    ``fused`` runs each unit through ``fused_conv_residual``, else through
+    ``WNConv1d`` as autograd sees it."""
 
     def __init__(self, channels: int, kernel_size: int = 3,
-                 dilation: Sequence[int] = (1, 3), device=None):
+                 dilation: Sequence[int] = (1, 3), fused: bool = True, device=None):
         super().__init__()
         self.dilations = tuple(dilation[:2])
+        self.fused = fused
         self.convs = nn.ModuleList(
             WNConv1d(channels, channels, kernel_size, padding=get_padding(kernel_size, d),
                      dilation=d, w_std=0.01, device=device)
@@ -93,21 +109,26 @@ class ResBlock2(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for conv, d in zip(self.convs, self.dilations):
-            w = conv.weight().permute(2, 1, 0).contiguous()  # [k, C_in, C_out]
-            x = fused_conv_residual(x, w, conv.bias, dilation=d, neg_slope=LRELU_SLOPE)
+            if self.fused:
+                w = conv.weight().permute(2, 1, 0).contiguous()  # [k, C_in, C_out]
+                x = fused_conv_residual(x, w, conv.bias, dilation=d, neg_slope=LRELU_SLOPE)
+            else:
+                x = conv(F.leaky_relu(x, LRELU_SLOPE)) + x
         return x
 
 
 class Generator(nn.Module):
     """latents [B, T, n_feat] + spk_emb [B, spk_dim] + noise [B, noise_dim]
-    -> waveform [B, T * prod(upsample_rates), 1].  ``device`` defaults to the
+    -> waveform [B, T * prod(upsample_rates), 1].  ``fused`` selects the
+    serving Generator (see the module docstring); ``device`` defaults to the
     card and raises without one."""
 
-    def __init__(self, cfg: Vec2WavConfig, device=None):
+    def __init__(self, cfg: Vec2WavConfig, device=None, fused: bool = True):
         super().__init__()
         check_ported(cfg)
         device = resolve_device(device)
         self.cfg = cfg
+        self.fused = fused
         self.num_kernels = len(cfg.resblock_kernel_sizes)
         ch0 = cfg.upsample_initial_channel
         self.conv_pre = WNConv1d(cfg.n_feat_dim, ch0, 7, padding=3, device=device)
@@ -122,15 +143,24 @@ class Generator(nn.Module):
             self.fcs.append(nn.Linear(cfg.spk_dim + cfg.noise_dim, 128, device=device))
             self.cbns.append(ConditionalBatchNorm(ch, device=device))
             for rk, rd in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes):
-                block = ResBlock1 if cfg.use_resblock1 else ResBlock2
-                self.resblocks.append(block(ch, rk, rd, device=device))
+                if cfg.use_resblock1:
+                    self.resblocks.append(ResBlock1(ch, rk, rd, device=device))
+                else:
+                    self.resblocks.append(ResBlock2(ch, rk, rd, fused=fused, device=device))
         self.conv_post = WNConv1d(ch0 // (2 ** len(cfg.upsample_rates)), 1, 7, padding=3,
                                   w_std=0.01, device=device)
-        self.eval()
+        if fused:
+            self.eval()
 
-    @torch.inference_mode()
     def forward(self, x: torch.Tensor, spk_emb: torch.Tensor,
                 noise: torch.Tensor) -> torch.Tensor:
+        if self.fused:
+            with torch.inference_mode():
+                return self._forward(x, spk_emb, noise)
+        return self._forward(x, spk_emb, noise)
+
+    def _forward(self, x: torch.Tensor, spk_emb: torch.Tensor,
+                 noise: torch.Tensor) -> torch.Tensor:
         spk_noise = torch.cat([spk_emb, noise], dim=-1)
         x = self.conv_pre(x)
         for i, up in enumerate(self.ups):
@@ -143,3 +173,170 @@ class Generator(nn.Module):
             x = xs / self.num_kernels
         x = self.conv_post(F.leaky_relu(x))  # torch's default slope 0.01 (models.py:143)
         return torch.tanh(x)
+
+
+# ---------------------------------------------------------------------------
+# Discriminators (reference: vec2wav/models.py:159-275)
+# ---------------------------------------------------------------------------
+
+class DiscriminatorP(nn.Module):
+    """One period's 2-D conv stack: the waveform, reflect-padded to a
+    multiple of the period, as ``[B, 1, L / p, p]`` (models.py:159-192)."""
+
+    def __init__(self, period: int, kernel_size: int = 5, stride: int = 3, device=None):
+        super().__init__()
+        self.period = period
+        widths = (1, 32, 128, 512, 1024)
+        self.convs = nn.ModuleList(
+            WNConv2d(c_in, c_out, (kernel_size, 1), (stride, 1), (get_padding(5, 1), 0),
+                     device=device)
+            for c_in, c_out in zip(widths, widths[1:]))
+        self.convs.append(WNConv2d(1024, 1024, (kernel_size, 1), (1, 1), (2, 0), device=device))
+        self.conv_post = WNConv2d(1024, 1, (3, 1), (1, 1), (1, 0), device=device)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """x [B, 1, L] -> (scores [B, n], 6 feature maps [B, C, H, p])."""
+        B, C, L = x.shape
+        if L % self.period:
+            n_pad = self.period - L % self.period
+            x = F.pad(x, (0, n_pad), mode="reflect")
+            L += n_pad
+        x = x.reshape(B, C, L // self.period, self.period)
+        fmap = []
+        for conv in self.convs:
+            x = F.leaky_relu(conv(x), LRELU_SLOPE)
+            fmap.append(x)
+        x = self.conv_post(x)
+        fmap.append(x)
+        return x.flatten(1), fmap
+
+
+def _pair_call(d, y: torch.Tensor, y_hat: torch.Tensor, pair_batched: bool):
+    """A discriminator on the real and the generated waveform: one call over
+    ``cat([y, y_hat])`` when ``pair_batched``, else two."""
+    if not pair_batched:
+        return d(y) + d(y_hat)
+    B = y.shape[0]
+    o, fmap = d(torch.cat([y, y_hat], dim=0))
+    return o[:B], [m[:B] for m in fmap], o[B:], [m[B:] for m in fmap]
+
+
+class MultiPeriodDiscriminator(nn.Module):
+    """One ``DiscriminatorP`` per period of ``cfg.periods`` (13, 17, 19 in
+    the reference; models.py:195-215).  ``pair_batched`` (the config's
+    ``disc_pair_batched``): one pass over ``cat([y, y_hat])`` instead of two;
+    the convolutions see each item alone, so the result is the same."""
+
+    def __init__(self, cfg: Vec2WavConfig, pair_batched: bool = True, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.pair_batched = pair_batched
+        self.discriminators = nn.ModuleList(DiscriminatorP(p, device=device)
+                                            for p in cfg.periods)
+
+    def forward(self, y: torch.Tensor, y_hat: torch.Tensor):
+        """y, y_hat [B, L, 1] -> (y_d_rs, y_d_gs, fmap_rs, fmap_gs), one
+        entry per period."""
+        y, y_hat = y.transpose(1, 2), y_hat.transpose(1, 2)  # [B, 1, L]
+        outs = [_pair_call(d, y, y_hat, self.pair_batched) for d in self.discriminators]
+        y_d_rs, fmap_rs, y_d_gs, fmap_gs = (list(t) for t in zip(*outs))
+        return y_d_rs, y_d_gs, fmap_rs, fmap_gs
+
+
+def _avg_pool_4_2_pad2(x: torch.Tensor) -> torch.Tensor:
+    """torch AvgPool1d(4, 2, padding=2) over [B, C, L], the padding counted."""
+    return F.avg_pool1d(x, 4, 2, padding=2, count_include_pad=True)
+
+
+# (out channels, kernel, stride, groups, padding) of the MSD's conv stack
+_MSD_SPECS = ((128, 15, 1, 1, 7), (128, 41, 2, 4, 20), (256, 41, 2, 16, 20),
+              (512, 41, 4, 16, 20), (1024, 41, 4, 16, 20), (1024, 41, 1, 16, 20),
+              (1024, 5, 1, 1, 2))
+
+
+class DiscriminatorS(nn.Module):
+    """One scale's grouped 1-D conv stack over [B, 1, L] (models.py:218-243),
+    spectral-normed or weight-normed.  The JAX package's ``msd_tiled_conv``
+    repacks the grouped convs for the TPU's matrix unit with the same math;
+    here they are plain grouped ``F.conv1d`` calls."""
+
+    def __init__(self, use_spectral_norm: bool = False, device=None):
+        super().__init__()
+        conv = SpectralNormConv1d if use_spectral_norm else WNConv1d
+        c_in = 1
+        self.convs = nn.ModuleList()
+        for c_out, k, s, g, p in _MSD_SPECS:
+            self.convs.append(conv(c_in, c_out, k, stride=s, padding=p, groups=g, device=device))
+            c_in = c_out
+        self.conv_post = conv(1024, 1, 3, stride=1, padding=1, device=device)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """x [B, 1, L] -> (scores [B, n], 8 feature maps [B, C, T])."""
+        fmap = []
+        for conv in self.convs:
+            x = F.leaky_relu(conv.conv(x), LRELU_SLOPE)
+            fmap.append(x)
+        x = self.conv_post.conv(x)
+        fmap.append(x)
+        return x.flatten(1), fmap
+
+
+class MultiScaleDiscriminator(nn.Module):
+    """Three ``DiscriminatorS``, the first spectral-normed, with
+    ``AvgPool1d(4, 2, 2)`` between scales (models.py:246-275).  In train mode
+    the first scale takes one power iteration per call of its discriminator:
+    once per MSD call under ``pair_batched``, twice without it (the
+    reference's per-forward hook; PARITY.md)."""
+
+    def __init__(self, pair_batched: bool = True, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.pair_batched = pair_batched
+        self.discriminators = nn.ModuleList(DiscriminatorS(use_spectral_norm=(i == 0),
+                                                           device=device) for i in range(3))
+
+    def forward(self, y: torch.Tensor, y_hat: torch.Tensor):
+        """y, y_hat [B, L, 1] -> (y_d_rs, y_d_gs, fmap_rs, fmap_gs), one
+        entry per scale."""
+        y, y_hat = y.transpose(1, 2), y_hat.transpose(1, 2)  # [B, 1, L]
+        outs = []
+        for i, d in enumerate(self.discriminators):
+            if i:
+                y, y_hat = _avg_pool_4_2_pad2(y), _avg_pool_4_2_pad2(y_hat)
+            outs.append(_pair_call(d, y, y_hat, self.pair_batched))
+        y_d_rs, fmap_rs, y_d_gs, fmap_gs = (list(t) for t in zip(*outs))
+        return y_d_rs, y_d_gs, fmap_rs, fmap_gs
+
+
+# ---------------------------------------------------------------------------
+# GAN losses (reference: vec2wav/models.py:278-309)
+# ---------------------------------------------------------------------------
+
+def feature_loss(fmap_r, fmap_g) -> torch.Tensor:
+    loss = 0.0
+    for dr, dg in zip(fmap_r, fmap_g):
+        for rl, gl in zip(dr, dg):
+            loss = loss + torch.mean(torch.abs(rl - gl))
+    return loss * 2.0
+
+
+def discriminator_loss(disc_real_outputs, disc_generated_outputs):
+    loss = 0.0
+    r_losses, g_losses = [], []
+    for dr, dg in zip(disc_real_outputs, disc_generated_outputs):
+        r_loss = torch.mean((1.0 - dr) ** 2)
+        g_loss = torch.mean(dg ** 2)
+        loss = loss + r_loss + g_loss
+        r_losses.append(r_loss)
+        g_losses.append(g_loss)
+    return loss, r_losses, g_losses
+
+
+def generator_loss(disc_outputs):
+    loss = 0.0
+    gen_losses = []
+    for dg in disc_outputs:
+        l = torch.mean((1.0 - dg) ** 2)
+        gen_losses.append(l)
+        loss = loss + l
+    return loss, gen_losses

@@ -4,9 +4,10 @@ version beside it.
 
 JAX counterpart: ``wavthruvec_pytorch_tpu/ops/fused_resblock.py``
 (``fused_conv_residual`` and its oracle ``conv_residual_reference``).  The
-port's Generator runs every ResBlock2 unit through ``fused_conv_residual``:
-on a CUDA tensor it launches the kernel, on a CPU tensor it runs
-``conv_residual_plain``.
+port's serving Generator (``fused=True``) runs every ResBlock2 unit through
+``fused_conv_residual``: on a CUDA tensor it launches the kernel, on a CPU
+tensor it runs ``conv_residual_plain``.  The training Generator
+(``fused=False``) does not call it.
 """
 
 from __future__ import annotations
@@ -42,7 +43,12 @@ def fused_conv_residual(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                         dilation: int = 1, neg_slope: float = 0.1) -> torch.Tensor:
     """x [B, T, C] f32, w [k, C, C] f32 (the weight-normed kernel), b [C] f32
     -> [B, T, C].  CPU tensors take ``conv_residual_plain``; CUDA tensors
-    launch the kernel; anything else raises."""
+    launch the kernel; anything else raises.  The kernel has no backward, so
+    a call that autograd would record raises on every device."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w, b)):
+        raise RuntimeError(
+            "fused_conv_residual has no backward and refuses inputs that require a gradient; "
+            "train with Generator(fused=False), whose ResBlock2 units autograd sees.")
     if x.device.type == "cpu":
         return conv_residual_plain(x, w, b, dilation, neg_slope)
     if x.device.type != "cuda":

@@ -3,11 +3,13 @@
 Input: a Flax variable tree ``{"params", "batch_stats", "spectral"}`` whose
 leaves are numpy arrays (e.g. ``jax.tree_util.tree_map(np.asarray, vars)``).
 Output: a ``{key: torch.Tensor}`` state dict in the torch reference's key
-layout, which the port's ``Text2Vec`` and ``Generator`` load with
-``strict=True``.  Keys and values equal those of the JAX package's
-``checkpoint.export_text2vec`` / ``export_vec2wav_generator``: this module
-keeps its own copy of their spec tables and layout transposes
-(``checkpoint.py:117-152, 185-313, 379-423, 467-500``).
+layout, which the port's ``Text2Vec``, ``Generator`` and discriminators
+load with ``strict=True``.  Keys and values equal those of the JAX package's
+``checkpoint.export_text2vec`` / ``export_vec2wav_generator`` /
+``export_vec2wav_mpd`` / ``export_vec2wav_msd``: this module keeps its own
+copy of their spec tables and layout transposes (``checkpoint.py:117-152,
+185-336, 379-423, 467-510``).  A tree of gradients in the layout of
+``params`` maps the same way (pass it as ``{"params": grads}``).
 
 Spec kinds (one row = one torch module or tensor):
 
@@ -17,8 +19,9 @@ Spec kinds (one row = one torch module or tensor):
   ln     LayerNorm .weight/.bias      <- {dst}/scale, {dst}/bias
   bn     BatchNorm1d affine + stats   <- {dst}/BatchNorm_0/{scale,bias} + batch_stats
   bn_na  BatchNorm1d stats only
-  wn     weight-normed Conv1d (wnT: ConvTranspose1d) .weight_{g,v}/.bias
+  wn     weight-normed Conv1d (wnT: ConvTranspose1d, wn2d: Conv2d) .weight_{g,v}/.bias
   snlin  spectral-normed Linear .weight_orig/.bias + spectral .weight_{u,v}
+  sn     spectral-normed Conv1d, the same keys
   linw   single Linear-layout weight (GRU weights; torch key given in full)
   raw    single tensor, no transform (GRU biases; torch key given in full)
 """
@@ -134,6 +137,25 @@ def _generator_spec(cfg) -> Spec:
     return s
 
 
+def _mpd_spec(cfg) -> Spec:
+    s: Spec = []
+    for i in range(len(cfg.periods)):
+        s += [("wn2d", f"discriminators.{i}.convs.{j}", f"discriminators_{i}/convs_{j}")
+              for j in range(5)]
+        s.append(("wn2d", f"discriminators.{i}.conv_post", f"discriminators_{i}/conv_post"))
+    return s
+
+
+def _msd_spec() -> Spec:
+    s: Spec = []
+    for i in range(3):
+        kind = "sn" if i == 0 else "wn"
+        s += [(kind, f"discriminators.{i}.convs.{j}", f"discriminators_{i}/convs_{j}")
+              for j in range(7)]
+        s.append((kind, f"discriminators.{i}.conv_post", f"discriminators_{i}/conv_post"))
+    return s
+
+
 # flax (k, in, out) / (in, out) layouts -> torch
 def _conv(w):  # Conv1d (k, in, out) -> [out, in, k]
     return np.transpose(w, (2, 1, 0))
@@ -143,8 +165,15 @@ def _convT(w):  # ConvTranspose1d (k, in, out) -> [in, out, k]
     return np.transpose(w, (1, 2, 0))
 
 
+def _conv2d(w):  # Conv2d (kh, kw, in, out) -> [out, in, kh, kw]
+    return np.transpose(w, (3, 2, 0, 1))
+
+
 def _lin(w):  # Linear (in, out) -> [out, in]
     return np.transpose(w)
+
+
+_WN_LAYOUT = {"wn": _conv, "wnT": _convT, "wn2d": _conv2d}
 
 
 def _export(np_vars: Any, spec: Spec) -> Dict[str, np.ndarray]:
@@ -176,13 +205,14 @@ def _export(np_vars: Any, spec: Spec) -> Dict[str, np.ndarray]:
             put(f"{src}.running_mean", _get(stats, f"{dst}/BatchNorm_0/mean"))
             put(f"{src}.running_var", _get(stats, f"{dst}/BatchNorm_0/var"))
             put(f"{src}.num_batches_tracked", np.zeros((), np.int64))
-        elif kind in ("wn", "wnT"):
-            trans = _conv if kind == "wn" else _convT
+        elif kind in _WN_LAYOUT:
+            trans = _WN_LAYOUT[kind]
             put(f"{src}.weight_v", trans(_get(params, f"{dst}/v")))
             put(f"{src}.weight_g", trans(_get(params, f"{dst}/g")))
             put(f"{src}.bias", _get(params, f"{dst}/bias"))
-        elif kind == "snlin":
-            put(f"{src}.weight_orig", _lin(_get(params, f"{dst}/kernel")))
+        elif kind in ("snlin", "sn"):
+            trans = _lin if kind == "snlin" else _conv
+            put(f"{src}.weight_orig", trans(_get(params, f"{dst}/kernel")))
             put(f"{src}.bias", _get(params, f"{dst}/bias"))
             put(f"{src}.weight_u", _get(spectral, f"{dst}/u"))
             put(f"{src}.weight_v", _get(spectral, f"{dst}/v"))
@@ -217,3 +247,15 @@ def text2vec_state_dict(np_vars: Any, cfg) -> Dict[str, torch.Tensor]:
 def generator_state_dict(np_vars: Any, cfg) -> Dict[str, torch.Tensor]:
     """Generator variables -> the port's ``Generator`` state dict."""
     return _to_torch(_export(np_vars, _generator_spec(cfg)))
+
+
+def mpd_state_dict(np_vars: Any, cfg) -> Dict[str, torch.Tensor]:
+    """MultiPeriodDiscriminator variables -> the port's
+    ``MultiPeriodDiscriminator`` state dict."""
+    return _to_torch(_export(np_vars, _mpd_spec(cfg)))
+
+
+def msd_state_dict(np_vars: Any) -> Dict[str, torch.Tensor]:
+    """MultiScaleDiscriminator variables (``params`` and ``spectral``) -> the
+    port's ``MultiScaleDiscriminator`` state dict."""
+    return _to_torch(_export(np_vars, _msd_spec()))
