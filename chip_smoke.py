@@ -166,9 +166,53 @@ scales), with seeded random weights and conv_post's gain set as in phase 2
     within ``GAN_STATE_RTOL``.
 20. ``vec2wav_loop.main`` trains 3 steps on the demo corpus.
 
+Then the serving stack, on phase 2's full-size models (seeded anew; conv_post's
+gain and the duration bias set as there), the demo speakers
+``data/demo/spk_emb/SSB0000.npy`` and ``SSB0001.npy`` and their reference
+clips, run outside inference mode as a server runs it.  The launch
+counters are set to 0 just before each phase drives its path and read just
+after:
+
+21. Checkpoint round trip: the weights saved as the torch reference's files
+    (``checkpoint_0.pth.tar`` with key ``model``, ``g_00000000`` with key
+    ``generator``), the serving stack built from them as ``cli serve`` builds
+    it (``cli._build_serving_stack``), one request bit for bit against the
+    Synthesizer of the in-memory weights.
+22. ``serve_loop`` with ``--warmup`` over a burst of ``SERVE_REQUESTS``
+    requests (two speakers, text buckets 32 and 64, frame bucket
+    ``SERVE_FRAMES``), all queued at once, at max_batch 1 and
+    ``SERVE_MAX_BATCH``: every line ``OK``, the client-perceived latency
+    (median, p90) and utterances per second over the burst, launches of 30
+    fused units and 1 BiGRU per forward (warm-up included), the BiGRU's
+    route at each batch bucket, and each request's PCM coalesced against
+    alone within ``COALESCE_LSB``.
+23. PCM streaming (``stream_chunk`` ``STREAM_CHUNK``) of a request clipped
+    at ``STREAM_FRAMES`` frames: the stitched PCM against the batched PCM
+    within ``COALESCE_LSB``, the time to first audio against the request's
+    latency, 30 fused launches a window; ``StreamingVocoder.vocode`` against
+    the full f32 forward within ``STREAM_ATOL``, the gap printed.
+24. ``serve_http`` on 127.0.0.1, port 0, in a thread: ``/health``,
+    ``/speakers`` and ``HTTP_CLIENTS`` concurrent ``POST /synthesize``, each
+    answer a wav of the request's length, at least one coalesced batch.
+25. The bf16 serving Generator (``make_serving_generator(..., "bf16")``)
+    against the f32 one on the 512- and 3000-frame requests' latents: no
+    fused launch in bf16 and 30 a forward in f32, the distance within
+    ``BF16_WAV_RTOL`` of the f32 norm, both Generators' ms (CUDA events,
+    median of 3 after a warm-up); ``fused_conv_residual`` refuses bf16
+    inputs on the card.
+26. The long-bucket config (f32, flash) through ``serve_loop``: 2 requests
+    coalesced at max_batch 2 (8 flash forward launches at B = 2), each
+    against the same request alone through ``Synthesizer`` within
+    ``COALESCE_LSB``.
+27. Each kernel of that path against its plain version at the shapes it
+    first met there: the fused unit at the streaming windows' lengths and in
+    a batch of ``SERVE_MAX_BATCH``, the BiGRU at every batch bucket, the f32
+    flash forward at B = 2 of the long bucket.
+
 Every float32 product and convolution in this run is full float32: TF32 is
 off for matmuls and cuDNN.  The second-to-last line is a JSON object with
-one entry per kernel; the last line is
+one entry per kernel (``serving_launches``: the launches of phases 22-24
+and 26); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -176,16 +220,25 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import io
 import json
 import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import urllib.request
+import wave
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from scipy.io import wavfile
+
+from wavthruvec_pytorch_tpu_torch import cli
 
 from wavthruvec_pytorch_tpu_torch.config import (
     Text2VecConfig,
@@ -196,7 +249,18 @@ from wavthruvec_pytorch_tpu_torch.config import (
 from wavthruvec_pytorch_tpu_torch.data.prior import beta_binomial_prior_distribution
 from wavthruvec_pytorch_tpu_torch.data.vocoder_data import mel_spectrogram_np
 from wavthruvec_pytorch_tpu_torch.entry import entry
-from wavthruvec_pytorch_tpu_torch.infer.synthesize import Synthesizer
+from wavthruvec_pytorch_tpu_torch.infer.http_serve import serve_http
+from wavthruvec_pytorch_tpu_torch.infer.serve import (
+    SpeakerStore,
+    _batch_buckets,
+    _serve_noise,
+    serve_loop,
+)
+from wavthruvec_pytorch_tpu_torch.infer.streaming import (
+    StreamingVocoder,
+    conservative_context_frames,
+)
+from wavthruvec_pytorch_tpu_torch.infer.synthesize import Synthesizer, make_serving_generator
 from wavthruvec_pytorch_tpu_torch.models.text2vec import Text2Vec
 from wavthruvec_pytorch_tpu_torch.models.vec2wav import (
     LRELU_SLOPE,
@@ -325,6 +389,26 @@ GAN_ZERO_GRAD = re.compile(r"gen\.ups\.\d+\.bias")
 # CPU: max |card - CPU| / max |CPU| of each buffer
 GAN_STATE_RTOL = 1e-4
 
+# the serving stack: the serve loop's frame bucket, its burst and largest
+# batch bucket; the streamed request (125 characters at alpha 5 speak ~3,700
+# frames, clipped to the 3000-frame buffer); the HTTP clients and coalescing
+# window
+SERVE_FRAMES = 1024
+SERVE_REQUESTS, SERVE_MAX_BATCH = 16, 8
+STREAM_FRAMES, STREAM_CHARS, STREAM_ALPHA, STREAM_CHUNK = 3000, 125, 5.0, 100
+HTTP_CLIENTS, HTTP_COALESCE_MS = 8, 100.0
+# a request's PCM coalesced against alone, and streamed against batched: one
+# float rounding near a quantization step flips one LSB
+COALESCE_LSB = 1
+# stitched windows against the full forward, f32: the windows' convolutions
+# may take other cuDNN algorithms than the full length's
+STREAM_ATOL = 1e-4
+# the bf16 serving Generator against the f32 one, ||bf16 - f32|| / ||f32||:
+# bf16 keeps 8 bits of mantissa in every convolution's inputs and outputs
+# over 5 stages (the JAX package's bf16 Generator lies 0.087 of the norm from
+# its f32 one at the CPU tests' small config, tests/test_torch_serving_bf16.py)
+BF16_WAV_RTOL = 0.25
+
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
@@ -382,7 +466,8 @@ def make_synthesizer(dev, t2v_cfg=None):
     torch.manual_seed(SEED)
     t2v = Text2Vec(t2v_cfg, device=dev)
     gen = Generator(v2w_cfg, device=dev)
-    t2v.length_regulator.duration_predictor.linear_layer.linear_layer.bias.add_(FRAMES_PER_CHAR)
+    with torch.no_grad():
+        t2v.length_regulator.duration_predictor.linear_layer.linear_layer.bias.add_(FRAMES_PER_CHAR)
     frontend = TextFrontend.from_vocab_file(repo_path(t2v_cfg.vocab_path))
     check(frontend.vocab_size <= t2v_cfg.vocab_size, "the vocabulary has more ids than the config")
     syn = Synthesizer(t2v_cfg, v2w_cfg, t2v.state_dict(), gen.state_dict(), frontend, device=dev)
@@ -398,7 +483,8 @@ def make_synthesizer(dev, t2v_cfg=None):
     syn.gen(latents, torch.as_tensor(demo_speaker(), device=dev), syn._noise(1, SEED))
     hook.remove()
     check(seen["std"] > 0, "the random Generator's output does not depend on its input")
-    syn.gen.conv_post.weight_g.mul_(WAV_STD / seen["std"])
+    with torch.no_grad():
+        syn.gen.conv_post.weight_g.mul_(WAV_STD / seen["std"])
     print(f"conv_post gain scaled by {WAV_STD / seen['std']:.3g} (probe std {seen['std']:.3g})")
     n_params = sum(p.numel() for m in (syn.t2v, syn.gen) for p in m.parameters())
     print(f"models: Text2Vec + Generator at full size, {n_params / 1e6:.1f} M parameters")
@@ -1849,6 +1935,503 @@ def train_gan_loop():
           f"vec2wav_loop: {history}")
 
 
+# ---------------------------------------------------------------------------
+# The serving stack (phases 21-26)
+# ---------------------------------------------------------------------------
+
+def serving_argv(out_dir: str, t2v_file: str, gen_file: str) -> list:
+    """The ``cli serve`` flags of the full-size demo stack from checkpoint
+    files, with the demo speakers and their reference clips."""
+    return ["--t2v_config", repo_path("data", "demo", "text2vec.json"),
+            "--v2w_config", repo_path("data", "demo", "vec2wav.json"),
+            "--t2v_checkpoint", t2v_file, "--gen_checkpoint", gen_file,
+            "--spk_emb_dir", repo_path("data", "demo", "spk_emb"),
+            "--ref_feat_dir", repo_path("data", "demo", "w2v_feat", "train"),
+            "--out_dir", out_dir, "--device", "cuda"]
+
+
+def fused_units(cfg) -> int:
+    """ResBlock2 units in one Generator forward: two a resblock (30 at full
+    size: 5 stages x 3 kernels)."""
+    return 2 * len(cfg.upsample_rates) * len(cfg.resblock_kernel_sizes)
+
+
+def reset_serving_counters() -> None:
+    fused_conv_residual.launches = 0
+    reset_counters()
+
+
+def read_serving_counters() -> dict:
+    return dict(fused_resblock=fused_conv_residual.launches, gru_fwd=gru_fwd.launches,
+                gru_fwd_steps=gru_fwd.step_launches, flash_fwd=flash_fwd.launches)
+
+
+def median_ms(fn, reps: int = 3) -> float:
+    """Median of ``reps`` timed calls (CUDA events each) after one warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def parse_pcm(raw: bytes) -> list:
+    """The PCM framing of ``serve_loop(pcm=True)`` -> [(header, int16 samples
+    or None)]: ``PCM``/``PCMEND`` blocks, ``PCMSTART``/``PCMCHUNK``/``PCMEND``
+    streams (the header is the ``PCMEND`` line) and bare lines."""
+    out, i = [], 0
+    while i < len(raw):
+        j = raw.index(b"\n", i)
+        line, i = raw[i:j].decode(), j + 1
+        if line.startswith("PCM "):
+            n = int(line.split()[1])
+            data, i = np.frombuffer(raw[i:i + 2 * n], "<i2"), i + 2 * n
+            j = raw.index(b"\n", i)
+            check(raw[i:j] == b"PCMEND", f"PCM block not closed: {raw[i:j][:40]!r}")
+            out.append((line, data))
+            i = j + 1
+        elif line.startswith("PCMSTART"):
+            chunks = []
+            while True:
+                j = raw.index(b"\n", i)
+                sub, i = raw[i:j].decode(), j + 1
+                if sub.startswith("PCMCHUNK "):
+                    nb = int(sub.split()[1])
+                    chunks.append(np.frombuffer(raw[i:i + nb], "<i2"))
+                    i += nb
+                elif sub.startswith("PCMEND "):
+                    data = np.concatenate(chunks) if chunks else np.zeros(0, "<i2")
+                    check(data.shape[0] == int(sub.split()[1]), f"stream length: {sub}")
+                    out.append((sub, data))
+                    break
+                else:
+                    check(False, f"unexpected line in a PCM stream: {sub!r}")
+        else:
+            out.append((line, None))
+    return out
+
+
+def lsb(a: np.ndarray, b: np.ndarray) -> int:
+    return int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max(initial=0))
+
+
+def check_checkpoint_round_trip(syn, tmp: str):
+    """Phase 21: phase 2's weights saved as the torch reference's files, the
+    serving stack built from them as ``cli serve`` builds it, one request
+    bit for bit against the Synthesizer of the in-memory weights."""
+    t2v_file = os.path.join(tmp, "checkpoint_0.pth.tar")
+    gen_file = os.path.join(tmp, "g_00000000")
+    t0 = time.perf_counter()
+    torch.save({"model": {k: v.cpu() for k, v in syn.t2v.state_dict().items()}}, t2v_file)
+    torch.save({"generator": {k: v.cpu() for k, v in syn.gen.state_dict().items()}}, gen_file)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    synth, store = cli._build_serving_stack(
+        cli._serving_parser().parse_args(serving_argv(os.path.join(tmp, "out"), t2v_file,
+                                                      gen_file)))
+    build_s = time.perf_counter() - t0
+    check(store.speakers() == ["SSB0000", "SSB0001"], f"speakers {store.speakers()}")
+    for a, b in ((synth.t2v, syn.t2v), (synth.gen, syn.gen)):
+        sa, sb = a.state_dict(), b.state_dict()
+        check(sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa),
+              f"checkpoint round trip: {type(a).__name__} weights differ")
+    text, ref, spk = demo_inputs(syn)
+    texts = [text(40)]
+
+    def request(s):
+        return s.synthesize(texts, ref, spk, max_frames=512, seed=SEED)
+
+    # run to run the same Synthesizer moves at rounding level (cuDNN may
+    # choose nondeterministic algorithms); bit for bit holds with cuDNN's
+    # deterministic ones
+    runs = [request(syn)[0] for _ in range(2)]
+    jitter = float(np.abs(runs[0] - runs[1]).max())
+    torch.backends.cudnn.deterministic = True
+    try:
+        got, n_got = request(synth)
+        want, n_want = request(syn)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    check(np.array_equal(n_got, n_want) and np.array_equal(got, want),
+          f"checkpoint round trip: max |diff| {np.abs(got - want).max():.3g}, frames "
+          f"{n_got} vs {n_want}")
+    size = (os.path.getsize(t2v_file) + os.path.getsize(gen_file)) / 2**20
+    print(f"checkpoint round trip: checkpoint_0.pth.tar + g_00000000 ({size:.0f} MiB) saved in "
+          f"{save_s:.1f} s, serving stack built from them in {build_s:.1f} s (cli "
+          f"_build_serving_stack); weights bit-equal; one 512-frame request bit-equal to the "
+          f"in-memory weights' under cuDNN's deterministic algorithms "
+          f"({int(n_got[0]) // syn.v2w_cfg.total_upsample} frames); run to run without them the "
+          f"same Synthesizer moves by max |diff| {jitter:.3g}")
+    return synth, store
+
+
+class StampedOut(io.StringIO):
+    """A text stream that notes the host time of every write."""
+
+    def __init__(self):
+        super().__init__()
+        self.stamps = []
+
+    def write(self, s):
+        self.stamps.append((time.perf_counter(), s))
+        return super().write(s)
+
+
+def burst_lines(syn, n: int) -> str:
+    """``n`` requests over the two demo speakers and two text buckets (25
+    and 50 characters: buckets 32 and 64)."""
+    text, _, _ = demo_inputs(syn)
+    return "".join(f"SSB{i % 2:04d}|{text(25 if i % 4 < 2 else 50)}\n" for i in range(n)) + "QUIT\n"
+
+
+def serve_burst(synth, store, out_dir: str, lines: str, max_batch: int) -> dict:
+    """One ``serve_loop`` call with ``--warmup`` over a burst of requests,
+    all queued before the first is taken.  Client-perceived latency: from
+    the ``WARM`` line (the loop's first read follows it) to each ``OK``
+    line."""
+    stdout = StampedOut()
+    reset_serving_counters()
+    n = serve_loop(synth, store, out_dir, max_frames=SERVE_FRAMES, stdin=io.StringIO(lines),
+                   stdout=stdout, do_warmup=True, max_batch=max_batch)
+    torch.cuda.synchronize()
+    counts = read_serving_counters()
+    warm = [t for t, s in stdout.stamps if s.startswith("WARM")]
+    ok = [(t, s) for t, s in stdout.stamps if s.startswith("OK ")]
+    others = [s for _, s in stdout.stamps if s.strip() and not s.startswith(("OK ", "WARM"))]
+    check(len(warm) == 1 and len(ok) == n == lines.count("|") and not others,
+          f"serve_loop max_batch={max_batch}: {n} served, lines {others[:3]}")
+    lat = [(t - warm[0]) * 1e3 for t, _ in ok]
+    batched = [int(re.search(r"batched=(\d+)", s).group(1)) for _, s in ok]
+    own = [float(re.search(r"latency=([\d.]+)ms", s).group(1)) for _, s in ok]
+    n_warm = len(_batch_buckets(max_batch)) * len(synth.t2v_cfg.text_buckets)
+    n_batches = round(sum(1 / b for b in batched))
+    return dict(n=n, lat=lat, batched=batched, own=own, counts=counts, n_warm=n_warm,
+                n_batches=n_batches, utt_s=n / ((ok[-1][0] - warm[0])),
+                paths=[s.split()[1] for _, s in ok])
+
+
+def check_serve_loop(synth, store, tmp: str) -> dict:
+    """Phase 22: a burst of ``SERVE_REQUESTS`` requests through ``serve_loop``
+    at max_batch 1 and ``SERVE_MAX_BATCH``; a request's PCM from a coalesced
+    batch against the same request alone."""
+    n_sm, smem = device_limits(torch.device("cuda"))
+    H = synth.t2v.postnet.gru.hidden_size
+    plans = {B: gru_fwd_plan(2, B, H, n_sm, smem).route for B in _batch_buckets(SERVE_MAX_BATCH)}
+    check(all(r == "persistent" for r in plans.values()), f"BiGRU routes by batch bucket {plans}")
+    print(f"BiGRU route by batch bucket (D=2, H={H}): {plans}")
+    lines = burst_lines(synth, SERVE_REQUESTS)
+    runs = {mb: serve_burst(synth, store, os.path.join(tmp, f"burst{mb}"), lines, mb)
+            for mb in (1, SERVE_MAX_BATCH)}
+    for mb, r in runs.items():
+        forwards = r["n_warm"] + r["n_batches"]
+        c = r["counts"]
+        check(c["fused_resblock"] == fused_units(synth.v2w_cfg) * forwards and c["gru_fwd"] == forwards
+              and c["gru_fwd_steps"] == forwards,
+              f"serve_loop max_batch={mb}: launches {c} for {forwards} forwards")
+        print(f"serve_loop burst of {r['n']} (max_batch {mb}, frame bucket {SERVE_FRAMES}, "
+              f"--warmup {r['n_warm']} shapes): client-perceived latency median "
+              f"{np.median(r['lat']):.2f} ms, p90 {np.percentile(r['lat'], 90):.2f} ms (n={r['n']}), "
+              f"max {max(r['lat']):.2f}; {r['utt_s']:.2f} utterances/s over the burst; "
+              f"batches {r['n_batches']} of sizes {sorted(set(r['batched']))}, a batch's own "
+              f"latency (the OK line's) median {np.median(r['own']):.2f} ms; launches {c} "
+              f"({forwards} forwards: {fused_units(synth.v2w_cfg)} fused and 1 BiGRU each)")
+    check(max(runs[SERVE_MAX_BATCH]["batched"]) > 1, "serve_loop never coalesced")
+    worst = 0
+    for alone, batch in zip(runs[1]["paths"], runs[SERVE_MAX_BATCH]["paths"]):
+        _, a = wavfile.read(alone)
+        _, b = wavfile.read(batch)
+        check(a.shape == b.shape and a.shape[0] > 0, f"{batch}: {b.shape} vs alone {a.shape}")
+        worst = max(worst, lsb(a, b))
+    check(worst <= COALESCE_LSB, f"coalesced PCM differs from alone by {worst} LSB")
+    print(f"coalesced vs alone, {SERVE_REQUESTS} requests: max {worst} LSB "
+          f"(tolerance {COALESCE_LSB})")
+    return runs
+
+
+def check_streaming(synth, store, tmp: str) -> dict:
+    """Phase 23: a ~3000-frame request streamed as PCM chunks of
+    ``STREAM_CHUNK`` frames against the batched PCM, and
+    ``StreamingVocoder.vocode`` against the full forward."""
+    cfg = synth.v2w_cfg
+    text, _, _ = demo_inputs(synth)
+    line = f"SSB0000|{text(STREAM_CHARS)}\nQUIT\n"
+    kw = dict(alpha=STREAM_ALPHA, max_frames=STREAM_FRAMES, pcm=True)
+    reset_serving_counters()
+    stdout = io.BytesIO()
+    serve_loop(synth, store, tmp, stdin=io.StringIO(line), stdout=stdout,
+               stream_chunk=STREAM_CHUNK, **kw)
+    torch.cuda.synchronize()
+    counts = read_serving_counters()
+    (header, streamed), = [(h, d) for h, d in parse_pcm(stdout.getvalue()) if d is not None]
+    stdout = io.BytesIO()
+    t0 = time.perf_counter()
+    serve_loop(synth, store, tmp, stdin=io.StringIO(line), stdout=stdout, **kw)
+    batched_ms = (time.perf_counter() - t0) * 1e3
+    (bheader, batched), = [(h, d) for h, d in parse_pcm(stdout.getvalue()) if d is not None]
+    frames = streamed.shape[0] // cfg.total_upsample
+    windows = -(-frames // STREAM_CHUNK)
+    K = conservative_context_frames(cfg)
+    check(counts["fused_resblock"] == fused_units(cfg) * windows and counts["gru_fwd"] == 1,
+          f"streaming launches {counts} for {windows} windows")
+    check(streamed.shape == batched.shape and frames == STREAM_FRAMES,
+          f"streamed {streamed.shape} vs batched {batched.shape}: not clipped at "
+          f"{STREAM_FRAMES} frames")
+    diff = lsb(streamed, batched)
+    check(diff <= COALESCE_LSB, f"streamed PCM differs from batched by {diff} LSB")
+    ttfa = float(re.search(r"ttfa=([\d.]+)ms", header).group(1))
+    latency = float(re.search(r"latency=([\d.]+)ms", header).group(1))
+    print(f"PCM streaming, {frames} frames in {windows} windows of {STREAM_CHUNK} (context "
+          f"K={K}: windows of {STREAM_CHUNK + K} frames at the edges, {STREAM_CHUNK + 2 * K} "
+          f"inside): time to first audio {ttfa:.2f} ms, last audio {latency:.2f} ms; the "
+          f"batched request (PCM, one forward over {STREAM_FRAMES} frames) {batched_ms:.2f} ms "
+          f"({bheader.split()[3]}); streamed vs batched PCM max {diff} LSB; launches {counts}")
+    # the stitched waveform against the full forward, float
+    spk = store.vocoder_emb("SSB0000")[None]
+    out = synth.text_to_latents([line.split("|", 1)[1].strip()], None, alpha=STREAM_ALPHA,
+                                max_frames=STREAM_FRAMES,
+                                t2v_spk_emb=store.t2v_emb_or_fallback("SSB0000"), keep_device=True)
+    lat = out["feat_postnet_output"]
+    noise = _serve_noise(synth, 1)
+    full = synth.gen(lat, torch.as_tensor(spk, device=lat.device), noise)[..., 0].cpu().numpy()
+    stitched = StreamingVocoder(synth.gen, cfg, chunk_frames=STREAM_CHUNK).vocode(lat, spk, noise)
+    gap = float(np.abs(stitched - full).max())
+    check(stitched.shape == full.shape and gap <= STREAM_ATOL,
+          f"stitched vs full forward: max |diff| {gap:.3g} (atol {STREAM_ATOL})")
+    print(f"StreamingVocoder.vocode over the padded {STREAM_FRAMES} frames vs the full f32 "
+          f"forward: max |diff| {gap:.3g} (atol {STREAM_ATOL}), max |y| {np.abs(full).max():.3f}")
+    return dict(windows=windows, counts=counts)
+
+
+def check_http(synth, store) -> dict:
+    """Phase 24: ``serve_http`` on 127.0.0.1, port 0, in a thread: /health,
+    /speakers and ``HTTP_CLIENTS`` concurrent POST /synthesize."""
+    box, ready = {}, threading.Event()
+
+    def on_ready(server, service):
+        box.update(server=server, service=service)
+        ready.set()
+
+    def run():
+        box["served"] = serve_http(synth, store, port=0, max_frames=SERVE_FRAMES,
+                                   max_batch=SERVE_MAX_BATCH, ready_cb=on_ready,
+                                   coalesce_wait_ms=HTTP_COALESCE_MS)
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    check(ready.wait(60), "serve_http did not start")
+    base = f"http://127.0.0.1:{box['server'].server_address[1]}"
+    with urllib.request.urlopen(f"{base}/health", timeout=60) as r:
+        health = json.loads(r.read())
+    with urllib.request.urlopen(f"{base}/speakers", timeout=60) as r:
+        speakers = json.loads(r.read())
+    check(health["status"] == "ok" and health["speakers"] == 2, f"/health {health}")
+    check(speakers == ["SSB0000", "SSB0001"], f"/speakers {speakers}")
+    text, _, _ = demo_inputs(synth)
+    reqs = [(f"SSB{i % 2:04d}", text(20 + 4 * i)) for i in range(HTTP_CLIENTS)]
+    results = [None] * HTTP_CLIENTS
+    reset_serving_counters()
+
+    def client(i):
+        spk, txt = reqs[i]
+        body = json.dumps({"text": txt, "speaker": spk}).encode()
+        req = urllib.request.Request(f"{base}/synthesize", data=body, method="POST",
+                                     headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=300) as r:
+            results[i] = (r.status, dict(r.headers), r.read(), (time.perf_counter() - t0) * 1e3)
+
+    clients = [threading.Thread(target=client, args=(i,)) for i in range(HTTP_CLIENTS)]
+    for c in clients:
+        c.start()
+    for c in clients:
+        c.join(timeout=300)
+    counts = read_serving_counters()
+    box["server"].shutdown()
+    th.join(timeout=60)
+    check(not th.is_alive() and all(not c.is_alive() for c in clients), "HTTP threads still run")
+    check(all(r is not None for r in results), "an HTTP request failed")
+    up = synth.v2w_cfg.total_upsample
+    for (spk, txt), (status, headers, body, _) in zip(reqs, results):
+        with wave.open(io.BytesIO(body)) as w:
+            n = w.getnframes()
+            check(w.getframerate() == SAMPLE_RATE and w.getsampwidth() == 2 and status == 200,
+                  f"HTTP answer {status}, {w.getframerate()} Hz")
+        want = synth.text_to_latents([txt], None, max_frames=SERVE_FRAMES,
+                                     t2v_spk_emb=store.t2v_emb_or_fallback(spk))["total_frames"]
+        check(n == min(int(want[0]), SERVE_FRAMES) * up > 0,
+              f"HTTP wav of {n} samples, want {int(want[0])} frames")
+    batched = [int(h["X-Batched"]) for _, h, _, _ in results]
+    lat = [r[3] for r in results]
+    check(max(batched) > 1, f"the HTTP service never coalesced: {batched}")
+    n_batches = round(sum(1 / b for b in batched))
+    check(counts["fused_resblock"] == fused_units(synth.v2w_cfg) * n_batches
+          and counts["gru_fwd"] == n_batches,
+          f"HTTP launches {counts} for {n_batches} batches")
+    print(f"HTTP: /health {health}, {HTTP_CLIENTS} concurrent POST /synthesize (coalescing "
+          f"window {HTTP_COALESCE_MS:g} ms): batched {batched}, client latency median "
+          f"{np.median(lat):.2f} ms, max {max(lat):.2f}; launches {counts}; served "
+          f"{box['served']}")
+    return counts
+
+
+def check_bf16_generator(synth, store) -> None:
+    """Phase 25: the bf16 serving Generator against the f32 one on the
+    512- and 3000-frame requests' latents."""
+    cfg, dev = synth.v2w_cfg, synth.device
+    gen16, state16 = make_serving_generator(cfg, synth.gen.state_dict(), "bf16", device=dev)
+    gen16.load_state_dict(state16, strict=True)
+    x = torch.randn(1, 64, 32, device=dev, dtype=torch.bfloat16)
+    w = torch.randn(3, 32, 32, device=dev, dtype=torch.bfloat16)
+    try:
+        fused_conv_residual(x, w, torch.zeros(32, device=dev, dtype=torch.bfloat16))
+        check(False, "fused_conv_residual took bf16 inputs on the card")
+    except ValueError as e:
+        check("float32" in str(e), f"fused_conv_residual's bf16 refusal: {e}")
+    text, _, _ = demo_inputs(synth)
+    spk = torch.as_tensor(store.vocoder_emb("SSB0000")[None], device=dev)
+    noise = _serve_noise(synth, 1)
+    for frames, chars, alpha in ((512, 40, 1.0), (STREAM_FRAMES, STREAM_CHARS, STREAM_ALPHA)):
+        lat = synth.text_to_latents([text(chars)], None, alpha=alpha, max_frames=frames,
+                                    t2v_spk_emb=store.t2v_emb_or_fallback("SSB0000"),
+                                    keep_device=True)["feat_postnet_output"]
+        fused_conv_residual.launches = 0
+        w16 = gen16(lat, spk, noise)
+        torch.cuda.synchronize()
+        n16 = fused_conv_residual.launches
+        w32 = synth.gen(lat, spk, noise)
+        torch.cuda.synchronize()
+        n32 = fused_conv_residual.launches - n16
+        check(n16 == 0 and n32 == fused_units(cfg), f"fused launches: bf16 {n16}, f32 {n32}")
+        check(w16.dtype == torch.float32 and bool(torch.isfinite(w16).all()),
+              f"bf16 waveform {w16.dtype}, finite {bool(torch.isfinite(w16).all())}")
+        rel = float((w16 - w32).norm() / w32.norm())
+        check(rel <= BF16_WAV_RTOL, f"bf16 vs f32 waveform {rel:.3g} of its norm")
+        ms16 = median_ms(lambda: gen16(lat, spk, noise))
+        ms32 = median_ms(lambda: synth.gen(lat, spk, noise))
+        print(f"bf16 serving Generator, {frames} frames: ||bf16 - f32|| / ||f32|| = {rel:.4g} "
+              f"(tolerance {BF16_WAV_RTOL}), max |diff| {float((w16 - w32).abs().max()):.3g}; "
+              f"fused launches bf16 {n16}, f32 {n32}; Generator ms (median of 3) bf16 "
+              f"{ms16:.3f}, f32 {ms32:.3f} ({ms16 / ms32:.2f}x)")
+
+
+def serve_long_loop(dev, tmp: str) -> dict:
+    """Phase 26: two long-bucket requests (f32, flash; text bucket 768,
+    3072 frames) coalesced through ``serve_loop`` at max_batch 2, each
+    against the same request alone through ``Synthesizer``."""
+    cfg = dataclasses.replace(long_config(), vocab_path="data/demo/vocab.txt")
+    syn = make_synthesizer(dev, cfg)
+    store = SpeakerStore(syn, repo_path("data", "demo", "spk_emb"),
+                         repo_path("data", "demo", "w2v_feat", "train"))
+    text, _, _ = demo_inputs(syn)
+    reqs = [("SSB0000", text(300)), ("SSB0001", text(280))]
+    lines = "".join(f"{s}|{t}\n" for s, t in reqs) + "QUIT\n"
+    serve_loop(syn, store, tmp, max_frames=LONG_T, stdin=io.StringIO(lines),
+               stdout=io.BytesIO(), pcm=True, max_batch=2)  # warm-up
+    reset_serving_counters()
+    stdout = io.BytesIO()
+    t0 = time.perf_counter()
+    n = serve_loop(syn, store, tmp, max_frames=LONG_T, stdin=io.StringIO(lines), stdout=stdout,
+                   pcm=True, max_batch=2)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = read_serving_counters()
+    blocks = [(h, d) for h, d in parse_pcm(stdout.getvalue()) if d is not None]
+    check(n == 2 and len(blocks) == 2 and all("batched=2" in h for h, _ in blocks),
+          f"long-bucket serve_loop: {n} served, {[h for h, _ in blocks]}")
+    n_flash = cfg.encoder_n_layer + cfg.decoder_n_layer
+    check(counts["flash_fwd"] == n_flash and counts["gru_fwd"] == 1
+          and counts["fused_resblock"] == fused_units(syn.v2w_cfg),
+          f"long-bucket serve_loop launches {counts}: one batch of 2")
+    worst = 0
+    for (spk, txt), (_, got) in zip(reqs, blocks):
+        want, n_samples = syn.synthesize([txt], None, store.vocoder_emb(spk)[None],
+                                         max_frames=LONG_T,
+                                         t2v_spk_emb=store.t2v_emb_or_fallback(spk),
+                                         noise=_serve_noise(syn, 1).cpu().numpy(), pcm16=True)
+        k = min(int(n_samples[0]), LONG_T * syn.v2w_cfg.total_upsample)
+        check(got.shape[0] == k > 0, f"long-bucket request: {got.shape[0]} samples, want {k}")
+        worst = max(worst, lsb(got, want[0, :k]))
+    check(worst <= COALESCE_LSB, f"long-bucket serve_loop vs Synthesizer: {worst} LSB")
+    print(f"long-bucket serve_loop (f32, flash, text bucket {LONG_N}, {LONG_T} frames): 2 "
+          f"requests in one batch of 2, {ms:.2f} ms; launches {counts}; each vs Synthesizer "
+          f"alone max {worst} LSB")
+    return counts
+
+
+def check_serving_shapes(synth) -> None:
+    """Phase 27: each kernel of the serving path against its plain version
+    at the shapes phases 22-26 first gave it: the fused unit at the
+    streaming windows' lengths (B = 1) and in a coalesced batch (B =
+    ``SERVE_MAX_BATCH``), the BiGRU at every batch bucket, the f32 flash
+    forward at B = 2 of the long bucket."""
+    dev = synth.device
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    K = conservative_context_frames(synth.v2w_cfg)
+    errs = {}
+    for B, frames in ((1, STREAM_CHUNK + K), (1, STREAM_CHUNK + 2 * K),
+                      (SERVE_MAX_BATCH, SERVE_FRAMES)):
+        err = 0.0
+        for _, C, T, k, d, conv in fused_unit_cases(synth, frames):
+            w = conv.weight().permute(2, 1, 0).contiguous()
+            x = torch.randn((B, T, C), generator=g, device=dev)
+            got = fused_conv_residual(x, w, conv.bias, dilation=d, neg_slope=LRELU_SLOPE)
+            want = conv_residual_plain(x, w, conv.bias, dilation=d, neg_slope=LRELU_SLOPE)
+            err = max(err, (got - want).abs().max().item())
+        check(err <= FUSED_ATOL, f"fused unit at B={B} x {frames} frames: max |err| {err:.3g}")
+        errs[f"fused B={B} x {frames} frames"] = err
+    bigru = synth.t2v.postnet.gru
+    for B in _batch_buckets(SERVE_MAX_BATCH):
+        x = torch.randn((B, SERVE_FRAMES, bigru.hidden_size), generator=g, device=dev)
+        gi, w_hh, b_hh = bigru.recurrence_inputs(x)
+        w_hh = w_hh.to(torch.bfloat16)
+        err = (gru_fwd(gi, w_hh, b_hh) - gru_fwd_plain(gi, w_hh, b_hh)).abs().max().item()
+        check(err <= GRU_ATOL, f"BiGRU at B={B} x {SERVE_FRAMES}: max |err| {err:.3g}")
+        errs[f"BiGRU B={B} x {SERVE_FRAMES}"] = err
+    for T in (LONG_N, LONG_T):
+        q, k, v, seg = flash_case(2, T, torch.float32, SEED)
+        scale = 1.0 / math.sqrt(FLASH_D)
+        out, lse = flash_fwd(q, k, v, seg, scale)
+        want, want_lse = flash_attention_plain(q, k, v, seg, scale)
+        err, lse_err = rel_err(out, want), float((lse - want_lse).abs().max())
+        check(err <= FLASH_F32_RTOL and lse_err <= FLASH_LSE_ATOL,
+              f"f32 flash forward at [2, {FLASH_H}, {T}, {FLASH_D}]: {err:.3g}, lse {lse_err:.3g}")
+        errs[f"flash f32 [2, {FLASH_H}, {T}, {FLASH_D}] (of max)"] = err
+    print("kernels vs plain at the serving shapes (atol: fused "
+          f"{FUSED_ATOL}, BiGRU {GRU_ATOL}; flash {FLASH_F32_RTOL} of max): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+
+
+def serving_stack(dev) -> dict:
+    """Phases 21-25 on phase 2's full-size models (seeded anew), outside
+    inference mode as a server runs; then phase 26."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+        syn = make_synthesizer(dev)
+        synth, store = check_checkpoint_round_trip(syn, tmp)
+        del syn
+        burst = check_serve_loop(synth, store, tmp)
+        stream = check_streaming(synth, store, tmp)
+        http = check_http(synth, store)
+        check_bf16_generator(synth, store)
+        with torch.inference_mode():
+            check_serving_shapes(synth)
+        del synth, store
+        torch.cuda.empty_cache()
+        long_counts = serve_long_loop(dev, tmp)
+    b8 = burst[SERVE_MAX_BATCH]
+    per_batch = {k: v // (b8["n_warm"] + b8["n_batches"]) for k, v in b8["counts"].items()}
+    print(f"launches on the serving path: a request or a coalesced batch of any size "
+          f"{per_batch}; a streamed utterance {stream['counts']} ({stream['windows']} windows); "
+          f"a long-bucket batch {long_counts}")
+    return {k: b8["counts"][k] + stream["counts"][k] + http[k] + long_counts[k]
+            for k in ("fused_resblock", "gru_fwd", "flash_fwd")}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: PyTorch sees no CUDA device; this script runs on an NVIDIA GPU",
@@ -1896,16 +2479,20 @@ def main() -> int:
     train_gan(dev)
     check_gan_step_against_cpu()
     train_gan_loop()
+    torch.cuda.empty_cache()
+
+    serving = serving_stack(dev)
 
     kernels = [
         dict(name="fused_resblock", route="cuda",
              source="wavthruvec_pytorch_tpu_torch/csrc/fused_resblock.cu",
              replaces="wavthruvec_pytorch_tpu/ops/fused_resblock.py:29",
-             launches=launches["fused_resblock"], **fused),
+             launches=launches["fused_resblock"],
+             serving_launches=serving["fused_resblock"], **fused),
         dict(name="gru_fwd", route="cuda",
              source="wavthruvec_pytorch_tpu_torch/csrc/gru_fwd.cu",
              replaces="wavthruvec_pytorch_tpu/ops/gru_pallas.py:41",
-             launches=launches["gru_fwd"], **gru),
+             launches=launches["gru_fwd"], serving_launches=serving["gru_fwd"], **gru),
         dict(name="mas", route="cuda",
              source="wavthruvec_pytorch_tpu_torch/csrc/mas.cu",
              replaces="wavthruvec_pytorch_tpu/ops/mas_pallas.py:30",
@@ -1917,6 +2504,7 @@ def main() -> int:
                             source="wavthruvec_pytorch_tpu_torch/csrc/flash_attn.cu",
                             replaces=f"{flash_src}:{line}", launches=long_launches[name],
                             **flash[name]))
+    next(k for k in kernels if k["name"] == "flash_fwd")["serving_launches"] = serving["flash_fwd"]
     for kern in kernels:
         keys = ("ms", "plain_ms", "bound_ms") + (("f32_ms", "f32_plain_ms", "f32_bound_ms",
                                                    "f32_sdpa_bwd_ms")

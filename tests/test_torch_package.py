@@ -182,8 +182,9 @@ def test_entry_points_raise_without_gpu(monkeypatch):
 def test_unported_flags_raise(flag):
     """An unported flag raises NotImplementedError naming ROADMAP.md.  The
     Text2Vec flags of the long-bucket slice, ``flash_attention`` and
-    ``compute_dtype="bfloat16"``, are ported and build; a bf16 Vec2Wav
-    config still raises."""
+    ``compute_dtype="bfloat16"``, are ported and build, and so does the bf16
+    serving Generator; a bf16 Vec2Wav config (the bf16 GAN step) still
+    raises."""
     if flag == "flash_attention":
         model = Text2Vec(Text2VecConfig(**TINY_T2V, flash_attention=True), device="cpu")
         assert model.encoder.layer_stack[0].slf_attn.use_flash
@@ -197,7 +198,9 @@ def test_unported_flags_raise(flag):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             Text2Vec(Text2VecConfig(**TINY_T2V, attn_use_partial_padding=True), device="cpu")
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            make_serving_generator(Vec2WavConfig(**TINY_V2W), "bf16", device="cpu")
-        assert isinstance(make_serving_generator(Vec2WavConfig(**TINY_V2W), device="cpu"),
-                          Generator)
+        cfg = Vec2WavConfig(**TINY_V2W)
+        state = Generator(cfg, device="cpu").state_dict()
+        gen, _ = make_serving_generator(cfg, state, "bf16", device="cpu")
+        assert next(gen.parameters()).dtype == torch.bfloat16
+        gen, _ = make_serving_generator(cfg, state, device="cpu")
+        assert isinstance(gen, Generator) and next(gen.parameters()).dtype == torch.float32

@@ -10,7 +10,8 @@ compatibility:
   JAX ``gru_impl="pallas"`` kernel computes (bf16 ``w_hh``, f32 carry);
 * ``Text2VecConfig.flash_attention=True`` and ``compute_dtype="bfloat16"``
   are ported (the trainer computes in bf16, serving in f32, as in the JAX
-  package); ``Vec2WavConfig.compute_dtype != "float32"`` and
+  package); ``Vec2WavConfig.compute_dtype != "float32"`` (the bf16 GAN
+  step; bf16 serving goes through ``make_serving_generator``) and
   ``attn_use_partial_padding=True`` are not ported yet, nor is
   ``flash_attention=True`` with a head dim above 256; they raise
   ``NotImplementedError`` where a model is built.  GAN training refuses
@@ -208,9 +209,10 @@ def check_ported(cfg, training: bool = False) -> None:
     ``training`` adds the flags that only GAN training reads."""
     if isinstance(cfg, Vec2WavConfig) and cfg.compute_dtype != "float32":
         raise NotImplementedError(
-            f"Vec2WavConfig.compute_dtype={cfg.compute_dtype!r} is not ported; the "
-            "Generator, the discriminators and the GAN step compute in float32 (ROADMAP.md, "
-            "queue 1 item 3: the bf16 serving Generator and the bf16 GAN step)."
+            f"Vec2WavConfig.compute_dtype={cfg.compute_dtype!r} (the bf16 GAN step) is not "
+            "ported; the discriminators and the GAN step compute in float32 (ROADMAP.md, "
+            "queue 1 item 3).  bf16 serving is ported and does not read this field: build "
+            "it with infer.synthesize.make_serving_generator(cfg, state, 'bf16')."
         )
     if training and isinstance(cfg, Vec2WavConfig):
         for flag in ("split", "device_resident_data"):

@@ -204,20 +204,33 @@ def _norm_except(v: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.sqrt(torch.sum(v * v, dim=dims, keepdim=True) + 1e-32)
 
 
+def _conv_bias(y: torch.Tensor, bias, dt) -> torch.Tensor:
+    """A convolution's bias add in ``dt`` after the product, over [B, C, T]."""
+    return y if bias is None else y + bias.to(dt)[:, None]
+
+
 class WNConv1d(nn.Module):
     """weight_norm(Conv1d) over ``[B, T, C]`` (``conv``: over ``[B, C, T]``):
     ``weight_g`` [out, 1, 1], ``weight_v`` [out, in / groups, k], ``bias``
     [out]; the norm is per output channel.  ``w_std`` selects HiFi-GAN's
-    N(0, w_std) init of ``v``; ``g`` starts at ``||v||``."""
+    N(0, w_std) init of ``v``; ``g`` starts at ``||v||``.
+
+    ``folded`` (JAX: ``WNConv1d(folded=True)``): ``weight_v`` already holds
+    the normed kernel (``models.vec2wav.fold_weight_norm``) and is used as
+    it is.  ``dtype`` casts the input, kernel and bias to it, with the bias
+    added after the product (flax's two roundings)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  padding: int = 0, dilation: int = 1, bias: bool = True,
-                 w_std: float | None = None, stride: int = 1, groups: int = 1, device=None):
+                 w_std: float | None = None, stride: int = 1, groups: int = 1,
+                 folded: bool = False, dtype=None, device=None):
         super().__init__()
         self.padding = padding
         self.dilation = dilation
         self.stride = stride
         self.groups = groups
+        self.folded = folded
+        self.compute_dtype = dtype
         fan_in = in_channels // groups * kernel_size
         v = torch.empty(out_channels, in_channels // groups, kernel_size, device=device)
         if w_std is not None:
@@ -234,13 +247,20 @@ class WNConv1d(nn.Module):
             self.bias = None
 
     def weight(self) -> torch.Tensor:
-        """The weight-normed kernel g * v / ||v||, torch layout [out, in / groups, k]."""
+        """The weight-normed kernel g * v / ||v|| (``v`` itself when
+        ``folded``), torch layout [out, in / groups, k]."""
+        if self.folded:
+            return self.weight_v
         return self.weight_g * self.weight_v / _norm_except(self.weight_v, 0)
 
     def conv(self, x: torch.Tensor) -> torch.Tensor:
         """[B, C_in, T] -> [B, C_out, T_out]."""
-        return F.conv1d(x, self.weight(), self.bias, stride=self.stride, padding=self.padding,
-                        dilation=self.dilation, groups=self.groups)
+        kw = dict(stride=self.stride, padding=self.padding, dilation=self.dilation,
+                  groups=self.groups)
+        dt = self.compute_dtype
+        if dt is None:
+            return F.conv1d(x, self.weight(), self.bias, **kw)
+        return _conv_bias(F.conv1d(x.to(dt), self.weight().to(dt), **kw), self.bias, dt)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x.transpose(1, 2)).transpose(1, 2).contiguous()
@@ -271,13 +291,17 @@ class WNConv2d(nn.Module):
 
 class WNConvTranspose1d(nn.Module):
     """weight_norm(ConvTranspose1d) over ``[B, T, C]``: ``weight_g`` [in, 1, 1],
-    ``weight_v`` [in, out, k]; output length ``(T-1)*stride - 2*padding + k``."""
+    ``weight_v`` [in, out, k]; output length ``(T-1)*stride - 2*padding + k``.
+    ``folded`` and ``dtype`` as in ``WNConv1d``."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int, padding: int = 0, w_std: float = 0.01, device=None):
+                 stride: int, padding: int = 0, w_std: float = 0.01,
+                 folded: bool = False, dtype=None, device=None):
         super().__init__()
         self.stride = stride
         self.padding = padding
+        self.folded = folded
+        self.compute_dtype = dtype
         v = torch.empty(in_channels, out_channels, kernel_size, device=device)
         nn.init.normal_(v, 0.0, w_std)
         self.weight_v = nn.Parameter(v)
@@ -287,9 +311,16 @@ class WNConvTranspose1d(nn.Module):
             torch.empty(out_channels, device=device).uniform_(-bound, bound))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.weight_g * self.weight_v / _norm_except(self.weight_v, 0)
-        y = F.conv_transpose1d(x.transpose(1, 2), w, self.bias,
-                               stride=self.stride, padding=self.padding)
+        w = self.weight_v
+        if not self.folded:
+            w = self.weight_g * w / _norm_except(w, 0)
+        kw = dict(stride=self.stride, padding=self.padding)
+        dt = self.compute_dtype
+        if dt is None:
+            y = F.conv_transpose1d(x.transpose(1, 2), w, self.bias, **kw)
+        else:
+            y = _conv_bias(F.conv_transpose1d(x.transpose(1, 2).to(dt), w.to(dt), **kw),
+                           self.bias, dt)
         return y.transpose(1, 2).contiguous()
 
 
@@ -341,7 +372,7 @@ class SpectralNormDense(_SpectralNorm):
         self._init_vectors(out_features, in_features, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight_orig / self.sigma(), self.bias)
+        return dense(x, self.weight_orig / self.sigma(), self.bias)
 
 
 class SpectralNormConv1d(_SpectralNorm):

@@ -21,6 +21,15 @@ kernel, on the CPU its plain version; it is built in eval mode and runs under
 trains, as in the JAX package: its units are plain ``WNConv1d`` calls, and
 its train/eval modes are honoured.
 
+The bf16 serving Generator (JAX: ``Generator(folded=True,
+dtype=bfloat16)``, built by ``infer.synthesize.make_serving_generator``)
+takes a state dict folded by ``fold_weight_norm`` and stores every
+parameter and statistic in bf16.  Its convolutions compute in bf16; what
+flax computes in the promotion of an f32 input and bf16 parameters stays
+f32, as there: the ``fcs`` and the speaker projection of each CBN, the CBN's
+affine, so the residual stream between stages.  Its ResBlock2 units do not
+launch the fused kernel (``fused_supported``).
+
 Layouts: the Generator takes and returns ``[B, T, C]`` and ``[B, L, 1]``;
 the discriminators take waveforms ``[B, L, 1]`` and compute in torch's
 layout, so their feature maps are ``[B, C, H, W]`` (MPD) and ``[B, C, T]``
@@ -29,7 +38,7 @@ layout, so their feature maps are ``[B, C, H, W]`` (MPD) and ``[B, C, T]``
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Mapping, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -41,11 +50,15 @@ from wavthruvec_pytorch_tpu_torch.models.layers import (
     BatchNorm,
     SpectralNormConv1d,
     SpectralNormDense,
+    TorchLinear,
     WNConv1d,
     WNConv2d,
     WNConvTranspose1d,
 )
-from wavthruvec_pytorch_tpu_torch.ops.fused_resblock import fused_conv_residual
+from wavthruvec_pytorch_tpu_torch.ops.fused_resblock import (
+    conv_residual_plain,
+    fused_conv_residual,
+)
 
 LRELU_SLOPE = 0.1
 
@@ -74,15 +87,16 @@ class ResBlock1(nn.Module):
     """3 x (lrelu -> dilated conv -> lrelu -> conv) residual (models.py:13-50)."""
 
     def __init__(self, channels: int, kernel_size: int = 3,
-                 dilation: Sequence[int] = (1, 3, 5), device=None):
+                 dilation: Sequence[int] = (1, 3, 5), folded: bool = False, dtype=None,
+                 device=None):
         super().__init__()
+        wn = dict(w_std=0.01, folded=folded, dtype=dtype, device=device)
         self.convs1 = nn.ModuleList(
             WNConv1d(channels, channels, kernel_size, padding=get_padding(kernel_size, d),
-                     dilation=d, w_std=0.01, device=device)
+                     dilation=d, **wn)
             for d in dilation[:3])
         self.convs2 = nn.ModuleList(
-            WNConv1d(channels, channels, kernel_size, padding=get_padding(kernel_size, 1),
-                     w_std=0.01, device=device)
+            WNConv1d(channels, channels, kernel_size, padding=get_padding(kernel_size, 1), **wn)
             for _ in dilation[:3])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -92,38 +106,59 @@ class ResBlock1(nn.Module):
         return x
 
 
+def fused_supported(dtype: torch.dtype) -> bool:
+    """Whether a ResBlock2 unit of a serving Generator launches the fused
+    kernel: the dtype clause of the JAX package's gate, ``dtype in (float32,
+    None)`` (``ops/fused_resblock.py:153``).  A bf16 unit takes XLA's
+    convolution there and ``conv_residual_plain`` in bf16 here, on every
+    device; ``fused_conv_residual`` itself refuses anything but f32 on the
+    card.  The JAX gate's shape clauses (C % 128, T % 8, a halo) are the TPU
+    kernel's; the CUDA kernel takes every width and length."""
+    return dtype == torch.float32
+
+
 class ResBlock2(nn.Module):
     """2 x (lrelu -> dilated conv -> + residual) units (models.py:53-70):
-    ``fused`` runs each unit through ``fused_conv_residual``, else through
-    ``WNConv1d`` as autograd sees it."""
+    ``fused`` runs each unit through ``fused_conv_residual`` where
+    ``fused_supported`` admits its dtype, else through ``conv_residual_plain``
+    (the bf16 serving Generator); without ``fused`` through ``WNConv1d`` as
+    autograd sees it."""
 
     def __init__(self, channels: int, kernel_size: int = 3,
-                 dilation: Sequence[int] = (1, 3), fused: bool = True, device=None):
+                 dilation: Sequence[int] = (1, 3), fused: bool = True, folded: bool = False,
+                 dtype=None, device=None):
         super().__init__()
         self.dilations = tuple(dilation[:2])
         self.fused = fused
         self.convs = nn.ModuleList(
             WNConv1d(channels, channels, kernel_size, padding=get_padding(kernel_size, d),
-                     dilation=d, w_std=0.01, device=device)
+                     dilation=d, w_std=0.01, folded=folded, dtype=dtype, device=device)
             for d in self.dilations)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for conv, d in zip(self.convs, self.dilations):
-            if self.fused:
-                w = conv.weight().permute(2, 1, 0).contiguous()  # [k, C_in, C_out]
-                x = fused_conv_residual(x, w, conv.bias, dilation=d, neg_slope=LRELU_SLOPE)
-            else:
+            if not self.fused:
                 x = conv(F.leaky_relu(x, LRELU_SLOPE)) + x
+                continue
+            w = conv.weight().permute(2, 1, 0)  # [k, C_in, C_out], the compute dtype
+            if fused_supported(w.dtype):
+                x = fused_conv_residual(x, w.contiguous(), conv.bias, dilation=d,
+                                        neg_slope=LRELU_SLOPE)
+            else:
+                x = conv_residual_plain(x, w, conv.bias, dilation=d, neg_slope=LRELU_SLOPE)
         return x
 
 
 class Generator(nn.Module):
     """latents [B, T, n_feat] + spk_emb [B, spk_dim] + noise [B, noise_dim]
     -> waveform [B, T * prod(upsample_rates), 1].  ``fused`` selects the
-    serving Generator (see the module docstring); ``device`` defaults to the
-    card and raises without one."""
+    serving Generator (see the module docstring); ``folded`` takes a state
+    dict of ``fold_weight_norm``; ``dtype`` (bf16 serving) stores the
+    parameters in that dtype and runs the convolutions in it.  ``device``
+    defaults to the card and raises without one."""
 
-    def __init__(self, cfg: Vec2WavConfig, device=None, fused: bool = True):
+    def __init__(self, cfg: Vec2WavConfig, device=None, fused: bool = True,
+                 folded: bool = False, dtype=None):
         super().__init__()
         check_ported(cfg)
         device = resolve_device(device)
@@ -131,7 +166,8 @@ class Generator(nn.Module):
         self.fused = fused
         self.num_kernels = len(cfg.resblock_kernel_sizes)
         ch0 = cfg.upsample_initial_channel
-        self.conv_pre = WNConv1d(cfg.n_feat_dim, ch0, 7, padding=3, device=device)
+        wn = dict(folded=folded, dtype=dtype, device=device)
+        self.conv_pre = WNConv1d(cfg.n_feat_dim, ch0, 7, padding=3, **wn)
         self.ups = nn.ModuleList()
         self.fcs = nn.ModuleList()
         self.cbns = nn.ModuleList()
@@ -139,16 +175,18 @@ class Generator(nn.Module):
         for i, (u, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes)):
             ch = ch0 // (2 ** (i + 1))
             self.ups.append(WNConvTranspose1d(ch0 // (2 ** i), ch, k, u, padding=(k - u) // 2,
-                                              device=device))
-            self.fcs.append(nn.Linear(cfg.spk_dim + cfg.noise_dim, 128, device=device))
+                                              **wn))
+            self.fcs.append(TorchLinear(cfg.spk_dim + cfg.noise_dim, 128, device=device))
             self.cbns.append(ConditionalBatchNorm(ch, device=device))
             for rk, rd in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes):
                 if cfg.use_resblock1:
-                    self.resblocks.append(ResBlock1(ch, rk, rd, device=device))
+                    self.resblocks.append(ResBlock1(ch, rk, rd, **wn))
                 else:
-                    self.resblocks.append(ResBlock2(ch, rk, rd, fused=fused, device=device))
+                    self.resblocks.append(ResBlock2(ch, rk, rd, fused=fused, **wn))
         self.conv_post = WNConv1d(ch0 // (2 ** len(cfg.upsample_rates)), 1, 7, padding=3,
-                                  w_std=0.01, device=device)
+                                  w_std=0.01, **wn)
+        if dtype is not None:
+            self.to(dtype)
         if fused:
             self.eval()
 
@@ -173,6 +211,28 @@ class Generator(nn.Module):
             x = xs / self.num_kernels
         x = self.conv_post(F.leaky_relu(x))  # torch's default slope 0.01 (models.py:143)
         return torch.tanh(x)
+
+
+def fold_weight_norm(state: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Inference export of a Generator state dict (JAX package:
+    ``models/vec2wav.py:463-492``; the reference's ``remove_weight_norm``,
+    vec2wav/models.py:149-156): every weight-norm pair ``X.weight_g``,
+    ``X.weight_v`` becomes ``weight_v`` = g * v / ||v|| (the normed kernel
+    that ``Generator(folded=True)`` uses as it is) and ``weight_g`` = its
+    norms, each norm over the dims where ``weight_g`` has size 1, with the
+    same 1e-32 under the root.  Spectral norm's ``weight_v`` (no
+    ``weight_g`` beside it) and every other entry pass unchanged."""
+    out = dict(state)
+    for key, g in state.items():
+        if not key.endswith(".weight_g"):
+            continue
+        v_key = key[: -len("weight_g")] + "weight_v"
+        v = state[v_key]
+        dims = [d for d in range(v.dim()) if g.shape[d] == 1]
+        kernel = g * v / torch.sqrt(torch.sum(v * v, dim=dims, keepdim=True) + 1e-32)
+        out[v_key] = kernel
+        out[key] = torch.sqrt(torch.sum(kernel * kernel, dim=dims, keepdim=True) + 1e-32)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -4,10 +4,13 @@ version beside it.
 
 JAX counterpart: ``wavthruvec_pytorch_tpu/ops/fused_resblock.py``
 (``fused_conv_residual`` and its oracle ``conv_residual_reference``).  The
-port's serving Generator (``fused=True``) runs every ResBlock2 unit through
-``fused_conv_residual``: on a CUDA tensor it launches the kernel, on a CPU
-tensor it runs ``conv_residual_plain``.  The training Generator
-(``fused=False``) does not call it.
+port's f32 serving Generator (``fused=True``) runs every ResBlock2 unit
+through ``fused_conv_residual``: on a CUDA tensor it launches the kernel, on
+a CPU tensor it runs ``conv_residual_plain``.  The training Generator
+(``fused=False``) does not call it, nor does the bf16 serving Generator,
+whose units take ``conv_residual_plain`` in bf16 on every device
+(``models.vec2wav.fused_supported``), as the JAX package's bf16 units take
+XLA's convolution.
 """
 
 from __future__ import annotations
@@ -23,11 +26,20 @@ from wavthruvec_pytorch_tpu_torch.ops import kernel_build
 def conv_residual_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                         dilation: int = 1, neg_slope: float = 0.1) -> torch.Tensor:
     """x [B, T, C], w [k, C_in, C_out], b [C_out] -> lrelu -> dilated conv
-    with "same" zero padding (k*d - d)//2 -> + b + x."""
+    with "same" zero padding (k*d - d)//2 -> + b + x.
+
+    The convolution runs in ``w``'s dtype.  With bf16 ``w`` and ``b`` and an
+    f32 ``x`` (the bf16 serving Generator's units) it is the JAX package's
+    XLA branch of a bf16 unit: lrelu(x) rounded to bf16, the product in
+    bf16, ``b`` added in bf16 after it, the residual in f32."""
     k = w.shape[0]
     pad = (k * dilation - dilation) // 2
     xt = F.leaky_relu(x, neg_slope).transpose(1, 2)
-    y = F.conv1d(xt, w.permute(2, 1, 0), b, padding=pad, dilation=dilation)
+    wt = w.permute(2, 1, 0)
+    if w.dtype == x.dtype:
+        y = F.conv1d(xt, wt, b, padding=pad, dilation=dilation)
+    else:
+        y = F.conv1d(xt.to(w.dtype), wt, padding=pad, dilation=dilation) + b.to(w.dtype)[:, None]
     return y.transpose(1, 2) + x
 
 

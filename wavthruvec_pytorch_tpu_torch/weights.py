@@ -126,9 +126,11 @@ def _generator_spec(cfg) -> Spec:
               ("lin", f"fcs.{i}", f"fcs_{i}/Dense_0"),
               ("bn_na", f"cbns.{i}.batch_nrom", f"cbns_{i}/batch_norm"),
               ("snlin", f"cbns.{i}.layer", f"cbns_{i}/layer")]
-    for n in range(len(cfg.upsample_rates) * len(cfg.resblock_kernel_sizes)):
+    n_kernels = len(cfg.resblock_kernel_sizes)
+    for n in range(len(cfg.upsample_rates) * n_kernels):
         if cfg.use_resblock1:
-            for j in range(3):
+            # one unit per dilation, at most 3 (ResBlock1 takes dilation[:3])
+            for j in range(len(cfg.resblock_dilation_sizes[n % n_kernels][:3])):
                 s += [("wn", f"resblocks.{n}.convs1.{j}", f"resblocks_{n}/convs1_{j}"),
                       ("wn", f"resblocks.{n}.convs2.{j}", f"resblocks_{n}/convs2_{j}")]
         else:
