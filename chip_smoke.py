@@ -61,7 +61,8 @@ Then the Text2Vec training slice, on the same full-size Text2Vec config:
    the total loss must fall over the repeated batch.  Counters, set to 0
    just before the timed steps: one MAS launch, one BiGRU forward launch
    (one device launch) and one BiGRU backward per step.  Then ``text2vec_loop.main`` trains 3
-   steps on the demo corpus (``data/demo/text2vec.json``).
+   steps on the demo corpus (``data/demo/text2vec.json``; its run directory under a
+   temporary one).
 9. The MAS kernel against its plain version, variable lengths, exact
    zeros in the valid region, the hard maps equal in every cell: at
    (B, T, N) = (16, 1024, 64) (the training step's), (16, 3000, 128),
@@ -164,7 +165,8 @@ scales), with seeded random weights and conv_post's gain set as in phase 2
     per tensor (the upsamplers' biases, 0 but for rounding, only in the
     former), every running statistic and spectral vector after the step
     within ``GAN_STATE_RTOL``.
-20. ``vec2wav_loop.main`` trains 3 steps on the demo corpus.
+20. ``vec2wav_loop.main`` trains 3 steps on the demo corpus (whole
+    utterances; its run directory under a temporary one).
 
 Then the serving stack, on phase 2's full-size models (seeded anew; conv_post's
 gain and the duration bias set as there), the demo speakers
@@ -209,10 +211,44 @@ after:
     a batch of ``SERVE_MAX_BATCH``, the BiGRU at every batch bucket, the f32
     flash forward at B = 2 of the long bucket.
 
+Then the training loops as jobs, at full size on the demo corpus, in one
+temporary directory; the counters are set to 0 just before each loop or
+request and read just after:
+
+28. ``text2vec_loop.main`` on ``data/demo/text2vec.json`` with
+    ``--validate``: ``LOOP_STEPS`` steps, a save, a log and a validation
+    every ``LOOP_EVERY``.  ``checkpoint_{3,6}.pth.tar``, ``config.json``,
+    ``logger/logger.txt`` and the scalars (TensorBoard events or
+    ``scalars.jsonl``, the backend printed) must exist; every training loss
+    must be finite, every validation loss finite or its batch counted
+    non-finite; MAS and the BiGRU launch once a training step and once a
+    validation batch, exactly.  Prints the median step (host clock between
+    steps, the scalars fetched every step), each save's and validation's
+    seconds and the card line.
+29. ``--restore_step 3``: the loaded weights and LAMB state bit-equal to
+    ``checkpoint_3.pth.tar``'s, the run going on at step 4.  Then, with
+    dropout 0 on one full-size synthetic batch (B = 16 x 1024 frames,
+    phase 8's) and cuDNN's deterministic algorithms: a step, a save, a load
+    into a trainer of another seed and one step, against the unbroken
+    trainer's next step: losses within ``RESUME_LOSS_RTOL``, weights within
+    ``RESUME_WEIGHT_RTOL`` of their norm (bit-equality printed).
+30. ``vec2wav_loop.main`` on ``data/demo/vec2wav.json`` with ``split=True``
+    (windows of 25 latent frames and 8000 samples; a batch's shapes
+    printed): ``GAN_LOOP_STEPS`` steps with a save and a validation every 2
+    and a log every step, then a run that resumes from the newest
+    ``g_``/``do_`` pair for ``GAN_LOOP_MORE`` more.  The files of steps 2,
+    3, 4 and 5, the resumed step number, finite losses and validation mel
+    L1, and the last pair loaded bit-equal (AdamW states, spectral
+    vectors).  No kernel of the port launches.
+31. The files phases 28 and 30 wrote, served: the run's ``config.json``,
+    ``checkpoint_6.pth.tar`` and the last ``g_`` through
+    ``init_import_models`` and one ``Synthesizer`` request: 30 fused
+    launches and 1 BiGRU launch, a finite waveform.
+
 Every float32 product and convolution in this run is full float32: TF32 is
 off for matmuls and cuDNN.  The second-to-last line is a JSON object with
 one entry per kernel (``serving_launches``: the launches of phases 22-24
-and 26); the last line is
+and 26; ``loop_launches``: those of phases 28-31); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -239,6 +275,7 @@ import torch.nn.functional as F
 from scipy.io import wavfile
 
 from wavthruvec_pytorch_tpu_torch import cli
+from wavthruvec_pytorch_tpu_torch.checkpoint import load_text2vec, load_vec2wav, save_text2vec
 
 from wavthruvec_pytorch_tpu_torch.config import (
     Text2VecConfig,
@@ -247,7 +284,12 @@ from wavthruvec_pytorch_tpu_torch.config import (
     repo_path,
 )
 from wavthruvec_pytorch_tpu_torch.data.prior import beta_binomial_prior_distribution
-from wavthruvec_pytorch_tpu_torch.data.vocoder_data import mel_spectrogram_np
+from wavthruvec_pytorch_tpu_torch.data.vocoder_data import (
+    VocoderDataset,
+    VocoderLoader,
+    get_dataset_filelist,
+    mel_spectrogram_np,
+)
 from wavthruvec_pytorch_tpu_torch.entry import entry
 from wavthruvec_pytorch_tpu_torch.infer.http_serve import serve_http
 from wavthruvec_pytorch_tpu_torch.infer.serve import (
@@ -260,7 +302,11 @@ from wavthruvec_pytorch_tpu_torch.infer.streaming import (
     StreamingVocoder,
     conservative_context_frames,
 )
-from wavthruvec_pytorch_tpu_torch.infer.synthesize import Synthesizer, make_serving_generator
+from wavthruvec_pytorch_tpu_torch.infer.synthesize import (
+    Synthesizer,
+    init_import_models,
+    make_serving_generator,
+)
 from wavthruvec_pytorch_tpu_torch.models.text2vec import Text2Vec
 from wavthruvec_pytorch_tpu_torch.models.vec2wav import (
     LRELU_SLOPE,
@@ -303,6 +349,7 @@ from wavthruvec_pytorch_tpu_torch.text import TextFrontend
 from wavthruvec_pytorch_tpu_torch.train import text2vec_loop, vec2wav_loop
 from wavthruvec_pytorch_tpu_torch.train.text2vec_train import (
     SCALAR_KEYS,
+    VAL_KEYS,
     Text2VecTrainer,
     make_padded_batch,
 )
@@ -408,6 +455,17 @@ STREAM_ATOL = 1e-4
 # over 5 stages (the JAX package's bf16 Generator lies 0.087 of the norm from
 # its f32 one at the CPU tests' small config, tests/test_torch_serving_bf16.py)
 BF16_WAV_RTOL = 0.25
+
+# the training loops as jobs: Text2Vec steps with a save, a log and a
+# validation every LOOP_EVERY; GAN steps, then the resumed run's
+LOOP_STEPS, LOOP_EVERY = 6, 3
+GAN_LOOP_STEPS, GAN_LOOP_MORE = 4, 2
+# save, load and one step against the unbroken trainer's step on the card
+# (cuDNN deterministic): the same kernels on the same inputs, measured
+# bit-equal on an H100 80GB HBM3 at 700 W; the tolerance leaves room for
+# atomic sums outside cuDNN, which may take another order at f32 rounding
+RESUME_LOSS_RTOL = 1e-5
+RESUME_WEIGHT_RTOL = 1e-5
 
 
 def check(cond: bool, msg: str) -> None:
@@ -997,10 +1055,14 @@ def train(dev):
     launches = timed_training(trainer, batch, frames, "training",
                               dict(mas=1, gru_fwd=1, gru_bwd=1))
 
-    history = text2vec_loop.main(load_config(Text2VecConfig, repo_path("data", "demo",
-                                                                       "text2vec.json")), 3)
-    check(len(history) == 3 and all(math.isfinite(v) for h in history for v in h.values()),
-          f"text2vec_loop: {history}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_t2v_") as tmp:
+        cfg = dataclasses.replace(load_config(Text2VecConfig, repo_path("data", "demo",
+                                                                        "text2vec.json")),
+                                  run_path=tmp)
+        history = text2vec_loop.main(text2vec_loop.parse_args(["--max_steps", "3"]),
+                                     cfg=cfg).steps
+    check(len(history) == 3 and all(math.isfinite(v) for h in history.values()
+                                    for v in h.values()), f"text2vec_loop: {history}")
     return trainer, batch, launches
 
 
@@ -1930,9 +1992,11 @@ def check_gan_step_against_cpu():
 
 def train_gan_loop():
     """Phase 20: ``vec2wav_loop.main`` trains 3 steps on the demo corpus."""
-    history = vec2wav_loop.main(gan_config(), 3)
-    check(len(history) == 3 and all(math.isfinite(v) for h in history for v in h.values()),
-          f"vec2wav_loop: {history}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_v2w_") as tmp:
+        history = vec2wav_loop.main(vec2wav_loop.parse_args(["--max_steps", "3"]),
+                                    cfg=dataclasses.replace(gan_config(), run_path=tmp)).steps
+    check(len(history) == 3 and all(math.isfinite(v) for h in history.values()
+                                    for v in h.values()), f"vec2wav_loop: {history}")
 
 
 # ---------------------------------------------------------------------------
@@ -2432,6 +2496,294 @@ def serving_stack(dev) -> dict:
             for k in ("fused_resblock", "gru_fwd", "flash_fwd")}
 
 
+# ---------------------------------------------------------------------------
+# The training loops as jobs (phases 28-31)
+# ---------------------------------------------------------------------------
+
+def read_loop_counters() -> dict:
+    return dict(read_counters(), fused_resblock=fused_conv_residual.launches)
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def tensors_equal(a, b) -> bool:
+    """Two nested state dicts hold the same keys and bit-equal tensors."""
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a.cpu(), b.cpu())
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(tensors_equal(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(tensors_equal(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def t2v_loop_config(tmp: str) -> Text2VecConfig:
+    """The full-size demo config with its run directory under ``tmp`` and
+    a save, a log and a validation every ``LOOP_EVERY`` steps."""
+    return dataclasses.replace(load_config(Text2VecConfig, repo_path("data", "demo",
+                                                                     "text2vec.json")),
+                               run_path=os.path.join(tmp, "t2v"), save_step=LOOP_EVERY,
+                               log_step=LOOP_EVERY, val_step=LOOP_EVERY)
+
+
+def train_t2v_loop(tmp: str, loop_counts: dict) -> Text2VecConfig:
+    """Phase 28: ``text2vec_loop.main`` at full size on the demo corpus:
+    ``LOOP_STEPS`` steps with ``--validate``, the scalars fetched every step
+    (so that the host clock between steps reads a step).  Its files, its
+    losses and its launches: one MAS and one BiGRU launch a training step
+    and a validation batch."""
+    cfg = t2v_loop_config(tmp)
+    with open(cfg.val_list[0], encoding="utf-8") as f:
+        val_batches = sum(1 for line in f if line.strip()) // cfg.batch_size
+    args = text2vec_loop.parse_args(["--max_steps", str(LOOP_STEPS), "--validate",
+                                     "--metric_flush_steps", "1"])
+    reset_serving_counters()
+    t0 = time.perf_counter()
+    rec = text2vec_loop.main(args, cfg=cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_loop_counters()
+    add_counts(loop_counts, counts)
+    run = os.path.join(cfg.run_path, cfg.log_seed)
+    files = [os.path.join("model_new", f"checkpoint_{s}.pth.tar")
+             for s in range(LOOP_EVERY, LOOP_STEPS + 1, LOOP_EVERY)]
+    files += ["config.json", os.path.join("logger", "logger.txt")]
+    missing = [f for f in files if not os.path.isfile(os.path.join(run, f))]
+    check(not missing, f"text2vec_loop wrote no {missing}")
+    scalars = os.listdir(os.path.join(run, "tb_logs"))
+    check(("scalars.jsonl" in scalars) if rec.backend == "jsonl"
+          else any(n.startswith("events.out.tfevents") for n in scalars),
+          f"text2vec_loop: {rec.backend} scalars missing: {scalars}")
+    check(sorted(rec.steps) == list(range(1, LOOP_STEPS + 1))
+          and all(math.isfinite(v) for h in rec.steps.values() for v in h.values()),
+          f"text2vec_loop losses {rec.steps}")
+    n_val = len(rec.validations)
+    check(n_val == LOOP_STEPS // LOOP_EVERY, f"text2vec_loop validations {rec.validations}")
+    for step, v in rec.validations.items():
+        finite = all(math.isfinite(v[k]) for k in VAL_KEYS)
+        check(finite or v["nonfinite_batches"] > 0, f"validation at {step}: {v}")
+        print(f"  validation at step {step}: " + ", ".join(
+            f"{k} {v[k]:.4f}" for k in VAL_KEYS) + f", non-finite batches "
+            f"{v['nonfinite_batches']} of {val_batches}, {v['seconds']:.2f} s")
+    n_fwd = LOOP_STEPS + n_val * val_batches
+    check(counts["mas"] == n_fwd and counts["gru_fwd"] == n_fwd
+          and counts["gru_bwd"] == LOOP_STEPS and counts["fused_resblock"] == 0,
+          f"text2vec_loop launches {counts}: want MAS and BiGRU {LOOP_STEPS} steps + "
+          f"{n_val * val_batches} validation batches")
+    step_s = [rec.seconds[s] for s in sorted(rec.seconds)]
+    size = os.path.getsize(os.path.join(run, files[0])) / 2**20
+    print(f"text2vec_loop at full size: {LOOP_STEPS} steps (B = {cfg.batch_size}, demo corpus), "
+          f"{wall:.1f} s of wall time; logger backend {rec.backend}; median step "
+          f"{1e3 * float(np.median(step_s)):.2f} ms (host clock between steps, steps 2-"
+          f"{LOOP_STEPS}: " + " ".join(f"{1e3 * t:.1f}" for t in step_s) + "); saves "
+          + ", ".join(f"step {k} {v:.2f} s" for k, v in rec.saves.items())
+          + f" ({size:.0f} MiB a file); validations "
+          + ", ".join(f"step {k} {v['seconds']:.2f} s" for k, v in rec.validations.items())
+          + f"; launches {counts}; {card_line()}")
+    print("  losses: " + "; ".join(f"{s}: " + " ".join(f"{x:.4f}" for x in h.values())
+                                    for s, h in rec.steps.items()))
+    return cfg
+
+
+def resume_t2v(cfg: Text2VecConfig, loop_counts: dict) -> None:
+    """Phase 29: ``--restore_step`` after phase 28, then save, load and step
+    against an unbroken trainer."""
+    path = os.path.join(cfg.checkpoint_path, f"checkpoint_{LOOP_EVERY}.pth.tar")
+    frontend = TextFrontend.from_vocab_file(cfg.vocab_path)
+    torch.manual_seed(SEED + 1)
+    trainer = Text2VecTrainer(dataclasses.replace(cfg, vocab_size=frontend.vocab_size))
+    t0 = time.perf_counter()
+    epoch = load_text2vec(path, trainer)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    saved = torch.load(path, map_location="cpu", weights_only=False)
+    state = trainer.state_dict()
+    check(tensors_equal(state["model"], saved["model"])
+          and tensors_equal(state["optimizer"], saved["optimizer"])
+          and trainer.step_count == LOOP_EVERY,
+          f"checkpoint_{LOOP_EVERY}.pth.tar: loaded state differs from the file's")
+    n_moments = sum(len(v) for v in state["optimizer"]["state"].values())
+    del trainer, state, saved
+    args = text2vec_loop.parse_args(["--max_steps", str(LOOP_EVERY + 1), "--restore_step",
+                                     str(LOOP_EVERY), "--metric_flush_steps", "1"])
+    reset_serving_counters()
+    rec = text2vec_loop.main(args, cfg=cfg)
+    counts = read_loop_counters()
+    add_counts(loop_counts, counts)
+    check(sorted(rec.steps) == [LOOP_EVERY + 1]
+          and all(math.isfinite(v) for v in rec.steps[LOOP_EVERY + 1].values()),
+          f"--restore_step {LOOP_EVERY}: steps {rec.steps}")
+    check(counts["mas"] == 1 and counts["gru_fwd"] == 1, f"resumed step launches {counts}")
+    print(f"--restore_step {LOOP_EVERY}: weights and LAMB state ({n_moments} moment tensors) "
+          f"bit-equal to checkpoint_{LOOP_EVERY}.pth.tar (epoch {epoch}), loaded in "
+          f"{load_s:.2f} s; the run went on at step {LOOP_EVERY + 1}, losses "
+          + " ".join(f"{v:.4f}" for v in rec.steps[LOOP_EVERY + 1].values()))
+
+    # save, load and one step against the unbroken trainer's step, dropout 0
+    step_cfg = dataclasses.replace(train_config(), dropout=0.0)
+    host = synthetic_batch(step_cfg, TRAIN_B, TRAIN_N, TRAIN_T, SEED)
+    torch.backends.cudnn.deterministic = True
+    try:
+        torch.manual_seed(SEED)
+        unbroken = Text2VecTrainer(step_cfg)
+        batch = unbroken.to_device(host)
+        run_step(unbroken, batch)
+        file = os.path.join(cfg.run_path, "resume_check",
+                            f"checkpoint_{unbroken.step_count}.pth.tar")
+        save_text2vec(file, unbroken, 0)
+        torch.manual_seed(SEED + 2)
+        resumed = Text2VecTrainer(step_cfg)
+        load_text2vec(file, resumed)
+        got = run_step(resumed, batch)
+        want = run_step(unbroken, batch)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    loss_err = max(abs(got[k].item() - want[k].item()) / abs(want[k].item())
+                   for k in SCALAR_KEYS)
+    pairs = list(zip(resumed.params, unbroken.params))
+    w_err = (torch.sqrt(sum(((a - b) ** 2).sum() for a, b in pairs))
+             / torch.sqrt(sum((b ** 2).sum() for _, b in pairs))).item()
+    w_max = max((a - b).abs().max().item() for a, b in pairs)
+    bits = all(torch.equal(a, b) for a, b in pairs)
+    check(loss_err <= RESUME_LOSS_RTOL and w_err <= RESUME_WEIGHT_RTOL,
+          f"save, load and step vs the unbroken step: losses {loss_err:.3g}, weights "
+          f"{w_err:.3g} of the norm")
+    print(f"save, load and one step (B = {TRAIN_B} x {TRAIN_T} frames, dropout 0, cuDNN "
+          f"deterministic) vs the unbroken trainer's step: losses max rel {loss_err:.3g} (rtol "
+          f"{RESUME_LOSS_RTOL}), weights ||d|| / ||w|| {w_err:.3g} (rtol {RESUME_WEIGHT_RTOL}), "
+          f"max |d| {w_max:.3g}, bit-equal: {bits}")
+    os.remove(file)
+
+
+def train_gan_loop_windowed(tmp: str, loop_counts: dict) -> str:
+    """Phase 30: ``vec2wav_loop.main`` windowed (``split=True``) at full
+    size: ``GAN_LOOP_STEPS`` steps, then a second run that resumes from the
+    newest ``g_``/``do_`` pair for ``GAN_LOOP_MORE`` more.  Returns the
+    last ``g_`` file."""
+    cfg = dataclasses.replace(gan_config(), split=True, run_path=os.path.join(tmp, "v2w"),
+                              save_step=2, val_step=2, log_step=1)
+    train_files, _ = get_dataset_filelist(cfg.input_training_file, cfg.input_validation_file)
+    probe = next(VocoderLoader(VocoderDataset(train_files, cfg), cfg.batch_size, seed=cfg.seed,
+                               num_workers=0).epoch())
+    want_t = cfg.segment_size // cfg.total_upsample
+    check(probe["wv_feat"].shape == (cfg.batch_size, want_t, cfg.n_feat_dim)
+          and probe["audio"].shape == (cfg.batch_size, want_t * cfg.total_upsample, 1),
+          f"windowed batch {probe['wv_feat'].shape}, {probe['audio'].shape}")
+    print(f"windowed GAN batches: wv_feat {list(probe['wv_feat'].shape)}, audio "
+          f"{list(probe['audio'].shape)}, mel_loss {list(probe['mel_loss'].shape)}")
+    runs = []
+    for max_steps in (GAN_LOOP_STEPS, GAN_LOOP_STEPS + GAN_LOOP_MORE):
+        reset_serving_counters()
+        t0 = time.perf_counter()
+        rec = vec2wav_loop.main(vec2wav_loop.parse_args(
+            ["--max_steps", str(max_steps), "--stdout_interval", "1"]), cfg=cfg)
+        torch.cuda.synchronize()
+        counts = read_loop_counters()
+        add_counts(loop_counts, counts)
+        check(not any(counts.values()), f"GAN loop launched {counts}")
+        runs.append((rec, time.perf_counter() - t0))
+    (first, first_s), (second, second_s) = runs
+    check(sorted(first.steps) == list(range(GAN_LOOP_STEPS))
+          and sorted(second.steps) == list(range(GAN_LOOP_STEPS, GAN_LOOP_STEPS + GAN_LOOP_MORE)),
+          f"GAN loop steps {sorted(first.steps)}, resumed {sorted(second.steps)}")
+    for rec in (first, second):
+        check(all(math.isfinite(v) for h in rec.steps.values() for v in h.values()),
+              f"GAN loop losses {rec.steps}")
+        check(rec.validations and all(math.isfinite(v["mel_spec_error"])
+                                      for v in rec.validations.values()),
+              f"GAN validation {rec.validations}")
+    names = sorted(os.listdir(cfg.checkpoint_path))
+    want = sorted(f"{p}_{s:08d}" for p in ("g", "do")
+                  for s in (2, GAN_LOOP_STEPS - 1, 4, GAN_LOOP_STEPS + GAN_LOOP_MORE - 1))
+    check(names == want, f"GAN checkpoints {names}, want {want}")
+
+    # the AdamW states (and every module's state) as loaded, bit for bit
+    last = GAN_LOOP_STEPS + GAN_LOOP_MORE - 1
+    g_file = os.path.join(cfg.checkpoint_path, f"g_{last:08d}")
+    do_file = os.path.join(cfg.checkpoint_path, f"do_{last:08d}")
+    trainer = GANTrainer(cfg, seed=SEED)
+    t0 = time.perf_counter()
+    resumed = load_vec2wav(g_file, do_file, trainer)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    do = torch.load(do_file, map_location="cpu", weights_only=False)
+    state = trainer.state_dict()
+    check(all(tensors_equal(state[k], do[k]) for k in ("mpd", "msd", "optim_g", "optim_d"))
+          and tensors_equal(state["generator"],
+                            torch.load(g_file, map_location="cpu")["generator"])
+          and resumed["steps"] == last + 1,
+          f"{os.path.basename(do_file)}: loaded state differs from the files'")
+    spectral = sum(1 for k in state["msd"] if k.endswith("weight_u"))
+    step_s = list(first.seconds.values()) + list(second.seconds.values())
+    mb = (os.path.getsize(g_file) + os.path.getsize(do_file)) / 2**20
+    del trainer, state, do
+    print(f"vec2wav_loop windowed at full size: {GAN_LOOP_STEPS} steps in {first_s:.1f} s, then "
+          f"resumed from do_{GAN_LOOP_STEPS - 1:08d} at step {min(second.steps)} for "
+          f"{GAN_LOOP_MORE} more in {second_s:.1f} s; files {names} (a pair {mb:.0f} MiB); "
+          "saves " + ", ".join(f"step {k} {v:.2f} s" for r in (first, second)
+                               for k, v in r.saves.items())
+          + "; validation mel L1 " + ", ".join(
+              f"step {k} {v['mel_spec_error']:.4f} ({v['seconds']:.2f} s)"
+              for r in (first, second) for k, v in r.validations.items())
+          + f"; host s/step median {float(np.median(step_s)):.3f}"
+          f"; do_{last:08d} loaded bit-equal (AdamW states, {spectral} MSD spectral u) in "
+          f"{load_s:.2f} s; {card_line()}")
+    print("  losses: " + "; ".join(f"{s}: " + " ".join(f"{x:.3f}" for x in h.values())
+                                    for r in (first, second) for s, h in r.steps.items()))
+    return g_file
+
+
+def serve_trained(t2v_cfg: Text2VecConfig, g_file: str, loop_counts: dict) -> None:
+    """Phase 31: the files phases 28 and 30 wrote, served: the run's own
+    ``config.json`` and ``checkpoint_{LOOP_STEPS}.pth.tar``, the last ``g_``
+    file, through ``init_import_models`` and one ``Synthesizer`` request at
+    ``alpha`` ``FRAMES_PER_CHAR``: six steps leave the duration predictor
+    near 0, and ``floor((d + 0.5) * alpha)`` then speaks 4 frames a
+    character or more."""
+    run_cfg = load_config(Text2VecConfig, os.path.join(t2v_cfg.run_path, t2v_cfg.log_seed,
+                                                       "config.json"))
+    v2w_cfg = gan_config()
+    t2v_state, gen_state = init_import_models(
+        run_cfg, v2w_cfg, t2v_checkpoint=os.path.join(
+            t2v_cfg.checkpoint_path, f"checkpoint_{LOOP_STEPS}.pth.tar"),
+        gen_checkpoint=g_file)
+    syn = Synthesizer(run_cfg, v2w_cfg, t2v_state, gen_state,
+                      TextFrontend.from_vocab_file(run_cfg.vocab_path))
+    text, ref, spk = demo_inputs(syn)
+    reset_serving_counters()
+    with torch.inference_mode():
+        wav, n = syn.synthesize([text(24)], ref, spk, alpha=FRAMES_PER_CHAR, max_frames=512,
+                                seed=SEED)
+    counts = read_loop_counters()
+    add_counts(loop_counts, counts)
+    check(counts["fused_resblock"] == fused_units(v2w_cfg) and counts["gru_fwd"] == 1,
+          f"serving the trained files: launches {counts}")
+    check(np.isfinite(wav).all() and wav.shape[1] == 512 * v2w_cfg.total_upsample and n[0] > 0,
+          f"served waveform {wav.shape}, {n[0]} samples, finite {np.isfinite(wav).all()}")
+    print(f"served the trained checkpoint_{LOOP_STEPS}.pth.tar and {os.path.basename(g_file)}: "
+          f"{int(n[0]) // v2w_cfg.total_upsample} frames spoken, waveform finite, std "
+          f"{float(wav[0, :int(n[0])].std()) if n[0] else 0.0:.3g}; launches {counts}")
+
+
+def training_jobs(dev) -> dict:
+    """Phases 28-31 in one temporary directory; returns the launches of
+    each kernel over their paths."""
+    loop_counts: dict = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_jobs_") as tmp:
+        cfg = train_t2v_loop(tmp, loop_counts)
+        torch.cuda.empty_cache()
+        resume_t2v(cfg, loop_counts)
+        torch.cuda.empty_cache()
+        g_file = train_gan_loop_windowed(tmp, loop_counts)
+        torch.cuda.empty_cache()
+        serve_trained(cfg, g_file, loop_counts)
+    return loop_counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: PyTorch sees no CUDA device; this script runs on an NVIDIA GPU",
@@ -2482,6 +2834,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     serving = serving_stack(dev)
+    torch.cuda.empty_cache()
+    loop = training_jobs(dev)
 
     kernels = [
         dict(name="fused_resblock", route="cuda",
@@ -2505,6 +2859,8 @@ def main() -> int:
                             replaces=f"{flash_src}:{line}", launches=long_launches[name],
                             **flash[name]))
     next(k for k in kernels if k["name"] == "flash_fwd")["serving_launches"] = serving["flash_fwd"]
+    for kern in kernels:
+        kern["loop_launches"] = loop.get(kern["name"], 0)
     for kern in kernels:
         keys = ("ms", "plain_ms", "bound_ms") + (("f32_ms", "f32_plain_ms", "f32_bound_ms",
                                                    "f32_sdpa_bwd_ms")

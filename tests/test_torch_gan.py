@@ -13,6 +13,7 @@ statistics and spectral vectors atol 1e-5; the losses rtol 1e-6.
 
 import dataclasses
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -309,17 +310,24 @@ def test_gan_entry_points_raise_without_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = Vec2WavConfig(**V2W_SMALL)
     for build in (lambda: GANTrainer(cfg), lambda: tv.MultiPeriodDiscriminator(cfg),
-                  lambda: tv.MultiScaleDiscriminator(), lambda: vec2wav_loop.main(cfg, 1)):
+                  lambda: tv.MultiScaleDiscriminator(),
+                  lambda: vec2wav_loop.main(vec2wav_loop.parse_args(["--max_steps", "1"]),
+                                            cfg=cfg)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build()
 
 
-def test_vec2wav_loop_cpu(monkeypatch):
-    """``vec2wav_loop.main`` for 2 steps with the tiny demo config on the
-    CPU: finite scalars, over two epochs' lr (batch size 5 of 10 items)."""
+def test_vec2wav_loop_cpu(monkeypatch, tmp_path):
+    """``vec2wav_loop.main`` for 3 steps with the tiny demo config on the
+    CPU (its run directory under a temporary one, its scalars to JSONL):
+    finite scalars, over two epochs' lr (batch size 5 of 10 items)."""
     monkeypatch.chdir(REPO)
+    # the JSONL logger: TensorBoard's import would load TensorFlow where it is installed
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
     cfg = dataclasses.replace(load_config(Vec2WavConfig, "data/demo/vec2wav_tiny.json"),
-                              batch_size=5)
-    history = vec2wav_loop.main(cfg, 3, device="cpu")
+                              batch_size=5, run_path=str(tmp_path))
+    history = vec2wav_loop.main(vec2wav_loop.parse_args(["--max_steps", "3", "--device", "cpu"]),
+                                cfg=cfg).steps
     assert len(history) == 3
-    assert all(set(h) == set(SCALAR_KEYS) and all(np.isfinite(list(h.values()))) for h in history)
+    assert all(set(h) == set(SCALAR_KEYS) and all(np.isfinite(list(h.values())))
+               for h in history.values())

@@ -26,6 +26,7 @@ import wavthruvec_pytorch_tpu_torch as port
 from wavthruvec_pytorch_tpu_torch.config import Text2VecConfig, Vec2WavConfig
 from wavthruvec_pytorch_tpu_torch.entry import entry
 from wavthruvec_pytorch_tpu_torch.infer.synthesize import Synthesizer, make_serving_generator
+from wavthruvec_pytorch_tpu_torch.models.layers import PartialConv1d
 from wavthruvec_pytorch_tpu_torch.models.text2vec import Text2Vec
 from wavthruvec_pytorch_tpu_torch.models.vec2wav import Generator
 from wavthruvec_pytorch_tpu_torch.ops import kernel_build
@@ -98,6 +99,10 @@ def test_port_import_loads_no_jax():
             "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
             "('jax', 'flax', 'wavthruvec_pytorch_tpu'))\n"
             "assert not bad, bad\n"
+            "new = {'checkpoint', 'utils.logging', 'utils.plots', 'data.prefetch', 'cli'}\n"
+            "missing = {m for m in new if p.__name__ + '.' + m not in sys.modules}\n"
+            "assert not missing, missing\n"
+            "assert 'matplotlib' not in sys.modules\n"
             "print('ok')\n")
     res = _run(code)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
@@ -172,7 +177,7 @@ def test_entry_points_raise_without_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Text2VecTrainer(t2v_cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        text2vec_loop.main(t2v_cfg, 1)
+        text2vec_loop.main(text2vec_loop.parse_args(["--max_steps", "1"]), cfg=t2v_cfg)
     # the CPU is taken only when asked for
     assert next(Generator(v2w_cfg, device="cpu").parameters()).device.type == "cpu"
 
@@ -182,9 +187,10 @@ def test_entry_points_raise_without_gpu(monkeypatch):
 def test_unported_flags_raise(flag):
     """An unported flag raises NotImplementedError naming ROADMAP.md.  The
     Text2Vec flags of the long-bucket slice, ``flash_attention`` and
-    ``compute_dtype="bfloat16"``, are ported and build, and so does the bf16
-    serving Generator; a bf16 Vec2Wav config (the bf16 GAN step) still
-    raises."""
+    ``compute_dtype="bfloat16"``, are ported and build, and so do the bf16
+    serving Generator and ``attn_use_partial_padding`` (ConvAttention's
+    convolutions become ``PartialConv1d``); a bf16 Vec2Wav config (the bf16
+    GAN step) still raises."""
     if flag == "flash_attention":
         model = Text2Vec(Text2VecConfig(**TINY_T2V, flash_attention=True), device="cpu")
         assert model.encoder.layer_stack[0].slf_attn.use_flash
@@ -195,8 +201,8 @@ def test_unported_flags_raise(flag):
                                   device="cpu")
         assert trainer.model.WVF_linear.linear_layer.compute_dtype == torch.bfloat16
     elif flag == "partial_padding":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            Text2Vec(Text2VecConfig(**TINY_T2V, attn_use_partial_padding=True), device="cpu")
+        model = Text2Vec(Text2VecConfig(**TINY_T2V, attn_use_partial_padding=True), device="cpu")
+        assert isinstance(model.attention.key_proj[0].conv, PartialConv1d)
     else:
         cfg = Vec2WavConfig(**TINY_V2W)
         state = Generator(cfg, device="cpu").state_dict()

@@ -148,12 +148,16 @@ def test_loader_batches_equal_jax(tiny_data):
 
 @pytest.mark.parametrize("flag", ["split", "device_resident_data"])
 def test_gan_data_flags_refused(flag):
-    """Windowed training and the device-resident data are not ported: the
-    training path refuses them, naming ROADMAP.md; serving does not read
-    them."""
+    """The device-resident data is not ported: the training path refuses
+    it, naming ROADMAP.md; serving does not read it.  Windowed training is
+    ported and passes both checks."""
     cfg = Vec2WavConfig(**{flag: True})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 item 9"):
+    if flag == "split":
         check_ported(cfg, training=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 item 9"):
-        tdata.VocoderDataset([], cfg)
+        assert tdata.VocoderDataset([], cfg).split
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 item 9"):
+            check_ported(cfg, training=True)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 item 9"):
+            tdata.VocoderDataset([], cfg)
     check_ported(cfg)

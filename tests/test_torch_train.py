@@ -14,6 +14,7 @@ alignments and durations are compared exactly.
 
 import dataclasses
 import os
+import sys
 
 import numpy as np
 import optax
@@ -435,11 +436,16 @@ def test_step_running_stats_and_update(step_pair):
 
 # --- the loop ---------------------------------------------------------------
 
-def test_loop_runs_on_tiny_demo(monkeypatch):
+def test_loop_runs_on_tiny_demo(monkeypatch, tmp_path):
     """text2vec_loop.main on data/demo/text2vec_tiny.json, 2 steps on the
-    CPU: finite losses."""
+    CPU (its run directory under a temporary one, its scalars to JSONL):
+    finite losses."""
     monkeypatch.chdir(REPO)  # the config's paths are relative to the repository root
-    history = text2vec_loop.main(load_config(Text2VecConfig, "data/demo/text2vec_tiny.json"), 2,
-                                 device="cpu")
+    # the JSONL logger: TensorBoard's import would load TensorFlow where it is installed
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    cfg = dataclasses.replace(load_config(Text2VecConfig, "data/demo/text2vec_tiny.json"),
+                              run_path=str(tmp_path))
+    history = text2vec_loop.main(text2vec_loop.parse_args(["--max_steps", "2", "--device", "cpu"]),
+                                 cfg=cfg).steps
     assert len(history) == 2
-    assert all(np.isfinite(list(h.values())).all() for h in history)
+    assert all(np.isfinite(list(h.values())).all() for h in history.values())

@@ -1,16 +1,21 @@
-"""Command line of the port (JAX package: cli.py), the serving front ends:
+"""Command line of the port (JAX package: cli.py), the training loops and
+the serving front ends:
 
+    python -m wavthruvec_pytorch_tpu_torch.cli train-text2vec --config ... [--max_steps N]
+    python -m wavthruvec_pytorch_tpu_torch.cli train-vec2wav  --config ... [--max_steps N]
     python -m wavthruvec_pytorch_tpu_torch.cli synthesize --text "..." --ref_npy ... --spk_emb ...
     python -m wavthruvec_pytorch_tpu_torch.cli serve      --spk_emb_dir ...  (stdin loop)
     python -m wavthruvec_pytorch_tpu_torch.cli serve-http --spk_emb_dir ... [--port 8571]
 
-The flags are the JAX package's, plus ``--device`` (default: the card; pass
-``--device cpu`` to run the kernels' plain versions on the CPU) and, for
-``synthesize``, ``--t2v_config`` / ``--v2w_config`` as the serving commands
-have them.  Checkpoints are the torch reference's files
-(``checkpoint_{step}.pth.tar``, ``g_XXXXXXXX``); without one a model takes
-seeded random weights.  The JAX package's other subcommands are not ported
-yet: each exits with status 2 and names its ROADMAP.md item.
+The flags are the JAX package's (the training commands take their loop's,
+``train/text2vec_loop.py`` and ``train/vec2wav_loop.py``), plus ``--device``
+(default: the card; pass ``--device cpu`` to run the kernels' plain versions
+on the CPU) and, for ``synthesize``, ``--t2v_config`` / ``--v2w_config`` as
+the serving commands have them.  Checkpoints are the torch reference's files
+(``checkpoint_{step}.pth.tar``, ``g_XXXXXXXX``), which the training loops
+write; without one a model takes seeded random weights.  The JAX package's
+other subcommands are not ported yet: each exits with status 2 and names its
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -22,17 +27,12 @@ import sys
 
 # the JAX subcommands that are not ported, and where ROADMAP.md queues them
 NOT_PORTED = {
-    "train-text2vec": "queue 1 item 7 (the loop's checkpoints, --restore_step, logs and "
-                      "validation); the port's loop without them runs as `python -m "
-                      "wavthruvec_pytorch_tpu_torch.train.text2vec_loop`",
-    "train-vec2wav": "queue 1 item 9 (windowed training, the GAN loop's checkpoints and "
-                     "validation); the port's loop without them runs as `python -m "
-                     "wavthruvec_pytorch_tpu_torch.train.vec2wav_loop`",
     "eval-text2vec": "queue 1 item 11 (infer/eval.py)",
     "prepare-data": "queue 1 item 11 (data/ingest.py)",
     "pre-spk-emb": "queue 1 item 11 (data/spk_emb.py and ECAPA's wav path)",
     "make-demo-data": "queue 1 item 11 (data/demo.py)",
-    "export-torch": "queue 1 item 9 (checkpoints; an orbax checkpoint needs the JAX "
+    "export-torch": "queue 1 item 9 (the port's own checkpoints are already the torch "
+                    "reference's files; an orbax checkpoint of the JAX package needs the JAX "
                     "package's own export-torch)",
     "recalibrate-bn": "queue 1 item 11 (infer/recalibrate.py)",
 }
@@ -44,6 +44,16 @@ def main(argv=None) -> int:
         print(__doc__)
         return 1
     cmd, rest = argv[0], argv[1:]
+    if cmd == "train-text2vec":
+        from wavthruvec_pytorch_tpu_torch.train import text2vec_loop
+
+        text2vec_loop.main(text2vec_loop.parse_args(rest))
+        return 0
+    if cmd == "train-vec2wav":
+        from wavthruvec_pytorch_tpu_torch.train import vec2wav_loop
+
+        vec2wav_loop.main(vec2wav_loop.parse_args(rest))
+        return 0
     if cmd == "synthesize":
         return _synthesize(rest)
     if cmd == "serve":

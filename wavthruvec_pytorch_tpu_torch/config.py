@@ -10,12 +10,17 @@ compatibility:
   JAX ``gru_impl="pallas"`` kernel computes (bf16 ``w_hh``, f32 carry);
 * ``Text2VecConfig.flash_attention=True`` and ``compute_dtype="bfloat16"``
   are ported (the trainer computes in bf16, serving in f32, as in the JAX
-  package); ``Vec2WavConfig.compute_dtype != "float32"`` (the bf16 GAN
-  step; bf16 serving goes through ``make_serving_generator``) and
-  ``attn_use_partial_padding=True`` are not ported yet, nor is
+  package), and so are ``attn_use_partial_padding=True`` and windowed GAN
+  training (``Vec2WavConfig.split=True``);
+  ``Vec2WavConfig.compute_dtype != "float32"`` (the bf16 GAN step; bf16
+  serving goes through ``make_serving_generator``) is not ported yet, nor is
   ``flash_attention=True`` with a head dim above 256; they raise
-  ``NotImplementedError`` where a model is built.  GAN training refuses
-  ``Vec2WavConfig.split=True`` and ``device_resident_data=True`` too.
+  ``NotImplementedError`` where a model is built.  Both training loops
+  refuse ``device_resident_data=True`` too.
+
+Each config names its run's directories as the JAX package's does:
+``{run_path}/{log_seed}/`` holds ``model_new/`` (the checkpoints),
+``tb_logs/`` (the scalars), ``logger/logger.txt`` and ``config.json``.
 """
 
 from __future__ import annotations
@@ -98,6 +103,10 @@ class Text2VecConfig:
     frame_buckets: Tuple[int, ...] = (256, 512, 1024, 2048, 3000)
     device_resident_data: bool = False
 
+    tensorboard_logs_path = property(lambda self: _run_dir(self, "tb_logs"))
+    checkpoint_path = property(lambda self: _run_dir(self, "model_new"))
+    logger_path = property(lambda self: _run_dir(self, "logger"))
+
     @property
     def encoder_output_dim(self) -> int:
         # the encoder concatenates the speaker embedding (reference: model.py:99)
@@ -175,6 +184,10 @@ class Vec2WavConfig:
     device_mel_target: bool = False
     device_resident_data: bool = False
 
+    tensorboard_logs_path = property(lambda self: _run_dir(self, "tb_logs"))
+    checkpoint_path = property(lambda self: _run_dir(self, "model_new"))
+    logger_path = property(lambda self: _run_dir(self, "logger"))
+
     @property
     def total_upsample(self) -> int:
         out = 1
@@ -204,9 +217,34 @@ def load_config(cls, path: str):
 FLASH_MAX_HEAD_DIM = 256
 
 
+def _run_dir(cfg, name: str) -> str:
+    return os.path.join(cfg.run_path, cfg.log_seed, name)
+
+
+def save_config(cfg, path: str) -> None:
+    """Snapshot a config as JSON into the run's directory (the reference
+    copies its hparams.py there: text2vec/train.py:35-40,
+    vec2wav/train.py:43-48); ``load_config`` reads it back."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)
+
+
+def parse_bool(value: str) -> bool:
+    """A command-line switch's value: true/false, yes/no or 1/0 in any case.
+    (The JAX loops' ``type=bool`` turned any non-empty string on, "False"
+    included.)"""
+    v = value.strip().lower()
+    if v in ("true", "yes", "1"):
+        return True
+    if v in ("false", "no", "0"):
+        return False
+    raise ValueError(f"not a true/false value: {value!r}")
+
+
 def check_ported(cfg, training: bool = False) -> None:
     """Raise for a config flag whose JAX implementation is not ported yet;
-    ``training`` adds the flags that only GAN training reads."""
+    ``training`` adds the flags that only the training loops read."""
     if isinstance(cfg, Vec2WavConfig) and cfg.compute_dtype != "float32":
         raise NotImplementedError(
             f"Vec2WavConfig.compute_dtype={cfg.compute_dtype!r} (the bf16 GAN step) is not "
@@ -214,13 +252,11 @@ def check_ported(cfg, training: bool = False) -> None:
             "queue 1 item 3).  bf16 serving is ported and does not read this field: build "
             "it with infer.synthesize.make_serving_generator(cfg, state, 'bf16')."
         )
-    if training and isinstance(cfg, Vec2WavConfig):
-        for flag in ("split", "device_resident_data"):
-            if getattr(cfg, flag):
-                raise NotImplementedError(
-                    f"Vec2WavConfig.{flag}=True is not ported; GAN training takes whole "
-                    "utterances from the host loader (ROADMAP.md, queue 1 item 9: windowed "
-                    "training and the device-resident vocoder data).")
+    if training and cfg.device_resident_data:
+        raise NotImplementedError(
+            f"{type(cfg).__name__}.device_resident_data=True is not ported; training takes its "
+            "batches from the host loader (ROADMAP.md, queue 1 item 9: the device-resident "
+            "caches data/device_cache.py and data/vocoder_device_cache.py).")
     if isinstance(cfg, Text2VecConfig) and cfg.flash_attention:
         # both FFT stacks take d_k = d_model // encoder_head (models/text2vec.py)
         d_k = max(cfg.encoder_dim, cfg.decoder_dim) // cfg.encoder_head
@@ -231,11 +267,6 @@ def check_ported(cfg, training: bool = False) -> None:
                 "flash kernels past head dim 256).  The gate holds on every device, so the CPU "
                 "refuses what the card would."
             )
-    if getattr(cfg, "attn_use_partial_padding", False):
-        raise NotImplementedError(
-            "attn_use_partial_padding=True is not ported (ROADMAP.md, queue 1 item 7: "
-            "PartialConv1d in ConvAttention)."
-        )
 
 
 def repo_path(*parts: str) -> str:

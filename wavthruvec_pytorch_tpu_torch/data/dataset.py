@@ -64,22 +64,34 @@ def _check_position_capacity(cfg: Text2VecConfig, max_text_len: int, max_frames:
 
 
 class BucketedLoader:
-    """Length-bucketed batches of ``batch_size`` items over a buffer."""
+    """Length-bucketed batches of ``cfg.batch_size`` items over a buffer;
+    ``shuffle=False`` keeps the buffer's order (the validation loader's,
+    with ``batch_expand_size`` 1)."""
 
-    def __init__(self, buffer: List[Dict], cfg: Text2VecConfig, seed: int = 0):
+    def __init__(self, buffer: List[Dict], cfg: Text2VecConfig, seed: int = 0,
+                 shuffle: bool = True):
         self.buffer = buffer
         self.cfg = cfg
         self.rng = np.random.default_rng(seed)
+        self.shuffle = shuffle
         self.super_batch = cfg.batch_size * cfg.batch_expand_size
 
     def __len__(self) -> int:
         return len(self.buffer) // self.super_batch * self.cfg.batch_expand_size
 
-    def epoch(self) -> Iterator[Dict[str, np.ndarray]]:
-        order = self.rng.permutation(len(self.buffer))
+    def epoch_indices(self) -> Iterator[List[int]]:
+        """Each batch's buffer indices, in the order ``epoch`` pads them."""
+        order = (self.rng.permutation(len(self.buffer)) if self.shuffle
+                 else np.arange(len(self.buffer)))
         for s in range(len(order) // self.super_batch):
-            idx = list(order[s * self.super_batch:(s + 1) * self.super_batch])
+            idx = [int(i) for i in order[s * self.super_batch:(s + 1) * self.super_batch]]
             idx.sort(key=lambda i: -len(self.buffer[i]["text_enc"]))
             for j in range(self.cfg.batch_expand_size):
-                chunk = idx[j * self.cfg.batch_size:(j + 1) * self.cfg.batch_size]
-                yield make_padded_batch([self.buffer[i] for i in chunk], self.cfg)
+                yield idx[j * self.cfg.batch_size:(j + 1) * self.cfg.batch_size]
+
+    def batch(self, idx: Sequence[int]) -> Dict[str, np.ndarray]:
+        return make_padded_batch([self.buffer[i] for i in idx], self.cfg)
+
+    def epoch(self) -> Iterator[Dict[str, np.ndarray]]:
+        for idx in self.epoch_indices():
+            yield self.batch(idx)

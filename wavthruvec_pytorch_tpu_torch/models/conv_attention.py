@@ -27,26 +27,29 @@ TEMPERATURE = 0.0005
 
 class ConvAttention(nn.Module):
     """Parameter names are the reference's (``key_proj.{0,2}.conv``,
-    ``query_proj.{0,2,4}.conv``).  Only the plain-conv mode is ported: the
-    partial-padding convs (``attn_use_partial_padding=True``) raise where
-    the model is built (``config.check_ported``)."""
+    ``query_proj.{0,2,4}.conv``).  ``use_partial_padding``
+    (``attn_use_partial_padding``) makes every projection a
+    ``PartialConv1d``, called without a mask as the JAX package calls it."""
 
     def __init__(self, n_feat_channels: int, n_text_channels: int,
-                 n_att_channels: int = 80, device=None):
+                 n_att_channels: int = 80, use_partial_padding: bool = False, device=None):
         super().__init__()
+
+        def conv(c_in, c_out, k, w_init_gain="linear"):
+            return ConvNorm(c_in, c_out, k, padding=(k - 1) // 2, w_init_gain=w_init_gain,
+                            use_partial_padding=use_partial_padding, device=device)
+
         self.key_proj = nn.Sequential(
-            ConvNorm(n_text_channels, 2 * n_text_channels, 3, padding=1,
-                     w_init_gain="relu", device=device),
+            conv(n_text_channels, 2 * n_text_channels, 3, "relu"),
             nn.ReLU(),
-            ConvNorm(2 * n_text_channels, n_att_channels, 1, device=device),
+            conv(2 * n_text_channels, n_att_channels, 1),
         )
         self.query_proj = nn.Sequential(
-            ConvNorm(n_feat_channels, 2 * n_feat_channels, 3, padding=1,
-                     w_init_gain="relu", device=device),
+            conv(n_feat_channels, 2 * n_feat_channels, 3, "relu"),
             nn.ReLU(),
-            ConvNorm(2 * n_feat_channels, n_feat_channels, 1, device=device),
+            conv(2 * n_feat_channels, n_feat_channels, 1),
             nn.ReLU(),
-            ConvNorm(n_feat_channels, n_att_channels, 1, device=device),
+            conv(n_feat_channels, n_att_channels, 1),
         )
 
     def forward(self, queries: torch.Tensor, keys: torch.Tensor,

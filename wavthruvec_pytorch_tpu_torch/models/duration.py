@@ -9,17 +9,23 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from wavthruvec_pytorch_tpu_torch.models.layers import Conv1d, LayerNorm, Linear
+from wavthruvec_pytorch_tpu_torch.models.layers import Conv1d, LayerNorm, Linear, PartialConv1d
 
 
 class ConvNorm(nn.Module):
-    """The reference's ConvNorm wrapper: a Conv1d kept under ``.conv``."""
+    """The reference's ConvNorm wrapper: a Conv1d kept under ``.conv``, or a
+    ``PartialConv1d`` with ``use_partial_padding`` (module.py:420-453)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 1,
-                 padding: int = 0, w_init_gain: str = "linear", dtype=None, device=None):
+                 padding: int = 0, w_init_gain: str = "linear", dtype=None, device=None,
+                 use_partial_padding: bool = False):
         super().__init__()
-        self.conv = Conv1d(in_channels, out_channels, kernel_size, padding=padding,
-                           w_init_gain=w_init_gain, dtype=dtype, device=device)
+        if use_partial_padding:
+            self.conv = PartialConv1d(in_channels, out_channels, kernel_size, padding=padding,
+                                      w_init_gain=w_init_gain, device=device)
+        else:
+            self.conv = Conv1d(in_channels, out_channels, kernel_size, padding=padding,
+                               w_init_gain=w_init_gain, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x)

@@ -111,6 +111,37 @@ class Conv1d(nn.Conv1d):
         return y.transpose(1, 2)
 
 
+class PartialConv1d(Conv1d):
+    """Partial-padding Conv1d over ``[B, T, C]`` (JAX package:
+    models/layers.py ``PartialConv1d``; reference: text2vec/module.py:366-418):
+    an output whose window overlaps the zero padding, or masked-out frames,
+    is rescaled by ``kernel_size / coverage``, and one whose window covers
+    nothing is zeroed.  The ``1e-6`` in the denominator is the reference's,
+    so interior outputs carry a ``k / (k + 1e-6)`` factor too.  Its
+    parameters are Conv1d's (``weight``, ``bias``), so state dicts load
+    either way; it computes in f32 (ConvAttention's dtype)."""
+
+    def forward(self, x: torch.Tensor, mask_in: torch.Tensor | None = None) -> torch.Tensor:
+        """x [B, T, C]; mask_in [B, T] or [B, T, 1] (1 where valid) or None."""
+        if mask_in is not None and mask_in.dim() == 2:
+            mask_in = mask_in[..., None]
+        k, = self.kernel_size
+        # each output's coverage: the mask (or ones) convolved with a ones kernel
+        ones = (x.new_ones((1, 1, x.shape[1])) if mask_in is None
+                else mask_in.to(x.dtype).transpose(1, 2))
+        coverage = F.conv1d(ones, x.new_ones((1, 1, k)), None, self.stride, self.padding,
+                            self.dilation).transpose(1, 2)  # [B or 1, T_out, 1]
+        update_mask = coverage.clamp(0.0, 1.0)
+        mask_ratio = k / (coverage + 1e-6) * update_mask
+        if mask_in is not None:
+            x = x * mask_in.to(x.dtype)
+        out = F.conv1d(x.transpose(1, 2), self.weight, None, self.stride, self.padding,
+                       self.dilation).transpose(1, 2) * mask_ratio
+        if self.bias is not None:
+            out = (out + self.bias) * update_mask
+        return out
+
+
 class LayerNorm(nn.LayerNorm):
     """LayerNorm over the last dim with torch's eps 1e-5 and a compute
     ``dtype`` (None: promote): statistics and normalisation in f32, the

@@ -179,7 +179,9 @@ class Text2Vec(nn.Module):
         if cfg.learn_alignments:
             n_text = (cfg.encoder_dim + cfg.n_speaker_dim
                       if cfg.use_speaker_emb_for_alignment else cfg.encoder_dim)
-            self.attention = ConvAttention(cfg.n_feat_dim, n_text, device=device)
+            self.attention = ConvAttention(cfg.n_feat_dim, n_text,
+                                           use_partial_padding=cfg.attn_use_partial_padding,
+                                           device=device)
 
     @staticmethod
     def _mask_tensor(x: torch.Tensor, position: torch.Tensor, max_len: int) -> torch.Tensor:

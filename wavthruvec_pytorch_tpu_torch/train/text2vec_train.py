@@ -29,6 +29,8 @@ from wavthruvec_pytorch_tpu_torch.train.lamb import Lamb
 # the scalars a step reports, in the JAX package's order
 SCALAR_KEYS = ("total_loss", "WVF_loss", "WVF_postnet_loss", "duration_loss",
                "attn_binarization_loss")
+# the validation losses, as the JAX package names them
+VAL_KEYS = ("WVF_loss", "WVF_postnet_loss", "duration_loss", "binarization_loss")
 BATCH_KEYS = ("text", "src_pos", "feat_target", "input_lengths", "output_lengths", "feat_pos",
               "attn_prior")
 
@@ -80,7 +82,9 @@ class Text2VecTrainer:
     counter.  ``step(batch)`` runs one training step on a batch from
     ``make_padded_batch`` and returns the ``SCALAR_KEYS`` losses as 0-dim
     tensors on the device.  ``forward``, ``backward`` and
-    ``apply_gradients`` are its three parts."""
+    ``apply_gradients`` are its three parts; ``validation_losses`` is the
+    eval-mode forward, ``state_dict``/``load_state_dict`` what a checkpoint
+    holds."""
 
     def __init__(self, cfg: Text2VecConfig, device=None, model: Optional[Text2Vec] = None):
         self.cfg = cfg
@@ -133,3 +137,40 @@ class Text2VecTrainer:
         self.backward(total)
         self.apply_gradients()
         return metrics
+
+    @torch.no_grad()
+    def validation_losses(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """The eval-mode forward (BatchNorm on its running statistics, no
+        dropout) and its four losses ``VAL_KEYS`` as 0-dim tensors (JAX
+        package: text2vec_loop.py ``make_val_fn``).  The model returns to
+        train mode after it."""
+        self.model.eval()
+        try:
+            _, metrics, _ = self.forward(self.to_device(batch))
+        finally:
+            self.model.train()
+        return dict(zip(VAL_KEYS, (metrics["WVF_loss"], metrics["WVF_postnet_loss"],
+                                   metrics["duration_loss"], metrics["attn_binarization_loss"])))
+
+    @property
+    def learning_rate(self) -> float:
+        return self.optimizer.param_groups[0]["lr"]
+
+    def set_learning_rate(self, lr: float) -> None:
+        """The frozen-lr mode (JAX: ``set_learning_rate``; reference:
+        optimizer.py:29-35, train.py:378-380)."""
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+
+    def state_dict(self) -> Dict[str, object]:
+        """The model's state dict (BatchNorm statistics included), LAMB's
+        (its moments keyed by the index of each of ``params``) and the step
+        count, which sets the clip's phase."""
+        return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
+                "step_count": self.step_count}
+
+    def load_state_dict(self, state: Dict[str, object]) -> None:
+        """Load what ``state_dict`` returned (tensors on any device)."""
+        self.model.load_state_dict(state["model"], strict=True)
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.step_count = int(state["step_count"])

@@ -170,6 +170,23 @@ class GANTrainer:
         return {"gen_loss_total": total.detach(), "mel_loss": loss_mel.detach(),
                 "mel_spec_error": mel_error.detach()}
 
+    def state_dict(self) -> Dict[str, object]:
+        """The three modules' state dicts (the Conditional BatchNorms'
+        running statistics and every spectral norm's ``u``/``v`` buffers
+        included), both AdamW states (keyed by the index of each of
+        ``gen_params`` and ``disc_params``) and the step count."""
+        return {"generator": self.gen.state_dict(), "mpd": self.mpd.state_dict(),
+                "msd": self.msd.state_dict(), "optim_g": self.opt_g.state_dict(),
+                "optim_d": self.opt_d.state_dict(), "step_count": self.step_count}
+
+    def load_state_dict(self, state: Dict[str, object]) -> None:
+        """Load what ``state_dict`` returned (tensors on any device)."""
+        for name, module in (("generator", self.gen), ("mpd", self.mpd), ("msd", self.msd)):
+            module.load_state_dict(state[name], strict=True)
+        self.opt_g.load_state_dict(state["optim_g"])
+        self.opt_d.load_state_dict(state["optim_d"])
+        self.step_count = int(state["step_count"])
+
     def step(self, batch, noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """One D/G step on a batch (see ``to_device``); ``noise``
         [B, noise_dim] replaces the trainer's own draw (to reproduce a JAX
