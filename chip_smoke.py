@@ -156,9 +156,9 @@ scales), with seeded random weights and conv_post's gain set as in phase 2
     mel loss must fall over those 7 steps (first against last).  Then the
     step's split (G forward; D forward + backward + AdamW; G loss +
     backward + AdamW), each discriminator's forward + backward alone, and
-    ``torch.profiler``'s busy share, launches and top kernels.  Then B = 8,
-    T = 256, timed only.  The fused ResBlock2 kernel must not launch: the
-    trainer's Generator is ``fused=False``.
+    ``torch.profiler``'s busy share, launches and top kernels.  (B = 8 is
+    timed in phase 36, on the default MSD route.)  The fused ResBlock2
+    kernel must not launch: the trainer's Generator is ``fused=False``.
 19. One full-size GAN step on the card against the CPU: B = 2, T = 32,
     the same weights and noise.  Losses within ``STEP_LOSS_RTOL``, the
     gradients by ``STEP_GRAD_GLOBAL_RTOL`` over all and ``STEP_GRAD_RTOL``
@@ -245,15 +245,70 @@ request and read just after:
     ``init_import_models`` and one ``Synthesizer`` request: 30 fused
     launches and 1 BiGRU launch, a finite waveform.
 
+Then the training data staged on the card and the GAN's remaining modes, in
+one temporary directory; the counters are set to 0 just before each path
+and read just after:
+
+32. The demo corpus read by the native reader (``data/native_io.py``; the
+    run fails if ``np.load`` read it) and staged on the card
+    (``DeviceResidentData``): every batch of an epoch bit-equal to the host
+    collate's on the card.  Then ``cli train-text2vec`` (the loop's
+    ``main(parse_args(argv))``, as the subcommand runs it) on
+    ``data/demo/text2vec.json`` with ``device_resident_data=true``, against
+    the host path with and without its prefetch thread, 3 steps a run, each
+    twice in turns (``DEVICE_LOOP_ORDER``), under cuDNN's deterministic
+    algorithms: losses within ``DEVICE_LOSS_RTOL``, one MAS and one BiGRU
+    launch a step; each path's host-clock step.
+33. Staging at a real size: ``STAGE_ITEMS`` synthetic items of
+    ``STAGE_FRAMES`` frames at 1024 dims, text ``STAGE_TEXT`` (bucket
+    ``STAGE_N``): the staging seconds and bytes; a B = 16 x 1024-frame batch
+    gathered on the card against the host collate plus its copy, and the
+    bytes each path moves to the card a step; the full-size training step
+    fed from the cache, a new batch gathered each step (one MAS and one
+    BiGRU launch a step); ``READ_FILES`` of the corpus's items written as
+    ``.npy`` files and read by ``load_buffer`` through the native reader
+    and through ``np.load``, ``READ_PAIRS`` alternating pairs, each pair in
+    a fresh process as a job's start reads them.
+34. The windowed GAN loop from the card (``VocoderDeviceData``): the staged
+    windows against the CPU cache's for the same (idx, fstart), bit for
+    bit; ``cli train-vec2wav`` with ``split``, ``device_mel_target`` and
+    ``device_resident_data`` at B = 2 (``GAN_LOOP_STEPS``, then resumed
+    from its ``g_``/``do_`` files for ``GAN_LOOP_MORE``) and at B = 16 (the
+    demo list four times over), the host-clock step of each; one request
+    served from the last ``g_`` file (30 fused launches, 1 BiGRU).
+35. The MSD repack (``ops/tiled_conv.py``): each grouped layer at the
+    whole-utterance (B = 2 x 256 frames) and windowed (B = 16 x 25)
+    pair-batched shapes by grouped ``F.conv1d`` and by the repack, values
+    within ``REPACK_RTOL`` and gradients within ``REPACK_GRAD_RTOL`` of
+    their largest, ms and TFLOP/s of each route; the gate as measured (the
+    input lengths where the repack's forward + backward wins); the GAN step
+    with the MSD on grouped convolutions, on the repack where the JAX
+    package's gate admits a layer (``JAX_MIN_T_IN`` samples or more) and
+    on the repack everywhere (the port's gate), ``REPACK_PAIRS``
+    alternating rounds at both shapes; the profiler's top kernels of the
+    repack's whole-utterance step.
+36. The GAN step as ``GANTrainer(cfg)`` builds it by default, the MSD on
+    the repack (phase 18's weights and batches): bf16 (``compute_dtype``
+    bfloat16) at B = 2 and 8 x 256 frames; f32, and bf16 with the MSD on
+    grouped convolutions, at B = 8 (f32 at B = 2 is phase 35's A/B); step
+    ms, seconds of audio a second, peak memory.
+    Then one bf16 card step against the CPU's bf16 step from phase 19's
+    weights, noise and batch, the MSD on the repack on both: each loss
+    within ``GAN_BF16_NOISE`` times the CPU's bf16-vs-f32 distance or
+    ``GAN_BF16_FLOOR`` of the loss, a bound that phase 19's f32 card step
+    must fail on at least one loss.
+
 Every float32 product and convolution in this run is full float32: TF32 is
 off for matmuls and cuDNN.  The second-to-last line is a JSON object with
 one entry per kernel (``serving_launches``: the launches of phases 22-24
-and 26; ``loop_launches``: those of phases 28-31); the last line is
+and 26; ``loop_launches``: those of phases 28-31; ``data_launches``: those
+of phases 32-36); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import io
@@ -282,7 +337,11 @@ from wavthruvec_pytorch_tpu_torch.config import (
     Vec2WavConfig,
     load_config,
     repo_path,
+    save_config,
 )
+from wavthruvec_pytorch_tpu_torch.data import native_io
+from wavthruvec_pytorch_tpu_torch.data.dataset import BucketedLoader, load_buffer
+from wavthruvec_pytorch_tpu_torch.data.device_cache import DeviceResidentData
 from wavthruvec_pytorch_tpu_torch.data.prior import beta_binomial_prior_distribution
 from wavthruvec_pytorch_tpu_torch.data.vocoder_data import (
     VocoderDataset,
@@ -290,6 +349,7 @@ from wavthruvec_pytorch_tpu_torch.data.vocoder_data import (
     get_dataset_filelist,
     mel_spectrogram_np,
 )
+from wavthruvec_pytorch_tpu_torch.data.vocoder_device_cache import VocoderDeviceData
 from wavthruvec_pytorch_tpu_torch.entry import entry
 from wavthruvec_pytorch_tpu_torch.infer.http_serve import serve_http
 from wavthruvec_pytorch_tpu_torch.infer.serve import (
@@ -307,6 +367,7 @@ from wavthruvec_pytorch_tpu_torch.infer.synthesize import (
     init_import_models,
     make_serving_generator,
 )
+from wavthruvec_pytorch_tpu_torch.models import layers
 from wavthruvec_pytorch_tpu_torch.models.text2vec import Text2Vec
 from wavthruvec_pytorch_tpu_torch.models.vec2wav import (
     LRELU_SLOPE,
@@ -345,12 +406,14 @@ from wavthruvec_pytorch_tpu_torch.ops.mas import (
     mas_width1_plain,
     shared_limit,
 )
+from wavthruvec_pytorch_tpu_torch.ops.tiled_conv import tiled_grouped_conv1d
 from wavthruvec_pytorch_tpu_torch.text import TextFrontend
 from wavthruvec_pytorch_tpu_torch.train import text2vec_loop, vec2wav_loop
 from wavthruvec_pytorch_tpu_torch.train.text2vec_train import (
     SCALAR_KEYS,
     VAL_KEYS,
     Text2VecTrainer,
+    batch_to_device,
     make_padded_batch,
 )
 from wavthruvec_pytorch_tpu_torch.train.vec2wav_train import SCALAR_KEYS as GAN_KEYS
@@ -466,6 +529,39 @@ GAN_LOOP_STEPS, GAN_LOOP_MORE = 4, 2
 # atomic sums outside cuDNN, which may take another order at f32 rounding
 RESUME_LOSS_RTOL = 1e-5
 RESUME_WEIGHT_RTOL = 1e-5
+
+# training data on the card and the GAN's modes (phases 32-36).  The
+# device-resident loop against the host path, 3 steps under cuDNN's
+# deterministic algorithms: the same batches, so the same kernels on the same
+# inputs; atomic sums outside cuDNN may take another order
+DEVICE_LOSS_RTOL = 1e-6
+# phase 32's runs of the demo loop, in turns: from the device cache, from the
+# host loader, and from the host loader without its prefetch thread
+DEVICE_LOOP_ORDER = ("host", "device", "host, no prefetch", "host, no prefetch", "device",
+                     "host")
+# phase 33's synthetic corpus: items, frames and text ids an item (ranges),
+# its text bucket; the batches whose assembly is timed
+STAGE_ITEMS, STAGE_FRAMES, STAGE_TEXT, STAGE_N = 4000, (100, 400), (32, 120), 128
+ASSEMBLE_BATCHES = 10
+# the .npy files of phase 33 read by each reader, in alternating pairs
+READ_FILES, READ_PAIRS = 500, 2
+# the windowed GAN batch: B x frames (segment_size 8192 // 320)
+GAN_WINDOW_B, WINDOW_T = 16, 25
+# the MSD's repack against grouped F.conv1d (max |err| / max |ref|): the same
+# products summed in another order, plus zero terms
+REPACK_RTOL, REPACK_GRAD_RTOL = 1e-5, 1e-4
+# the GAN step A/B: the MSD's routes (grouped F.conv1d; the repack where
+# the JAX package's gate admits a layer, inputs of JAX_MIN_T_IN samples or
+# more, ops/tiled_conv.py:47 there; the repack where the port's gate does,
+# at every length), and the alternating rounds
+REPACK_ROUTES = {"off": "grouped conv", "jax_gate": "repack at JAX's gate (16384)",
+                 "on": "repack at the port's gate"}
+JAX_MIN_T_IN = 16384
+REPACK_PAIRS = 10
+# the bf16 GAN step, card vs CPU (the same code, the same rounding points):
+# NOISE times the CPU's bf16-vs-f32 distance, or one bf16 ulp of the loss;
+# below 1, so that a step computed in f32 fails it
+GAN_BF16_NOISE, GAN_BF16_FLOOR = 0.5, 2.0 ** -8
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1767,16 +1863,19 @@ def gan_batch(cfg, B: int, T: int, seed: int) -> dict:
             "audio": audio, "mel_loss": mel}
 
 
-def gan_modules(cfg, dev, seed: int):
+def gan_modules(cfg, dev, seed: int, dtype=None, tiled_conv: bool = False):
     """Seeded random Generator (``fused=False``), MPD and MSD on ``dev``;
     conv_post's gain is set so that, in train mode on a probe batch, the
     waveform before the tanh has a standard deviation of ``WAV_STD`` (as
     phase 2 sets the serving Generator's).  The probe runs under no_grad, in
-    a copy, so the modules' statistics and spectral vectors stay at init."""
+    an f32 copy, so the modules' statistics and spectral vectors stay at
+    init.  ``dtype`` (bf16: the same f32 weights, bf16 convolutions) and
+    ``tiled_conv`` (the MSD's repack) as the modules take them."""
     torch.manual_seed(seed)
-    gen = Generator(cfg, device="cpu", fused=False)
-    mpd = MultiPeriodDiscriminator(cfg, cfg.disc_pair_batched, device="cpu")
-    msd = MultiScaleDiscriminator(cfg.disc_pair_batched, device="cpu")
+    gen = Generator(cfg, device="cpu", fused=False, dtype=dtype)
+    mpd = MultiPeriodDiscriminator(cfg, cfg.disc_pair_batched, dtype=dtype, device="cpu")
+    msd = MultiScaleDiscriminator(cfg.disc_pair_batched, tiled_conv=tiled_conv, dtype=dtype,
+                                  device="cpu")
     probe = gan_batch(cfg, 1, 64, seed)
     seen = {}
     copy = Generator(cfg, device="cpu", fused=False)
@@ -1793,8 +1892,8 @@ def gan_modules(cfg, dev, seed: int):
     return tuple(m.to(dev) for m in (gen, mpd, msd))
 
 
-def gan_trainer(cfg, dev, seed: int = SEED) -> GANTrainer:
-    gen, mpd, msd = gan_modules(cfg, dev, seed)
+def gan_trainer(cfg, dev, seed: int = SEED, dtype=None, tiled_conv: bool = False) -> GANTrainer:
+    gen, mpd, msd = gan_modules(cfg, dev, seed, dtype, tiled_conv)
     return GANTrainer(cfg, device=dev, seed=seed, generator=gen, mpd=mpd, msd=msd)
 
 
@@ -1831,8 +1930,8 @@ def timed_gan(trainer, batch, label: str, steps: int) -> list:
 
 
 def train_gan(dev):
-    """Phase 18: the full-size GAN step at B = ``GAN_B`` (timed, learning
-    checked, profiled), then at B = ``GAN_SWEEP_B`` (timed)."""
+    """Phase 18: the full-size GAN step at B = ``GAN_B``, the MSD on grouped
+    convolutions (timed, learning checked, profiled)."""
     cfg = gan_config()
     trainer = gan_trainer(cfg, dev)
     host = gan_batch(cfg, GAN_B, GAN_T, SEED)
@@ -1849,12 +1948,6 @@ def train_gan(dev):
           f"last ({mel[0]:.4f} -> {mel[-1]:.4f}): " + " ".join(f"{v:.4f}" for v in mel))
     check(mel[-1] < mel[0], f"the mel loss did not fall over {len(mel)} steps: {mel}")
     profile_gan_step(trainer, batch)
-    del trainer, batch
-    torch.cuda.empty_cache()
-
-    trainer = gan_trainer(cfg, dev)
-    batch = trainer.to_device(gan_batch(cfg, GAN_SWEEP_B, GAN_T, SEED))
-    timed_gan(trainer, batch, f"GAN B={GAN_SWEEP_B}", TIMED_STEPS)
     check(fused_conv_residual.launches == 0,
           f"{fused_conv_residual.launches} fused ResBlock2 launches in GAN training")
     del trainer, batch
@@ -1897,9 +1990,16 @@ def profile_gan_step(trainer, batch) -> None:
     trainer.opt_d.zero_grad(set_to_none=True)
     msd_layers(trainer.msd.discriminators[1], torch.cat([y, y_hat]).transpose(1, 2))
 
+    profile_gan_kernels(lambda: sum(timed_step()), step_ms)
+
+
+def profile_gan_kernels(step, step_ms: float, top: int = 12) -> list:
+    """``torch.profiler`` over one call of ``step`` (which returns its own
+    ms by CUDA events): busy share, launches and the ``top`` kernels by
+    device time, printed and returned as (ms, count, name)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
-        profiled_ms = sum(timed_step())
+        profiled_ms = step()
     kernels = device_events(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     n_launch = sum(e.count for e in kernels)
@@ -1907,8 +2007,10 @@ def profile_gan_step(trainer, batch) -> None:
           f"device busy {busy_ms:.2f} ms = {100 * busy_ms / step_ms:.1f}% of the uninstrumented "
           f"{step_ms:.2f} ms step ({100 * busy_ms / profiled_ms:.1f}% of the profiled step's "
           f"own {profiled_ms:.2f} ms, CUDA events)")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
+    for e in ranked:
         print(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:6d}  {e.key[:100]}")
+    return [(e.self_device_time_total / 1e3, e.count, e.key) for e in ranked]
 
 
 def msd_layers(disc, x) -> None:
@@ -1935,13 +2037,15 @@ def msd_layers(disc, x) -> None:
             x = F.leaky_relu(out, LRELU_SLOPE)
 
 
-def gan_step_result(cfg, states, host, noise, dev) -> dict:
-    """One GAN step from the weights ``states`` on ``dev``: its scalars, the
-    gradients it left (the D step's on the discriminators, the G step's on
-    the Generator) and the buffers after it, on the host."""
-    gen = Generator(cfg, device=dev, fused=False)
-    mpd = MultiPeriodDiscriminator(cfg, cfg.disc_pair_batched, device=dev)
-    msd = MultiScaleDiscriminator(cfg.disc_pair_batched, device=dev)
+def gan_step_result(cfg, states, host, noise, dev, dtype=None, tiled_conv: bool = False) -> dict:
+    """One GAN step from the weights ``states`` on ``dev`` (``dtype``: the
+    modules' compute dtype; ``tiled_conv``: the MSD's repack): its scalars,
+    the gradients it left (the D step's on the discriminators, the G step's
+    on the Generator) and the buffers after it, on the host."""
+    gen = Generator(cfg, device=dev, fused=False, dtype=dtype)
+    mpd = MultiPeriodDiscriminator(cfg, cfg.disc_pair_batched, dtype=dtype, device=dev)
+    msd = MultiScaleDiscriminator(cfg.disc_pair_batched, tiled_conv=tiled_conv, dtype=dtype,
+                                  device=dev)
     for m, sd in zip((gen, mpd, msd), states):
         m.load_state_dict(sd, strict=True)
     trainer = GANTrainer(cfg, device=dev, generator=gen, mpd=mpd, msd=msd)
@@ -1955,9 +2059,10 @@ def gan_step_result(cfg, states, host, noise, dev) -> dict:
                  if b.is_floating_point()})
 
 
-def check_gan_step_against_cpu():
+def check_gan_step_against_cpu() -> dict:
     """Phase 19: one full-size GAN step on the card against the CPU, the
-    same seeded weights, batch and noise, TF32 off."""
+    same seeded weights, batch and noise, TF32 off.  Returns the weights,
+    batch, noise and both steps' losses, for phase 36."""
     cfg = gan_config()
     states = [{k: v.cpu() for k, v in m.state_dict().items()}
               for m in gan_modules(cfg, "cpu", SEED + 3)]
@@ -1988,6 +2093,8 @@ def check_gan_step_against_cpu():
           f"{STEP_GRAD_GLOBAL_RTOL}), worst tensor {worst:.2e} in {worst_name} (rtol "
           f"{STEP_GRAD_RTOL}); {len(cpu['buffers'])} running statistics and spectral vectors "
           f"after the step: worst {state_err:.2e} in {state_name} (rtol {GAN_STATE_RTOL})")
+    return dict(states=states, host=host, noise=noise, cpu_losses=cpu["losses"],
+                card_losses=card["losses"])
 
 
 def train_gan_loop():
@@ -2784,6 +2891,493 @@ def training_jobs(dev) -> dict:
     return loop_counts
 
 
+# ---------------------------------------------------------------------------
+# Training data on the card and the GAN's modes (phases 32-36)
+# ---------------------------------------------------------------------------
+
+def t2v_demo_config(run_path: str, **changes) -> Text2VecConfig:
+    """The full-size demo config, its vocabulary size taken from the vocab
+    file as the loop takes it, its run directory ``run_path``."""
+    cfg = load_config(Text2VecConfig, repo_path("data", "demo", "text2vec.json"))
+    vocab = TextFrontend.from_vocab_file(cfg.vocab_path).vocab_size
+    return dataclasses.replace(cfg, vocab_size=vocab, run_path=run_path, **changes)
+
+
+def loop_argv(cfg, tmp: str, name: str, *flags: str) -> list:
+    """``cfg`` written to ``{tmp}/{name}.json`` and the argv of ``cli
+    train-*`` that trains from it; the loop's ``main(parse_args(argv))`` is
+    what the subcommand runs."""
+    path = os.path.join(tmp, f"{name}.json")
+    save_config(cfg, path)
+    return ["--config", path, *flags]
+
+
+def rel_diffs(got: dict, want: dict) -> float:
+    """The largest relative difference of two runs' scalars, step by step."""
+    check(sorted(got) == sorted(want), f"steps {sorted(got)} vs {sorted(want)}")
+    return max(abs(got[s][k] - want[s][k]) / max(abs(want[s][k]), 1e-12)
+               for s in want for k in want[s])
+
+
+def device_t2v_loop(tmp: str, counts: dict) -> None:
+    """Phase 32: the demo corpus through the native reader, staged on the
+    card; every batch of an epoch against the host collate's on the card,
+    bit for bit; ``cli train-text2vec`` with ``device_resident_data=true``
+    against the host path (with and without its prefetch thread), 3 steps a
+    run in the turns of ``DEVICE_LOOP_ORDER``, under cuDNN's deterministic
+    algorithms: every run's losses within ``DEVICE_LOSS_RTOL`` of the
+    first's, one MAS and one BiGRU launch a step."""
+    cfg = t2v_demo_config(os.path.join(tmp, "t2v_host"))
+    frontend = TextFrontend.from_vocab_file(cfg.vocab_path)
+    t0 = time.perf_counter()
+    buffer = load_buffer(list(cfg.train_list), cfg, frontend)
+    load_s = time.perf_counter() - t0
+    check(native_io.reader() == "native", "the native .npy reader did not build: np.load read")
+    loader = BucketedLoader(buffer, cfg, seed=SEED)
+    cache = DeviceResidentData(buffer, cfg)
+    n = 0
+    for idx in loader.epoch_indices():
+        got, want = cache.batch(idx), batch_to_device(loader.batch(idx), cache.device)
+        check(all(got[k].dtype == want[k].dtype and torch.equal(got[k], want[k])
+                  for k in want), f"staged batch {idx} differs from the host collate's")
+        n += 1
+    print(f"device-resident Text2Vec data (demo corpus, {len(buffer)} items read by the "
+          f"{native_io.reader()} reader in {load_s:.2f} s): {cache.nbytes() / 2**20:.2f} MiB "
+          f"staged; the {n} batches of an epoch bit-equal to the host collate's on the card")
+    del cache
+
+    device_cfg = dataclasses.replace(cfg, device_resident_data=True,
+                                     run_path=os.path.join(tmp, "t2v_device"))
+    flags = ("--max_steps", "3", "--metric_flush_steps", "1")
+    runs = {"host": loop_argv(cfg, tmp, "t2v_host", *flags),
+            "host, no prefetch": loop_argv(cfg, tmp, "t2v_host", *flags, "--no-prefetch"),
+            "device": loop_argv(device_cfg, tmp, "t2v_device", *flags)}
+    records = {name: [] for name in runs}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name in DEVICE_LOOP_ORDER:
+            reset_serving_counters()
+            records[name].append(text2vec_loop.main(text2vec_loop.parse_args(runs[name])))
+            launches = read_loop_counters()
+            add_counts(counts, launches)
+            check(launches["mas"] == 3 and launches["gru_fwd"] == 3 and launches["gru_bwd"] == 3,
+                  f"{name} Text2Vec loop launches {launches}: want one MAS and BiGRU a step")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    want = records["host"][0].steps
+    err = max(rel_diffs(r.steps, want) for rs in records.values() for r in rs)
+    check(err <= DEVICE_LOSS_RTOL, f"device-resident Text2Vec losses differ by {err:.3g}")
+    ms = {name: 1e3 * float(np.median([t for r in rs for t in r.seconds.values()]))
+          for name, rs in records.items()}
+    print(f"cli train-text2vec with device_resident_data=true against the host path, with and "
+          f"without its prefetch thread (3 steps a run, runs in the order {DEVICE_LOOP_ORDER}, "
+          f"B = {cfg.batch_size}, cuDNN deterministic): losses max rel diff {err:.3g} (rtol "
+          f"{DEVICE_LOSS_RTOL}); host clock between steps, median of steps 2-3 of both runs: "
+          + ", ".join(f"{name} {v:.2f} ms" for name, v in ms.items())
+          + f"; one MAS and one BiGRU launch a step; {card_line()}")
+
+
+def staging_corpus(cfg, seed: int) -> list:
+    """``STAGE_ITEMS`` synthetic items: ``STAGE_FRAMES`` frames of 1024-d
+    features (views into one seeded table, so the host holds them once),
+    ``STAGE_TEXT`` text ids and a prior (a view of one seeded [frames,
+    text] table)."""
+    rng = np.random.default_rng(seed)
+    lo, hi = STAGE_FRAMES
+    table = (rng.standard_normal((4 * hi, cfg.n_feat_dim), dtype=np.float32) * 0.5)
+    prior = rng.random((hi, cfg.text_buckets[-1]), dtype=np.float32)
+    items = []
+    for _ in range(STAGE_ITEMS):
+        t = int(rng.integers(lo, hi + 1))
+        n = int(rng.integers(STAGE_TEXT[0], STAGE_TEXT[1] + 1))
+        o = int(rng.integers(0, 3 * hi))
+        items.append({"text_enc": rng.integers(3, cfg.vocab_size, n).astype(np.int32),
+                      "feat_gt_target": table[o:o + t], "attn_prior": prior[:t, :n],
+                      "audiopath": ""})
+    return items
+
+
+def read_once(tmp: str, order: list) -> None:
+    """One pair of ``read_at_scale``, in a process of its own:
+    ``load_buffer`` over ``{tmp}/read.txt`` by each reader of ``order``,
+    every buffer kept, so that each reads into memory the process has not
+    used yet, as a job's start does; prints the seconds and each feature's
+    sum by reader as the last line, in JSON."""
+    cfg = t2v_demo_config(tmp, feat_ground_truth=os.path.join(tmp, "read"),
+                          use_attn_prior_masking=False)
+    frontend = TextFrontend.from_vocab_file(cfg.vocab_path)
+    native_lib, out, kept = native_io.get_lib, {}, []
+    for reader in order:
+        native_io.get_lib = native_lib if reader == "native" else (lambda: None)
+        check(native_io.reader() == reader, f"the reader is {native_io.reader()}, not {reader}")
+        t0 = time.perf_counter()
+        kept.append(load_buffer([os.path.join(tmp, "read.txt")], cfg, frontend))
+        out[reader] = {"s": time.perf_counter() - t0,
+                       "sums": [float(it["feat_gt_target"].sum(dtype=np.float64))
+                                for it in kept[-1]]}
+    print(json.dumps(out))
+
+
+def read_at_scale(items: list, tmp: str) -> None:
+    """``READ_FILES`` of ``items`` written as ``[1, T, 1024]`` ``.npy``
+    files (the demo list's texts, no prior), then ``load_buffer`` over them
+    by the native prefetcher and by ``np.load`` (the reader taken where the
+    library is missing), ``READ_PAIRS`` alternating pairs, each pair in a
+    fresh process (``read_once``), as a training job reads its corpus at
+    its start; the buffers equal.  The files were just written, so they
+    come from the page cache."""
+    root = os.path.join(tmp, "read")
+    os.makedirs(root)
+    cfg = t2v_demo_config(tmp)
+    with open(cfg.train_list[0], encoding="utf-8") as f:
+        texts = [x.split("|")[1] for x in f.read().split("\n") if x]
+    lines = []
+    for i, it in enumerate(items[:READ_FILES]):
+        np.save(os.path.join(root, f"u{i}.npy"), it["feat_gt_target"][None])
+        lines.append(f"u{i}.npy|{texts[i % len(texts)]}|SSB0000")
+    with open(os.path.join(tmp, "read.txt"), "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+    mib = sum(it["feat_gt_target"].nbytes for it in items[:READ_FILES]) / 2**20
+    seconds = {"native": [], "np.load": []}
+    for r in range(READ_PAIRS):
+        order = ["native", "np.load"][::1 if r % 2 == 0 else -1]
+        proc = subprocess.run(
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke.read_once({tmp!r}, {order!r})"],
+            cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+            timeout=300)
+        check(proc.returncode == 0, f"the readers' process: {proc.stderr[-2000:]}")
+        check("np.load for" not in proc.stdout, "a file fell back to np.load")
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+        check(out["native"]["sums"] == out["np.load"]["sums"], "the readers' buffers differ")
+        for name in seconds:
+            seconds[name].append(out[name]["s"])
+    print(f"  load_buffer over {READ_FILES} of these items as .npy files ({mib:.1f} MiB, page "
+          f"cache), each pair of readers in a fresh process, {READ_PAIRS} alternating pairs, s "
+          f"(MiB/s of the median): " + "; ".join(
+              f"{name} " + " ".join(f"{x:.3f}" for x in v) + f" ({mib / np.median(v):.0f})"
+              for name, v in seconds.items()) + f"; {card_line()}")
+
+
+def stage_at_scale(dev, tmp: str, counts: dict) -> None:
+    """Phase 33: a synthetic corpus at a real size staged on the card: the
+    staging seconds and bytes; a B = 16 x 1024-frame batch assembled on the
+    card against the host collate plus its copy; the bytes that cross a
+    step; the full-size training step fed from the cache; the readers of
+    ``load_buffer`` over part of it (``read_at_scale``)."""
+    cfg = dataclasses.replace(train_config(), text_buckets=(STAGE_N,), frame_buckets=(TRAIN_T,))
+    items = staging_corpus(cfg, SEED + 33)
+    frames = sum(it["feat_gt_target"].shape[0] for it in items)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache = DeviceResidentData(items, cfg)
+    stage_s = time.perf_counter() - t0
+    gib = cache.nbytes() / 2**30
+    print(f"staging at scale: {len(items)} items of {STAGE_FRAMES[0]}-{STAGE_FRAMES[1]} frames "
+          f"({frames} in all) at {cfg.n_feat_dim} dims, text {STAGE_TEXT[0]}-{STAGE_TEXT[1]}: "
+          f"{gib:.3f} GiB staged in {stage_s:.2f} s ({gib / stage_s:.2f} GiB/s, host build and "
+          f"copy); {card_line()}")
+    loader = BucketedLoader(items, cfg, seed=SEED)
+    batches = [idx for _, idx in zip(range(ASSEMBLE_BATCHES), loader.epoch_indices())]
+    got, want = cache.batch(batches[0]), batch_to_device(loader.batch(batches[0]), dev)
+    check(all(torch.equal(got[k], want[k]) for k in want), "staged batch != host collate's")
+    check(tuple(got["feat_target"].shape) == (TRAIN_B, TRAIN_T, cfg.n_feat_dim),
+          f"staged batch {tuple(got['feat_target'].shape)}")
+    host_bytes = sum(np.asarray(v).nbytes for v in loader.batch(batches[0]).values())
+    card_ms, host_ms = [], []
+    for idx in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache.batch(idx)
+        torch.cuda.synchronize()
+        card_ms.append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        batch_to_device(loader.batch(idx), dev)
+        torch.cuda.synchronize()
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+    print(f"  a B = {TRAIN_B} x {TRAIN_T}-frame batch (median of {len(batches)}, host clock to a "
+          f"synchronize): gathered on the card {np.median(card_ms):.3f} ms, host collate + copy "
+          f"{np.median(host_ms):.3f} ms; bytes to the card a step: {TRAIN_B * 8} (the index "
+          f"vector) vs {host_bytes} ({host_bytes / 2**20:.1f} MiB)")
+
+    torch.manual_seed(SEED)
+    trainer = Text2VecTrainer(cfg, device=dev)
+    order = iter(loader.epoch_indices())
+    times = []
+    for step in range(WARMUP_STEPS + TIMED_STEPS):
+        if step == WARMUP_STEPS:
+            torch.cuda.synchronize()
+            reset_counters()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = run_step(trainer, cache.batch(next(order)))
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        check(all(math.isfinite(metrics[k].item()) for k in SCALAR_KEYS), f"losses {metrics}")
+    launches = read_counters()
+    add_counts(counts, launches)
+    want = dict(mas=TIMED_STEPS, gru_fwd=TIMED_STEPS, gru_bwd=TIMED_STEPS)
+    check(all(launches[k] == v for k, v in want.items()), f"fed from the cache: {launches}")
+    ms = float(np.median(times[WARMUP_STEPS:]))
+    print(f"  training fed from the cache (B = {TRAIN_B}, N = {STAGE_N}, T = {TRAIN_T}, a "
+          f"new batch gathered each step and timed with it): median {ms:.2f} ms of "
+          f"{TIMED_STEPS} (phase 8's step, one host batch at N = {TRAIN_N}, above); launches "
+          f"{launches}")
+    del cache, trainer
+    torch.cuda.empty_cache()
+    read_at_scale(items, tmp)
+
+
+def device_gan_loop(tmp: str, counts: dict) -> None:
+    """Phase 34: the windowed GAN loop from the card's corpus: staged
+    windows against the CPU cache's for fixed (idx, fstart), bit for bit;
+    ``cli train-vec2wav`` with ``split``, ``device_mel_target`` and
+    ``device_resident_data`` at B = 2 (the config's) for
+    ``GAN_LOOP_STEPS`` steps, resumed for ``GAN_LOOP_MORE``, one request
+    served from the last ``g_`` file; at B = 16 (the demo list four times
+    over) for ``GAN_LOOP_STEPS`` steps."""
+    cfg = dataclasses.replace(gan_config(), split=True, device_mel_target=True,
+                              device_resident_data=True, run_path=os.path.join(tmp, "v2w_dev"),
+                              save_step=2, val_step=1000, log_step=1)
+    files, _ = get_dataset_filelist(cfg.input_training_file, cfg.input_validation_file)
+    ds = VocoderDataset(files, cfg)
+    card, cpu = VocoderDeviceData(ds, cfg), VocoderDeviceData(ds, cfg, device="cpu")
+    idx = np.arange(len(files))
+    fstart = card.draw_fstarts(idx)
+    got, want = card.batch(idx, fstart), cpu.batch(idx, fstart)
+    check(all(torch.equal(got[k].cpu(), want[k]) for k in want), "staged windows differ")
+    print(f"device-resident windows: {len(files)} items, {card.nbytes() / 2**20:.2f} MiB staged, "
+          f"windows at starts {fstart.tolist()} bit-equal to the CPU cache's")
+    del card, cpu
+
+    def run(c, name, max_steps):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rec = vec2wav_loop.main(vec2wav_loop.parse_args(loop_argv(
+                c, tmp, name, "--max_steps", str(max_steps), "--stdout_interval", "1")))
+        check("device-resident dataset" in out.getvalue(), f"{name}: no device-resident data")
+        check(rec.steps and all(math.isfinite(v) for h in rec.steps.values() for v in h.values()),
+              f"{name} losses {rec.steps}")
+        return rec, [rec.seconds[s] for s in sorted(rec.seconds)]
+
+    first, first_s = run(cfg, "v2w_dev", GAN_LOOP_STEPS)
+    second, second_s = run(cfg, "v2w_dev", GAN_LOOP_STEPS + GAN_LOOP_MORE)
+    check(sorted(second.steps) == list(range(GAN_LOOP_STEPS, GAN_LOOP_STEPS + GAN_LOOP_MORE)),
+          f"resumed steps {sorted(second.steps)}")
+    listing = os.path.join(tmp, "train16.txt")
+    with open(cfg.input_training_file, encoding="utf-8") as f:
+        lines = [x for x in f.read().split("\n") if x]
+    with open(listing, "w", encoding="utf-8") as f:
+        f.write("\n".join(lines * 4) + "\n")
+    wide = dataclasses.replace(cfg, batch_size=GAN_WINDOW_B, input_training_file=listing,
+                               run_path=os.path.join(tmp, "v2w_dev16"), save_step=1000)
+    _, wide_s = run(wide, "v2w_dev16", GAN_LOOP_STEPS)
+    print(f"cli train-vec2wav windowed from the card (split, device_mel_target, "
+          f"device_resident_data): host s/step (steps 1-{GAN_LOOP_STEPS - 1}, the first ~1 s "
+          f"apart) B = {cfg.batch_size} median {np.median(first_s[1:]):.3f} ("
+          + " ".join(f"{x:.3f}" for x in first_s) + f"), resumed at step {min(second.steps)}: "
+          + " ".join(f"{x:.3f}" for x in second_s) + f"; B = {GAN_WINDOW_B} median "
+          f"{np.median(wide_s[1:]):.3f} (" + " ".join(f"{x:.3f}" for x in wide_s)
+          + f"); {card_line()}")
+
+    last = GAN_LOOP_STEPS + GAN_LOOP_MORE - 1
+    g_file = os.path.join(cfg.checkpoint_path, f"g_{last:08d}")
+    t2v_cfg = load_config(Text2VecConfig, repo_path("data", "demo", "text2vec.json"))
+    t2v_state, gen_state = init_import_models(t2v_cfg, gan_config(), gen_checkpoint=g_file)
+    syn = Synthesizer(t2v_cfg, gan_config(), t2v_state, gen_state,
+                      TextFrontend.from_vocab_file(t2v_cfg.vocab_path))
+    text, ref, spk = demo_inputs(syn)
+    reset_serving_counters()
+    with torch.inference_mode():
+        wav, n = syn.synthesize([text(24)], ref, spk, alpha=FRAMES_PER_CHAR, max_frames=512,
+                                seed=SEED)
+    launches = read_loop_counters()
+    add_counts(counts, launches)
+    check(launches["fused_resblock"] == fused_units(gan_config()) and launches["gru_fwd"] == 1,
+          f"serving the device-trained g_: launches {launches}")
+    check(np.isfinite(wav).all() and n[0] > 0, "served waveform not finite")
+    print(f"  served {os.path.basename(g_file)}: {int(n[0])} samples, finite; launches {launches}")
+
+
+def repack_layers(msd, B: int, T: int, label: str) -> list:
+    """Each grouped convolution of the weight-normed MSD scale at the
+    pair-batched input of ``B`` items of ``T`` frames: forward and
+    forward + backward by grouped ``F.conv1d`` and by the repack (CUDA
+    events), the values and both gradients held to each other.  Returns
+    (T_in, plain ms, repack ms) of forward + backward per layer."""
+    disc = msd.discriminators[1]
+    x = torch.randn(2 * B, 1, T * 320, generator=torch.Generator(device="cuda").manual_seed(SEED),
+                    device="cuda") * 0.1
+    rows = []
+    print(f"  MSD grouped convolutions at {label} (x {tuple(x.shape)}, f32):")
+    for conv in disc.convs:
+        kw = dict(stride=conv.stride, padding=conv.padding, groups=conv.groups)
+        w, b = conv.weight().detach(), conv.bias.detach()
+        if conv.groups > 1:
+            xin = x.detach().requires_grad_()
+            wg = w.clone().requires_grad_()
+            plain = lambda: F.conv1d(xin, wg, b, **kw)  # noqa: E731
+            repack = lambda: tiled_grouped_conv1d(xin, wg, b, **kw)  # noqa: E731
+            out = plain()
+            dout = torch.randn_like(out)
+            ref = torch.autograd.grad(out, (xin, wg), dout)
+            got_out = repack()
+            got = torch.autograd.grad(got_out, (xin, wg), dout)
+            errs = [float((got_out - out).abs().max() / out.abs().max())] + [
+                float((g - r).abs().max() / r.abs().max()) for g, r in zip(got, ref)]
+            check(errs[0] <= REPACK_RTOL and max(errs[1:]) <= REPACK_GRAD_RTOL,
+                  f"repack vs grouped conv at {tuple(x.shape)}: {errs}")
+            flop = 2.0 * out.numel() * w.shape[1] * w.shape[2]
+            ms = {}
+            for name, fn in (("plain", plain), ("repack", repack)):
+                ms[name] = (cuda_ms(fn, 3), cuda_ms(lambda fn=fn: torch.autograd.grad(
+                    fn(), (xin, wg), dout), 3))
+            print(f"    {x.shape[1]:4d} -> {w.shape[0]:4d}, stride {conv.stride}, groups "
+                  f"{conv.groups:2d}, T_in {x.shape[2]:6d}: forward {ms['plain'][0]:7.3f} | "
+                  f"{ms['repack'][0]:7.3f} ms ({flop / ms['plain'][0] / 1e9:5.1f} | "
+                  f"{flop / ms['repack'][0] / 1e9:5.1f} TFLOP/s), forward + backward "
+                  f"{ms['plain'][1]:7.3f} | {ms['repack'][1]:7.3f} ms "
+                  f"({3 * flop / ms['plain'][1] / 1e9:5.1f} | "
+                  f"{3 * flop / ms['repack'][1] / 1e9:5.1f} TFLOP/s) (grouped conv | repack); "
+                  f"max errors {errs[0]:.2e}, {errs[1]:.2e}, {errs[2]:.2e}")
+            rows.append((x.shape[2], ms["plain"][1], ms["repack"][1]))
+        with torch.no_grad():
+            x = F.leaky_relu(F.conv1d(x, w, b, **kw), LRELU_SLOPE)
+    return rows
+
+
+def repack_ab(trainers: dict, batch: dict, label: str) -> dict:
+    """The GAN step of each trainer (the same weights; the MSD on each of
+    ``REPACK_ROUTES``) on ``batch``, in ``REPACK_PAIRS`` alternating rounds
+    (forward order, then reverse); prints and returns the median ms of
+    each.  JAX's gate: the repack's calls on inputs shorter than
+    ``JAX_MIN_T_IN`` samples go to grouped ``F.conv1d`` instead."""
+    def jax_gate(x, *args, **kw):
+        conv = tiled_grouped_conv1d if x.shape[2] >= JAX_MIN_T_IN else F.conv1d
+        return conv(x, *args, **kw)
+
+    def step(name):
+        if name == "jax_gate":
+            layers.tiled_grouped_conv1d = jax_gate
+        try:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            trainers[name].step(batch)
+            end.record()
+            torch.cuda.synchronize()
+        finally:
+            layers.tiled_grouped_conv1d = tiled_grouped_conv1d
+        return start.elapsed_time(end)
+
+    names = list(trainers)
+    for name in names:
+        step(name)  # warm-up
+    times = {name: [] for name in names}
+    for r in range(REPACK_PAIRS):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            times[name].append(step(name))
+    med = {name: float(np.median(v)) for name, v in times.items()}
+    print(f"  GAN step A/B at {label} ({REPACK_PAIRS} alternating rounds, CUDA events): "
+          + "; ".join(f"{REPACK_ROUTES[n]} {med[n]:.2f} ms ({min(times[n]):.2f}-"
+                      f"{max(times[n]):.2f})" for n in names)
+          + f"; {card_line()}")
+    return med
+
+
+def msd_repack(dev) -> None:
+    """Phase 35: the MSD's grouped layers by both routes at the
+    whole-utterance and windowed shapes; the GAN step A/B at both; the
+    profiler's top kernels of the repack's whole-utterance step; the gate's
+    threshold as measured."""
+    cfg = gan_config()
+    torch.manual_seed(SEED)
+    msd = MultiScaleDiscriminator(cfg.disc_pair_batched, device=dev)
+    print("MSD repack (ops/tiled_conv.py) against grouped F.conv1d:")
+    rows = repack_layers(msd, GAN_B, GAN_T, f"B = {GAN_B} x {GAN_T} frames")
+    rows += repack_layers(msd, GAN_WINDOW_B, WINDOW_T, f"B = {GAN_WINDOW_B} x {WINDOW_T} frames")
+    del msd
+    wins = sorted(t for t, plain, rep in rows if rep < plain)
+    losses = sorted(t for t, plain, rep in rows if rep >= plain)
+    print(f"  the gate, as measured (forward + backward of each layer): the repack is faster at "
+          f"T_in {wins}, slower at {losses}; the port's gate admits every length")
+    trainers = {name: gan_trainer(cfg, dev, tiled_conv=(name != "off"))
+                for name in REPACK_ROUTES}
+    whole = trainers["off"].to_device(gan_batch(cfg, GAN_B, GAN_T, SEED))
+    windowed = trainers["off"].to_device(gan_batch(cfg, GAN_WINDOW_B, WINDOW_T, SEED))
+    repack_ab(trainers, whole, f"B = {GAN_B} x {GAN_T} frames")
+    repack_ab(trainers, windowed, f"windowed B = {GAN_WINDOW_B} x {WINDOW_T} frames")
+    print("  top kernels of the repack's step (the port's gate, whole utterances):")
+
+    def timed():
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        trainers["on"].step(whole)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    profile_gan_kernels(timed, float(np.median([timed() for _ in range(3)])))
+
+
+def gan_bf16(dev, phase19: dict) -> None:
+    """Phase 36: the GAN step as ``GANTrainer(cfg)`` builds it, the MSD on
+    the repack (``cfg.msd_tiled_conv``), at full size (phase 18's weights
+    and batches): bf16 at B = ``GAN_B`` and ``GAN_SWEEP_B``; f32, and bf16
+    with the MSD on grouped convolutions, at ``GAN_SWEEP_B``.  Then one bf16
+    card step against
+    the CPU's bf16 step from phase 19's weights, noise and batch, both on
+    the repack, held to |card - CPU bf16| at most ``GAN_BF16_NOISE`` times
+    |CPU bf16 - CPU f32| or ``GAN_BF16_FLOOR`` of the loss; phase 19's f32
+    card step must fail that bound on at least one loss."""
+    cfg = gan_config()
+    bf16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    check(cfg.msd_tiled_conv, "the demo config keeps the MSD off the repack")
+    for label, B, c, dtype, tiled in (
+            ("bf16", GAN_B, bf16, torch.bfloat16, True), ("f32", GAN_SWEEP_B, cfg, None, True),
+            ("bf16", GAN_SWEEP_B, bf16, torch.bfloat16, True),
+            ("bf16, MSD grouped", GAN_SWEEP_B, bf16, torch.bfloat16, False)):
+        trainer = gan_trainer(c, dev, dtype=dtype, tiled_conv=tiled)
+        batch = trainer.to_device(gan_batch(c, B, GAN_T, SEED))
+        timed_gan(trainer, batch, f"GAN {label} B={B}", TIMED_STEPS)
+        del trainer, batch
+        torch.cuda.empty_cache()
+    print(f"  (the MSD on the repack unless marked, the default; phase 18's f32 step is on "
+          f"grouped convolutions; {card_line()})")
+    args = (bf16, phase19["states"], phase19["host"], phase19["noise"])
+    card = gan_step_result(*args, "cuda", dtype=torch.bfloat16, tiled_conv=True)["losses"]
+    cpu = gan_step_result(*args, "cpu", dtype=torch.bfloat16, tiled_conv=True)["losses"]
+    bounds = [max(GAN_BF16_NOISE * abs(b - f32), GAN_BF16_FLOOR * abs(b))
+              for b, f32 in zip(cpu, phase19["cpu_losses"])]
+    for k, a, b, bound in zip(GAN_KEYS, card, cpu, bounds):
+        check(abs(a - b) <= bound, f"bf16 GAN step {k}: card {a} vs CPU {b} (bound {bound:.3g})")
+    f32_out = [k for k, a, b, bound in zip(GAN_KEYS, phase19["card_losses"], cpu, bounds)
+               if abs(a - b) > bound]
+    check(bool(f32_out), "the f32 card step passes the bf16 bound: it cannot tell the two apart")
+    print(f"GAN bf16 step, card vs CPU (B={GAN_CHECK_B} T={GAN_CHECK_T}, phase 19's weights and "
+          f"noise, the MSD on the repack; bound {GAN_BF16_NOISE} x |CPU bf16 - CPU f32| or "
+          f"{GAN_BF16_FLOOR} of the loss): " + ", ".join(
+              f"{k} {a:.5g} vs {b:.5g} (|diff| {abs(a - b):.3g}, bound {bound:.3g}; CPU f32 "
+              f"{f:.5g}, card f32 {g:.5g})" for k, a, b, bound, f, g in
+              zip(GAN_KEYS, card, cpu, bounds, phase19["cpu_losses"], phase19["card_losses"]))
+          + f"; the f32 card step fails the bound at {f32_out}")
+
+
+def data_and_gan_modes(dev, phase19: dict) -> dict:
+    """Phases 32-36; returns each kernel's launches over them."""
+    counts: dict = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as tmp:
+        for phase, fn in ((32, lambda: device_t2v_loop(tmp, counts)),
+                          (33, lambda: stage_at_scale(dev, tmp, counts)),
+                          (34, lambda: device_gan_loop(tmp, counts)),
+                          (35, lambda: msd_repack(dev)),
+                          (36, lambda: gan_bf16(dev, phase19))):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.empty_cache()
+            print(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: PyTorch sees no CUDA device; this script runs on an NVIDIA GPU",
@@ -2829,13 +3423,15 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     train_gan(dev)
-    check_gan_step_against_cpu()
+    gan_check = check_gan_step_against_cpu()
     train_gan_loop()
     torch.cuda.empty_cache()
 
     serving = serving_stack(dev)
     torch.cuda.empty_cache()
     loop = training_jobs(dev)
+    torch.cuda.empty_cache()
+    data = data_and_gan_modes(dev, gan_check)
 
     kernels = [
         dict(name="fused_resblock", route="cuda",
@@ -2861,6 +3457,7 @@ def main() -> int:
     next(k for k in kernels if k["name"] == "flash_fwd")["serving_launches"] = serving["flash_fwd"]
     for kern in kernels:
         kern["loop_launches"] = loop.get(kern["name"], 0)
+        kern["data_launches"] = data.get(kern["name"], 0)
     for kern in kernels:
         keys = ("ms", "plain_ms", "bound_ms") + (("f32_ms", "f32_plain_ms", "f32_bound_ms",
                                                    "f32_sdpa_bwd_ms")

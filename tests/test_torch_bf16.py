@@ -359,8 +359,9 @@ def test_f32_flash_step_gradients(f32_step):
 def test_check_ported_admits_long_bucket_config():
     """The JAX package's long-bucket config (bf16, flash) passes
     ``check_ported``; its trainer computes in bf16 and serving in f32;
-    a bf16 Vec2Wav config (the bf16 GAN step) still raises, while the bf16
-    serving Generator builds (``tests/test_torch_serving_bf16.py``)."""
+    a bf16 Vec2Wav config (the bf16 GAN step) builds the f32 Generator for
+    serving, as the JAX package's serving path does, and the bf16 serving
+    Generator builds (``tests/test_torch_serving_bf16.py``)."""
     cfg = load_config(Text2VecConfig, LONG_CFG)
     assert cfg.compute_dtype == "bfloat16" and cfg.flash_attention
     check_ported(cfg)
@@ -369,8 +370,9 @@ def test_check_ported_admits_long_bucket_config():
     attn = trainer.model.decoder.layer_stack[0].slf_attn
     assert attn.use_flash and attn.w_qs.compute_dtype == torch.bfloat16
     assert Text2Vec(small, device="cpu").decoder.layer_stack[0].slf_attn.w_qs.compute_dtype is None
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        Generator(Vec2WavConfig(compute_dtype="bfloat16"), device="cpu")
+    served = Generator(Vec2WavConfig(compute_dtype="bfloat16"), device="cpu")
+    assert next(served.parameters()).dtype == torch.float32
+    assert served.conv_pre.compute_dtype is None
     gen, state = make_serving_generator(Vec2WavConfig(), Generator(Vec2WavConfig(), device="cpu")
                                         .state_dict(), "bf16", device="cpu")
     assert next(gen.parameters()).dtype == torch.bfloat16

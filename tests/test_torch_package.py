@@ -23,7 +23,7 @@ import pytest
 import torch
 
 import wavthruvec_pytorch_tpu_torch as port
-from wavthruvec_pytorch_tpu_torch.config import Text2VecConfig, Vec2WavConfig
+from wavthruvec_pytorch_tpu_torch.config import Text2VecConfig, Vec2WavConfig, check_ported
 from wavthruvec_pytorch_tpu_torch.entry import entry
 from wavthruvec_pytorch_tpu_torch.infer.synthesize import Synthesizer, make_serving_generator
 from wavthruvec_pytorch_tpu_torch.models.layers import PartialConv1d
@@ -33,6 +33,7 @@ from wavthruvec_pytorch_tpu_torch.ops import kernel_build
 from wavthruvec_pytorch_tpu_torch.text import TextFrontend
 from wavthruvec_pytorch_tpu_torch.train import text2vec_loop
 from wavthruvec_pytorch_tpu_torch.train.text2vec_train import Text2VecTrainer
+from wavthruvec_pytorch_tpu_torch.train.vec2wav_train import GANTrainer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_DIR = os.path.dirname(os.path.abspath(port.__file__))
@@ -183,26 +184,40 @@ def test_entry_points_raise_without_gpu(monkeypatch):
 
 
 @pytest.mark.parametrize("flag", ["flash_attention", "compute_dtype", "bf16_serving",
-                                  "partial_padding"])
+                                  "partial_padding", "input_wav"])
 def test_unported_flags_raise(flag):
     """An unported flag raises NotImplementedError naming ROADMAP.md.  The
     Text2Vec flags of the long-bucket slice, ``flash_attention`` and
     ``compute_dtype="bfloat16"``, are ported and build, and so do the bf16
     serving Generator and ``attn_use_partial_padding`` (ConvAttention's
     convolutions become ``PartialConv1d``); a bf16 Vec2Wav config (the bf16
-    GAN step) still raises."""
+    GAN step) no longer raises: the GAN trainer computes in bf16 and a
+    served Generator in f32."""
     if flag == "flash_attention":
         model = Text2Vec(Text2VecConfig(**TINY_T2V, flash_attention=True), device="cpu")
         assert model.encoder.layer_stack[0].slf_attn.use_flash
     elif flag == "compute_dtype":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            Generator(Vec2WavConfig(**TINY_V2W, compute_dtype="bfloat16"), device="cpu")
+        v2w = Vec2WavConfig(**TINY_V2W, compute_dtype="bfloat16")
+        assert Generator(v2w, device="cpu").conv_pre.compute_dtype is None
+        gan = GANTrainer(v2w, device="cpu")
+        assert gan.gen.conv_pre.compute_dtype == torch.bfloat16
+        assert gan.msd.discriminators[0].convs[1].compute_dtype == torch.bfloat16
         trainer = Text2VecTrainer(Text2VecConfig(**TINY_T2V, compute_dtype="bfloat16"),
                                   device="cpu")
         assert trainer.model.WVF_linear.linear_layer.compute_dtype == torch.bfloat16
     elif flag == "partial_padding":
         model = Text2Vec(Text2VecConfig(**TINY_T2V, attn_use_partial_padding=True), device="cpu")
         assert isinstance(model.attention.key_proj[0].conv, PartialConv1d)
+    elif flag == "input_wav":
+        # ECAPA's raw-wav front end is not ported: the model, the trainer
+        # and serving refuse the config on the CPU before computing anything
+        cfg = Text2VecConfig(**TINY_T2V, input_wav=True)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 item 11"):
+            check_ported(cfg)
+        with pytest.raises(NotImplementedError, match="input_wav"):
+            Text2Vec(cfg, device="cpu")
+        with pytest.raises(NotImplementedError, match="input_wav"):
+            Text2VecTrainer(cfg, device="cpu")
     else:
         cfg = Vec2WavConfig(**TINY_V2W)
         state = Generator(cfg, device="cpu").state_dict()

@@ -152,10 +152,23 @@ def test_make_serving_generator_bf16_gives_f32_audio():
 
 
 def test_bf16_vec2wav_config_still_refused():
-    """``Vec2WavConfig.compute_dtype`` is the bf16 GAN step, not ported; its
-    message points at the bf16 serving route."""
-    with pytest.raises(NotImplementedError, match="make_serving_generator"):
-        Generator(Vec2WavConfig(**V2W, compute_dtype="bfloat16"), device="cpu")
+    """``Vec2WavConfig.compute_dtype="bfloat16"`` selects the bf16 GAN step
+    only; served, such a config builds the f32 Generator, as the JAX
+    package's serving path does: f32 parameters, no compute dtype, the
+    fused units, and the same waveform as the f32 config's."""
+    cfg = Vec2WavConfig(**V2W, compute_dtype="bfloat16")
+    torch.manual_seed(0)
+    gen = Generator(cfg, device="cpu")
+    torch.manual_seed(0)
+    f32 = Generator(Vec2WavConfig(**V2W), device="cpu")
+    assert all(p.dtype == torch.float32 for p in gen.parameters())
+    assert gen.fused and gen.conv_pre.compute_dtype is None
+    rng = np.random.default_rng(0)
+    x = torch.tensor(rng.standard_normal((1, 8, cfg.n_feat_dim)), dtype=torch.float32)
+    spk = torch.tensor(rng.standard_normal((1, cfg.spk_dim)), dtype=torch.float32)
+    z = torch.tensor(rng.standard_normal((1, cfg.noise_dim)), dtype=torch.float32)
+    wav = gen(x, spk, z)
+    assert wav.dtype == torch.float32 and torch.equal(wav, f32(x, spk, z))
 
 
 @pytest.mark.cuda

@@ -148,16 +148,10 @@ def test_loader_batches_equal_jax(tiny_data):
 
 @pytest.mark.parametrize("flag", ["split", "device_resident_data"])
 def test_gan_data_flags_refused(flag):
-    """The device-resident data is not ported: the training path refuses
-    it, naming ROADMAP.md; serving does not read it.  Windowed training is
-    ported and passes both checks."""
+    """Neither GAN data flag is refused any more: windowed training and the
+    device-resident data are ported and pass ``check_ported``; the dataset
+    builds with either."""
     cfg = Vec2WavConfig(**{flag: True})
-    if flag == "split":
-        check_ported(cfg, training=True)
-        assert tdata.VocoderDataset([], cfg).split
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 item 9"):
-            check_ported(cfg, training=True)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 item 9"):
-            tdata.VocoderDataset([], cfg)
     check_ported(cfg)
+    ds = tdata.VocoderDataset([], cfg)
+    assert ds.split == (flag == "split")

@@ -1,7 +1,7 @@
 """Both training loops as jobs on the CPU, on the tiny demo configs: their
 files, logs, resume, frozen lr and validation; the two validations against
-the JAX package's; the ``train-*`` subcommands; the refusal of
-``device_resident_data``.
+the JAX package's; the ``train-*`` subcommands; both loops fed from the
+device caches (``device_resident_data``).
 
 Tolerances: ``compute_validation_loss`` against JAX's over the same batches
 and weights, rtol 1e-5 (f32 both sides, the step's loss tolerance in
@@ -355,7 +355,7 @@ def test_vec2wav_loop_windowed_resume_and_logs(monkeypatch, tmp_path, fake_tenso
     assert _files_with_mtimes(cfg.checkpoint_path) == before
 
 
-# --- the command line and the refusal ---------------------------------------------
+# --- the command line and the device caches ---------------------------------------------
 
 @pytest.mark.parametrize("cmd", ["train-text2vec", "train-vec2wav"])
 def test_cli_train_subcommands(cmd, monkeypatch, tmp_path, jsonl_logger):
@@ -401,23 +401,35 @@ def test_text2vec_loop_refuses_jax_only_flags(flag):
 
 
 @pytest.mark.parametrize("loop", ["text2vec", "vec2wav"])
-def test_device_resident_data_refused(loop, monkeypatch, tmp_path):
-    """``device_resident_data=True`` is refused by both loops on the CPU,
-    naming ROADMAP.md queue 1 item 9, before anything is written; serving
-    does not read it."""
+def test_device_resident_data_refused(loop, monkeypatch, tmp_path, jsonl_logger, capsys):
+    """``device_resident_data=True`` is no longer refused: it passes
+    ``check_ported`` and each loop trains from its device cache, the same
+    batches in the same order, so its losses equal the host path's exactly.
+    The GAN's windows are a whole utterance (segment_size 42 x 320, the
+    demo's longest item), so both paths start each at frame 0 whatever
+    their streams draw, and every demo wav is T x 320 samples long (no
+    zero-fill case); one GAN step, two Text2Vec steps.  The GAN loop ignores
+    the flag, with a message, without ``device_mel_target``."""
     monkeypatch.chdir(REPO)
     if loop == "text2vec":
-        cfg = dataclasses.replace(load_config(Text2VecConfig, T2V_TINY), run_path=str(tmp_path),
-                                  device_resident_data=True)
-        run = lambda: text2vec_loop.main(_t2v_args("--max_steps", "1"), cfg=cfg)  # noqa: E731
+        cfg = _t2v_cfg(tmp_path)
+        run = lambda c: text2vec_loop.main(_t2v_args("--max_steps", "2"), cfg=c)  # noqa: E731
     else:
         cfg = dataclasses.replace(load_config(Vec2WavConfig, V2W_TINY), run_path=str(tmp_path),
-                                  device_resident_data=True)
-        run = lambda: vec2wav_loop.main(vec2wav_loop.parse_args(  # noqa: E731
-            ["--max_steps", "1", "--device", "cpu"]), cfg=cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 item 9"):
-        check_ported(cfg, training=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 item 9"):
-        run()
-    assert os.listdir(tmp_path) == []
-    check_ported(cfg)
+                                  split=True, device_mel_target=True, segment_size=42 * 320,
+                                  val_step=1000)
+        run = lambda c: vec2wav_loop.main(vec2wav_loop.parse_args(  # noqa: E731
+            ["--max_steps", "1", "--device", "cpu", "--num_workers", "0"]), cfg=c)
+    on = dataclasses.replace(cfg, device_resident_data=True,
+                             run_path=str(tmp_path / "device"))
+    check_ported(on)
+    host = run(cfg)
+    capsys.readouterr()
+    device = run(on)
+    assert "device-resident dataset" in capsys.readouterr().out
+    assert sorted(device.steps) == sorted(host.steps) and host.steps
+    assert device.steps == host.steps
+    if loop == "vec2wav":
+        # the finished run resumes at --max_steps and trains nothing
+        assert run(dataclasses.replace(on, device_mel_target=False)).steps == {}
+        assert "device_resident_data ignored" in capsys.readouterr().out

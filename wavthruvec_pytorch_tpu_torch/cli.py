@@ -31,9 +31,9 @@ NOT_PORTED = {
     "prepare-data": "queue 1 item 11 (data/ingest.py)",
     "pre-spk-emb": "queue 1 item 11 (data/spk_emb.py and ECAPA's wav path)",
     "make-demo-data": "queue 1 item 11 (data/demo.py)",
-    "export-torch": "queue 1 item 9 (the port's own checkpoints are already the torch "
-                    "reference's files; an orbax checkpoint of the JAX package needs the JAX "
-                    "package's own export-torch)",
+    "export-torch": "queue 1 item 11 (the port's own checkpoints are already the torch "
+                    "reference's files; what remains is the orbax route, an orbax checkpoint "
+                    "of the JAX package, which the JAX package's own export-torch converts)",
     "recalibrate-bn": "queue 1 item 11 (infer/recalibrate.py)",
 }
 

@@ -10,13 +10,15 @@ compatibility:
   JAX ``gru_impl="pallas"`` kernel computes (bf16 ``w_hh``, f32 carry);
 * ``Text2VecConfig.flash_attention=True`` and ``compute_dtype="bfloat16"``
   are ported (the trainer computes in bf16, serving in f32, as in the JAX
-  package), and so are ``attn_use_partial_padding=True`` and windowed GAN
-  training (``Vec2WavConfig.split=True``);
-  ``Vec2WavConfig.compute_dtype != "float32"`` (the bf16 GAN step; bf16
-  serving goes through ``make_serving_generator``) is not ported yet, nor is
-  ``flash_attention=True`` with a head dim above 256; they raise
-  ``NotImplementedError`` where a model is built.  Both training loops
-  refuse ``device_resident_data=True`` too.
+  package), and so are ``attn_use_partial_padding=True``, windowed GAN
+  training (``Vec2WavConfig.split=True``), ``device_resident_data=True`` in
+  both loops, ``msd_tiled_conv`` and ``Vec2WavConfig.compute_dtype=
+  "bfloat16"`` (the bf16 GAN step; serving builds the f32 Generator for it,
+  as the JAX package does, and bf16 serving goes through
+  ``make_serving_generator``).  ``flash_attention=True`` with a head dim
+  above 256 and ``Text2VecConfig.input_wav=True`` (ECAPA's raw-wav front
+  end) are not ported yet; they raise ``NotImplementedError`` where a model
+  is built.
 
 Each config names its run's directories as the JAX package's does:
 ``{run_path}/{log_seed}/`` holds ``model_new/`` (the checkpoints),
@@ -242,21 +244,13 @@ def parse_bool(value: str) -> bool:
     raise ValueError(f"not a true/false value: {value!r}")
 
 
-def check_ported(cfg, training: bool = False) -> None:
-    """Raise for a config flag whose JAX implementation is not ported yet;
-    ``training`` adds the flags that only the training loops read."""
-    if isinstance(cfg, Vec2WavConfig) and cfg.compute_dtype != "float32":
+def check_ported(cfg) -> None:
+    """Raise for a config flag whose JAX implementation is not ported yet."""
+    if isinstance(cfg, Text2VecConfig) and cfg.input_wav:
         raise NotImplementedError(
-            f"Vec2WavConfig.compute_dtype={cfg.compute_dtype!r} (the bf16 GAN step) is not "
-            "ported; the discriminators and the GAN step compute in float32 (ROADMAP.md, "
-            "queue 1 item 3).  bf16 serving is ported and does not read this field: build "
-            "it with infer.synthesize.make_serving_generator(cfg, state, 'bf16')."
-        )
-    if training and cfg.device_resident_data:
-        raise NotImplementedError(
-            f"{type(cfg).__name__}.device_resident_data=True is not ported; training takes its "
-            "batches from the host loader (ROADMAP.md, queue 1 item 9: the device-resident "
-            "caches data/device_cache.py and data/vocoder_device_cache.py).")
+            "Text2VecConfig.input_wav=True (ECAPA on raw waveforms through its fbank front end, "
+            "JAX models/ecapa.py wav_to_fbank) is not ported: the port's ECAPA takes features "
+            "only (ROADMAP.md, queue 1 item 11).")
     if isinstance(cfg, Text2VecConfig) and cfg.flash_attention:
         # both FFT stacks take d_k = d_model // encoder_head (models/text2vec.py)
         d_k = max(cfg.encoder_dim, cfg.decoder_dim) // cfg.encoder_head

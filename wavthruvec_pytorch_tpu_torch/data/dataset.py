@@ -17,6 +17,7 @@ from typing import Dict, Iterator, List, Sequence
 import numpy as np
 
 from wavthruvec_pytorch_tpu_torch.config import Text2VecConfig
+from wavthruvec_pytorch_tpu_torch.data import native_io
 from wavthruvec_pytorch_tpu_torch.data.prior import get_attention_prior
 from wavthruvec_pytorch_tpu_torch.text import TextFrontend
 from wavthruvec_pytorch_tpu_torch.train.text2vec_train import make_padded_batch
@@ -25,25 +26,30 @@ from wavthruvec_pytorch_tpu_torch.train.text2vec_train import make_padded_batch
 def load_buffer(file_lists: Sequence[str], cfg: Text2VecConfig,
                 frontend: TextFrontend) -> List[Dict]:
     """Load every ``npy|text|speaker`` line of the file lists (feature paths
-    relative to ``cfg.feat_ground_truth``) with ``np.load``: features
-    ``[T, n_feat]``, text ids, and the cached attention prior."""
+    relative to ``cfg.feat_ground_truth``): features ``[T, n_feat]``, text
+    ids, and the cached attention prior.  The native prefetcher
+    (``data/native_io.py``) reads the ``.npy`` files ahead of the parse
+    loop on its threads."""
     lines: List[str] = []
     for path in file_lists:
         with open(path, "r", encoding="utf-8") as f:
             lines.extend(f.readlines())
+    parsed = [line.strip().split("|") for line in lines]
+    paths = [os.path.join(cfg.feat_ground_truth, p[0]) for p in parsed]
     start = time.perf_counter()
     buffer = []
-    for line in lines:
-        npy_file, character, spk = line.strip().split("|")
-        feat_path = os.path.join(cfg.feat_ground_truth, npy_file)
-        feat = np.asarray(np.load(feat_path)).squeeze().astype(np.float32)  # [1, T, C] -> [T, C]
-        text_enc = np.asarray(frontend.text_to_sequence(character), np.int32)
-        prior = (get_attention_prior(text_enc.shape[0], feat.shape[0],
-                                     cache_path=cfg.betabinom_cache_path,
-                                     scaling_factor=cfg.betabinom_scaling_factor)
-                 if cfg.use_attn_prior_masking else None)
-        buffer.append({"text_enc": text_enc, "feat_gt_target": feat, "audiopath": feat_path,
-                       "attn_prior": prior, "speaker": spk})
+    with native_io.Prefetcher(paths) as prefetcher:
+        feats = map(prefetcher.get, range(len(paths)))
+        for (_, character, spk), feat_path, feat in zip(parsed, paths, feats):
+            # [1, T, C] -> [T, C]
+            feat = np.asarray(feat).squeeze().astype(np.float32, copy=False)
+            text_enc = np.asarray(frontend.text_to_sequence(character), np.int32)
+            prior = (get_attention_prior(text_enc.shape[0], feat.shape[0],
+                                         cache_path=cfg.betabinom_cache_path,
+                                         scaling_factor=cfg.betabinom_scaling_factor)
+                     if cfg.use_attn_prior_masking else None)
+            buffer.append({"text_enc": text_enc, "feat_gt_target": feat,
+                           "audiopath": feat_path, "attn_prior": prior, "speaker": spk})
     print(f"cost {time.perf_counter() - start:.2f}s to load all data into buffer.")
     if buffer:
         _check_position_capacity(cfg, max(len(it["text_enc"]) for it in buffer),
@@ -80,7 +86,9 @@ class BucketedLoader:
         return len(self.buffer) // self.super_batch * self.cfg.batch_expand_size
 
     def epoch_indices(self) -> Iterator[List[int]]:
-        """Each batch's buffer indices, in the order ``epoch`` pads them."""
+        """Each batch's buffer indices, in the order ``epoch`` pads them
+        (``data.device_cache.DeviceResidentData`` gathers the same batches
+        on the card); one draw of the shuffle per call."""
         order = (self.rng.permutation(len(self.buffer)) if self.shuffle
                  else np.arange(len(self.buffer)))
         for s in range(len(order) // self.super_batch):

@@ -7,8 +7,8 @@ A filelist entry ``train/SSB0000/u0.npy`` names the wav
 ``{train_wav_path}/train/wav/SSB0000/u0.wav``, the features
 ``{feat_ground_truth}/train/SSB0000/u0.npy`` and the speaker embedding
 ``{spk_emb_path}/SSB0000.npy`` (or ``.pth``).  The device-resident cache
-(JAX: data/vocoder_device_cache.py) is not ported (ROADMAP.md, queue 1
-item 9).
+``data/vocoder_device_cache.py`` stages what ``VocoderDataset.full_arrays``
+reads and batches ``VocoderLoader.epoch_indices``.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from wavthruvec_pytorch_tpu_torch.config import Vec2WavConfig, check_ported
+from wavthruvec_pytorch_tpu_torch.config import Vec2WavConfig
 from wavthruvec_pytorch_tpu_torch.ops.stft import _dft_kernel, _mel_basis
 from wavthruvec_pytorch_tpu_torch.text import pad_to_bucket
 
@@ -127,7 +127,6 @@ class VocoderDataset:
     def __init__(self, files: Sequence[str], cfg: Vec2WavConfig, fine_tuning: bool = False,
                  base_mels_path: Optional[str] = None, split: Optional[bool] = None,
                  seed: int = 1234, compute_mel: Optional[bool] = None):
-        check_ported(cfg, training=True)
         self.files = list(files)
         self.cfg = cfg
         self.fine_tuning = fine_tuning
@@ -171,6 +170,41 @@ class VocoderDataset:
         with self._rng_lock:  # loader threads share one stream
             return int(self.rng.integers(0, high))
 
+    def _read(self, index: int, cache: bool) -> Tuple[np.ndarray, np.ndarray]:
+        """Item ``index``'s whole features [T, n_feat] and audio (normalised
+        outside fine-tuning), from the RAM cache or from disk; with
+        ``cache`` a read from disk goes into the cache (the features only
+        with ``split``: the item cache holds them otherwise)."""
+        cfg = self.cfg
+        filename = self.files[index]
+        parts = filename.split("/")
+        audio = self._audio_cache.get(index)
+        if audio is None:
+            audio, _ = load_wav(os.path.join(cfg.train_wav_path, parts[0], "wav", parts[1],
+                                             parts[2][:-4] + ".wav"), cfg.sampling_rate)
+            if not self.fine_tuning:
+                audio = normalize(audio) * 0.95
+            if cache:
+                self._cache_put(self._audio_cache, index, audio, audio.nbytes)
+        wv_feat = self._feat_cache.get(index)
+        if wv_feat is None:
+            wv_feat = np.asarray(np.load(os.path.join(cfg.feat_ground_truth, filename))
+                                 ).squeeze().astype(np.float32)
+            if cache and self.split:
+                self._cache_put(self._feat_cache, index, wv_feat, wv_feat.nbytes)
+        return wv_feat, audio
+
+    def full_arrays(self, index: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Item ``index`` whole, as the device cache stages it (JAX package:
+        ``VocoderDataset.full_arrays``): (features [T, n_feat], normalised
+        audio [L], speaker embedding [spk_dim]).  Not for fine-tuning, whose
+        windows come from precomputed mels; nothing is cached."""
+        if self.fine_tuning:
+            raise ValueError("full_arrays: fine_tuning items window precomputed mels; use the "
+                             "host path")
+        wv_feat, audio = self._read(index, cache=False)
+        return wv_feat, audio, self._load_spk(self.files[index].split("/")[1])
+
     def __getitem__(self, index: int) -> Dict:
         cached = self._item_cache.get(index)
         if cached is not None:
@@ -178,20 +212,7 @@ class VocoderDataset:
         cfg = self.cfg
         filename = self.files[index]
         parts = filename.split("/")
-
-        audio = self._audio_cache.get(index)
-        if audio is None:
-            audio, _ = load_wav(os.path.join(cfg.train_wav_path, parts[0], "wav", parts[1],
-                                             parts[2][:-4] + ".wav"), cfg.sampling_rate)
-            if not self.fine_tuning:
-                audio = normalize(audio) * 0.95
-            self._cache_put(self._audio_cache, index, audio, audio.nbytes)
-        wv_feat = self._feat_cache.get(index)
-        if wv_feat is None:
-            wv_feat = np.asarray(np.load(os.path.join(cfg.feat_ground_truth, filename))
-                                 ).squeeze().astype(np.float32)
-            if self.split:  # the item cache holds it otherwise
-                self._cache_put(self._feat_cache, index, wv_feat, wv_feat.nbytes)
+        wv_feat, audio = self._read(index, cache=True)
 
         if self.fine_tuning:
             audio = self._fine_tuning_window(filename, audio)
@@ -315,14 +336,20 @@ class VocoderLoader:
             return list(self._pool.map(self.dataset.__getitem__, [int(i) for i in idx]))
         return [self.dataset[int(i)] for i in idx]
 
+    def epoch_indices(self) -> Iterator[np.ndarray]:
+        """Each batch's item indices, in the order ``epoch`` loads them, from
+        the same draw of the shuffle (JAX package:
+        ``VocoderLoader.epoch_indices``): one epoch takes one of the two."""
+        order = self.rng.permutation(len(self.dataset))
+        for b in range(len(self)):
+            yield order[b * self.batch_size:(b + 1) * self.batch_size]
+
     def epoch(self) -> Iterator[Dict[str, np.ndarray]]:
         ds = self.dataset
-        order = self.rng.permutation(len(ds))
         cfg = ds.cfg
         frame_pad = (cfg.segment_size // cfg.total_upsample
                      if ds.split and not ds.fine_tuning else None)
-        for b in range(len(self)):
-            idx = order[b * self.batch_size:(b + 1) * self.batch_size]
+        for idx in self.epoch_indices():
             yield pad_vocoder_batch(self._get_items(idx), cfg, frame_pad=frame_pad)
 
     def close(self) -> None:

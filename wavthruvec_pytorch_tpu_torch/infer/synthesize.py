@@ -99,7 +99,7 @@ def make_serving_generator(v2w_cfg: Vec2WavConfig, gen_state: StateDict,
     state = {k: v.to(torch.bfloat16) if v.dtype == torch.float32 else v
              for k, v in fold_weight_norm(gen_state).items()}
     gen = _F32OutputGenerator(v2w_cfg, device=device, folded=True, dtype=torch.bfloat16)
-    return gen, state
+    return gen.to(torch.bfloat16), state
 
 
 class Synthesizer:

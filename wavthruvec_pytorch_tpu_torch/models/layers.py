@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from wavthruvec_pytorch_tpu_torch.ops.gru import GRURecurrence
+from wavthruvec_pytorch_tpu_torch.ops.tiled_conv import tiled_conv_supported, tiled_grouped_conv1d
 
 _GAIN = {"linear": 1.0, "relu": math.sqrt(2.0), "tanh": 5.0 / 3.0, "sigmoid": 1.0}
 
@@ -235,9 +236,39 @@ def _norm_except(v: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.sqrt(torch.sum(v * v, dim=dims, keepdim=True) + 1e-32)
 
 
-def _conv_bias(y: torch.Tensor, bias, dt) -> torch.Tensor:
-    """A convolution's bias add in ``dt`` after the product, over [B, C, T]."""
-    return y if bias is None else y + bias.to(dt)[:, None]
+def cast_conv(conv, x: torch.Tensor, w: torch.Tensor, bias, dt, **kw) -> torch.Tensor:
+    """``conv(x, w, **kw)`` with input and kernel cast to the compute dtype
+    ``dt``, then the bias add in ``dt``: flax's two roundings (``dt`` None:
+    as given, the bias in the call).  On the CPU a bf16 product runs in f32
+    on the bf16-rounded operands and rounds its result, as XLA's CPU
+    computes it: the same roundings, forward and backward, and oneDNN's bf16
+    grouped weight gradient can come back NaN where the window lies mostly
+    in the padding."""
+    if dt is None:
+        return conv(x, w, bias, **kw)
+    x, w = x.to(dt), w.to(dt)
+    if x.device.type == "cpu" and dt == torch.bfloat16:
+        y = conv(x.float(), w.float(), **kw).to(dt)
+    else:
+        y = conv(x, w, **kw)
+    if bias is None:
+        return y
+    return y + bias.to(dt).view(-1, *([1] * (y.dim() - 2)))
+
+
+def conv1d(x: torch.Tensor, w: torch.Tensor, bias, dtype=None, tiled: bool = False,
+           stride: int = 1, padding: int = 0, dilation: int = 1,
+           groups: int = 1) -> torch.Tensor:
+    """``F.conv1d`` over [B, C, T] in the compute ``dtype`` (flax's
+    two roundings, product then bias; None: as given, the bias in the
+    call), through the repack ``ops.tiled_conv.tiled_grouped_conv1d`` where
+    ``tiled`` is set and its gate admits the layer (JAX package:
+    models/layers.py ``_conv1d_impl``)."""
+    conv = F.conv1d
+    if tiled and tiled_conv_supported(w.shape[2], stride, dilation, groups, w.shape[0]):
+        conv = tiled_grouped_conv1d
+    return cast_conv(conv, x, w, bias, dtype, stride=stride, padding=padding,
+                     dilation=dilation, groups=groups)
 
 
 class WNConv1d(nn.Module):
@@ -249,12 +280,13 @@ class WNConv1d(nn.Module):
     ``folded`` (JAX: ``WNConv1d(folded=True)``): ``weight_v`` already holds
     the normed kernel (``models.vec2wav.fold_weight_norm``) and is used as
     it is.  ``dtype`` casts the input, kernel and bias to it, with the bias
-    added after the product (flax's two roundings)."""
+    added after the product (flax's two roundings).  ``tiled``: the grouped
+    repack where its gate admits the layer (``conv1d``)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  padding: int = 0, dilation: int = 1, bias: bool = True,
                  w_std: float | None = None, stride: int = 1, groups: int = 1,
-                 folded: bool = False, dtype=None, device=None):
+                 folded: bool = False, dtype=None, tiled: bool = False, device=None):
         super().__init__()
         self.padding = padding
         self.dilation = dilation
@@ -262,6 +294,7 @@ class WNConv1d(nn.Module):
         self.groups = groups
         self.folded = folded
         self.compute_dtype = dtype
+        self.tiled = tiled
         fan_in = in_channels // groups * kernel_size
         v = torch.empty(out_channels, in_channels // groups, kernel_size, device=device)
         if w_std is not None:
@@ -286,12 +319,9 @@ class WNConv1d(nn.Module):
 
     def conv(self, x: torch.Tensor) -> torch.Tensor:
         """[B, C_in, T] -> [B, C_out, T_out]."""
-        kw = dict(stride=self.stride, padding=self.padding, dilation=self.dilation,
-                  groups=self.groups)
-        dt = self.compute_dtype
-        if dt is None:
-            return F.conv1d(x, self.weight(), self.bias, **kw)
-        return _conv_bias(F.conv1d(x.to(dt), self.weight().to(dt), **kw), self.bias, dt)
+        return conv1d(x, self.weight(), self.bias, self.compute_dtype, self.tiled,
+                      stride=self.stride, padding=self.padding, dilation=self.dilation,
+                      groups=self.groups)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x.transpose(1, 2)).transpose(1, 2).contiguous()
@@ -301,13 +331,15 @@ class WNConv2d(nn.Module):
     """weight_norm(Conv2d) over ``[B, C, H, W]`` (the MPD's stacks; JAX
     package: models/layers.py ``WNConv2d``, which takes NHWC): ``weight_g``
     [out, 1, 1, 1], ``weight_v`` [out, in, kh, kw], ``bias`` [out]; the norm
-    is over (in, kh, kw) for each output channel."""
+    is over (in, kh, kw) for each output channel.  ``dtype`` as in
+    ``WNConv1d``."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size, stride=(1, 1),
-                 padding=(0, 0), device=None):
+                 padding=(0, 0), dtype=None, device=None):
         super().__init__()
         self.stride = tuple(stride)
         self.padding = tuple(padding)
+        self.compute_dtype = dtype
         kh, kw = kernel_size
         bound = 1.0 / math.sqrt(in_channels * kh * kw)
         v = torch.empty(out_channels, in_channels, kh, kw, device=device).uniform_(-bound, bound)
@@ -317,7 +349,8 @@ class WNConv2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight_g * self.weight_v / _norm_except(self.weight_v, 0)
-        return F.conv2d(x, w, self.bias, stride=self.stride, padding=self.padding)
+        return cast_conv(F.conv2d, x, w, self.bias, self.compute_dtype, stride=self.stride,
+                         padding=self.padding)
 
 
 class WNConvTranspose1d(nn.Module):
@@ -345,13 +378,8 @@ class WNConvTranspose1d(nn.Module):
         w = self.weight_v
         if not self.folded:
             w = self.weight_g * w / _norm_except(w, 0)
-        kw = dict(stride=self.stride, padding=self.padding)
-        dt = self.compute_dtype
-        if dt is None:
-            y = F.conv_transpose1d(x.transpose(1, 2), w, self.bias, **kw)
-        else:
-            y = _conv_bias(F.conv_transpose1d(x.transpose(1, 2).to(dt), w.to(dt), **kw),
-                           self.bias, dt)
+        y = cast_conv(F.conv_transpose1d, x.transpose(1, 2), w, self.bias, self.compute_dtype,
+                      stride=self.stride, padding=self.padding)
         return y.transpose(1, 2).contiguous()
 
 
@@ -410,14 +438,18 @@ class SpectralNormConv1d(_SpectralNorm):
     """spectral_norm(Conv1d) (the MSD's first scale): ``weight_orig``
     [out, in / groups, k], its power iteration over the weight as
     [out, in / groups * k].  ``forward`` takes ``[B, T, C]``, ``conv``
-    ``[B, C, T]``."""
+    ``[B, C, T]``.  ``dtype`` and ``tiled`` as in ``WNConv1d``: the
+    normalised kernel is cast, sigma stays f32."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int, stride: int = 1,
-                 padding: int = 0, groups: int = 1, device=None):
+                 padding: int = 0, groups: int = 1, dtype=None, tiled: bool = False,
+                 device=None):
         super().__init__()
         self.stride = stride
         self.padding = padding
         self.groups = groups
+        self.compute_dtype = dtype
+        self.tiled = tiled
         bound = 1.0 / math.sqrt(in_channels // groups * kernel_size)
         w = torch.empty(out_channels, in_channels // groups, kernel_size, device=device)
         self.weight_orig = nn.Parameter(w.uniform_(-bound, bound))
@@ -425,8 +457,8 @@ class SpectralNormConv1d(_SpectralNorm):
         self._init_vectors(out_channels, in_channels // groups * kernel_size, device)
 
     def conv(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv1d(x, self.weight_orig / self.sigma(), self.bias, stride=self.stride,
-                        padding=self.padding, groups=self.groups)
+        return conv1d(x, self.weight_orig / self.sigma(), self.bias, self.compute_dtype,
+                      self.tiled, stride=self.stride, padding=self.padding, groups=self.groups)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x.transpose(1, 2)).transpose(1, 2).contiguous()

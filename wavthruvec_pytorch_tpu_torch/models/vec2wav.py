@@ -21,14 +21,30 @@ kernel, on the CPU its plain version; it is built in eval mode and runs under
 trains, as in the JAX package: its units are plain ``WNConv1d`` calls, and
 its train/eval modes are honoured.
 
-The bf16 serving Generator (JAX: ``Generator(folded=True,
-dtype=bfloat16)``, built by ``infer.synthesize.make_serving_generator``)
-takes a state dict folded by ``fold_weight_norm`` and stores every
-parameter and statistic in bf16.  Its convolutions compute in bf16; what
-flax computes in the promotion of an f32 input and bf16 parameters stays
-f32, as there: the ``fcs`` and the speaker projection of each CBN, the CBN's
-affine, so the residual stream between stages.  Its ResBlock2 units do not
-launch the fused kernel (``fused_supported``).
+A compute ``dtype`` (bf16) follows flax's ``dtype`` fields (JAX:
+models/vec2wav.py:55-411): the convolutions of the Generator, the MPD and
+the MSD cast their input, kernel and bias to it and return it; what flax
+computes in the promotion of its input and parameters stays f32: the
+``fcs`` and the speaker projection of each CBN, the CBN's affine, so the
+Generator's residual stream between stages.  So a bf16 Generator returns a
+bf16 waveform, the discriminators bf16 scores and feature maps.
+
+* The bf16 GAN step (``GANTrainer`` with ``compute_dtype="bfloat16"``, JAX:
+  ``init_state``) builds the three with ``dtype=torch.bfloat16`` and f32
+  parameters, which their gradients reach through the casts.
+* The bf16 serving Generator (JAX: ``Generator(folded=True,
+  dtype=bfloat16)``, built by ``infer.synthesize.make_serving_generator``)
+  takes a state dict folded by ``fold_weight_norm`` and stores every
+  parameter and statistic in bf16 too.  Its ResBlock2 units do not launch
+  the fused kernel (``fused_supported``).
+
+The models read ``Vec2WavConfig.compute_dtype`` nowhere: a bf16 config
+builds the f32 Generator for serving, as the JAX package's serving path
+does.
+
+The MSD's grouped convolutions take the repack ``ops.tiled_conv`` where
+``tiled_conv`` (the config's ``msd_tiled_conv``) is set and its gate
+admits the layer (JAX: models/layers.py ``_conv1d_impl``).
 
 Layouts: the Generator takes and returns ``[B, T, C]`` and ``[B, L, 1]``;
 the discriminators take waveforms ``[B, L, 1]`` and compute in torch's
@@ -153,9 +169,9 @@ class Generator(nn.Module):
     """latents [B, T, n_feat] + spk_emb [B, spk_dim] + noise [B, noise_dim]
     -> waveform [B, T * prod(upsample_rates), 1].  ``fused`` selects the
     serving Generator (see the module docstring); ``folded`` takes a state
-    dict of ``fold_weight_norm``; ``dtype`` (bf16 serving) stores the
-    parameters in that dtype and runs the convolutions in it.  ``device``
-    defaults to the card and raises without one."""
+    dict of ``fold_weight_norm``; ``dtype`` runs the convolutions in that
+    dtype, the parameters staying f32 (the serving Generator's caller
+    casts them).  ``device`` defaults to the card and raises without one."""
 
     def __init__(self, cfg: Vec2WavConfig, device=None, fused: bool = True,
                  folded: bool = False, dtype=None):
@@ -185,8 +201,6 @@ class Generator(nn.Module):
                     self.resblocks.append(ResBlock2(ch, rk, rd, fused=fused, **wn))
         self.conv_post = WNConv1d(ch0 // (2 ** len(cfg.upsample_rates)), 1, 7, padding=3,
                                   w_std=0.01, **wn)
-        if dtype is not None:
-            self.to(dtype)
         if fused:
             self.eval()
 
@@ -243,16 +257,17 @@ class DiscriminatorP(nn.Module):
     """One period's 2-D conv stack: the waveform, reflect-padded to a
     multiple of the period, as ``[B, 1, L / p, p]`` (models.py:159-192)."""
 
-    def __init__(self, period: int, kernel_size: int = 5, stride: int = 3, device=None):
+    def __init__(self, period: int, kernel_size: int = 5, stride: int = 3, dtype=None,
+                 device=None):
         super().__init__()
         self.period = period
         widths = (1, 32, 128, 512, 1024)
+        kw = dict(dtype=dtype, device=device)
         self.convs = nn.ModuleList(
-            WNConv2d(c_in, c_out, (kernel_size, 1), (stride, 1), (get_padding(5, 1), 0),
-                     device=device)
+            WNConv2d(c_in, c_out, (kernel_size, 1), (stride, 1), (get_padding(5, 1), 0), **kw)
             for c_in, c_out in zip(widths, widths[1:]))
-        self.convs.append(WNConv2d(1024, 1024, (kernel_size, 1), (1, 1), (2, 0), device=device))
-        self.conv_post = WNConv2d(1024, 1, (3, 1), (1, 1), (1, 0), device=device)
+        self.convs.append(WNConv2d(1024, 1024, (kernel_size, 1), (1, 1), (2, 0), **kw))
+        self.conv_post = WNConv2d(1024, 1, (3, 1), (1, 1), (1, 0), **kw)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """x [B, 1, L] -> (scores [B, n], 6 feature maps [B, C, H, p])."""
@@ -285,13 +300,14 @@ class MultiPeriodDiscriminator(nn.Module):
     """One ``DiscriminatorP`` per period of ``cfg.periods`` (13, 17, 19 in
     the reference; models.py:195-215).  ``pair_batched`` (the config's
     ``disc_pair_batched``): one pass over ``cat([y, y_hat])`` instead of two;
-    the convolutions see each item alone, so the result is the same."""
+    the convolutions see each item alone, so the result is the same.
+    ``dtype``: the convolutions' compute dtype (see the module docstring)."""
 
-    def __init__(self, cfg: Vec2WavConfig, pair_batched: bool = True, device=None):
+    def __init__(self, cfg: Vec2WavConfig, pair_batched: bool = True, dtype=None, device=None):
         super().__init__()
         device = resolve_device(device)
         self.pair_batched = pair_batched
-        self.discriminators = nn.ModuleList(DiscriminatorP(p, device=device)
+        self.discriminators = nn.ModuleList(DiscriminatorP(p, dtype=dtype, device=device)
                                             for p in cfg.periods)
 
     def forward(self, y: torch.Tensor, y_hat: torch.Tensor):
@@ -316,19 +332,24 @@ _MSD_SPECS = ((128, 15, 1, 1, 7), (128, 41, 2, 4, 20), (256, 41, 2, 16, 20),
 
 class DiscriminatorS(nn.Module):
     """One scale's grouped 1-D conv stack over [B, 1, L] (models.py:218-243),
-    spectral-normed or weight-normed.  The JAX package's ``msd_tiled_conv``
-    repacks the grouped convs for the TPU's matrix unit with the same math;
-    here they are plain grouped ``F.conv1d`` calls."""
+    spectral-normed or weight-normed.  ``tiled_conv`` routes the grouped
+    convolutions through the repack ``ops.tiled_conv`` where its gate
+    admits them, as the JAX package's ``tiled_conv`` does; the values stay
+    those of the grouped convolution.  ``dtype``: the convolutions' compute
+    dtype."""
 
-    def __init__(self, use_spectral_norm: bool = False, device=None):
+    def __init__(self, use_spectral_norm: bool = False, tiled_conv: bool = False, dtype=None,
+                 device=None):
         super().__init__()
         conv = SpectralNormConv1d if use_spectral_norm else WNConv1d
+        kw = dict(dtype=dtype, device=device)
         c_in = 1
         self.convs = nn.ModuleList()
         for c_out, k, s, g, p in _MSD_SPECS:
-            self.convs.append(conv(c_in, c_out, k, stride=s, padding=p, groups=g, device=device))
+            self.convs.append(conv(c_in, c_out, k, stride=s, padding=p, groups=g,
+                                   tiled=tiled_conv, **kw))
             c_in = c_out
-        self.conv_post = conv(1024, 1, 3, stride=1, padding=1, device=device)
+        self.conv_post = conv(1024, 1, 3, stride=1, padding=1, **kw)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """x [B, 1, L] -> (scores [B, n], 8 feature maps [B, C, T])."""
@@ -346,14 +367,17 @@ class MultiScaleDiscriminator(nn.Module):
     ``AvgPool1d(4, 2, 2)`` between scales (models.py:246-275).  In train mode
     the first scale takes one power iteration per call of its discriminator:
     once per MSD call under ``pair_batched``, twice without it (the
-    reference's per-forward hook; PARITY.md)."""
+    reference's per-forward hook; PARITY.md).  ``tiled_conv`` and ``dtype``
+    reach every scale (``DiscriminatorS``)."""
 
-    def __init__(self, pair_batched: bool = True, device=None):
+    def __init__(self, pair_batched: bool = True, tiled_conv: bool = False, dtype=None,
+                 device=None):
         super().__init__()
         device = resolve_device(device)
         self.pair_batched = pair_batched
-        self.discriminators = nn.ModuleList(DiscriminatorS(use_spectral_norm=(i == 0),
-                                                           device=device) for i in range(3))
+        self.discriminators = nn.ModuleList(
+            DiscriminatorS(use_spectral_norm=(i == 0), tiled_conv=tiled_conv, dtype=dtype,
+                           device=device) for i in range(3))
 
     def forward(self, y: torch.Tensor, y_hat: torch.Tensor):
         """y, y_hat [B, L, 1] -> (y_d_rs, y_d_gs, fmap_rs, fmap_gs), one

@@ -5,10 +5,15 @@ reference: text2vec/train.py:199-455):
         --config data/demo/text2vec.json [--max_steps N] [--restore_step K] \\
         [--validate] [--device cpu]
 
-It loads ``cfg.train_list`` into host memory, builds a Text2Vec from a seed
-and trains over length-bucketed batches (``--prefetch`` pads the next batch
-on a thread while the card runs the step), for ``cfg.epochs`` epochs or up
-to step ``--max_steps``.  Into ``{run_path}/{log_seed}/`` it writes:
+It loads ``cfg.train_list`` into host memory (the native reader,
+``data/native_io.py``), builds a Text2Vec from a seed and trains over
+length-bucketed batches (``--prefetch`` pads the next batch on a thread
+while the card runs the step), for ``cfg.epochs`` epochs or up to step
+``--max_steps``.  With ``device_resident_data=True`` the corpus is staged on
+the card once (``data/device_cache.py``) and each batch is gathered there,
+the same batches in the same order; no prefetch thread runs then, and
+validation keeps the host loader.  Into ``{run_path}/{log_seed}/`` it
+writes:
 
 * ``config.json``, the config;
 * ``model_new/checkpoint_{step}.pth.tar`` every ``save_step`` steps, the
@@ -27,8 +32,7 @@ to step ``--max_steps``.  Into ``{run_path}/{log_seed}/`` it writes:
 
 ``--frozen_learning_rate`` holds the lr at ``--learning_rate_frozen``.
 Paths in the config are relative to the working directory, as in the JAX
-package.  It runs on the card unless ``--device cpu`` is passed; it refuses
-``device_resident_data=True`` (``config.check_ported``).  The JAX loop's
+package.  It runs on the card unless ``--device cpu`` is passed.  The JAX loop's
 ``--precompile`` and ``--profile_dir`` have no counterpart here.
 """
 
@@ -53,6 +57,7 @@ from wavthruvec_pytorch_tpu_torch.config import (
     save_config,
 )
 from wavthruvec_pytorch_tpu_torch.data.dataset import BucketedLoader, load_buffer
+from wavthruvec_pytorch_tpu_torch.data.device_cache import DeviceResidentData
 from wavthruvec_pytorch_tpu_torch.data.prefetch import prefetched
 from wavthruvec_pytorch_tpu_torch.device import resolve_device
 from wavthruvec_pytorch_tpu_torch.text import TextFrontend
@@ -127,7 +132,7 @@ def main(args: Optional[argparse.Namespace] = None,
     device = resolve_device(args.device)
     if cfg is None:
         cfg = load_config(Text2VecConfig, args.config) if args.config else Text2VecConfig()
-    check_ported(cfg, training=True)
+    check_ported(cfg)
     frontend = TextFrontend.from_vocab_file(cfg.vocab_path)
     cfg = dataclasses.replace(cfg, vocab_size=frontend.vocab_size)  # as the JAX loop does
     loader = BucketedLoader(load_buffer(list(cfg.train_list), cfg, frontend), cfg,
@@ -156,6 +161,11 @@ def main(args: Optional[argparse.Namespace] = None,
     print(f"logger: {logger.backend} ({cfg.tensorboard_logs_path})")
     timer = StepTimer()
     val_loader = _validation_loader(cfg, frontend, args.seed) if args.validate else None
+    device_data = None
+    if cfg.device_resident_data:
+        device_data = DeviceResidentData(loader.buffer, cfg, device=device)
+        print(f"device-resident dataset: {device_data.nbytes() / 2**20:.0f} MiB staged on "
+              f"{device}")
 
     total_step = cfg.epochs * len(loader)
     print(f"\ntotal steps: {total_step} len(loader) {len(loader)}\n")
@@ -197,14 +207,16 @@ def main(args: Optional[argparse.Namespace] = None,
 
     def batches():
         for idx in loader.epoch_indices():
-            yield loader.buffer[idx[0]]["audiopath"], loader.batch(idx)
+            batch = loader.batch(idx) if device_data is None else device_data.batch(idx)
+            yield loader.buffer[idx[0]]["audiopath"], batch
 
     try:
         if args.max_steps and iteration >= args.max_steps:
             print(f"step {iteration} has reached --max_steps {args.max_steps}: nothing to train")
             return record
         for epoch in range(first_epoch, cfg.epochs):
-            with contextlib.closing(prefetched(batches(), enabled=args.prefetch)) as epoch_batches:
+            prefetch = args.prefetch and device_data is None
+            with contextlib.closing(prefetched(batches(), enabled=prefetch)) as epoch_batches:
                 for audiopath, batch in epoch_batches:
                     is_log_step = (iteration + 1) % cfg.log_step == 0
                     lr = trainer.learning_rate

@@ -63,6 +63,20 @@ def make_padded_batch(items: Sequence[Dict], cfg: Text2VecConfig, text_pad: Opti
             "output_lengths": out_lens, "feat_pos": feat_pos, "attn_prior": prior}
 
 
+def batch_to_device(batch, device: torch.device) -> Dict[str, torch.Tensor]:
+    """The step's arrays of a batch (numpy arrays, or tensors such as
+    ``DeviceResidentData.batch`` gives) as f32 and int64 tensors on
+    ``device``; a tensor already there is used as it is."""
+    out = {}
+    for k in BATCH_KEYS:
+        a = batch[k]
+        if not isinstance(a, torch.Tensor):
+            a = torch.as_tensor(np.asarray(a))
+        dtype = torch.float32 if a.is_floating_point() else torch.int64
+        out[k] = a.to(device, dtype, non_blocking=True)
+    return out
+
+
 @torch.no_grad()
 def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float) -> torch.Tensor:
     """optax's ``clip_by_global_norm``, in place: with ``n`` the global norm
@@ -98,13 +112,8 @@ class Text2VecTrainer:
                               eps=cfg.epsilon, weight_decay=cfg.weight_decay)
         self.step_count = 0
 
-    def to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        out = {}
-        for k in BATCH_KEYS:
-            a = np.asarray(batch[k])
-            dtype = torch.float32 if a.dtype.kind == "f" else torch.int64
-            out[k] = torch.as_tensor(a, dtype=dtype).to(self.device, non_blocking=True)
-        return out
+    def to_device(self, batch) -> Dict[str, torch.Tensor]:
+        return batch_to_device(batch, self.device)
 
     def forward(self, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:

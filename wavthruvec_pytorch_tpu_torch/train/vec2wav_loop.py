@@ -28,9 +28,14 @@ are numbered from 0, as the reference numbers them.  Into
 ``--stdout_interval`` prints a step's losses; ``--num_workers`` threads
 load a batch's items and ``--prefetch`` loads the next batch while the card
 runs the step.  ``--fine_tuning`` and ``--input_mels_dir`` select the
-reference's branch of precomputed mels (``data/vocoder_data.py``).  It runs
-on the card unless ``--device cpu`` is passed; it refuses
-``device_resident_data=True`` (``config.check_ported``).
+reference's branch of precomputed mels (``data/vocoder_data.py``).  With
+``device_resident_data=True``, ``split=True`` and ``device_mel_target=True``
+and without ``--fine_tuning``, the corpus is staged on the card once
+(``data/vocoder_device_cache.py``) and each step's windows are gathered
+there, the batches in the host loader's order; no prefetch thread runs then.
+Otherwise the flag is ignored, with a message, as in the JAX package.
+Validation keeps the host path.  It runs on the card unless ``--device
+cpu`` is passed.
 """
 
 from __future__ import annotations
@@ -58,6 +63,7 @@ from wavthruvec_pytorch_tpu_torch.data.vocoder_data import (
     get_dataset_filelist,
     pad_vocoder_batch,
 )
+from wavthruvec_pytorch_tpu_torch.data.vocoder_device_cache import VocoderDeviceData
 from wavthruvec_pytorch_tpu_torch.device import resolve_device
 from wavthruvec_pytorch_tpu_torch.train.vec2wav_train import SCALAR_KEYS, GANTrainer, log_mel
 from wavthruvec_pytorch_tpu_torch.utils.logging import RunRecord, TrainLogger
@@ -161,6 +167,21 @@ def main(args: Optional[argparse.Namespace] = None,
                 record.steps[s] = dict(zip(SCALAR_KEYS, row))
             pend.clear()
 
+    device_data = None
+    if cfg.device_resident_data:
+        if trainset.split and not args.fine_tuning and cfg.device_mel_target:
+            device_data = VocoderDeviceData(trainset, cfg, device=device)
+            print(f"device-resident dataset: {device_data.nbytes() / 2**20:.0f} MiB staged on "
+                  f"{device}")
+        else:
+            print("device_resident_data ignored (needs split=True, no fine_tuning, "
+                  "device_mel_target=True)")
+
+    def batches():
+        if device_data is None:
+            return prefetched(loader.epoch(), enabled=args.prefetch)
+        return (device_data.batch(idx) for idx in loader.epoch_indices())
+
     def save(epoch):
         t0 = time.perf_counter()
         ckpt.save_vec2wav(cfg.checkpoint_path, steps, trainer, epoch)
@@ -174,8 +195,8 @@ def main(args: Optional[argparse.Namespace] = None,
             start = time.time()
             print(f"Epoch: {epoch + 1}")
             trainer.set_learning_rate(cfg.learning_rate * cfg.lr_decay ** epoch)
-            with contextlib.closing(prefetched(loader.epoch(), enabled=args.prefetch)) as batches:
-                for batch in batches:
+            with contextlib.closing(batches()) as epoch_batches:
+                for batch in epoch_batches:
                     start_b = time.time()
                     metrics = trainer.step(batch)
                     pend.append((steps, torch.stack([metrics[k] for k in SCALAR_KEYS])))

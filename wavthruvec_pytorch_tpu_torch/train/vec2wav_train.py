@@ -23,6 +23,15 @@ gradients stay those of the D step.
 AdamW is ``torch.optim.AdamW`` with the reference's settings, the same
 update as ``optax.adamw``: lr ``cfg.learning_rate``, betas
 ``(adam_b1, adam_b2)``, eps 1e-8, weight decay 0.01 (vec2wav/train.py:96-98).
+
+The trainer builds its modules as the JAX package's ``init_state`` does
+(train/vec2wav_train.py:80-91): with ``cfg.compute_dtype == "bfloat16"``
+the Generator and both discriminators compute their convolutions in bf16
+(``models/vec2wav.py``), their parameters, AdamW and its state staying f32;
+the MSD takes the grouped repack with ``cfg.msd_tiled_conv``.  As in JAX, a
+bf16 step's waveform, scores and feature maps are bf16, so its adversarial
+and feature-matching losses are bf16 sums; the mel target and the mel loss
+are f32 (``ops/stft.py`` computes in f32), and so is the G loss's total.
 """
 
 from __future__ import annotations
@@ -33,7 +42,7 @@ from typing import Dict, Iterable, Optional
 import numpy as np
 import torch
 
-from wavthruvec_pytorch_tpu_torch.config import Vec2WavConfig, check_ported
+from wavthruvec_pytorch_tpu_torch.config import Vec2WavConfig
 from wavthruvec_pytorch_tpu_torch.device import resolve_device
 from wavthruvec_pytorch_tpu_torch.models.vec2wav import (
     Generator,
@@ -77,24 +86,29 @@ class GANTrainer:
     """A Generator (``fused=False``, train mode), the two discriminators,
     their AdamW optimizers and the step counter.  ``step(batch)`` runs one
     training step on a batch from ``data.vocoder_data.pad_vocoder_batch``
-    and returns the ``SCALAR_KEYS`` losses as 0-dim tensors on the device;
-    ``generate``, ``d_step`` and ``g_step`` are its parts.  Runs on the card
-    unless ``device="cpu"`` is passed; ``seed`` seeds the noise stream."""
+    (or ``VocoderDeviceData.batch``) and returns the ``SCALAR_KEYS`` losses
+    as 0-dim tensors on the device; ``generate``, ``d_step`` and ``g_step``
+    are its parts.  Runs on the card unless ``device="cpu"`` is passed;
+    ``seed`` seeds the noise stream.  Modules passed in are used as they
+    are; the ones it builds follow ``cfg.compute_dtype`` and
+    ``cfg.msd_tiled_conv``."""
 
     def __init__(self, cfg: Vec2WavConfig, device=None, seed: int = 0,
                  generator: Optional[Generator] = None,
                  mpd: Optional[MultiPeriodDiscriminator] = None,
                  msd: Optional[MultiScaleDiscriminator] = None):
-        check_ported(cfg, training=True)
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.gen = (generator or Generator(cfg, device=self.device, fused=False)).train()
+        dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
+        self.gen = (generator or Generator(cfg, device=self.device, fused=False,
+                                           dtype=dtype)).train()
         if self.gen.fused:
             raise ValueError("GANTrainer trains Generator(fused=False); the fused Generator "
                              "serves only")
-        self.mpd = (mpd or MultiPeriodDiscriminator(cfg, cfg.disc_pair_batched,
+        self.mpd = (mpd or MultiPeriodDiscriminator(cfg, cfg.disc_pair_batched, dtype=dtype,
                                                     device=self.device)).train()
         self.msd = (msd or MultiScaleDiscriminator(cfg.disc_pair_batched,
+                                                   tiled_conv=cfg.msd_tiled_conv, dtype=dtype,
                                                    device=self.device)).train()
         self.gen_params = list(self.gen.parameters())
         self.disc_params = list(itertools.chain(self.mpd.parameters(), self.msd.parameters()))
