@@ -298,11 +298,44 @@ and read just after:
     ``GAN_BF16_FLOOR`` of the loss, a bound that phase 19's f32 card step
     must fail on at least one loss.
 
+Then the data-preparation and model-upkeep commands, each through
+``cli.main`` as a user runs it, in one temporary directory; the counters
+are set to 0 just before each command or request and read just after:
+
+37. ``prepare-data``: wav2vec 2.0 large (hidden 1024, 24 layers, 16 heads,
+    FFN 4096, 7 x 512 convolutions, layer norm, stable layer norm) with
+    seeded weights, saved as a local ``config.json`` + ``pytorch_model.bin``
+    directory, over a synthetic AISHELL-3-shaped tree (``TOOLS_SPEAKERS`` x
+    ``TOOLS_WAVS`` wavs of 2-10 s, labelled with eval's test sentences) at
+    B = ``TOOLS_B``: every latent ``[1, T, 1024]`` at its wav's output
+    length and finite, the filelists' halves, the vocabulary.  The
+    featurizer's seconds of audio a second, its bound (operations at the
+    CUDA cores' f32 rate) and peak memory; its latents on the card against
+    the CPU's on ``W2V_CHECK_B`` x ``W2V_CHECK_S`` s within ``W2V_ATOL``.
+38. ``pre-spk-emb`` over the tree with the repo's ECAPA (C = 1024, raw wav)
+    and with SpeechBrain's ECAPA (``--speechbrain``), seeded: each speaker's
+    embedding timed on the card and held against the CPU's within
+    ``SPK_EMB_RTOL``.
+39. ``recalibrate-bn`` on a full-size Text2Vec trainer's
+    ``checkpoint_{RECAL_STEP}.pth.tar`` and a ``g_`` file over
+    ``RECAL_ROWS`` filelist rows (phase 37's latents, phase 38's SpeechBrain
+    embeddings), on the card and on the CPU: one BiGRU launch a Text2Vec
+    batch, 30 fused launches a Generator batch; every entry but the
+    running statistics carried over; the card's statistics within
+    ``RECAL_STAT_RTOL`` of the CPU's; the files served by a ``Synthesizer``
+    (30 fused launches, 1 BiGRU).
+40. ``eval-text2vec --rtf`` on the recalibrated checkpoint (the demo
+    config with phase 37's vocabulary): six sentences written, the RTF over
+    ``EVAL_RTF_ITERS`` utterances, one BiGRU launch a sentence.
+41. ``input_wav=True``: one full-size Text2Vec training forward and
+    backward with raw reference waveforms (B = ``CHECK_B``), card against
+    CPU at phase 11's tolerances; one MAS and one BiGRU launch.
+
 Every float32 product and convolution in this run is full float32: TF32 is
 off for matmuls and cuDNN.  The second-to-last line is a JSON object with
 one entry per kernel (``serving_launches``: the launches of phases 22-24
 and 26; ``loop_launches``: those of phases 28-31; ``data_launches``: those
-of phases 32-36); the last line is
+of phases 32-36; ``tools_launches``: those of phases 37-41); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -330,7 +363,12 @@ import torch.nn.functional as F
 from scipy.io import wavfile
 
 from wavthruvec_pytorch_tpu_torch import cli
-from wavthruvec_pytorch_tpu_torch.checkpoint import load_text2vec, load_vec2wav, save_text2vec
+from wavthruvec_pytorch_tpu_torch.checkpoint import (
+    load_text2vec,
+    load_torch_state_dict,
+    load_vec2wav,
+    save_text2vec,
+)
 
 from wavthruvec_pytorch_tpu_torch.config import (
     Text2VecConfig,
@@ -342,16 +380,25 @@ from wavthruvec_pytorch_tpu_torch.config import (
 from wavthruvec_pytorch_tpu_torch.data import native_io
 from wavthruvec_pytorch_tpu_torch.data.dataset import BucketedLoader, load_buffer
 from wavthruvec_pytorch_tpu_torch.data.device_cache import DeviceResidentData
+from wavthruvec_pytorch_tpu_torch.data.ingest import Wav2VecFeaturizer
 from wavthruvec_pytorch_tpu_torch.data.prior import beta_binomial_prior_distribution
+from wavthruvec_pytorch_tpu_torch.data.spk_emb import SpeakerEmbedder, SpeechBrainEmbedder
 from wavthruvec_pytorch_tpu_torch.data.vocoder_data import (
     VocoderDataset,
     VocoderLoader,
     get_dataset_filelist,
+    load_wav,
     mel_spectrogram_np,
 )
 from wavthruvec_pytorch_tpu_torch.data.vocoder_device_cache import VocoderDeviceData
 from wavthruvec_pytorch_tpu_torch.entry import entry
+from wavthruvec_pytorch_tpu_torch.infer.eval import TEST_SENTENCES
 from wavthruvec_pytorch_tpu_torch.infer.http_serve import serve_http
+from wavthruvec_pytorch_tpu_torch.infer.recalibrate import (
+    recalibrate_generator_bn,
+    recalibrate_text2vec_bn,
+    text2vec_calibration_batches,
+)
 from wavthruvec_pytorch_tpu_torch.infer.serve import (
     SpeakerStore,
     _batch_buckets,
@@ -368,12 +415,19 @@ from wavthruvec_pytorch_tpu_torch.infer.synthesize import (
     make_serving_generator,
 )
 from wavthruvec_pytorch_tpu_torch.models import layers
+from wavthruvec_pytorch_tpu_torch.models.losses import attention_binarization_loss, dnn_loss
 from wavthruvec_pytorch_tpu_torch.models.text2vec import Text2Vec
 from wavthruvec_pytorch_tpu_torch.models.vec2wav import (
     LRELU_SLOPE,
     Generator,
     MultiPeriodDiscriminator,
     MultiScaleDiscriminator,
+)
+from wavthruvec_pytorch_tpu_torch.models.wav2vec2 import (
+    feat_extract_output_lengths,
+    large_config,
+    random_model,
+    save_pretrained,
 )
 from wavthruvec_pytorch_tpu_torch.ops import kernel_build
 from wavthruvec_pytorch_tpu_torch.ops.fused_resblock import (
@@ -558,6 +612,30 @@ REPACK_ROUTES = {"off": "grouped conv", "jax_gate": "repack at JAX's gate (16384
                  "on": "repack at the port's gate"}
 JAX_MIN_T_IN = 16384
 REPACK_PAIRS = 10
+
+# data preparation and model upkeep (phases 37-41).  The synthetic
+# AISHELL-3-shaped tree: speakers x wavs of TOOLS_SECONDS, featurized at
+# batch TOOLS_B (one batch a speaker)
+TOOLS_SPEAKERS, TOOLS_WAVS, TOOLS_B = 2, 8, 8
+TOOLS_SECONDS = (2.0, 10.0)
+# the card's latents against the CPU's on W2V_CHECK_B wavs of W2V_CHECK_S
+# seconds: f32 both sides (TF32 off), 24 pre-LN layers, sums in another order;
+# after the final LayerNorm the latents are of order 1
+W2V_CHECK_B, W2V_CHECK_S = 2, 2.0
+W2V_ATOL = 1e-3
+# speaker embeddings, card vs CPU: max |card - CPU| / max |CPU|, f32 both
+# sides; ECAPA pools thousands of frames
+SPK_EMB_RTOL = 1e-4
+# recalibration: filelist rows, Text2Vec's inference frame cap, the
+# Generator's latent frames a row; card vs CPU, each running statistic's
+# max |card - CPU| / max |CPU| (batch moments in f32: sums in another order)
+RECAL_ROWS, RECAL_MAX_FRAMES, RECAL_GEN_FRAMES = 16, 512, 64
+RECAL_STAT_RTOL = 1e-4
+RECAL_STEP = 1000  # the step in the recalibrated checkpoint's name
+# eval-text2vec --rtf: utterances timed after its warm-up
+EVAL_RTF_ITERS = 12
+# phase 41: the raw-wav reference of each item, seconds
+WAV_REF_SECONDS = 2.0
 # the bf16 GAN step, card vs CPU (the same code, the same rounding points):
 # NOISE times the CPU's bf16-vs-f32 distance, or one bf16 ulp of the loss;
 # below 1, so that a step computed in f32 fails it
@@ -3378,6 +3456,487 @@ def data_and_gan_modes(dev, phase19: dict) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Data preparation and model upkeep (phases 37-41)
+# ---------------------------------------------------------------------------
+
+def tools_tree(tmp: str) -> dict:
+    """A synthetic AISHELL-3-shaped tree: ``{tmp}/wav/{spk}/{spk}{n}.wav``,
+    ``TOOLS_SPEAKERS`` x ``TOOLS_WAVS`` voiced wavs (five harmonics of a
+    wavering f0, plus noise) of ``TOOLS_SECONDS``, 16 kHz int16, and
+    ``content.txt`` giving each the characters of one of eval's test
+    sentences, each followed by a pinyin token as AISHELL-3's labels are
+    (``clean_label_text`` strips them)."""
+    rng = np.random.default_rng(SEED)
+    root = os.path.join(tmp, "wav")
+    lines, samples = [], 0
+    for s in range(TOOLS_SPEAKERS):
+        spk = f"SSB{s:04d}"
+        os.makedirs(os.path.join(root, spk))
+        for u in range(TOOLS_WAVS):
+            n = int(rng.uniform(*TOOLS_SECONDS) * SAMPLE_RATE)
+            t = np.arange(n) / SAMPLE_RATE
+            f0 = rng.uniform(90.0, 250.0) * (1.0 + 0.1 * np.sin(2 * np.pi * rng.uniform(0.2, 1) * t))
+            phase = 2 * np.pi * np.cumsum(f0) / SAMPLE_RATE
+            wav = 0.2 * sum(np.sin(k * phase) / k for k in range(1, 6))
+            wav = wav + 0.01 * rng.standard_normal(n)
+            name = f"{spk}{u:04d}.wav"
+            wavfile.write(os.path.join(root, spk, name), SAMPLE_RATE,
+                          (wav * 20000).astype(np.int16))
+            text = TEST_SENTENCES[(s * TOOLS_WAVS + u) % len(TEST_SENTENCES)]
+            lines.append(f"{name}\t" + " ".join(f"{c} a{k % 5 + 1}" for k, c in enumerate(text)))
+            samples += n
+    content = os.path.join(tmp, "content.txt")
+    with open(content, "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+    return dict(wavs=root, content=content, seconds=samples / SAMPLE_RATE)
+
+
+def w2v_flops(cfg, n_samples: int, n_frames: int) -> float:
+    """Operations (2 a multiply-add) of one wav of ``n_samples`` through
+    wav2vec 2.0, its transformer over ``n_frames`` frames: the feature
+    encoder's convolutions, the projection, the positional convolution, and
+    each layer's projections, attention products and feed-forward."""
+    ops, length, c_in = 0.0, n_samples, 1
+    for c, k, s in zip(cfg.conv_dim, cfg.conv_kernel, cfg.conv_stride):
+        length = (length - k) // s + 1
+        ops += 2.0 * length * c * c_in * k
+        c_in = c
+    h, T = cfg.hidden_size, n_frames
+    ops += 2.0 * T * c_in * h
+    ops += 2.0 * T * h * (h // cfg.num_conv_pos_embedding_groups) * cfg.num_conv_pos_embeddings
+    ops += cfg.num_hidden_layers * (2.0 * T * (4 * h * h + 2 * h * cfg.intermediate_size)
+                                    + 4.0 * T * T * h)
+    return ops
+
+
+def speaker_wavs(root: str) -> dict:
+    return {spk: [load_wav(os.path.join(root, spk, f))[0]
+                  for f in sorted(os.listdir(os.path.join(root, spk)))]
+            for spk in sorted(os.listdir(root))}
+
+
+def prepare_data_phase(dev, tmp: str, counts: dict) -> dict:
+    """Phase 37: wav2vec 2.0 large with seeded weights, saved as a local
+    checkpoint directory (``config.json`` and ``pytorch_model.bin``); ``cli
+    prepare-data`` over ``tools_tree``; the latents, filelists and vocabulary
+    it wrote; the featurizer's seconds of audio a second (host clock, each
+    batch ends in a host copy), against its bound at the CUDA cores' f32
+    rate, and its peak memory; the card's latents against the CPU's."""
+    tree = tools_tree(tmp)
+    w2v_dir = os.path.join(tmp, "w2v")
+    t0 = time.perf_counter()
+    w2v = random_model(large_config(), SEED, device="cpu")
+    cfg = w2v.cfg
+    save_pretrained(w2v, w2v_dir)
+    n_params = sum(p.numel() for p in w2v.parameters())
+    del w2v
+    save_s = time.perf_counter() - t0
+    out = {name: os.path.join(tmp, name) for name in ("feat", "train.txt", "val.txt",
+                                                       "vocab.txt")}
+    argv = ["prepare-data", "--wavs_path", tree["wavs"], "--feat_output_path", out["feat"],
+            "--label_file_path", tree["content"], "--enc_train_list_path", out["train.txt"],
+            "--enc_val_list_path", out["val.txt"], "--vocab_path", out["vocab.txt"],
+            "--model_path", w2v_dir, "--n_speakers", str(TOOLS_SPEAKERS),
+            "--n_files_per_speaker", str(TOOLS_WAVS), "--batch_size", str(TOOLS_B),
+            "--device", str(dev)]
+    reset_serving_counters()
+    t0 = time.perf_counter()
+    check(cli.main(argv) == 0, "cli prepare-data failed")
+    cli_s = time.perf_counter() - t0
+    add_counts(counts, read_loop_counters())
+
+    wavs = speaker_wavs(tree["wavs"])
+    for spk, items in wavs.items():
+        for f, w in zip(sorted(os.listdir(os.path.join(tree["wavs"], spk))), items):
+            lat = np.load(os.path.join(out["feat"], spk, f[:-4] + ".npy"))
+            want = (1, int(feat_extract_output_lengths(len(w), cfg)), cfg.hidden_size)
+            check(lat.shape == want and lat.dtype == np.float32 and np.isfinite(lat).all(),
+                  f"{spk}/{f}: latents {lat.shape} {lat.dtype}, want {want} finite f32")
+    rows = {k: open(out[k], encoding="utf-8").read().splitlines() for k in ("train.txt",
+                                                                          "val.txt")}
+    half = TOOLS_SPEAKERS * TOOLS_WAVS // 2
+    check(len(rows["train.txt"]) == half and len(rows["val.txt"]) == half,
+          f"filelists of {len(rows['train.txt'])} and {len(rows['val.txt'])} rows")
+    vocab = open(out["vocab.txt"], encoding="utf-8").read()
+    check(vocab == "PE " + "".join(sorted(set("".join(TEST_SENTENCES)))),
+          f"vocabulary {vocab!r}")
+
+    featurizer = Wav2VecFeaturizer(w2v_dir, device=dev)
+    batches = [items[i: i + TOOLS_B] for items in wavs.values()
+               for i in range(0, len(items), TOOLS_B)]
+    featurizer.extract_batch(batches[0])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for b in batches:
+        featurizer.extract_batch(b)
+    feat_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    audio_s = tree["seconds"]
+    real = sum(w2v_flops(cfg, len(w), int(feat_extract_output_lengths(len(w), cfg)))
+               for items in wavs.values() for w in items)
+    run = 0.0
+    for b in batches:
+        pad = featurizer._bucket(max(len(w) for w in b))
+        run += len(b) * w2v_flops(cfg, pad, int(feat_extract_output_lengths(pad, cfg)))
+    bms, by = bound_ms(n_params * 4.0, real, PEAK_F32)
+    print(f"prepare-data (wav2vec 2.0 large, {n_params / 1e6:.1f} M parameters, seeded; "
+          f"saved as config.json + pytorch_model.bin in {save_s:.1f} s): cli over "
+          f"{TOOLS_SPEAKERS} x {TOOLS_WAVS} wavs ({audio_s:.1f} s of audio, B = {TOOLS_B}) in "
+          f"{cli_s:.2f} s, its model load included; launches {read_loop_counters()}")
+    print(f"  featurizer: {feat_s * 1e3:.1f} ms for {audio_s:.1f} s of audio "
+          f"({audio_s / feat_s:.1f} s of audio a second, {len(batches)} batches padded to "
+          f"{[featurizer._bucket(max(len(w) for w in b)) for b in batches]} samples); "
+          f"{real / 1e12:.3f} TFLOP for the wavs' own frames ({run / 1e12:.3f} as run, "
+          f"padded): {real / feat_s / 1e12:.1f} TFLOP/s, bound {bms:.1f} ms ({by}, f32 "
+          f"{PEAK_F32 / 1e12:.0f} TFLOP/s) = {bms / 1e3 / feat_s:.1%} of it; peak memory "
+          f"{peak:.2f} GiB; {card_line()}")
+
+    n = int(W2V_CHECK_S * SAMPLE_RATE)
+    check_wavs = [w[:n] for w in batches[0][:W2V_CHECK_B]]
+    check(all(len(w) == n for w in check_wavs), "a check wav is shorter than its cut")
+    got = featurizer.extract_batch(check_wavs)
+    del featurizer
+    torch.cuda.empty_cache()
+    want = Wav2VecFeaturizer(w2v_dir, device="cpu").extract_batch(check_wavs)
+    err = max(float(np.abs(a - b).max()) for a, b in zip(got, want))
+    scale = max(float(np.abs(b).max()) for b in want)
+    check(err <= W2V_ATOL, f"latents card vs CPU: {err:.3g} > {W2V_ATOL}")
+    print(f"  latents, card vs CPU ({W2V_CHECK_B} x {W2V_CHECK_S:g} s, {got[0].shape[0]} frames "
+          f"each): max |diff| {err:.3g} (atol {W2V_ATOL}; max |latent| {scale:.3g})")
+    return dict(tree=tree, **out)
+
+
+def pre_spk_emb_phase(dev, tmp: str, prep: dict, counts: dict) -> dict:
+    """Phase 38: ``cli pre-spk-emb`` over the tree with both embedders (the
+    repo's ECAPA, C = 1024, on raw wav; SpeechBrain's ECAPA at its published
+    widths), each at seeded weights; each speaker's embedding timed on the
+    card (host clock, median of ``REPEATS`` after a warm-up) and held against
+    the CPU's.  Returns the embedding directories."""
+    wavs = speaker_wavs(prep["tree"]["wavs"])
+    dirs = {}
+    for key, label, flags, build in (
+            ("ecapa", "ECAPA C = 1024 on raw wav", [], SpeakerEmbedder),
+            ("speechbrain", "SpeechBrain's ECAPA", ["--speechbrain"], SpeechBrainEmbedder)):
+        out = dirs[key] = os.path.join(tmp, f"spk_emb_{key}")
+        reset_serving_counters()
+        t0 = time.perf_counter()
+        check(cli.main(["pre-spk-emb", "--wavs_root", prep["tree"]["wavs"], "--out_dir", out,
+                        "--n_files_per_speaker", str(TOOLS_WAVS), *flags,
+                        "--device", str(dev)]) == 0, f"cli pre-spk-emb {flags} failed")
+        cli_s = time.perf_counter() - t0
+        add_counts(counts, read_loop_counters())
+        card, cpu = build(device=dev), build(device="cpu")
+        rows = []
+        for spk, items in wavs.items():
+            got = np.load(os.path.join(out, f"{spk}.npy"))
+            card.embed_concat(items)
+            times = []
+            for _ in range(REPEATS):
+                t0 = time.perf_counter()
+                card.embed_concat(items)
+                times.append(time.perf_counter() - t0)
+            want = cpu.embed_concat(items)
+            err = float(np.abs(got - want).max()) / float(np.abs(want).max())
+            check(got.shape == (192,) and np.isfinite(got).all(),
+                  f"{key} {spk}: embedding {got.shape}")
+            check(err <= SPK_EMB_RTOL, f"{key} {spk}: card vs CPU {err:.3g} > {SPK_EMB_RTOL}")
+            seconds = sum(len(w) for w in items) / SAMPLE_RATE
+            rows.append(f"{spk} ({seconds:.1f} s) {np.median(times) * 1e3:.2f} ms, card vs CPU "
+                        f"{err:.2e}")
+        print(f"pre-spk-emb, {label}: cli {cli_s:.2f} s for {len(wavs)} speakers; per speaker "
+              f"on the card: {'; '.join(rows)} (rtol {SPK_EMB_RTOL}); {card_line()}")
+        del card, cpu
+    return dirs
+
+
+def recal_stats(sd: dict) -> dict:
+    return {k: v for k, v in sd.items() if k.endswith(("running_mean", "running_var"))}
+
+
+def check_carried(src: dict, out: dict, key: str, label: str) -> None:
+    """Every entry of ``out`` but the model's running statistics equals
+    ``src``'s, and at least one running statistic moved."""
+    check(src.keys() == out.keys(), f"{label}: entries {sorted(src)} -> {sorted(out)}")
+    check(tensors_equal({k: v for k, v in src.items() if k != key},
+                        {k: v for k, v in out.items() if k != key}),
+          f"{label}: an entry besides {key} changed")
+    stats = recal_stats(src[key])
+    check(tensors_equal({k: v for k, v in src[key].items() if k not in stats},
+                        {k: v for k, v in out[key].items() if k not in stats}),
+          f"{label}: a weight or buffer besides the running statistics changed")
+    check(not tensors_equal(stats, recal_stats(out[key])),
+          f"{label}: no running statistic moved")
+
+
+def recal_err(card_file: str, cpu_file: str, key: str) -> tuple:
+    card = recal_stats(torch.load(card_file, map_location="cpu", weights_only=False)[key])
+    cpu = recal_stats(torch.load(cpu_file, map_location="cpu", weights_only=False)[key])
+    errs = {k: float((card[k] - cpu[k]).abs().max()) / max(float(cpu[k].abs().max()), 1e-12)
+            for k in cpu}
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst, len(errs)
+
+
+def tools_t2v_config(tmp: str, vocab: str) -> tuple:
+    """The full-size demo config with phase 37's vocabulary, written to
+    ``{tmp}/text2vec.json``."""
+    cfg = dataclasses.replace(load_config(Text2VecConfig, repo_path("data", "demo",
+                                                                    "text2vec.json")),
+                              vocab_path=vocab,
+                              vocab_size=TextFrontend.from_vocab_file(vocab).vocab_size)
+    path = os.path.join(tmp, "text2vec.json")
+    save_config(cfg, path)
+    return cfg, path
+
+
+def recal_batch_ms(dev, cfg, v2w_cfg, files: dict, filelist: str, prep: dict,
+                   spk_dir: str) -> dict:
+    """Each recalibration's own time a batch on the card, apart from the
+    command's file reading and writing: ``recalibrate_text2vec_bn`` and
+    ``recalibrate_generator_bn`` over phase 39's batches, built as the
+    command builds them (``median_ms``, CUDA events)."""
+    rows = cli._parse_filelist(filelist, RECAL_ROWS)
+    feats = [np.load(os.path.join(prep["feat"], npy))[0] for npy, _, _ in rows]
+    t2v = Text2Vec(cfg, device=dev)
+    t2v.load_state_dict(load_torch_state_dict(files["Text2Vec"], key="model"), strict=True)
+    t2v_batches = text2vec_calibration_batches(
+        TextFrontend.from_vocab_file(cfg.vocab_path), cfg,
+        [(text, f) for (_, text, _), f in zip(rows, feats)], batch_size=TOOLS_B)
+    gen = Generator(v2w_cfg, device=dev)
+    gen.load_state_dict(load_torch_state_dict(files["Generator"], key="generator"), strict=True)
+    noise = torch.Generator().manual_seed(SEED)
+    gen_batches = []
+    for i in range(0, len(rows), TOOLS_B):
+        chunk = range(i, min(i + TOOLS_B, len(rows)))
+        gen_batches.append((
+            np.stack([feats[j][:RECAL_GEN_FRAMES] for j in chunk]),
+            np.stack([np.load(os.path.join(spk_dir, f"{rows[j][2]}.npy")) for j in chunk]),
+            torch.randn((len(chunk), v2w_cfg.noise_dim), generator=noise).numpy()))
+    return {"Text2Vec": median_ms(lambda: recalibrate_text2vec_bn(
+                t2v, t2v_batches, max_frames=RECAL_MAX_FRAMES)) / len(t2v_batches),
+            "Generator": median_ms(lambda: recalibrate_generator_bn(gen, gen_batches))
+            / len(gen_batches)}
+
+
+def recalibrate_phase(dev, tmp: str, prep: dict, spk_dirs: dict, counts: dict) -> dict:
+    """Phase 39: ``cli recalibrate-bn`` on a full-size Text2Vec
+    ``checkpoint_{RECAL_STEP}.pth.tar`` (a trainer's file: the model, LAMB's
+    state, the lr and the epoch; the duration bias set as in phase 2) and a
+    ``g_`` file, over ``RECAL_ROWS`` rows of phase 37's filelists, on the
+    card and on the CPU: one BiGRU launch a Text2Vec batch and 30 fused
+    launches a Generator batch; every entry but the running statistics
+    carried over; the card's statistics against the CPU's; the written
+    files served by a ``Synthesizer``."""
+    cfg, cfg_path = tools_t2v_config(tmp, prep["vocab.txt"])
+    v2w_cfg = gan_config()
+    v2w_path = os.path.join(tmp, "vec2wav.json")
+    save_config(v2w_cfg, v2w_path)
+    src_dir = os.path.join(tmp, "ckpt")
+    torch.manual_seed(SEED)
+    trainer = Text2VecTrainer(cfg, device=dev)
+    with torch.no_grad():
+        trainer.model.length_regulator.duration_predictor.linear_layer.linear_layer.bias.add_(
+            FRAMES_PER_CHAR)
+    t2v_src = os.path.join(src_dir, f"checkpoint_{RECAL_STEP}.pth.tar")
+    save_text2vec(t2v_src, trainer, epoch=3)
+    del trainer
+    torch.manual_seed(SEED)
+    g_src = os.path.join(src_dir, f"g_{RECAL_STEP:08d}")
+    torch.save({"generator": Generator(v2w_cfg, device="cpu").state_dict()}, g_src)
+    filelist = os.path.join(tmp, "calibration.txt")
+    with open(filelist, "w", encoding="utf-8") as f:
+        for name in ("train.txt", "val.txt"):
+            f.write(open(prep[name], encoding="utf-8").read())
+    n_batches = -(-RECAL_ROWS // TOOLS_B)
+
+    common = ["--filelist", filelist, "--feat_root", prep["feat"], "--max_items", str(RECAL_ROWS),
+              "--batch_size", str(TOOLS_B)]
+    runs = {}
+    for label, key, argv, kernel, per_batch in (
+            ("Text2Vec", "model", ["--t2v_checkpoint", t2v_src, "--config", cfg_path,
+                                   "--max_frames", str(RECAL_MAX_FRAMES)], "gru_fwd", 1),
+            ("Generator", "generator", ["--generator_checkpoint", g_src, "--config", v2w_path,
+                                        "--spk_emb_dir", spk_dirs["speechbrain"],
+                                        "--gen_frames", str(RECAL_GEN_FRAMES)],
+             "fused_resblock", fused_units(v2w_cfg))):
+        files = {}
+        for where in ("card", "cpu"):
+            out_dir = os.path.join(tmp, f"recal_{where}")
+            reset_serving_counters()
+            t0 = time.perf_counter()
+            check(cli.main(["recalibrate-bn", *argv, *common, "--out", out_dir, "--device",
+                            str(dev) if where == "card" else "cpu"]) == 0,
+                  f"cli recalibrate-bn ({label}, {where}) failed")
+            seconds = time.perf_counter() - t0
+            launches = read_loop_counters()
+            if where == "card":
+                add_counts(counts, launches)
+                check(launches[kernel] == per_batch * n_batches,
+                      f"{label} recalibration: launches {launches}, want {per_batch} "
+                      f"{kernel} a batch over {n_batches} batches")
+                card_s, card_launches = seconds, launches
+            files[where] = os.path.join(out_dir, os.path.basename(argv[1]))
+        src = torch.load(argv[1], map_location="cpu", weights_only=False)
+        check_carried(src, torch.load(files["card"], map_location="cpu", weights_only=False),
+                      key, label)
+        err, worst, n_stats = recal_err(files["card"], files["cpu"], key)
+        check(err <= RECAL_STAT_RTOL, f"{label} statistics card vs CPU: {worst} {err:.3g}")
+        print(f"recalibrate-bn, {label} ({RECAL_ROWS} rows, {n_batches} batches of "
+              f"{TOOLS_B}): cli on the card {card_s:.2f} s (CPU {seconds:.2f} s), launches "
+              f"{card_launches}; every other entry carried over; {n_stats} running statistics, "
+              f"card vs CPU worst {err:.2e} ({worst}; rtol {RECAL_STAT_RTOL}); {card_line()}")
+        runs[label] = files["card"]
+    per_batch = recal_batch_ms(dev, cfg, v2w_cfg, runs, filelist, prep, spk_dirs["speechbrain"])
+    print(f"  the recalibration alone, a batch of {TOOLS_B} on the card: Text2Vec "
+          f"{per_batch['Text2Vec']:.2f} ms ({RECAL_MAX_FRAMES} frames), Generator "
+          f"{per_batch['Generator']:.2f} ms ({RECAL_GEN_FRAMES} frames)")
+
+    t2v_state, gen_state = init_import_models(cfg, v2w_cfg, t2v_checkpoint=runs["Text2Vec"],
+                                              gen_checkpoint=runs["Generator"])
+    syn = Synthesizer(cfg, v2w_cfg, t2v_state, gen_state, TextFrontend.from_vocab_file(
+        cfg.vocab_path), device=dev)
+    ref = np.load(os.path.join(prep["feat"], "SSB0000", "SSB00000000.npy"))
+    spk = np.load(os.path.join(spk_dirs["speechbrain"], "SSB0000.npy"))[None]
+    reset_serving_counters()
+    with torch.inference_mode():
+        wav, n = syn.synthesize([TEST_SENTENCES[1]], ref, spk, max_frames=512, seed=SEED)
+    launches = read_loop_counters()
+    add_counts(counts, launches)
+    check(launches["fused_resblock"] == fused_units(v2w_cfg) and launches["gru_fwd"] == 1,
+          f"serving the recalibrated files: launches {launches}")
+    check(np.isfinite(wav).all() and n[0] > 0, f"served waveform finite "
+          f"{np.isfinite(wav).all()}, {n[0]} samples")
+    print(f"  the recalibrated files served: {int(n[0]) // v2w_cfg.total_upsample} frames "
+          f"spoken, waveform finite; launches {launches}")
+    return dict(cfg_path=cfg_path, checkpoint_dir=os.path.dirname(runs["Text2Vec"]))
+
+
+def eval_phase(dev, tmp: str, prep: dict, recal: dict, counts: dict) -> None:
+    """Phase 40: ``cli eval-text2vec --rtf`` on the recalibrated checkpoint
+    (the demo config with phase 37's vocabulary, which holds every character
+    of the test sentences), phase 37's latents as the reference clips: six
+    sentences written, then a warm-up and ``EVAL_RTF_ITERS`` timed ones, one
+    BiGRU launch each."""
+    refs = [os.path.join(prep["feat"], "SSB0000", f"SSB0000{u:04d}.npy")
+            for u in range(len(TEST_SENTENCES))]
+    results = os.path.join(tmp, "results")
+    argv = ["eval-text2vec", "--config", recal["cfg_path"], "--checkpoint_path",
+            recal["checkpoint_dir"], "--step", str(RECAL_STEP), "--results_dir", results,
+            "--ref_npys", *refs, "--rtf", "--rtf_iters", str(EVAL_RTF_ITERS),
+            "--device", str(dev)]
+    reset_serving_counters()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    seconds = time.perf_counter() - t0
+    launches = read_loop_counters()
+    add_counts(counts, launches)
+    log = buf.getvalue()
+    check(rc == 0, f"cli eval-text2vec failed: {log[-2000:]}")
+    check(f"loaded checkpoint_{RECAL_STEP}.pth.tar" in log, "eval did not load the checkpoint")
+    want = len(TEST_SENTENCES) + 1 + EVAL_RTF_ITERS
+    check(launches["gru_fwd"] == want, f"eval launches {launches}, want {want} BiGRU")
+    for i in range(len(TEST_SENTENCES)):
+        feat = np.load(os.path.join(results, "1", f"{RECAL_STEP}_{i}_feat.postnet.npy"))
+        check(feat.ndim == 2 and feat.shape[0] > 0 and np.isfinite(feat).all(),
+              f"eval sentence {i}: {feat.shape}")
+    rtf = re.search(r"t2v RTF: ([0-9.]+) \(([0-9.]+)x realtime\), ([0-9.]+) utt/s", log)
+    check(rtf is not None, f"no RTF line in {log[-500:]}")
+    print(f"eval-text2vec --rtf: RTF {rtf.group(1)} ({rtf.group(2)}x realtime, "
+          f"{rtf.group(3)} utterances a second over {EVAL_RTF_ITERS}); the command "
+          f"{seconds:.2f} s; launches {launches}; {card_line()}")
+    for line in log.splitlines():
+        print(f"  | {line}")
+
+
+def wav_step_result(cfg, state, host, ref_wav, dev) -> dict:
+    """``step_result`` with ECAPA on raw reference waveforms: the training
+    forward (``ref_wav``), the trainer's losses and the backward."""
+    model = Text2Vec(cfg, device=dev)
+    model.load_state_dict(state, strict=True)
+    model.train()
+    b = batch_to_device(host, torch.device(dev))
+    out = model(b["text"], b["src_pos"], b["feat_target"], b["input_lengths"],
+                b["output_lengths"], b["feat_pos"], attn_prior=b["attn_prior"],
+                ref_wav=torch.as_tensor(ref_wav, device=dev))
+    wvf, postnet, duration = dnn_loss(out["feat_output"], out["feat_postnet_output"],
+                                      b["feat_target"], out["duration_predictor_output"],
+                                      out["duration"])
+    binarization = attention_binarization_loss(out["attn"], out["attn_soft"])
+    total = wvf + postnet + duration + cfg.binarization_loss_weight * binarization
+    total.backward()
+    return dict(losses=[x.item() for x in (total, wvf, postnet, duration, binarization)],
+                attn=out["attn"].cpu(), duration=out["duration"].cpu(),
+                grads={n: p.grad.cpu() for n, p in model.named_parameters()
+                       if p.grad is not None})
+
+
+def input_wav_phase(dev, counts: dict) -> None:
+    """Phase 41: the full-size demo config with ``input_wav=True`` (dropout
+    0): one training forward and backward, ECAPA on raw reference
+    waveforms of ``WAV_REF_SECONDS``, at B = ``CHECK_B`` (phase 11's batch
+    shape, the diagonal prior), on the card against the CPU: hard alignment
+    and durations equal, losses and gradients at phase 11's tolerances; one
+    MAS launch and one BiGRU forward launch on the card."""
+    cfg = dataclasses.replace(load_config(Text2VecConfig, repo_path("data", "demo",
+                                                                    "text2vec.json")),
+                              input_wav=True, dropout=0.0)
+    torch.manual_seed(SEED + 41)
+    state = Text2Vec(cfg, device="cpu").state_dict()
+    check(state["encoder.speaker_encoder.conv1.weight"].shape[1] == 80,
+          "ECAPA's conv1 does not take the fbank's 80 bands")
+    host = synthetic_batch(cfg, CHECK_B, CHECK_N, CHECK_T, SEED + 41, diagonal=True)
+    rng = np.random.default_rng(SEED + 41)
+    n = int(WAV_REF_SECONDS * SAMPLE_RATE)
+    t = np.arange(n) / SAMPLE_RATE
+    ref_wav = (0.3 * np.sin(2 * np.pi * rng.uniform(100, 300, (CHECK_B, 1)) * t)
+               + 0.05 * rng.standard_normal((CHECK_B, n))).astype(np.float32)
+    reset_serving_counters()
+    t0 = time.perf_counter()
+    card = wav_step_result(cfg, state, host, ref_wav, dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = read_loop_counters()
+    add_counts(counts, launches)
+    check(launches["mas"] == 1 and launches["gru_fwd"] == 1 and launches["gru_bwd"] == 1,
+          f"input_wav step launches {launches}")
+    cpu = wav_step_result(cfg, state, host, ref_wav, "cpu")
+    loss_err = compare_steps(card, cpu, STEP_LOSS_RTOL)
+    total_err, worst, worst_name = grad_spread(card["grads"], cpu["grads"])
+    check(total_err <= STEP_GRAD_GLOBAL_RTOL, f"input_wav gradients: {total_err:.3g} of the norm")
+    check(worst <= STEP_GRAD_RTOL, f"input_wav gradient {worst_name}: {worst:.3g} of its norm")
+    print(f"input_wav=True training forward + backward (B={CHECK_B} N={CHECK_N} T={CHECK_T}, "
+          f"{WAV_REF_SECONDS:g} s reference waveforms, dropout 0): card {card_s * 1e3:.1f} ms "
+          f"(first call, host clock), launches {launches}; card vs CPU: hard alignment and "
+          f"durations equal, losses {loss_err:.2e} (rtol {STEP_LOSS_RTOL}), gradients "
+          f"{total_err:.2e} of the norm (rtol {STEP_GRAD_GLOBAL_RTOL}), worst tensor "
+          f"{worst:.2e} in {worst_name} (rtol {STEP_GRAD_RTOL}); {card_line()}")
+
+
+def data_tools(dev) -> dict:
+    """Phases 37-41 in one temporary directory; returns each kernel's
+    launches over their paths."""
+    counts: dict = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as tmp:
+        state: dict = {}
+        for phase, fn in ((37, lambda: state.update(prep=prepare_data_phase(dev, tmp, counts))),
+                          (38, lambda: state.update(spk=pre_spk_emb_phase(dev, tmp, state["prep"],
+                                                                          counts))),
+                          (39, lambda: state.update(recal=recalibrate_phase(
+                              dev, tmp, state["prep"], state["spk"], counts))),
+                          (40, lambda: eval_phase(dev, tmp, state["prep"], state["recal"],
+                                                  counts)),
+                          (41, lambda: input_wav_phase(dev, counts))):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.empty_cache()
+            print(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: PyTorch sees no CUDA device; this script runs on an NVIDIA GPU",
@@ -3432,6 +3991,8 @@ def main() -> int:
     loop = training_jobs(dev)
     torch.cuda.empty_cache()
     data = data_and_gan_modes(dev, gan_check)
+    torch.cuda.empty_cache()
+    tools = data_tools(dev)
 
     kernels = [
         dict(name="fused_resblock", route="cuda",
@@ -3458,6 +4019,7 @@ def main() -> int:
     for kern in kernels:
         kern["loop_launches"] = loop.get(kern["name"], 0)
         kern["data_launches"] = data.get(kern["name"], 0)
+        kern["tools_launches"] = tools.get(kern["name"], 0)
     for kern in kernels:
         keys = ("ms", "plain_ms", "bound_ms") + (("f32_ms", "f32_plain_ms", "f32_bound_ms",
                                                    "f32_sdpa_bwd_ms")

@@ -189,10 +189,10 @@ def test_unported_flags_raise(flag):
     """An unported flag raises NotImplementedError naming ROADMAP.md.  The
     Text2Vec flags of the long-bucket slice, ``flash_attention`` and
     ``compute_dtype="bfloat16"``, are ported and build, and so do the bf16
-    serving Generator and ``attn_use_partial_padding`` (ConvAttention's
-    convolutions become ``PartialConv1d``); a bf16 Vec2Wav config (the bf16
-    GAN step) no longer raises: the GAN trainer computes in bf16 and a
-    served Generator in f32."""
+    serving Generator, ``attn_use_partial_padding`` (ConvAttention's
+    convolutions become ``PartialConv1d``) and ``input_wav`` (ECAPA on raw
+    waveforms); a bf16 Vec2Wav config (the bf16 GAN step) no longer raises:
+    the GAN trainer computes in bf16 and a served Generator in f32."""
     if flag == "flash_attention":
         model = Text2Vec(Text2VecConfig(**TINY_T2V, flash_attention=True), device="cpu")
         assert model.encoder.layer_stack[0].slf_attn.use_flash
@@ -209,15 +209,14 @@ def test_unported_flags_raise(flag):
         model = Text2Vec(Text2VecConfig(**TINY_T2V, attn_use_partial_padding=True), device="cpu")
         assert isinstance(model.attention.key_proj[0].conv, PartialConv1d)
     elif flag == "input_wav":
-        # ECAPA's raw-wav front end is not ported: the model, the trainer
-        # and serving refuse the config on the CPU before computing anything
+        # ECAPA's raw-wav front end is ported: the config passes, and the
+        # speaker encoder's conv1 takes the fbank's 80 mel bands
         cfg = Text2VecConfig(**TINY_T2V, input_wav=True)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 item 11"):
-            check_ported(cfg)
-        with pytest.raises(NotImplementedError, match="input_wav"):
-            Text2Vec(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="input_wav"):
-            Text2VecTrainer(cfg, device="cpu")
+        check_ported(cfg)
+        model = Text2Vec(cfg, device="cpu")
+        assert model.encoder.speaker_encoder.input_wav
+        assert model.encoder.speaker_encoder.conv1.weight.shape[1] == 80
+        assert Text2VecTrainer(cfg, device="cpu").model.encoder.speaker_encoder.input_wav
     else:
         cfg = Vec2WavConfig(**TINY_V2W)
         state = Generator(cfg, device="cpu").state_dict()

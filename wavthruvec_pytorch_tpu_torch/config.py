@@ -12,13 +12,13 @@ compatibility:
   are ported (the trainer computes in bf16, serving in f32, as in the JAX
   package), and so are ``attn_use_partial_padding=True``, windowed GAN
   training (``Vec2WavConfig.split=True``), ``device_resident_data=True`` in
-  both loops, ``msd_tiled_conv`` and ``Vec2WavConfig.compute_dtype=
+  both loops, ``msd_tiled_conv``, ``Vec2WavConfig.compute_dtype=
   "bfloat16"`` (the bf16 GAN step; serving builds the f32 Generator for it,
   as the JAX package does, and bf16 serving goes through
-  ``make_serving_generator``).  ``flash_attention=True`` with a head dim
-  above 256 and ``Text2VecConfig.input_wav=True`` (ECAPA's raw-wav front
-  end) are not ported yet; they raise ``NotImplementedError`` where a model
-  is built.
+  ``make_serving_generator``) and ``Text2VecConfig.input_wav=True`` (ECAPA
+  on raw waveforms through its fbank front end).  ``flash_attention=True``
+  with a head dim above 256 is not ported yet; it raises
+  ``NotImplementedError`` where a model is built.
 
 Each config names its run's directories as the JAX package's does:
 ``{run_path}/{log_seed}/`` holds ``model_new/`` (the checkpoints),
@@ -246,11 +246,6 @@ def parse_bool(value: str) -> bool:
 
 def check_ported(cfg) -> None:
     """Raise for a config flag whose JAX implementation is not ported yet."""
-    if isinstance(cfg, Text2VecConfig) and cfg.input_wav:
-        raise NotImplementedError(
-            "Text2VecConfig.input_wav=True (ECAPA on raw waveforms through its fbank front end, "
-            "JAX models/ecapa.py wav_to_fbank) is not ported: the port's ECAPA takes features "
-            "only (ROADMAP.md, queue 1 item 11).")
     if isinstance(cfg, Text2VecConfig) and cfg.flash_attention:
         # both FFT stacks take d_k = d_model // encoder_head (models/text2vec.py)
         d_k = max(cfg.encoder_dim, cfg.decoder_dim) // cfg.encoder_head

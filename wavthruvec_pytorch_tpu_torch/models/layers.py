@@ -170,7 +170,11 @@ class BatchNorm(nn.Module):
     ``max(0, E[x^2] - E[x]^2)`` (flax's ``use_fast_variance``), and moves the
     running statistics 0.1 of the way to them, the variance biased too.
     ``F.batch_norm(training=True)`` would update with the unbiased variance.
+    ``momentum`` is flax's: the running statistics keep 0.9 of themselves a
+    step (``infer.recalibrate`` reads it here).
     """
+
+    momentum = 0.9
 
     def __init__(self, num_features: int, affine: bool = True, eps: float = 1e-5,
                  dtype=None, device=None):
@@ -195,9 +199,10 @@ class BatchNorm(nn.Module):
             mean = xf.mean(dim=dims)
             var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
             with torch.no_grad():
-                # flax's momentum 0.9: ra = 0.9 * ra + (1 - 0.9) * stat
-                self.running_mean.copy_(0.9 * self.running_mean + (1.0 - 0.9) * mean)
-                self.running_var.copy_(0.9 * self.running_var + (1.0 - 0.9) * var)
+                # flax's update: ra = m * ra + (1 - m) * stat
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
                 self.num_batches_tracked.add_(1)
         else:
             mean, var = self.running_mean, self.running_var

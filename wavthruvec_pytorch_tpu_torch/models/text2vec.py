@@ -15,7 +15,12 @@ Semantics kept from the JAX package:
 * the decoder uses ``d_k = d_model // encoder_head`` (model.py:162);
 * ``forward`` runs BatchNorm (ECAPA, CBHG) on batch statistics and dropout
   as the module's train/eval mode says (JAX: ``train_bn``,
-  ``deterministic``); ``infer`` always runs in eval mode;
+  ``deterministic``); ``infer`` runs dropout in eval mode, and BatchNorm
+  too unless ``train_bn`` asks for batch statistics (JAX's ``infer(...,
+  train_bn=True)``, which only ``infer/recalibrate.py`` uses);
+* with ``cfg.input_wav`` ECAPA takes raw 16 kHz waveforms ``[B, L]``
+  (``models/ecapa.py``): ``infer``'s ``wav_feat`` is then the waveform, and
+  ``forward`` takes it as ``ref_wav``, apart from the target features;
 * ``dtype`` (``torch.bfloat16`` for ``compute_dtype="bfloat16"`` training)
   goes where JAX's ``Text2Vec(cfg, dtype)`` sends it: ECAPA, the FFT blocks,
   the duration predictor, ``WVF_linear``, the CBHG convolutions and
@@ -40,7 +45,7 @@ from wavthruvec_pytorch_tpu_torch.models.conv_attention import ConvAttention
 from wavthruvec_pytorch_tpu_torch.models.duration import DurationPredictor
 from wavthruvec_pytorch_tpu_torch.models.ecapa import ECAPA_TDNN
 from wavthruvec_pytorch_tpu_torch.models.fft_block import FFTBlock
-from wavthruvec_pytorch_tpu_torch.models.layers import Linear
+from wavthruvec_pytorch_tpu_torch.models.layers import BatchNorm, Linear
 from wavthruvec_pytorch_tpu_torch.ops.length_regulator import expand_by_durations
 from wavthruvec_pytorch_tpu_torch.ops.mas import mas_width1
 from wavthruvec_pytorch_tpu_torch.ops.masking import (
@@ -83,7 +88,8 @@ class Encoder(nn.Module):
         self.position_enc = _position_table(cfg.vocab_size + 1, cfg.encoder_dim, device)
         if cfg.use_multi_speaker_condition:
             self.speaker_encoder = ECAPA_TDNN(cfg.spk_channel, cfg.n_feat_dim,
-                                              cfg.n_speaker_dim, dtype=dtype, device=device)
+                                              cfg.n_speaker_dim, input_wav=cfg.input_wav,
+                                              dtype=dtype, device=device)
         self.layer_stack = _fft_stack(cfg, cfg.encoder_output_dim,
                                       cfg.encoder_conv1d_filter_size, cfg.encoder_head,
                                       cfg.encoder_n_layer, dtype, device)
@@ -141,16 +147,23 @@ class LengthRegulator(nn.Module):
 
 
 @contextlib.contextmanager
-def _eval_mode(module: nn.Module):
-    """Run ``module`` in eval mode and restore its mode afterwards."""
-    if not module.training:
+def _eval_mode(module: nn.Module, train_bn: bool = False):
+    """Run ``module`` in eval mode (its BatchNorms in train mode where
+    ``train_bn``) and restore every submodule's mode afterwards."""
+    if not module.training and not train_bn:
         yield
         return
+    modes = {m: m.training for m in module.modules()}
     module.eval()
+    if train_bn:
+        for m in module.modules():
+            if isinstance(m, BatchNorm):
+                m.train()
     try:
         yield
     finally:
-        module.train()
+        for m, mode in modes.items():
+            m.training = mode
 
 
 class Text2Vec(nn.Module):
@@ -191,15 +204,22 @@ class Text2Vec(nn.Module):
 
     def forward(self, src_seq: torch.Tensor, src_pos: torch.Tensor, wav_feat: torch.Tensor,
                 in_lens: torch.Tensor, out_lens: torch.Tensor, WVF_pos: torch.Tensor,
-                attn_prior: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                attn_prior: Optional[torch.Tensor] = None,
+                ref_wav: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """Training branch (JAX: ``Text2Vec.__call__`` with MAS on).
         src_seq/src_pos [B, N] int, wav_feat [B, T, n_feat] (the target
         features, also ECAPA's and ConvAttention's input), in_lens/out_lens
         [B], WVF_pos [B, T] int, attn_prior [B, T, N] -> dict with
         ``feat_output``/``feat_postnet_output`` [B, T, n_feat],
         ``duration_predictor_output`` [B, N], ``duration`` [B, N] int32,
-        ``attn`` (hard), ``attn_soft``, ``attn_logprob`` [B, T, N]."""
-        encoder_output, _ = self.encoder(src_seq, src_pos, wav_feat)
+        ``attn`` (hard), ``attn_soft``, ``attn_logprob`` [B, T, N].
+        With ``cfg.input_wav`` ECAPA takes ``ref_wav`` [B, L], the raw
+        reference waveforms, in place of ``wav_feat``."""
+        if self.cfg.input_wav and ref_wav is None:
+            raise ValueError("Text2VecConfig.input_wav=True: pass the reference waveforms "
+                             "as ref_wav [B, L]")
+        spk_input = ref_wav if self.cfg.input_wav else wav_feat
+        encoder_output, _ = self.encoder(src_seq, src_pos, spk_input)
         attn_soft, attn_logprob = self.attention(wav_feat, encoder_output, key_lens=in_lens,
                                                  attn_prior=attn_prior)
         attn_hard = mas_width1(attn_soft.detach(), in_lens, out_lens)
@@ -227,13 +247,17 @@ class Text2Vec(nn.Module):
     @torch.inference_mode()
     def infer(self, src_seq: torch.Tensor, src_pos: torch.Tensor,
               wav_feat: Optional[torch.Tensor], max_frames: int, alpha: float = 1.0,
-              spk_emb: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-        """src_seq/src_pos [B, N] int, wav_feat [B, T_ref, n_feat] (or
-        ``spk_emb`` [B, n_speaker_dim] to skip ECAPA) -> dict with
+              spk_emb: Optional[torch.Tensor] = None,
+              train_bn: bool = False) -> Dict[str, torch.Tensor]:
+        """src_seq/src_pos [B, N] int, wav_feat [B, T_ref, n_feat] (with
+        ``cfg.input_wav`` the waveforms [B, L]; or ``spk_emb`` [B,
+        n_speaker_dim] to skip ECAPA) -> dict with
         ``feat_output``/``feat_postnet_output`` [B, max_frames, n_feat],
         ``duration_predictor_output`` [B, N], ``durations`` [B, N] and
-        ``total_frames`` [B].  Runs in eval mode whatever the module's mode."""
-        with _eval_mode(self):
+        ``total_frames`` [B].  Runs in eval mode whatever the module's mode;
+        ``train_bn`` runs the BatchNorms (ECAPA, CBHG) on batch statistics,
+        which moves their running statistics (``infer/recalibrate.py``)."""
+        with _eval_mode(self, train_bn):
             return self._infer(src_seq, src_pos, wav_feat, max_frames, alpha, spk_emb)
 
     def _infer(self, src_seq, src_pos, wav_feat, max_frames, alpha, spk_emb):

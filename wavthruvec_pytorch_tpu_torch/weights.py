@@ -261,3 +261,107 @@ def msd_state_dict(np_vars: Any) -> Dict[str, torch.Tensor]:
     """MultiScaleDiscriminator variables (``params`` and ``spectral``) -> the
     port's ``MultiScaleDiscriminator`` state dict."""
     return _to_torch(_export(np_vars, _msd_spec()))
+
+
+def _cfg_get(cfg: Any, name: str):
+    return cfg[name] if isinstance(cfg, dict) else getattr(cfg, name)
+
+
+def wav2vec2_state_dict(flax_params: Any, hf_config: Any) -> Dict[str, torch.Tensor]:
+    """transformers' ``FlaxWav2Vec2Model`` parameters (its ``params`` tree,
+    numpy leaves) -> the port's ``models.wav2vec2.Wav2Vec2Model`` state dict,
+    HF's torch keys.  ``hf_config``: a ``Wav2Vec2Config`` of either package
+    (or its dict), for the layer counts.  The positional convolution's
+    ``weight_v`` [out, in / groups, k] and ``weight_g`` [1, 1, k] have torch's
+    layout in Flax already."""
+    s: Spec = [("emb", "masked_spec_embed", "masked_spec_embed")]
+    for i in range(len(_cfg_get(hf_config, "conv_dim"))):
+        b = f"feature_extractor.conv_layers.{i}"
+        s += [("conv", f"{b}.conv", f"feature_extractor/conv_layers/{i}/conv"),
+              ("ln", f"{b}.layer_norm", f"feature_extractor/conv_layers/{i}/layer_norm")]
+    s += [("ln", "feature_projection.layer_norm", "feature_projection/layer_norm"),
+          ("lin", "feature_projection.projection", "feature_projection/projection")]
+    for name in ("weight_g", "weight_v", "bias"):
+        s.append(("emb", f"encoder.pos_conv_embed.conv.{name}",
+                  f"encoder/pos_conv_embed/conv/{name}"))
+    s.append(("ln", "encoder.layer_norm", "encoder/layer_norm"))
+    for i in range(_cfg_get(hf_config, "num_hidden_layers")):
+        b, d = f"encoder.layers.{i}", f"encoder/layers/{i}"
+        s += [("lin", f"{b}.attention.{p}", f"{d}/attention/{p}")
+              for p in ("q_proj", "k_proj", "v_proj", "out_proj")]
+        s += [("ln", f"{b}.layer_norm", f"{d}/layer_norm"),
+              ("lin", f"{b}.feed_forward.intermediate_dense",
+               f"{d}/feed_forward/intermediate_dense"),
+              ("lin", f"{b}.feed_forward.output_dense", f"{d}/feed_forward/output_dense"),
+              ("ln", f"{b}.final_layer_norm", f"{d}/final_layer_norm")]
+    return _to_torch(_export({"params": flax_params}, s))
+
+
+def _speechbrain_spec(n_blocks: int = 3, scale: int = 8) -> Spec:
+    def conv(src, dst):
+        return [("conv", f"{src}.conv", f"{dst}/conv/Conv_0")]
+
+    def tdnn(src, dst):
+        return conv(f"{src}.conv", f"{dst}/conv") + [("bn", f"{src}.norm.norm", f"{dst}/norm")]
+
+    s = tdnn("blocks.0", "blocks_0")
+    for i in range(1, n_blocks + 1):
+        b, d = f"blocks.{i}", f"blocks_{i}"
+        s += tdnn(f"{b}.tdnn1", f"{d}/tdnn1")
+        for j in range(scale - 1):
+            s += tdnn(f"{b}.res2net_block.blocks.{j}", f"{d}/res2net_block/blocks_{j}")
+        s += tdnn(f"{b}.tdnn2", f"{d}/tdnn2")
+        s += conv(f"{b}.se_block.conv1", f"{d}/se_block/conv1")
+        s += conv(f"{b}.se_block.conv2", f"{d}/se_block/conv2")
+    s += tdnn("mfa", "mfa") + tdnn("asp.tdnn", "asp/tdnn") + conv("asp.conv", "asp/conv")
+    s += [("bn", "asp_bn.norm", "asp_bn")] + conv("fc", "fc")
+    return s
+
+
+def speechbrain_state_dict(np_vars: Any) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``ECAPA_TDNN_SB`` variables -> the port's
+    ``models.ecapa_speechbrain.ECAPA_TDNN_SB`` state dict: SpeechBrain's own
+    keys, the inverse of the JAX package's ``import_speechbrain_ecapa``
+    (``checkpoint.py:589-624``)."""
+    return _to_torch(_export(np_vars, _speechbrain_spec()))
+
+
+def _lawlict_spec() -> Spec:
+    s: Spec = [("conv", "layer1.conv", "layer1/conv/Conv_0"), ("bn", "layer1.bn", "layer1/bn")]
+    for li in (2, 3, 4):
+        b, d = f"layer{li}", f"layer{li}"
+        for idx, name in ((0, "pre"), (2, "post")):
+            s += [("conv", f"{b}.{idx}.conv", f"{d}/{name}/conv/Conv_0"),
+                  ("bn", f"{b}.{idx}.bn", f"{d}/{name}/bn")]
+        for i in range(7):
+            s += [("conv", f"{b}.1.convs.{i}", f"{d}/res2/convs_{i}/Conv_0"),
+                  ("bn", f"{b}.1.bns.{i}", f"{d}/res2/bns_{i}")]
+        s += [("lin", f"{b}.3.linear1", f"{d}/se/linear1/Dense_0"),
+              ("lin", f"{b}.3.linear2", f"{d}/se/linear2/Dense_0")]
+    s += [("conv", "conv", "conv/Conv_0"),
+          ("conv", "pooling.linear1", "pooling/linear1/Conv_0"),
+          ("conv", "pooling.linear2", "pooling/linear2/Conv_0"),
+          ("bn", "bn1", "bn1"), ("lin", "linear", "linear/Dense_0"), ("bn", "bn2", "bn2")]
+    return s
+
+
+def lawlict_state_dict(np_vars: Any) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``ECAPA_TDNN_Lawlict`` variables -> the port's
+    ``models.ecapa_lawlict.ECAPA_TDNN_Lawlict`` state dict (the reference's
+    keys)."""
+    return _to_torch(_export(np_vars, _lawlict_spec()))
+
+
+def prenet_state_dict(np_vars: Any) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``Prenet`` variables -> the port's ``Prenet``."""
+    return _to_torch(_export(np_vars, [("lin", f"layer.{n}.linear_layer", f"{n}/Dense_0")
+                                       for n in ("fc1", "fc2")]))
+
+
+def postnet_state_dict(np_vars: Any, n_convolutions: int = 5) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``PostNet`` variables -> the port's ``PostNet``."""
+    s: Spec = []
+    for i in range(n_convolutions):
+        s += [("conv", f"convolutions.{i}.0.conv", f"convolutions_{i}_conv/Conv_0"),
+              ("bn", f"convolutions.{i}.1", f"convolutions_{i}_bn")]
+    return _to_torch(_export(np_vars, s))
