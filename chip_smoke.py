@@ -331,11 +331,64 @@ are set to 0 just before each command or request and read just after:
     backward with raw reference waveforms (B = ``CHECK_B``), card against
     CPU at phase 11's tolerances; one MAS and one BiGRU launch.
 
+Then data parallelism (``parallel/``), with ranks started as ``torchrun``
+starts them (``parallel.launch.run_local``): two ranks on the one card over
+gloo (NCCL takes one card a rank), then one rank over NCCL.  The counters
+are set to 0 in each rank just before its step or job and read just after:
+
+42. One Text2Vec step at full size (phase 8's config, dropout 0) on a
+    global B = 16 at 64 x 1024, 8 a rank, and one GAN step (phase 18's
+    modules) on a global B = ``DP_GAN_B`` x ``DP_GAN_T`` frames, each rank
+    stepping its rows (``parallel.shard_batch``) from rank 0's state
+    (``globalize_state``).  Each rank against one process stepping the whole
+    global batch on the card: losses within ``DP_LOSS_RTOL``; gradients by
+    norm within ``STEP_GRAD_GLOBAL_RTOL`` over all and ``STEP_GRAD_RTOL``
+    for the worst tensor; the parameters after the update within
+    ``DP_PARAM_ATOL`` in all but ``DP_PARAM_OFF`` of the elements, where the
+    sign-like first step parts them, and within twice the largest step
+    everywhere (``dp_compare``).  The ranks' states, spectral vectors
+    included, bit-equal; 1 MAS and 1 BiGRU forward launch a rank.  Prints
+    the bytes all-reduced a step, the gradients' all-reduce ms and the step
+    ms at world size 2 (two ranks sharing one card: not a scaling figure)
+    against 1.  Before the pair joins, rank 0 steps the Text2Vec global
+    batch alone and rank 1 the GAN's (the one-process references); after
+    the pair, rank 0, in a group of one over NCCL, steps them again:
+    bit-equal to the steps with no process group, cuDNN's deterministic
+    algorithms on; the world-size-1 step is timed there.  The checked step
+    is each timing's warm-up.
+43. In the same two ranks, ``cli train-text2vec`` and ``train-vec2wav``
+    (the loops' ``main(parse_args(argv))``) on the full-size demo configs,
+    ``JOB_STEPS`` steps each, a save a step: the ranks' losses equal, and
+    held against one process stepping the same global batch (each rank's
+    share of the file list, loader and padding, concatenated) from the same
+    state (the seed, or the job's file of the step before; the GAN's step 1
+    has none): the Text2Vec step's hard durations equal to one process's,
+    and its losses within ``JOB_WITNESS_FACTOR`` times the distance of a
+    second witness, one process on the same items in reverse order (at
+    least ``DP_LOSS_RTOL``), the worst BatchNorm's E[x^2]/(Var + eps)
+    printed; the
+    GAN's within ``DP_LOSS_RTOL``; only rank 0 wrote files; the Text2Vec
+    job's checkpoint of step
+    ``JOB_RESUME_AT`` loaded on both ranks and stepped on the next global
+    batch against the uninterrupted step (``RESUME_LOSS_RTOL``).
+44. The benches (``infer/train_bench.py``, ``rtf_bench.py``,
+    ``serve_bench.py``), ``BENCH_ITERS`` timed iterations each:
+    ``train_bench`` at B = 16 x 1024 with and without remat, and the
+    long-bucket bf16 step with flash (``LONG_BENCH_ITERS``) with and
+    without remat, each pair from one seed under cuDNN's deterministic
+    algorithms: the last step's loss, after the updates, and its gradients'
+    global norm within ``REMAT_RTOL``, remat's peak memory lower; the GAN
+    step;
+    ``rtf_bench`` at B = 1 and 4; ``serve_bench`` at B = 1 and 8.  Every
+    row carries the card's name.
+
 Every float32 product and convolution in this run is full float32: TF32 is
 off for matmuls and cuDNN.  The second-to-last line is a JSON object with
 one entry per kernel (``serving_launches``: the launches of phases 22-24
 and 26; ``loop_launches``: those of phases 28-31; ``data_launches``: those
-of phases 32-36; ``tools_launches``: those of phases 37-41); the last line is
+of phases 32-36; ``tools_launches``: those of phases 37-41;
+``parallel_launches``: those of phases 42-43 summed over the ranks;
+``bench_launches``: those of phase 44); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -344,6 +397,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import hashlib
 import io
 import json
 import math
@@ -362,7 +416,8 @@ import torch
 import torch.nn.functional as F
 from scipy.io import wavfile
 
-from wavthruvec_pytorch_tpu_torch import cli
+from wavthruvec_pytorch_tpu_torch import checkpoint as ckpt_module
+from wavthruvec_pytorch_tpu_torch import cli, parallel
 from wavthruvec_pytorch_tpu_torch.checkpoint import (
     load_text2vec,
     load_torch_state_dict,
@@ -461,6 +516,7 @@ from wavthruvec_pytorch_tpu_torch.ops.mas import (
     shared_limit,
 )
 from wavthruvec_pytorch_tpu_torch.ops.tiled_conv import tiled_grouped_conv1d
+from wavthruvec_pytorch_tpu_torch.parallel.launch import free_port, run_local
 from wavthruvec_pytorch_tpu_torch.text import TextFrontend
 from wavthruvec_pytorch_tpu_torch.train import text2vec_loop, vec2wav_loop
 from wavthruvec_pytorch_tpu_torch.train.text2vec_train import (
@@ -472,6 +528,7 @@ from wavthruvec_pytorch_tpu_torch.train.text2vec_train import (
 )
 from wavthruvec_pytorch_tpu_torch.train.vec2wav_train import SCALAR_KEYS as GAN_KEYS
 from wavthruvec_pytorch_tpu_torch.train.vec2wav_train import GANTrainer
+from wavthruvec_pytorch_tpu_torch.utils import logging as logging_module
 
 SEED = 0
 FRAMES_PER_CHAR = 8.0  # ~0.16 s of speech per character at 50 latent frames/s
@@ -3937,6 +3994,641 @@ def data_tools(dev) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Data parallelism, a two-rank job and the benches (phases 42-44).  The ranks
+# are processes of ``parallel.launch.run_local``, two on one card over gloo
+# (NCCL takes one card a rank; rank 0 then runs a group of one over NCCL);
+# the rank functions below run there, this module imported anew in each.
+
+# the ranks' results must match one process on the global batch: losses
+# within DP_LOSS_RTOL; gradients by norm as phase 11 holds the card against
+# the CPU; parameters after the update within DP_PARAM_ATOL in all but
+# DP_PARAM_OFF of the elements and within twice the tensor's largest step
+# everywhere, as tests/test_torch_train.py holds the port's step against
+# JAX's: the first LAMB or AdamW step is sign-like, so where a gradient is
+# rounding noise the two runs step apart, and LAMB's per-tensor trust ratio
+# moves with them
+DP_LOSS_RTOL = 1e-5
+DP_PARAM_ATOL = 1e-5
+DP_PARAM_OFF = 1e-3
+DP_WORLD = 2
+DP_GAN_B, DP_GAN_T = 4, 256
+DP_STEP_REPS = 1
+DP_TIMEOUT = 900.0
+JOB_STEPS, JOB_RESUME_AT = 3, 2
+# a Text2Vec job's step against one process on the same global batch from
+# the same state: the hard durations equal, and the losses within
+# JOB_WITNESS_FACTOR times the distance between two one-process runs that
+# differ only in the order of the items (at least DP_LOSS_RTOL).  The job's
+# global batch is two items, and ECAPA's bn5 takes its statistics over
+# their two pooled vectors, where flax's E[x^2] - E[x]^2 cancels:
+# E[x^2] / (Var + eps) reaches ~5e5 on the card, so the f32 rounding of the
+# sums, which the items' order or their split over the ranks changes, moves
+# the losses by up to ~3e-3 in one process alone (phase 42's B = 16: 1e-7).
+# A fault of the data or of the losses' reduction moves the durations, or
+# the losses far past the witness
+JOB_WITNESS_FACTOR = 10.0
+BENCH_ITERS = 3
+# the long bf16 flash steps of phase 44, with and without remat
+LONG_BENCH_ITERS = 1
+# remat against no remat after the updates: the recomputed blocks run the
+# same kernels on the same inputs, dropout's mask replayed, so bit-equal
+REMAT_RTOL = 0.0
+
+
+def dp_flags() -> None:
+    """A rank's settings: TF32 off, as in the parent, and cuDNN's
+    deterministic algorithms; half the host's cores (two ranks share them)."""
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // DP_WORLD))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+
+
+def dp_setup(spec: dict):
+    """``dp_flags``, then join the launcher's group."""
+    dp_flags()
+    return parallel.maybe_distributed_init(spec["device"], spec["backend"])
+
+
+def dp_batch_norm_bytes(model) -> list:
+    """Counts, through pre-hooks, the bytes that train-mode BatchNorms
+    all-reduce in a step: ``(2C + 1)`` floats forward and as many backward."""
+    seen = [0]
+
+    def hook(mod, args):
+        if mod.training:
+            seen[0] += 2 * 4 * (2 * args[0].shape[-1] + 1)
+
+    for m in model.modules():
+        if isinstance(m, layers.BatchNorm):
+            m.register_forward_pre_hook(hook)
+    return seen
+
+
+def dp_batch_norm_conditioning(model) -> list:
+    """Pre-hooks on the train-mode BatchNorms that record, for each call,
+    (the largest E[x^2] / (Var + eps) over its channels, its name): the
+    factor by which flax's E[x^2] - E[x]^2 magnifies the relative rounding
+    of the sums into the normalizing scale rsqrt(Var + eps).  Returns the
+    list they fill."""
+    seen = []
+
+    def hook(name):
+        def pre(mod, args):
+            if mod.training:
+                x = args[0].detach().float()
+                dims = tuple(range(x.dim() - 1))
+                m, m2 = x.mean(dim=dims), (x * x).mean(dim=dims)
+                ratio = (m2 / (torch.clamp(m2 - m * m, min=0.0) + mod.eps)).max().item()
+                seen.append((ratio, name))
+        return pre
+
+    for name, m in model.named_modules():
+        if isinstance(m, layers.BatchNorm):
+            m.register_forward_pre_hook(hook(name))
+    return seen
+
+
+def dp_compare(got: dict, ref: dict, grads: dict, ref_grads: dict, start: dict) -> dict:
+    """One rank's step against the one-process step: the gradients' distance
+    by norm, over all and the worst tensor; the parameters after the update,
+    the elements beyond ``DP_PARAM_ATOL`` counted (the tensors with most of
+    them named), and every element within twice the tensor's largest step.
+    Tensors whose gradient is 0 but for rounding (the GAN's upsampler
+    biases, ``GAN_ZERO_GRAD``, and any whose largest is 1e-5 or less) count
+    only in the global distance: their update's direction is noise."""
+    num = den = worst = 0.0
+    worst_name = ""
+    n_off = n_all = 0
+    bad, offs = [], []
+    for n, g in ref_grads.items():
+        d, gn = (grads[n] - g).norm().item(), g.norm().item()
+        num, den = num + d * d, den + gn * gn
+        if g.abs().max().item() <= 1e-5 or GAN_ZERO_GRAD.fullmatch(n):  # 0 but for rounding
+            continue
+        if d / gn > worst:
+            worst, worst_name = d / gn, n
+        p, q = got[n].detach().float(), ref[n].float()
+        step = (q - start[n].float()).abs().max()
+        diff = (p - q).abs()
+        if not bool((diff <= 2 * step + DP_PARAM_ATOL).all()):
+            bad.append(f"{n} (largest {diff.max().item():.3g}, step {step.item():.3g})")
+        off = int((diff > DP_PARAM_ATOL).sum())
+        if off:
+            offs.append((off, n, diff.numel()))
+        n_off, n_all = n_off + off, n_all + diff.numel()
+    return {"grad_global": math.sqrt(num / max(den, 1e-30)), "grad_worst": worst,
+            "grad_worst_name": worst_name, "param_off": n_off, "param_all": n_all,
+            "param_bad": bad, "param_top": sorted(offs, reverse=True)[:4]}
+
+
+def dp_digest(tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_text2vec_step(cfg, host: dict, world, dev, ref: dict = None, reps: int = 0,
+                     keep: bool = False) -> dict:
+    """A seeded trainer (rank 0's state on every rank), one step on this
+    rank's rows of ``host``: its losses, launches, all-reduced bytes and
+    state digest, against ``ref`` (the one-process step) when given; with
+    ``keep`` the gradients and parameters too (a reference); then ``reps``
+    more steps timed, and the gradients' all-reduce, the checked step their
+    warm-up."""
+    torch.manual_seed(SEED)
+    trainer = Text2VecTrainer(cfg, device=dev)
+    parallel.globalize_state([trainer.model], [trainer.optimizer])
+    start = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
+    bn_bytes = dp_batch_norm_bytes(trainer.model)
+    batch = trainer.to_device(parallel.shard_batch({k: host[k] for k in DP_BATCH_KEYS}, world,
+                                                   dev))
+    reset_serving_counters()
+    metrics = run_step(trainer, batch)
+    counts = read_loop_counters()
+    grads = {n: p.grad for n, p in trainer.model.named_parameters() if p.grad is not None}
+    out = {"losses": [metrics[k].item() for k in SCALAR_KEYS], "launches": counts,
+           "grad_bytes": sum(g.numel() * g.element_size() for g in grads.values()),
+           "bn_bytes": bn_bytes[0], "digest": dp_digest(trainer.model.state_dict().values())}
+    if ref is not None:
+        out.update(dp_compare(dict(trainer.model.named_parameters()), ref["state"], grads,
+                              ref["grads"], start))
+    if keep:
+        out["grads"] = {n: g.clone() for n, g in grads.items()}
+        out["state"] = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
+    if reps:
+        flat = [g.clone() for g in grads.values()]
+        out["all_reduce_ms"] = dp_host_ms(lambda: parallel.all_reduce_mean(flat), reps, dev)
+        out["step_ms"] = dp_host_ms(lambda: run_step(trainer, batch), reps, dev)
+    return out
+
+
+def dp_gan_step(cfg, host: dict, world, dev, ref: dict = None, keep: bool = False) -> dict:
+    """A seeded ``GANTrainer`` (phase 18's modules), rank 0's state on every
+    rank, one step on this rank's rows: losses, state digest, spectral
+    vectors' digest, against ``ref`` when given."""
+    trainer = gan_trainer(cfg, dev)
+    modules = (trainer.gen, trainer.mpd, trainer.msd)
+    parallel.globalize_state(modules, [trainer.opt_g, trainer.opt_d])
+    named = dp_gan_params(trainer)
+    start = {n: p.detach().clone() for n, p in named.items()}
+    metrics = trainer.step(parallel.shard_batch(host, world, dev))
+    out = {"losses": [metrics[k].item() for k in GAN_KEYS],
+           "digest": dp_digest([v for m in modules for v in m.state_dict().values()]),
+           "spectral": dp_digest([v for m in modules for n, v in m.state_dict().items()
+                                  if n.endswith(("_u", "_v"))])}
+    grads = {n: p.grad for n, p in named.items() if p.grad is not None}
+    if ref is not None:
+        out.update(dp_compare(named, ref["state"], grads, ref["grads"], start))
+    if keep:
+        out["grads"] = grads
+        out["state"] = {n: p.detach() for n, p in named.items()}
+    return out
+
+
+def dp_gan_params(trainer) -> dict:
+    return {f"{m}.{n}": p for m, mod in (("gen", trainer.gen), ("mpd", trainer.mpd),
+                                          ("msd", trainer.msd))
+            for n, p in mod.named_parameters()}
+
+
+def dp_sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def dp_host_ms(fn, reps: int, dev) -> float:
+    """Median host milliseconds of ``fn()`` ended by a synchronize; the
+    caller has run it once already (the warm-up)."""
+    dp_sync(dev)
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        dp_sync(dev)
+        ts.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(ts))
+
+
+def dp_job(stage: str, argv: list, cfg) -> dict:
+    """``cli train-text2vec`` or ``train-vec2wav`` as the subcommand runs it
+    (the loop's ``main(parse_args(argv))``), with ``cfg``; returns its
+    losses, launches, saves, the files this rank wrote and, for Text2Vec,
+    each training step's hard durations (this rank's rows)."""
+    loop = text2vec_loop if stage == "t2v" else vec2wav_loop
+    written, durations = [], []
+    saved, snapshot, logger_cls = ckpt_module._save, loop.save_config, logging_module.TrainLogger
+    forward = Text2VecTrainer.forward
+
+    def recording_forward(trainer, batch):
+        total, metrics, out = forward(trainer, batch)
+        if trainer.model.training:
+            durations.append(out["duration"].cpu().numpy())
+        return total, metrics, out
+
+    def recording(fn, name):
+        def wrapped(*args, **kwargs):
+            written.append(name(*args))
+            return fn(*args, **kwargs)
+        return wrapped
+
+    ckpt_module._save = recording(saved, lambda obj, path: os.path.basename(path))
+    loop.save_config = recording(snapshot, lambda c, path: os.path.basename(path))
+    logging_module.TrainLogger = recording(logger_cls, lambda *a: "logger")
+    Text2VecTrainer.forward = recording_forward
+    reset_serving_counters()
+    try:
+        rec = loop.main(loop.parse_args(argv), cfg=cfg)
+    finally:
+        ckpt_module._save, loop.save_config, logging_module.TrainLogger = (saved, snapshot,
+                                                                            logger_cls)
+        Text2VecTrainer.forward = forward
+    return {"steps": rec.steps, "saves": sorted(rec.saves), "written": written,
+            "launches": read_loop_counters(), "seconds": rec.seconds, "durations": durations}
+
+
+def dp_t2v_job_batches(cfg, rank: int, world: int) -> list:
+    """Rank ``rank``'s batches of the job's first epoch, as its loop makes
+    them: its share of the file list, seed 0, its local batch, padded to the
+    largest bucket pair.  Runs outside a process group."""
+    frontend = TextFrontend.from_vocab_file(cfg.vocab_path)
+    cfg = dataclasses.replace(cfg, vocab_size=frontend.vocab_size)
+    shard = parallel.process_shard(load_buffer(list(cfg.train_list), cfg, frontend), rank, world)
+    loader = BucketedLoader(shard, cfg, seed=0, batch_size=cfg.batch_size // world,
+                            pad_to_max=True)
+    return [loader.batch(idx) for idx in loader.epoch_indices()]
+
+
+def dp_gan_job_batches(cfg, rank: int, world: int) -> list:
+    files, _ = get_dataset_filelist(cfg.input_training_file, cfg.input_validation_file)
+    ds = VocoderDataset(parallel.process_shard(files, rank, world), cfg)
+    loader = VocoderLoader(ds, cfg.batch_size // world, seed=cfg.seed, num_workers=0,
+                           pad_to_max=True)
+    return list(loader.epoch())
+
+
+def dp_concat(batches: list) -> dict:
+    return {k: np.concatenate([b[k] for b in batches]) for k in batches[0]
+            if k not in ("audiopaths", "filenames")}
+
+
+def dp_pair_rank(spec: dict) -> dict:
+    """One of two ranks on one card (gloo).  Before they join the group,
+    rank 0 steps the whole Text2Vec global batch alone and rank 1 the GAN's
+    (the one-process references, side by side on the card).  Then phase
+    42's Text2Vec and GAN steps, each held against its reference by the
+    rank that holds it, and phase 43's two jobs and the resumed step."""
+    t2v_cfg, gan_cfg = spec["t2v_cfg"], spec["gan_cfg"]
+    seconds = {}
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        seconds[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    dp_flags()  # one process, no group: the references, one a rank, side by side
+    dev = torch.device(spec["device"])
+    ref = ({"t2v": dp_text2vec_step(t2v_cfg, spec["t2v_batch"], None, dev, keep=True)}
+           if os.environ["RANK"] == "0" else
+           {"gan": dp_gan_step(gan_cfg, spec["gan_batch"], None, dev, keep=True)})
+    lap("start and references")
+    dev = dp_setup(spec)
+    check(parallel.world_size() == DP_WORLD, f"world size {parallel.world_size()}")
+    out = {"rank": parallel.rank(), "seconds": seconds,
+           "alone": {k: {key: v for key, v in r.items() if key not in ("grads", "state")}
+                     for k, r in ref.items()}}
+    world = parallel.mesh_for_batch(len(spec["t2v_batch"]["text"]), dev)
+    out["t2v"] = dp_text2vec_step(t2v_cfg, spec["t2v_batch"], world, dev, ref.get("t2v"),
+                                  reps=DP_STEP_REPS)
+    torch.cuda.empty_cache()
+    lap("Text2Vec step")
+    out["gan"] = dp_gan_step(gan_cfg, spec["gan_batch"], world, dev, ref.get("gan"))
+    del ref
+    torch.cuda.empty_cache()
+    lap("GAN step")
+
+    job_cfg = spec["job_t2v_cfg"]
+    common = ["--max_steps", str(JOB_STEPS), "--device", spec["device"],
+              "--dist_backend", spec["backend"]]
+    out["job_t2v"] = dp_job("t2v", ["--config", spec["job_t2v_file"]] + common, None)
+    lap("Text2Vec job")
+    out["job_gan"] = dp_job("v2w", ["--config", spec["job_gan_file"], "--num_workers", "0",
+                                    "--stdout_interval", "1"] + common, None)
+    lap("GAN job")
+    # the resumed step: checkpoint JOB_RESUME_AT loaded on every rank, then the
+    # uninterrupted job's next global batch
+    frontend = TextFrontend.from_vocab_file(job_cfg.vocab_path)
+    cfg = dataclasses.replace(job_cfg, vocab_size=frontend.vocab_size)
+    trainer = Text2VecTrainer(cfg, device=dev)
+    load_text2vec(os.path.join(cfg.checkpoint_path, f"checkpoint_{JOB_RESUME_AT}.pth.tar"),
+                  trainer)
+    parallel.globalize_state([trainer.model], [trainer.optimizer])
+    loader = BucketedLoader(load_buffer(list(cfg.train_list), cfg, frontend), cfg, seed=0,
+                            batch_size=parallel.local_batch_size(cfg.batch_size))
+    idx = list(loader.epoch_indices())[JOB_RESUME_AT]
+    metrics = run_step(trainer, trainer.to_device(loader.batch(idx)))
+    out["resumed"] = [metrics[k].item() for k in SCALAR_KEYS]
+    del trainer
+    torch.cuda.empty_cache()
+    lap("resumed step")
+    if parallel.rank() == 0:
+        out["single"] = dp_single(spec, dev)
+        lap("world size 1")
+    return out
+
+
+def dp_single(spec: dict, dev) -> dict:
+    """Rank 0 after the pair: a group of one (NCCL on the card), where the
+    gradients' and the losses' all-reduces run, and phase 42's steps in it,
+    for their digests against the same steps with no group; the Text2Vec
+    step timed there, the card to itself."""
+    torch.distributed.destroy_process_group()
+    os.environ.update(WORLD_SIZE="1", MASTER_PORT=str(free_port()))
+    got = parallel.maybe_distributed_init(spec["device"], None)
+    backend = torch.distributed.get_backend()
+    check(got == dev and backend == ("nccl" if dev.type == "cuda" else "gloo"),
+          f"the group on {got}, backend {backend}")
+    check(parallel.mesh_for_batch(len(spec["t2v_batch"]["text"]), dev) is None,
+          "a world at world size 1")
+    return {"backend": backend,
+            "t2v": dp_text2vec_step(spec["t2v_cfg"], spec["t2v_batch"], None, dev,
+                                    reps=DP_STEP_REPS),
+            "gan": dp_gan_step(spec["gan_cfg"], spec["gan_batch"], None, dev)}
+
+
+DP_BATCH_KEYS = ("text", "src_pos", "feat_target", "input_lengths", "output_lengths",
+                 "feat_pos", "attn_prior")
+
+
+def dp_job_reference(job_t2v, job_gan, dev) -> dict:
+    """One process on each global batch of the two-rank jobs (the ranks'
+    batches concatenated), from the state the job stepped it from: the seed
+    for the first step, the job's checkpoint of the step before for a later
+    one (the GAN's first file is its step 1's, so its step 1 is left out:
+    None).  A Text2Vec step's losses and hard durations come from its
+    forward, run twice: on the ranks' items in rank order and, a second
+    witness, in the reverse order (the same losses but for the order of
+    f32 sums; its durations put back in rank order).  The GAN's G losses
+    follow the D update, so it steps, its noise stream advanced by one
+    global draw a step."""
+    frontend = TextFrontend.from_vocab_file(job_t2v.vocab_path)
+    cfg = dataclasses.replace(job_t2v, vocab_size=frontend.vocab_size)
+    batches = [dp_t2v_job_batches(job_t2v, r, DP_WORLD) for r in range(DP_WORLD)]
+    t2v, durations, swapped, swapped_durations, bn = [], [], [], [], []
+    torch.manual_seed(0)  # the loop's --seed
+    trainer = Text2VecTrainer(cfg, device=dev)
+    worst = dp_batch_norm_conditioning(trainer.model)
+    for k in range(JOB_STEPS):
+        if k:
+            load_text2vec(os.path.join(cfg.checkpoint_path, f"checkpoint_{k}.pth.tar"), trainer)
+        parts = [b[k] for b in batches]
+        for order, losses, durs in ((parts, t2v, durations),
+                                    (parts[::-1], swapped, swapped_durations)):
+            worst.clear()
+            _, metrics, out = trainer.forward(trainer.to_device(dp_concat(order)))
+            losses.append([metrics[key].item() for key in SCALAR_KEYS])
+            durs.append(out["duration"].cpu().numpy())
+            if order is parts:
+                bn.append(max(worst, default=(0.0, "")))
+        n_last = len(parts[-1]["text"])
+        swapped_durations[-1] = np.concatenate([swapped_durations[-1][n_last:],
+                                                swapped_durations[-1][:n_last]])
+    del trainer, out
+    batches = [dp_gan_job_batches(job_gan, r, DP_WORLD) for r in range(DP_WORLD)]
+    gan = []
+    for k in range(JOB_STEPS):
+        if k == 1:
+            gan.append(None)
+            continue
+        torch.manual_seed(job_gan.seed)
+        trainer = GANTrainer(job_gan, device=dev, seed=job_gan.seed)
+        if k:
+            load_vec2wav(*(os.path.join(job_gan.checkpoint_path, f"{p}_{k - 1:08d}")
+                           for p in ("g", "do")), trainer)
+        batch = dp_concat([b[k] for b in batches])
+        for _ in range(k):
+            torch.randn((len(batch["audio"]), job_gan.noise_dim), generator=trainer.noise_rng,
+                        device=dev)
+        metrics = trainer.step(batch)
+        gan.append([metrics[key].item() for key in GAN_KEYS])
+        del trainer
+    torch.cuda.empty_cache()
+    return {"t2v": t2v, "gan": gan, "durations": durations, "swapped": swapped,
+            "swapped_durations": swapped_durations, "batch_norm": bn}
+
+
+def dp_moved(got: np.ndarray, ref: np.ndarray) -> list:
+    """The hard durations that differ: (item, token, got, ref) each."""
+    diff = got.astype(np.int64) - ref.astype(np.int64)
+    return [(int(i), int(j), int(got[i, j]), int(ref[i, j])) for i, j in np.argwhere(diff)]
+
+
+def dp_rel(row: list, want: list) -> float:
+    return max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(row, want))
+
+
+def dp_job_t2v(ranks: list, want: dict, got_losses: list) -> list:
+    """The Text2Vec job against one process on the same global batches:
+    each step's hard durations (the ranks' rows in rank order) equal to one
+    process's, and its losses within ``JOB_WITNESS_FACTOR`` times the
+    second witness's distance (one process on the items in reverse order;
+    at least ``DP_LOSS_RTOL``); printed with the worst BatchNorm's
+    conditioning.  Returns each step's (distance, bound)."""
+    check(all(len(d) == JOB_STEPS for d in ranks),
+          f"job t2v: {[len(d) for d in ranks]} training forwards, want {JOB_STEPS}")
+    out = []
+    for k, ref in enumerate(want["durations"]):
+        got = np.concatenate([d[k] for d in ranks])
+        where = dp_moved(got, ref) if got.shape == ref.shape else [got.shape, ref.shape]
+        swap = dp_moved(want["swapped_durations"][k], ref)
+        err = dp_rel(got_losses[k], want["t2v"][k])
+        witness = dp_rel(want["swapped"][k], want["t2v"][k])
+        bound = max(DP_LOSS_RTOL, JOB_WITNESS_FACTOR * witness)
+        ratio, name = want["batch_norm"][k]
+        print(f"  job t2v step {k + 1}: hard durations "
+              + ("equal to one process's" if not where else f"moved {where[:8]}")
+              + f"; losses {err:.2e} from one process's; one process on the items in reverse "
+              "order: durations " + ("equal" if not swap else f"moved {swap[:8]}")
+              + f", losses {witness:.2e} (bound {bound:.2e}); the worst BatchNorm's "
+              f"E[x^2]/(Var + eps) {ratio:.3g} ({name})")
+        check(not where, f"job t2v step {k + 1}: hard durations differ from one process's "
+              f"(item, token, job, one process): {where[:8]}")
+        check(err <= bound, f"job t2v step {k + 1}: losses {got_losses[k]} vs one process "
+              f"{want['t2v'][k]}: {err:.3g} past {bound:.3g}")
+        out.append((err, bound))
+    return out
+
+
+def dp_check_step(label: str, ranks: list, want: list, per_rank: dict = None) -> None:
+    check(ranks[0]["digest"] == ranks[1]["digest"], f"{label}: the ranks' states differ")
+    r0 = next(r for r in ranks if "grad_global" in r)  # the rank that held the reference
+    check(r0["grad_global"] <= STEP_GRAD_GLOBAL_RTOL and r0["grad_worst"] <= STEP_GRAD_RTOL,
+          f"{label}: gradients {r0['grad_global']:.2e} of the norm, worst "
+          f"{r0['grad_worst']:.2e} ({r0['grad_worst_name']})")
+    check(not r0["param_bad"] and r0["param_off"] <= DP_PARAM_OFF * r0["param_all"],
+          f"{label}: {r0['param_off']} of {r0['param_all']} parameter elements off, most in "
+          f"{r0['param_top']}; past twice the step: {r0['param_bad'][:5]}")
+    for r in ranks:
+        err = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(r["losses"], want))
+        check(err <= DP_LOSS_RTOL, f"{label} rank losses {r['losses']} vs one process {want}")
+        if per_rank is not None:
+            check({k: r["launches"][k] for k in per_rank} == per_rank,
+                  f"{label}: launches {r['launches']}, want {per_rank} a rank")
+    print(f"  {label}: ranks bit-equal; losses {r0['losses']} (one process {want}; rtol "
+          f"{DP_LOSS_RTOL}); gradients against one process {r0['grad_global']:.2e} of the norm, "
+          f"worst tensor {r0['grad_worst']:.2e} ({r0['grad_worst_name']}); parameters after the "
+          f"update: {r0['param_off']} of {r0['param_all']} beyond {DP_PARAM_ATOL} (at most "
+          f"{DP_PARAM_OFF} of them; most in {r0['param_top']}), all within twice the largest "
+          "step")
+
+
+def data_parallel(dev, t2v_cfg=None, gan_cfg=None, shapes=None) -> dict:
+    """Phases 42 and 43; returns each kernel's launches summed over the
+    ranks.  ``t2v_cfg``, ``gan_cfg`` and ``shapes`` (B, N, T, GAN B, GAN T)
+    default to the full-size configs and ``DP_*``."""
+    t2v_cfg = dataclasses.replace(t2v_cfg or train_config(), dropout=0.0)
+    gan_cfg = gan_cfg or gan_config()
+    B, N, T, GB, GT = shapes or (TRAIN_B, TRAIN_N, TRAIN_T, DP_GAN_B, DP_GAN_T)
+    t2v_batch = synthetic_batch(t2v_cfg, B, N, T, SEED)
+    gb = gan_batch(gan_cfg, GB, GT, SEED)
+    backend = "gloo"
+    counts: dict = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+        job_t2v = dataclasses.replace(t2v_demo_config(os.path.join(tmp, "job_t2v")),
+                                      dropout=0.0, save_step=1)
+        job_gan = dataclasses.replace(gan_config(), run_path=os.path.join(tmp, "job_gan"),
+                                      save_step=1)
+        files = {}
+        for name, cfg in (("t2v", job_t2v), ("gan", job_gan)):
+            files[name] = os.path.join(tmp, f"{name}.json")
+            save_config(cfg, files[name])
+        spec = dict(device=str(torch.device(dev.type, 0)) if dev.type == "cuda" else "cpu",
+                    backend=backend, t2v_cfg=t2v_cfg, gan_cfg=gan_cfg, t2v_batch=t2v_batch,
+                    gan_batch=gb, job_t2v_cfg=job_t2v, job_t2v_file=files["t2v"],
+                    job_gan_file=files["gan"])
+        t0 = time.perf_counter()
+        ranks = run_local(dp_pair_rank, DP_WORLD, (spec,), timeout=DP_TIMEOUT)
+        print(f"phase 42: {DP_WORLD} ranks on {spec['device']} over {backend} ran phases 42-43 "
+              f"in {time.perf_counter() - t0:.1f} s; the rank seconds: "
+              + ", ".join(f"{k} {v:.1f}" for k, v in ranks[0]["seconds"].items()))
+        alone = {**ranks[0]["alone"], **ranks[1]["alone"]}
+        want = {k: v["losses"] for k, v in alone.items()}
+        dp_check_step(f"Text2Vec step, global B = {B} at {N} x {T}, {B // DP_WORLD} a rank",
+                      [r["t2v"] for r in ranks], want["t2v"],
+                      dict(mas=1, gru_fwd=1, gru_bwd=1, fused_resblock=0)
+                      if dev.type == "cuda" else None)  # the CPU launches no kernel
+        dp_check_step(f"GAN step, global B = {GB} x {GT} frames, {GB // DP_WORLD} a rank",
+                      [r["gan"] for r in ranks], want["gan"])
+        check(ranks[0]["gan"]["spectral"] == ranks[1]["gan"]["spectral"],
+              "the ranks' spectral vectors differ")
+        for r in ranks:
+            add_counts(counts, r["t2v"]["launches"])
+        r0 = ranks[0]["t2v"]
+        print(f"  all-reduced a Text2Vec step: {r0['grad_bytes'] / 2**20:.2f} MiB of gradients "
+              f"in buckets of {parallel.mesh.BUCKET_BYTES // 2**20} MiB, "
+              f"{r0['bn_bytes'] / 2**10:.1f} KiB of BatchNorm statistics (forward and "
+              f"backward), 24 B of losses and the binarization count; the gradients' "
+              f"all-reduce {r0['all_reduce_ms']:.2f} ms (gloo, two ranks sharing one card)")
+
+        single = ranks[0]["single"]
+        for k in ("t2v", "gan"):
+            check(alone[k]["digest"] == single[k]["digest"]
+                  and alone[k]["losses"] == single[k]["losses"],
+                  f"{k}: the {single['backend']} group at world size 1 is not bit-equal to no "
+                  "group")
+        print(f"  {single['backend']} at world size 1 (rank 0, after the pair): the Text2Vec and "
+              "GAN steps bit-equal to the same steps with no process group (losses and every "
+              f"state entry); the gradients' all-reduce {single['t2v']['all_reduce_ms']:.2f} ms")
+        print(f"  Text2Vec step ms, global B = {B}: {r0['step_ms']:.2f} at world size 2 (two ranks "
+              f"sharing one card over gloo, {B // DP_WORLD} items each: not a scaling figure) "
+              f"against {single['t2v']['step_ms']:.2f} at world size 1 (one process, {B} items, "
+              f"in the group of one); {card_line()}")
+
+        # phase 43: the two jobs, against one process from their own files
+        jobs_want = dp_job_reference(job_t2v, job_gan, dev)
+        for stage, keys, first in (("t2v", SCALAR_KEYS, 1), ("gan", GAN_KEYS, 0)):
+            jobs = [r[f"job_{stage}"] for r in ranks]
+            got = [[[j["steps"][first + k][key] for key in keys] for k in range(JOB_STEPS)]
+                   for j in jobs]
+            check(got[0] == got[1], f"job {stage}: the ranks' losses differ {got}")
+            if stage == "t2v":
+                errs, tols = zip(*dp_job_t2v([j["durations"] for j in jobs], jobs_want, got[0]))
+            else:
+                errs = [dp_rel(row, wrow) for row, wrow in zip(got[0], jobs_want[stage])
+                        if wrow is not None]
+                tols = [DP_LOSS_RTOL] * len(errs)
+                check(all(e <= t for e, t in zip(errs, tols)),
+                      f"job {stage}: {got[0]} vs one process {jobs_want[stage]}: {errs}")
+            check(jobs[1]["written"] == [] and "config.json" in jobs[0]["written"]
+                  and "logger" in jobs[0]["written"], f"job {stage}: files written "
+                  f"{[j['written'] for j in jobs]}")
+            check(jobs[0]["saves"] == jobs[1]["saves"] and jobs[0]["saves"],
+                  f"job {stage}: saves {[j['saves'] for j in jobs]}")
+            for j in jobs:
+                add_counts(counts, j["launches"])
+            print(f"  job {stage} ({JOB_STEPS} steps, 2 ranks): losses {got[0]}; one process "
+                  f"{jobs_want[stage]} (max rel a step {[f'{e:.2e}' for e in errs]}, bounds "
+                  f"{[f'{t:.2e}' for t in tols]}); rank 0 wrote "
+                  f"{sorted(set(jobs[0]['written']))}, rank 1 nothing; saves at "
+                  f"{jobs[0]['saves']}; launches {[j['launches'] for j in jobs]}")
+        resumed = [r["resumed"] for r in ranks]
+        uninterrupted = [ranks[0]["job_t2v"]["steps"][JOB_RESUME_AT + 1][k] for k in SCALAR_KEYS]
+        err = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(resumed[0], uninterrupted))
+        check(resumed[0] == resumed[1] and err <= RESUME_LOSS_RTOL,
+              f"resumed step {resumed} vs uninterrupted {uninterrupted}")
+        print(f"  resumed from checkpoint_{JOB_RESUME_AT} on both ranks: step "
+              f"{JOB_RESUME_AT + 1}'s losses {resumed[0]}, uninterrupted {uninterrupted} "
+              f"({'bit-equal' if resumed[0] == uninterrupted else f'max rel {err:.2e}'})")
+    return counts
+
+
+def benches(dev, t2v_cfg=None, v2w_cfg=None, long_cfg=None, shapes=None) -> dict:
+    """Phase 44: the three benches; returns each kernel's launches over them."""
+    from wavthruvec_pytorch_tpu_torch.infer import rtf_bench, serve_bench, train_bench
+
+    B, T, LB, LN, LT, batches = shapes or (TRAIN_B, TRAIN_T, LONG_B, LONG_N, LONG_T, (1, 8))
+    name = torch.cuda.get_device_name(0) if dev.type == "cuda" else "cpu"
+    reset_serving_counters()
+    torch.backends.cudnn.deterministic = True  # the remat pairs, bit for bit
+    rows = [train_bench.run("t2v", B=B, T=T, remat=rm, t2v_cfg=t2v_cfg, device=dev,
+                            iters=BENCH_ITERS)[0] for rm in (False, True)]
+    long_rows = [train_bench.bench_t2v(B=LB, N=LN, T=LT, dtype="bfloat16", remat=rm, flash=True,
+                                       dropout=0.0, cfg=long_cfg or long_config(), device=dev,
+                                       iters=LONG_BENCH_ITERS) for rm in (False, True)]
+    torch.backends.cudnn.deterministic = False
+    for label, pair in (("f32", rows), ("long bf16 flash", long_rows)):
+        if pair is long_rows:
+            print("\n".join(json.dumps(r) for r in pair))
+        err = max(abs(pair[1][k] - pair[0][k]) / abs(pair[0][k])
+                  for k in ("first_total_loss", "last_total_loss", "last_grad_norm"))
+        check(err <= REMAT_RTOL, f"train_bench {label}: remat moved the losses or the "
+              f"gradients' norm by {err:.3g} (rtol {REMAT_RTOL}): {pair}")
+        check(dev.type != "cuda" or pair[1]["peak_mem_gib"] < pair[0]["peak_mem_gib"],
+              f"train_bench {label}: remat did not lower the peak memory: {pair}")
+        print(f"  train_bench {label} B = {pair[0]['batch']} x {pair[0]['frame_pad']}: peak "
+              f"memory {pair[0]['peak_mem_gib']} GiB without remat, {pair[1]['peak_mem_gib']} "
+              f"GiB with it; {pair[0]['sec_per_step'] * 1e3:.2f} against "
+              f"{pair[1]['sec_per_step'] * 1e3:.2f} ms a step; after the updates the last loss "
+              f"{pair[0]['last_total_loss']!r} against {pair[1]['last_total_loss']!r}, its "
+              f"gradients' norm {pair[0]['last_grad_norm']!r} against "
+              f"{pair[1]['last_grad_norm']!r} (max rel {err:.3g}, rtol {REMAT_RTOL})")
+    gan_row = train_bench.bench_v2w(cfg=v2w_cfg, device=dev, iters=BENCH_ITERS)
+    print(json.dumps(gan_row))
+    rtf = rtf_bench.run((1, 4), iters=BENCH_ITERS, t2v_cfg=t2v_cfg, v2w_cfg=v2w_cfg, device=dev)
+    serve_out = serve_bench.run(list(batches), iters=BENCH_ITERS, t2v_cfg=t2v_cfg,
+                                v2w_cfg=v2w_cfg, device=dev)
+    counts = read_loop_counters()
+    for row in rows + long_rows + [gan_row] + rtf + serve_out["batches"]:
+        check(row["device"] == name, f"bench row without the card's name: {row}")
+        check(all(math.isfinite(v) for v in row.values() if isinstance(v, float)),
+              f"bench row not finite: {row}")
+    print(f"  the benches' launches {counts}; {card_line()}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: PyTorch sees no CUDA device; this script runs on an NVIDIA GPU",
@@ -3993,6 +4685,14 @@ def main() -> int:
     data = data_and_gan_modes(dev, gan_check)
     torch.cuda.empty_cache()
     tools = data_tools(dev)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    par = data_parallel(dev)
+    print(f"phases 42-43: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bench = benches(dev)
+    print(f"phase 44: {time.perf_counter() - t0:.1f} s")
 
     kernels = [
         dict(name="fused_resblock", route="cuda",
@@ -4020,6 +4720,8 @@ def main() -> int:
         kern["loop_launches"] = loop.get(kern["name"], 0)
         kern["data_launches"] = data.get(kern["name"], 0)
         kern["tools_launches"] = tools.get(kern["name"], 0)
+        kern["parallel_launches"] = par.get(kern["name"], 0)
+        kern["bench_launches"] = bench.get(kern["name"], 0)
     for kern in kernels:
         keys = ("ms", "plain_ms", "bound_ms") + (("f32_ms", "f32_plain_ms", "f32_bound_ms",
                                                    "f32_sdpa_bwd_ms")

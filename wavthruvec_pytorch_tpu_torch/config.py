@@ -8,6 +8,12 @@ compatibility:
 
 * ``gru_impl`` selects nothing here: the CBHG BiGRU always computes what the
   JAX ``gru_impl="pallas"`` kernel computes (bf16 ``w_hh``, f32 carry);
+* ``dropout_prng_impl`` selects nothing here either: it names the JAX PRNG
+  (threefry or rbg) that draws dropout keys, and the port draws from
+  PyTorch's generator whatever it says;
+* ``MeshConfig`` names JAX's data axis; the port's data parallelism is one
+  process per card (``parallel/mesh.py``), and its world size is the
+  launcher's, so ``n_data`` selects nothing;
 * ``Text2VecConfig.flash_attention=True`` and ``compute_dtype="bfloat16"``
   are ported (the trainer computes in bf16, serving in f32, as in the JAX
   package), and so are ``attn_use_partial_padding=True``, windowed GAN
@@ -200,6 +206,15 @@ class Vec2WavConfig:
     @property
     def use_resblock1(self) -> bool:
         return self.resblock == "1"
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """The JAX package's data-parallel mesh layout (its ``config.py``), kept
+    for file compatibility: ``n_data`` -1 means every visible device."""
+
+    data_axis: str = "data"
+    n_data: int = -1
 
 
 def load_config(cls, path: str):

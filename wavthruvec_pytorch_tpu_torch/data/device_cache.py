@@ -21,8 +21,9 @@ the host copy of the lengths, exactly as the host collate chooses it
 thing that crosses to the card a step is the ``[B]`` index vector.  The
 batches equal ``make_padded_batch``'s, moved to the card as
 ``Text2VecTrainer.to_device`` moves them (int64 ids, f32 features), bit for
-bit.  No mesh: a device cache over a data-parallel mesh comes with
-multi-GPU training.
+bit.  Under data parallelism each rank stages its own share of the corpus
+(``load_buffer`` reads only that) on its own card, and ``batch(idx,
+pad_to_max=True)`` gathers at the largest bucket pair, as the loader pads.
 """
 
 from __future__ import annotations
@@ -119,15 +120,19 @@ class DeviceResidentData:
             self.flat_text, self.flat_feat, self.flat_prior, self.text_off, self.feat_off,
             self.in_lens, self.out_lens))
 
-    def batch(self, idx: Sequence[int]) -> Dict[str, torch.Tensor]:
+    def batch(self, idx: Sequence[int], pad_to_max: bool = False) -> Dict[str, torch.Tensor]:
         """The batch of buffer items ``idx`` gathered on the card, the keys
         of ``make_padded_batch`` as ``Text2VecTrainer.to_device`` gives
         them; only ``idx`` crosses to the card.  Its bucket pair comes from
         the host copy of the lengths: the smallest configured pair that
-        holds the batch."""
+        holds the batch, or with ``pad_to_max`` the largest,
+        ``(N_cap, T_cap)`` (``BucketedLoader.pad_to_max``)."""
         idx = np.asarray(idx, np.int64)
-        N_b = pad_to_bucket(int(self.in_lens_host[idx].max()), self.cfg.text_buckets)
-        T_b = pad_to_bucket(int(self.out_lens_host[idx].max()), self.cfg.frame_buckets)
+        if pad_to_max:
+            N_b, T_b = self.N_cap, self.T_cap
+        else:
+            N_b = pad_to_bucket(int(self.in_lens_host[idx].max()), self.cfg.text_buckets)
+            T_b = pad_to_bucket(int(self.out_lens_host[idx].max()), self.cfg.frame_buckets)
         dev = self.device
         i = torch.as_tensor(idx).to(dev, non_blocking=True)
         il, ol = self.in_lens[i], self.out_lens[i]

@@ -23,6 +23,7 @@ import numpy as np
 
 from wavthruvec_pytorch_tpu_torch.config import Vec2WavConfig
 from wavthruvec_pytorch_tpu_torch.ops.stft import _dft_kernel, _mel_basis
+from wavthruvec_pytorch_tpu_torch.parallel.mesh import world_size
 from wavthruvec_pytorch_tpu_torch.text import pad_to_bucket
 
 # host RAM a VocoderDataset may fill with cached items (the JAX package's default)
@@ -316,15 +317,18 @@ class VocoderLoader:
     ``DataLoader(num_workers=8)``; the wav read and the host mel release
     the GIL); ``close`` stops them.  Windowed batches take one static shape,
     ``segment_size // total_upsample`` frames; the others the smallest frame
-    bucket that holds their longest item."""
+    bucket that holds their longest item, or with ``pad_to_max`` (default:
+    exactly when the world size is above 1, where each rank holds its own
+    files and the ranks' batches must have one shape) the largest."""
 
     def __init__(self, dataset: VocoderDataset, batch_size: int, seed: int = 1234,
-                 num_workers: int = 4):
+                 num_workers: int = 4, pad_to_max: Optional[bool] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.rng = np.random.default_rng(seed)
         self.num_workers = num_workers
         self._pool: Optional[ThreadPoolExecutor] = None
+        self.pad_to_max = world_size() > 1 if pad_to_max is None else pad_to_max
 
     def __len__(self) -> int:
         return len(self.dataset) // self.batch_size
@@ -347,8 +351,8 @@ class VocoderLoader:
     def epoch(self) -> Iterator[Dict[str, np.ndarray]]:
         ds = self.dataset
         cfg = ds.cfg
-        frame_pad = (cfg.segment_size // cfg.total_upsample
-                     if ds.split and not ds.fine_tuning else None)
+        frame_pad = (cfg.segment_size // cfg.total_upsample if ds.split and not ds.fine_tuning
+                     else cfg.frame_buckets[-1] if self.pad_to_max else None)
         for idx in self.epoch_indices():
             yield pad_vocoder_batch(self._get_items(idx), cfg, frame_pad=frame_pad)
 

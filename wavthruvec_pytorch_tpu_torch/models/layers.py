@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from wavthruvec_pytorch_tpu_torch.ops.gru import GRURecurrence
+from wavthruvec_pytorch_tpu_torch.parallel.mesh import all_reduce_sum, world_size
 from wavthruvec_pytorch_tpu_torch.ops.tiled_conv import tiled_conv_supported, tiled_grouped_conv1d
 
 _GAIN = {"linear": 1.0, "relu": math.sqrt(2.0), "tanh": 5.0 / 3.0, "sigmoid": 1.0}
@@ -160,6 +161,16 @@ class LayerNorm(nn.LayerNorm):
         return y.to(compute_dtype(self.compute_dtype, x, self.weight, self.bias))
 
 
+def _global_moments(xf: torch.Tensor, dims) -> tuple:
+    """E[x] and E[x^2] per channel over every rank's batch: one all-reduce
+    of ``[sum x, sum x^2, count]``, whose backward sums the ranks'
+    gradients."""
+    count = xf.new_full((1,), xf.numel() // xf.shape[-1])
+    C = xf.shape[-1]
+    sums = all_reduce_sum(torch.cat([xf.sum(dim=dims), (xf * xf).sum(dim=dims), count]))
+    return sums[:C] / sums[2 * C], sums[C:2 * C] / sums[2 * C]
+
+
 class BatchNorm(nn.Module):
     """BatchNorm1d over the last dim of ``[B, T, C]`` or ``[B, C]``, eps
     1e-5, with torch BatchNorm1d's parameter and buffer names and flax
@@ -172,6 +183,15 @@ class BatchNorm(nn.Module):
     ``F.batch_norm(training=True)`` would update with the unbiased variance.
     ``momentum`` is flax's: the running statistics keep 0.9 of themselves a
     step (``infer.recalibrate`` reads it here).
+
+    In a process group of more than one rank (``parallel/mesh.py``) the
+    train-mode statistics are the global batch's, as JAX's ``jit`` over a
+    data mesh takes them: the ranks' ``(sum x, sum x^2, count)`` are summed
+    by an autograd-aware all-reduce, so the gradient flows through the
+    global mean and variance, and every rank moves its running statistics
+    by the same amount.  ``torch.nn.SyncBatchNorm`` would not do: it moves
+    the running variance by the unbiased estimate and computes the variance
+    another way.
     """
 
     momentum = 0.9
@@ -196,8 +216,11 @@ class BatchNorm(nn.Module):
         if self.training:
             dims = tuple(range(x.dim() - 1))
             xf = x.float()  # flax takes the statistics in f32
-            mean = xf.mean(dim=dims)
-            var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+            if world_size() > 1:
+                mean, mean_sq = _global_moments(xf, dims)
+            else:
+                mean, mean_sq = xf.mean(dim=dims), (xf * xf).mean(dim=dims)
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             with torch.no_grad():
                 # flax's update: ra = m * ra + (1 - m) * stat
                 m = self.momentum

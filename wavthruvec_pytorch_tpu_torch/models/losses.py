@@ -7,6 +7,8 @@ from typing import Tuple
 
 import torch
 
+from wavthruvec_pytorch_tpu_torch.parallel.mesh import all_reduce_sum, world_size
+
 
 def dnn_loss(feat_output: torch.Tensor, feat_postnet: torch.Tensor, feat_target: torch.Tensor,
              duration_predicted: torch.Tensor, duration_target: torch.Tensor
@@ -22,10 +24,31 @@ def dnn_loss(feat_output: torch.Tensor, feat_postnet: torch.Tensor, feat_target:
     return wvf_loss, postnet_loss, duration_loss
 
 
+def _hard_log_sum(hard_attention: torch.Tensor, soft_attention: torch.Tensor,
+                  eps: float) -> torch.Tensor:
+    return torch.sum(torch.where(hard_attention == 1,
+                                 torch.log(torch.clamp(soft_attention, min=eps)), 0.0))
+
+
 def attention_binarization_loss(hard_attention: torch.Tensor, soft_attention: torch.Tensor,
                                 eps: float = 1e-12) -> torch.Tensor:
     """-sum(log soft[hard == 1]) / sum(hard); ``eps`` clips the soft
     attention below so that an underflowed cell gives a finite loss."""
-    log_sum = torch.sum(torch.where(hard_attention == 1,
-                                    torch.log(torch.clamp(soft_attention, min=eps)), 0.0))
+    log_sum = _hard_log_sum(hard_attention, soft_attention, eps)
     return -log_sum / torch.clamp(torch.sum(hard_attention), min=1.0)
+
+
+def global_attention_binarization_loss(hard_attention: torch.Tensor,
+                                       soft_attention: torch.Tensor,
+                                       eps: float = 1e-12) -> torch.Tensor:
+    """This rank's term of the binarization loss over the global batch of a
+    process group (``parallel/mesh.py``): ``-sum_r(log-sum) / max(sum_r(sum
+    hard), 1)``, as JAX takes it over a sharded batch.  The denominator is
+    summed over the ranks without a gradient, and each rank's numerator is
+    scaled by the world size, so that the ranks' mean of these terms, and of
+    their gradients, is the global loss and its gradient.  (The mean of the
+    ranks' own ratios is another loss, whose error grows with the ranks'
+    length imbalance.)"""
+    count = all_reduce_sum(torch.sum(hard_attention).detach())
+    log_sum = _hard_log_sum(hard_attention, soft_attention, eps)
+    return -log_sum * float(world_size()) / torch.clamp(count, min=1.0)

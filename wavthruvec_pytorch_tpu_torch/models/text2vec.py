@@ -27,7 +27,14 @@ Semantics kept from the JAX package:
   ``last_linear``; ConvAttention stays f32.  Each of those layers returns its
   dtype, and f32 elsewhere follows the promotions (``models/layers.py``);
 * ``cfg.flash_attention`` sends both FFT stacks through the flash branch
-  where its gate passes (``models/fft_block.py``).
+  where its gate passes (``models/fft_block.py``);
+* ``cfg.remat`` recomputes each FFT block of both stacks in the backward of
+  a training forward (JAX: ``nn.remat(FFTBlock)``, models/text2vec.py:95,
+  136): the same numbers at a lower peak memory.  The block's forward runs
+  again under ``torch.utils.checkpoint`` with the RNG state restored, so
+  dropout draws the same mask; the flash branch's ``autograd.Function``
+  recomputes its output and log-sum-exp there, and the bf16 casts of the
+  block's layers happen inside the recomputed region as they do outside it.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from wavthruvec_pytorch_tpu_torch.config import Text2VecConfig, check_ported
 from wavthruvec_pytorch_tpu_torch.device import resolve_device
@@ -77,6 +85,19 @@ def _fft_stack(cfg: Text2VecConfig, d_model: int, d_inner: int, n_head: int,
         for _ in range(n_layer))
 
 
+def _run_stack(stack: nn.ModuleList, x: torch.Tensor, non_pad_mask: torch.Tensor,
+               slf_attn_mask: torch.Tensor, remat: bool) -> torch.Tensor:
+    """The FFT blocks in turn; with ``remat`` each block keeps only its input
+    for the backward and recomputes the rest there."""
+    for layer in stack:
+        if remat:
+            x, _ = checkpoint(layer, x, non_pad_mask, slf_attn_mask, use_reentrant=False,
+                              preserve_rng_state=True)
+        else:
+            x, _ = layer(x, non_pad_mask, slf_attn_mask)
+    return x
+
+
 class Encoder(nn.Module):
     """Char embedding + clamped sinusoid positions + ECAPA speaker concat +
     FFT stack (n_position = vocab_size + 1, the reference's quirk, model.py:86)."""
@@ -110,8 +131,8 @@ class Encoder(nn.Module):
             B, N, _ = enc_output.shape
             enc_output = torch.cat(
                 [enc_output, spk_emb[:, None, :].expand(B, N, cfg.n_speaker_dim)], dim=-1)
-        for layer in self.layer_stack:
-            enc_output, _ = layer(enc_output, non_pad_mask, slf_attn_mask)
+        enc_output = _run_stack(self.layer_stack, enc_output, non_pad_mask, slf_attn_mask,
+                                cfg.remat and self.training)
         return enc_output, spk_emb
 
 
@@ -130,9 +151,8 @@ class Decoder(nn.Module):
         slf_attn_mask = get_attn_key_pad_mask(enc_pos, enc_pos)
         non_pad_mask = get_non_pad_mask(enc_pos)
         dec_output = enc_seq + self.position_enc(enc_pos.clamp(max=self.cfg.max_seq_len))
-        for layer in self.layer_stack:
-            dec_output, _ = layer(dec_output, non_pad_mask, slf_attn_mask)
-        return dec_output
+        return _run_stack(self.layer_stack, dec_output, non_pad_mask, slf_attn_mask,
+                          self.cfg.remat and self.training)
 
 
 class LengthRegulator(nn.Module):

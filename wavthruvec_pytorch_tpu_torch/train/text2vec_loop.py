@@ -34,6 +34,18 @@ writes:
 Paths in the config are relative to the working directory, as in the JAX
 package.  It runs on the card unless ``--device cpu`` is passed.  The JAX loop's
 ``--precompile`` and ``--profile_dir`` have no counterpart here.
+
+Under ``torchrun --nproc_per_node N`` it trains data-parallel, one process
+per card (``parallel/mesh.py``; JAX: text2vec_loop.py:150-160): each rank
+loads its share of the file lists and steps on ``batch_size / N`` items
+padded to the largest bucket pair; every rank builds the model from the
+same seed (and loads the same ``--restore_step`` file), then takes rank 0's
+state (``globalize_state``); the gradients are averaged before the clip
+and LAMB, so the ranks stay equal.  Only rank 0 writes ``config.json``,
+checkpoints and logs, and every rank waits for each save.  Validation runs
+each rank over its share, and the losses are the global batches' means.
+``--dist_backend gloo`` lets ranks share one card (NCCL takes one card a
+rank); on the CPU the backend is gloo.
 """
 
 from __future__ import annotations
@@ -60,13 +72,27 @@ from wavthruvec_pytorch_tpu_torch.data.dataset import BucketedLoader, load_buffe
 from wavthruvec_pytorch_tpu_torch.data.device_cache import DeviceResidentData
 from wavthruvec_pytorch_tpu_torch.data.prefetch import prefetched
 from wavthruvec_pytorch_tpu_torch.device import resolve_device
+from wavthruvec_pytorch_tpu_torch.parallel.mesh import (
+    barrier,
+    globalize_state,
+    is_main_process,
+    local_batch_size,
+    maybe_distributed_init,
+    rank,
+    world_size,
+)
 from wavthruvec_pytorch_tpu_torch.text import TextFrontend
 from wavthruvec_pytorch_tpu_torch.train.text2vec_train import (
     SCALAR_KEYS,
     VAL_KEYS,
     Text2VecTrainer,
 )
-from wavthruvec_pytorch_tpu_torch.utils.logging import RunRecord, StepTimer, TrainLogger
+from wavthruvec_pytorch_tpu_torch.utils.logging import (
+    RunRecord,
+    StepTimer,
+    TrainLogger,
+    host_logger,
+)
 
 
 def compute_validation_loss(trainer: Text2VecTrainer, val_loader: BucketedLoader,
@@ -74,6 +100,10 @@ def compute_validation_loss(trainer: Text2VecTrainer, val_loader: BucketedLoader
     """The eval-mode losses over the validation set (JAX package:
     ``compute_validation_loss``; reference: text2vec/train.py:80-196, whose
     call is commented out there), averaged over the finite batches only.
+
+    In a process group each rank runs its share of the validation set and
+    the step's losses are already the global batch's (``Text2VecTrainer``),
+    so every rank sees the same means and counts.
 
     A batch can go non-finite while training is healthy: eval-mode
     BatchNorm runs on running statistics, LAMB grows the scale-invariant
@@ -115,7 +145,7 @@ def _validation_loader(cfg: Text2VecConfig, frontend: TextFrontend,
         return None
     val_cfg = dataclasses.replace(cfg, batch_expand_size=1)
     loader = BucketedLoader(load_buffer(val_lists, cfg, frontend), val_cfg, seed=seed,
-                            shuffle=False)
+                            shuffle=False, batch_size=local_batch_size(cfg.batch_size))
     if len(loader) == 0:
         print(f"validation set too small for batch {cfg.batch_size}")
     return loader
@@ -129,14 +159,18 @@ def main(args: Optional[argparse.Namespace] = None,
     left out), the saves' and validations' seconds, the validation losses
     and the logger's backend."""
     args = parse_args([]) if args is None else args
-    device = resolve_device(args.device)
+    device = (maybe_distributed_init(args.device, args.dist_backend)
+              or resolve_device(args.device))
     if cfg is None:
         cfg = load_config(Text2VecConfig, args.config) if args.config else Text2VecConfig()
     check_ported(cfg)
     frontend = TextFrontend.from_vocab_file(cfg.vocab_path)
     cfg = dataclasses.replace(cfg, vocab_size=frontend.vocab_size)  # as the JAX loop does
     loader = BucketedLoader(load_buffer(list(cfg.train_list), cfg, frontend), cfg,
-                            seed=args.seed)
+                            seed=args.seed, batch_size=local_batch_size(cfg.batch_size))
+    if world_size() > 1:
+        print(f"data parallel: rank {rank()} of {world_size()} on {device}, "
+              f"{loader.batch_size} items a step of the global {cfg.batch_size}")
     if len(loader) == 0:
         raise ValueError(f"{len(loader.buffer)} items make no batch of {cfg.batch_size} x "
                          f"{cfg.batch_expand_size}")
@@ -153,17 +187,21 @@ def main(args: Optional[argparse.Namespace] = None,
         print(f"\n---Model Restored at Step {args.restore_step}---\n")
     if args.frozen_learning_rate:  # after the restore, which loads the saved lr
         trainer.set_learning_rate(args.learning_rate_frozen)
+    globalize_state([trainer.model], [trainer.optimizer])
+    if world_size() > 1:  # each rank its own dropout stream
+        torch.manual_seed(args.seed + rank())
 
-    os.makedirs(cfg.checkpoint_path, exist_ok=True)
-    save_config(cfg, os.path.join(cfg.run_path, cfg.log_seed, "config.json"))
-    logger = TrainLogger(cfg.tensorboard_logs_path, cfg.logger_path)
+    if is_main_process():
+        os.makedirs(cfg.checkpoint_path, exist_ok=True)
+        save_config(cfg, os.path.join(cfg.run_path, cfg.log_seed, "config.json"))
+    logger = host_logger(cfg.tensorboard_logs_path, cfg.logger_path)
     record = RunRecord(backend=logger.backend)
     print(f"logger: {logger.backend} ({cfg.tensorboard_logs_path})")
     timer = StepTimer()
     val_loader = _validation_loader(cfg, frontend, args.seed) if args.validate else None
     device_data = None
     if cfg.device_resident_data:
-        device_data = DeviceResidentData(loader.buffer, cfg, device=device)
+        device_data = DeviceResidentData(loader.buffer, cfg, device=device)  # this rank's share
         print(f"device-resident dataset: {device_data.nbytes() / 2**20:.0f} MiB staged on "
               f"{device}")
 
@@ -207,7 +245,8 @@ def main(args: Optional[argparse.Namespace] = None,
 
     def batches():
         for idx in loader.epoch_indices():
-            batch = loader.batch(idx) if device_data is None else device_data.batch(idx)
+            batch = (loader.batch(idx) if device_data is None
+                     else device_data.batch(idx, pad_to_max=loader.pad_to_max))
             yield loader.buffer[idx[0]]["audiopath"], batch
 
     try:
@@ -239,8 +278,11 @@ def main(args: Optional[argparse.Namespace] = None,
 
                     if iteration % cfg.save_step == 0:
                         t0 = time.perf_counter()
-                        ckpt.save_text2vec(ckpt.text2vec_path(cfg.checkpoint_path, iteration),
-                                           trainer, epoch)
+                        if is_main_process():
+                            ckpt.save_text2vec(
+                                ckpt.text2vec_path(cfg.checkpoint_path, iteration), trainer,
+                                epoch)
+                        barrier()
                         record.saves[iteration] = time.perf_counter() - t0
                         print(f"save model at step {iteration} "
                               f"({record.saves[iteration]:.2f} s)")
@@ -284,6 +326,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--validate", action="store_true",
                         help="validate every cfg.val_step steps")
     parser.add_argument("--device", type=str, default=None, help="default: the card")
+    parser.add_argument("--dist_backend", type=str, default=None, choices=("nccl", "gloo"),
+                        help="the process group's backend under torchrun (default: nccl on "
+                        "the card, gloo on the CPU; gloo lets ranks share one card)")
     return parser.parse_args(argv)
 
 

@@ -10,6 +10,17 @@ grad_clip_every == 0``; the LAMB update; the BatchNorm running statistics
 move during the forward.  A config with ``compute_dtype="bfloat16"`` builds
 the model with bf16 compute (JAX: ``init_state``, text2vec_train.py:99); the
 parameters, their gradients, the clip and the LAMB state stay f32.
+
+In a process group (``parallel/mesh.py``) each rank steps on its local
+batch, and the step computes what one process computes on the global batch
+(JAX: ``make_train_step(mesh=...)``): the BatchNorms take global statistics;
+the binarization loss divides by the global ``sum(hard)``
+(``global_attention_binarization_loss``); the gradients are averaged over
+the ranks before the clip, which then sees the global norm, and LAMB; the
+reported losses are the ranks' means, the global batch's values.  The MSE
+terms are plain means over padded elements, so they agree with the global
+batch's only when every rank's batch has the same padded shape
+(``data/dataset.py`` ``pad_to_max``).
 """
 
 from __future__ import annotations
@@ -21,8 +32,12 @@ import torch
 
 from wavthruvec_pytorch_tpu_torch.config import Text2VecConfig
 from wavthruvec_pytorch_tpu_torch.device import resolve_device
-from wavthruvec_pytorch_tpu_torch.models.losses import attention_binarization_loss, dnn_loss
+from wavthruvec_pytorch_tpu_torch.models.losses import (
+    dnn_loss,
+    global_attention_binarization_loss,
+)
 from wavthruvec_pytorch_tpu_torch.models.text2vec import Text2Vec
+from wavthruvec_pytorch_tpu_torch.parallel.mesh import all_reduce_mean, mean_scalars
 from wavthruvec_pytorch_tpu_torch.text import pad_to_bucket
 from wavthruvec_pytorch_tpu_torch.train.lamb import Lamb
 
@@ -124,20 +139,23 @@ class Text2VecTrainer:
         wvf, postnet, duration = dnn_loss(out["feat_output"], out["feat_postnet_output"],
                                           batch["feat_target"], out["duration_predictor_output"],
                                           out["duration"])
-        binarization = attention_binarization_loss(out["attn"], out["attn_soft"])
+        binarization = global_attention_binarization_loss(out["attn"], out["attn_soft"])
         total = wvf + postnet + duration + self.cfg.binarization_loss_weight * binarization
-        metrics = dict(zip(SCALAR_KEYS, (total, wvf, postnet, duration, binarization)))
-        return total, {k: v.detach() for k, v in metrics.items()}, out
+        metrics = mean_scalars({k: v.detach() for k, v in zip(
+            SCALAR_KEYS, (total, wvf, postnet, duration, binarization))})
+        return total, metrics, out
 
     def backward(self, total: torch.Tensor) -> None:
         self.optimizer.zero_grad(set_to_none=True)
         total.backward()
 
     def apply_gradients(self) -> None:
-        """Clip on every ``grad_clip_every``-th step, then the LAMB update."""
+        """Average the gradients over the ranks of a process group, clip on
+        every ``grad_clip_every``-th step, then the LAMB update."""
+        grads = [p.grad for p in self.params if p.grad is not None]
+        all_reduce_mean(grads)
         if (self.step_count + 1) % self.cfg.grad_clip_every == 0:
-            clip_by_global_norm([p.grad for p in self.params if p.grad is not None],
-                                self.cfg.grad_clip_thresh)
+            clip_by_global_norm(grads, self.cfg.grad_clip_thresh)
         self.optimizer.step()
         self.step_count += 1
 

@@ -36,6 +36,18 @@ there, the batches in the host loader's order; no prefetch thread runs then.
 Otherwise the flag is ignored, with a message, as in the JAX package.
 Validation keeps the host path.  It runs on the card unless ``--device
 cpu`` is passed.
+
+Under ``torchrun --nproc_per_node N`` it trains data-parallel, one process
+per card (``parallel/mesh.py``; JAX: vec2wav_loop.py:128-241): each rank
+reads its share of the training files (``process_shard``; with
+``device_resident_data`` it stages that share on its card) and steps on
+``batch_size / N`` items, padded to the largest frame bucket in
+full-utterance mode; every rank resumes from the same newest pair, then
+takes rank 0's state (``globalize_state``); the D and G gradients are
+averaged before each AdamW step.  Only rank 0 writes ``config.json``,
+checkpoints and logs, and every rank waits for each save; every rank
+validates the same items, rank 0 logs them.  ``--dist_backend gloo`` lets
+ranks share one card.
 """
 
 from __future__ import annotations
@@ -65,8 +77,18 @@ from wavthruvec_pytorch_tpu_torch.data.vocoder_data import (
 )
 from wavthruvec_pytorch_tpu_torch.data.vocoder_device_cache import VocoderDeviceData
 from wavthruvec_pytorch_tpu_torch.device import resolve_device
+from wavthruvec_pytorch_tpu_torch.parallel.mesh import (
+    barrier,
+    globalize_state,
+    is_main_process,
+    local_batch_size,
+    maybe_distributed_init,
+    process_shard,
+    rank,
+    world_size,
+)
 from wavthruvec_pytorch_tpu_torch.train.vec2wav_train import SCALAR_KEYS, GANTrainer, log_mel
-from wavthruvec_pytorch_tpu_torch.utils.logging import RunRecord, TrainLogger
+from wavthruvec_pytorch_tpu_torch.utils.logging import RunRecord, TrainLogger, host_logger
 
 # the utterances a validation runs over, at most (reference: train.py:250)
 VAL_ITEMS = 16
@@ -124,16 +146,21 @@ def main(args: Optional[argparse.Namespace] = None,
     losses, the saves' and validations' seconds, the validation errors and
     the logger's backend."""
     args = parse_args([]) if args is None else args
-    device = resolve_device(args.device)
+    device = (maybe_distributed_init(args.device, args.dist_backend)
+              or resolve_device(args.device))
     if cfg is None:
         cfg = load_config(Vec2WavConfig, args.config) if args.config else Vec2WavConfig()
     print("Initializing Training Process..")
     training_files, validation_files = get_dataset_filelist(cfg.input_training_file,
                                                             cfg.input_validation_file)
+    training_files = process_shard(training_files)
     trainset = VocoderDataset(training_files, cfg, fine_tuning=args.fine_tuning,
                               base_mels_path=args.input_mels_dir)
-    loader = VocoderLoader(trainset, cfg.batch_size, seed=cfg.seed,
+    loader = VocoderLoader(trainset, local_batch_size(cfg.batch_size), seed=cfg.seed,
                            num_workers=args.num_workers)
+    if world_size() > 1:
+        print(f"data parallel: rank {rank()} of {world_size()} on {device}, "
+              f"{loader.batch_size} items a step of the global {cfg.batch_size}")
     if len(loader) == 0:
         raise ValueError(f"{len(training_files)} items make no batch of {cfg.batch_size}")
     # validation compares mels on the host, over whole utterances
@@ -144,17 +171,20 @@ def main(args: Optional[argparse.Namespace] = None,
     print(f"Number of Generator parameters: {sum(p.numel() for p in trainer.gen_params)}, "
           f"discriminators: {sum(p.numel() for p in trainer.disc_params)}")
 
-    # auto-resume from the newest g_/do_ pair (reference: train.py:74-89)
-    os.makedirs(cfg.checkpoint_path, exist_ok=True)
+    # auto-resume from the newest g_/do_ pair (reference: train.py:74-89), on
+    # every rank from the same files
     steps, first_epoch = 0, 0
     latest = ckpt.latest_vec2wav(cfg.checkpoint_path)
     if latest is not None:
         resumed = ckpt.load_vec2wav(*latest, trainer)
         steps, first_epoch = resumed["steps"], resumed["epoch"]
         print(f"resumed from {latest[1]} at step {steps}, epoch {first_epoch + 1}")
+    globalize_state([trainer.gen, trainer.mpd, trainer.msd], [trainer.opt_g, trainer.opt_d])
 
-    save_config(cfg, os.path.join(cfg.run_path, cfg.log_seed, "config.json"))
-    logger = TrainLogger(cfg.tensorboard_logs_path, cfg.logger_path)
+    if is_main_process():
+        os.makedirs(cfg.checkpoint_path, exist_ok=True)
+        save_config(cfg, os.path.join(cfg.run_path, cfg.log_seed, "config.json"))
+    logger = host_logger(cfg.tensorboard_logs_path, cfg.logger_path)
     record = RunRecord(backend=logger.backend)
     print(f"logger: {logger.backend} ({cfg.tensorboard_logs_path})")
     # each step's scalars stay on the card until a step that prints or logs
@@ -184,7 +214,9 @@ def main(args: Optional[argparse.Namespace] = None,
 
     def save(epoch):
         t0 = time.perf_counter()
-        ckpt.save_vec2wav(cfg.checkpoint_path, steps, trainer, epoch)
+        if is_main_process():
+            ckpt.save_vec2wav(cfg.checkpoint_path, steps, trainer, epoch)
+        barrier()
         record.saves[steps] = time.perf_counter() - t0
 
     try:
@@ -249,6 +281,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--prefetch", action=argparse.BooleanOptionalAction, default=True,
                         help="load the next batch on a thread while the card runs the step")
     parser.add_argument("--device", type=str, default=None, help="default: the card")
+    parser.add_argument("--dist_backend", type=str, default=None, choices=("nccl", "gloo"),
+                        help="the process group's backend under torchrun (default: nccl on "
+                        "the card, gloo on the CPU; gloo lets ranks share one card)")
     return parser.parse_args(argv)
 
 

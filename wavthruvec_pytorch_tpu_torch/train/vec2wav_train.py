@@ -32,6 +32,19 @@ the MSD takes the grouped repack with ``cfg.msd_tiled_conv``.  As in JAX, a
 bf16 step's waveform, scores and feature maps are bf16, so its adversarial
 and feature-matching losses are bf16 sums; the mel target and the mel loss
 are f32 (``ops/stft.py`` computes in f32), and so is the G loss's total.
+
+In a process group (``parallel/mesh.py``) each rank steps on its local
+batch and the step computes what one process computes on the global batch
+(JAX: ``make_train_step(mesh=...)``): the Conditional BatchNorms take global
+statistics, the D and the G gradients are averaged over the ranks
+(``all_reduce_mean``) before each AdamW step, and the reported losses are
+the ranks' means.  Every loss is a mean over a rank's batch, and the ranks'
+batches have one shape, so the mean of the ranks' gradients is the global
+batch's.  The spectral norms' power iteration reads only the weights, which
+every rank holds alike, so each rank computes the same ``u``.  Explicit
+all-reduces at these two points, not ``DistributedDataParallel``: DDP's
+hooks would fire on every backward, the D step's pass through the detached
+``y_hat`` and the G step's pass through the discriminators included.
 """
 
 from __future__ import annotations
@@ -53,6 +66,12 @@ from wavthruvec_pytorch_tpu_torch.models.vec2wav import (
     generator_loss,
 )
 from wavthruvec_pytorch_tpu_torch.ops.stft import mel_spectrogram
+from wavthruvec_pytorch_tpu_torch.parallel.mesh import (
+    all_reduce_mean,
+    mean_scalars,
+    rank,
+    world_size,
+)
 
 # the scalars a step reports, as the JAX package names them
 SCALAR_KEYS = ("gen_loss_total", "disc_loss_total", "mel_loss", "mel_spec_error")
@@ -147,10 +166,13 @@ class GANTrainer:
 
     def generate(self, batch: Dict[str, torch.Tensor],
                  noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """The Generator's forward in train mode: y_hat [B, L, 1]."""
+        """The Generator's forward in train mode: y_hat [B, L, 1].  In a
+        process group each rank draws the global batch's noise and takes its
+        own rows of it, as one process stepping the global batch would."""
         if noise is None:
-            noise = torch.randn((batch["wv_feat"].shape[0], self.cfg.noise_dim),
-                                generator=self.noise_rng, device=self.device)
+            B, n = batch["wv_feat"].shape[0], world_size()
+            noise = torch.randn((B * n, self.cfg.noise_dim), generator=self.noise_rng,
+                                device=self.device)[rank() * B:(rank() + 1) * B]
         return self.gen(batch["wv_feat"], batch["spk_emb"], noise)
 
     def d_step(self, batch: Dict[str, torch.Tensor], y_hat: torch.Tensor) -> torch.Tensor:
@@ -162,6 +184,7 @@ class GANTrainer:
         loss = discriminator_loss(y_df_r, y_df_g)[0] + discriminator_loss(y_ds_r, y_ds_g)[0]
         self.opt_d.zero_grad(set_to_none=True)
         loss.backward()
+        all_reduce_mean([p.grad for p in self.disc_params if p.grad is not None])
         self.opt_d.step()
         return loss.detach()
 
@@ -180,6 +203,7 @@ class GANTrainer:
                  + feature_loss(fmap_s_r, fmap_s_g) + feature_loss(fmap_f_r, fmap_f_g) + loss_mel)
         self.opt_g.zero_grad(set_to_none=True)
         total.backward(inputs=self.gen_params)
+        all_reduce_mean([p.grad for p in self.gen_params if p.grad is not None])
         self.opt_g.step()
         return {"gen_loss_total": total.detach(), "mel_loss": loss_mel.detach(),
                 "mel_spec_error": mel_error.detach()}
@@ -209,6 +233,6 @@ class GANTrainer:
         y_mel = self.mel_target(dev)
         y_hat = self.generate(dev, None if noise is None else noise.to(self.device))
         disc = self.d_step(dev, y_hat)
-        metrics = self.g_step(dev, y_hat, y_mel)
+        metrics = {"disc_loss_total": disc, **self.g_step(dev, y_hat, y_mel)}
         self.step_count += 1
-        return {"disc_loss_total": disc, **metrics}
+        return mean_scalars(metrics)

@@ -8,7 +8,8 @@ directory, one ``{"tag", "value", "step"}`` object a line, and images,
 audio and figures are dropped: they have nowhere to go.  The loops draw
 images and figures only when ``takes_figures`` says the writer is there and
 matplotlib can be imported.  Text lines are printed and appended to
-``logger.txt``.
+``logger.txt``.  Under data parallelism only rank 0 writes logs
+(``host_logger``; JAX package: utils/logging.py:85).
 """
 
 from __future__ import annotations
@@ -83,6 +84,32 @@ class TrainLogger:
             self.tb.close()
         else:
             self._jsonl.close()
+
+
+class NullLogger:
+    """The logger of a rank other than 0: it writes nothing."""
+
+    tb = None
+    takes_figures = False
+    backend = "none (not rank 0)"
+
+    def add_scalar(self, *args, **kwargs) -> None:
+        pass
+
+    add_image = add_audio = add_figure = text = add_scalar
+
+    def flush(self) -> None:
+        pass
+
+    close = flush
+
+
+def host_logger(tb_dir: str, text_dir: str):
+    """A ``TrainLogger`` on rank 0 (or the only process), a ``NullLogger``
+    on the other ranks."""
+    from wavthruvec_pytorch_tpu_torch.parallel.mesh import is_main_process
+
+    return TrainLogger(tb_dir, text_dir) if is_main_process() else NullLogger()
 
 
 class StepTimer:
