@@ -26,12 +26,16 @@ below is fatal: nothing is caught.
    B = 2 mixed lengths at 1024 frames, once as float and once as pcm16.
    Each request runs ``REPEATS`` times; prints its median time (CUDA
    events; the host clock agrees, since a request ends in a host copy) and
-   realtime factor.  Then one
-   call of the port's ``entry()`` (its own seeded models, 256 frames).
+   realtime factor.  The demo config's ``gru_impl`` is "scan" (JAX's
+   default), so its BiGRU runs the f32 kernel; a "pallas" copy of the config
+   (the same weights) serves each request once more through the bf16 kernel
+   (JAX's gate admits B <= 28 at H = 1024), and the distance between the two
+   waveforms is printed.  Then one call of the port's ``entry()`` (its own
+   seeded models, 256 frames, the f32 BiGRU).
 4. Launch counters, set to 0 just before phase 3: every Generator forward
    launches the fused ResBlock2 kernel 30 times, every Text2Vec forward the
-   BiGRU kernel once, in one device launch (its persistent route), and the
-   step launches that saves are printed.
+   BiGRU kernel of its numerics once, in one device launch (its persistent
+   route), and the step launches that saves are printed.
 5. Each kernel against its plain PyTorch version on the card, at the main
    path's shapes, with the times of the kernel, the plain version and one
    PyTorch library call that computes the same function, and ``ptxas``'s
@@ -39,12 +43,14 @@ below is fatal: nothing is caught.
    the tensor cores) at each of the 512-frame request's 30 units, with its
    bound at the CUDA cores' f32 rate and at 3xTF32's, and at
    ``FUSED_EDGES`` (a width that is no multiple of 4, kernel sizes built
-   with k at run time, B = 2).  The BiGRU at
-   (B, T) in ``GRU_SHAPES``: serving, training and the long bucket, on its
-   persistent route and, timed in turns in the same run, on the
-   one-launch-a-step route, with the serial floor (T steps of the
-   persistent grid running its barriers and nothing else) beside its byte
-   and operation bounds.
+   with k at run time, B = 2).  The BiGRU's two kernels, bf16 (gru_impl
+   "pallas") and f32 ("scan"), at (B, T) in ``GRU_SHAPES``: serving,
+   training and the long bucket, on the persistent route and, timed in
+   turns in the same run, on the one-launch-a-step route, with the serial
+   floor (T steps of the persistent grid running its barriers and nothing
+   else) beside the byte and operation bounds, the plain version's time
+   and cuDNN's f32 ``nn.GRU`` (TF32 off); and the f32 kernel at
+   ``GRU_GATE_SHAPE`` (B = 32), where JAX's gate sends "pallas" to f32 too.
 6. The full-size path on the card against the same path on the CPU (the
    kernels' plain versions) on a small request.
 7. Where the time of the 512-frame request goes, by stage (CUDA events
@@ -383,7 +389,10 @@ are set to 0 in each rank just before its step or job and read just after:
     row carries the card's name.
 
 Every float32 product and convolution in this run is full float32: TF32 is
-off for matmuls and cuDNN.  The second-to-last line is a JSON object with
+off for matmuls and cuDNN.  Every Text2Vec config it drives but phase 3's
+"pallas" copy says ``gru_impl`` "scan", so their BiGRU is the f32 kernel
+(``gru_fwd_f32`` in the counters); each phase's launch check asserts that
+the other kernel launched none.  The second-to-last line is a JSON object with
 one entry per kernel (``serving_launches``: the launches of phases 22-24
 and 26; ``loop_launches``: those of phases 28-31; ``data_launches``: those
 of phases 32-36; ``tools_launches``: those of phases 37-41;
@@ -495,9 +504,11 @@ from wavthruvec_pytorch_tpu_torch.ops.gru import (
     gru_barrier_loop,
     gru_bwd_plain,
     gru_fwd,
+    gru_fwd_f32,
     gru_fwd_plain,
     gru_fwd_plan,
     gru_fwd_steps,
+    gru_numerics,
 )
 from wavthruvec_pytorch_tpu_torch.ops.flash_attention import (
     backward_inputs,
@@ -551,6 +562,8 @@ PEAK_F32_TC = PEAK_TF32 / 3
 FUSED_ATOL = 1e-4  # f32 both sides, k*C-term sums in another order
 GRU_ATOL = 1e-3    # same bf16 rounding both sides; a 1-ulp bf16 flip of h
                    # from a different f32 sum order propagates through T steps
+GRU_F32_ATOL = 1e-5  # f32 both sides, no rounding to flip: H-term sums in another
+                     # order (~1e-7 a step), carried through a contracting recurrence
 # the full path on the card against the CPU on a small request
 LATENT_ATOL = 1e-3
 WAV_ATOL = 2e-3
@@ -797,6 +810,10 @@ def demo_speaker() -> np.ndarray:
 
 
 def serve(syn):
+    """Phases 3-4.  The demo config's BiGRU computes f32 (its gru_impl is
+    "scan"); a "pallas" copy of it (the same weights; B <= 2 at H = 1024,
+    where JAX's gate holds) serves each request once more through the bf16
+    kernel."""
     text, ref, spk = demo_inputs(syn)
     t2 = [text(60), text(25)]
     requests = [
@@ -805,82 +822,101 @@ def serve(syn):
         ("b2_f1024", t2, 1024, False),
         ("b2_f1024_pcm16", t2, 1024, True),
     ]
+    pallas = Synthesizer(dataclasses.replace(syn.t2v_cfg, gru_impl="pallas"), syn.v2w_cfg,
+                         syn.t2v.state_dict(), syn.gen.state_dict(), syn.frontend,
+                         device=syn.device)
 
-    def run(texts, max_frames, pcm16):
+    def run(s, texts, max_frames, pcm16):
         B = len(texts)
-        return syn.synthesize(texts, np.repeat(ref, B, 0), np.repeat(spk, B, 0),
-                              max_frames=max_frames, seed=SEED, pcm16=pcm16)
+        return s.synthesize(texts, np.repeat(ref, B, 0), np.repeat(spk, B, 0),
+                            max_frames=max_frames, seed=SEED, pcm16=pcm16)
 
-    for _, texts, max_frames, pcm16 in requests:  # warm-up: allocator, cuDNN, kernel loads
-        run(texts, max_frames, pcm16)
+    for s in (syn, pallas):  # warm-up: allocator, cuDNN, kernel loads
+        for _, texts, max_frames, pcm16 in requests:
+            run(s, texts, max_frames, pcm16)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     fused_conv_residual.launches = 0
-    gru_fwd.launches = gru_fwd.step_launches = gru_fwd.time_steps = 0
+    reset_gru_counters()
     wavs = {}
-    for name, texts, max_frames, pcm16 in requests:
-        times = []
-        for _ in range(REPEATS):
-            f0, g0 = fused_conv_residual.launches, gru_fwd.launches
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            start.record()
-            wav, n_samples = run(texts, max_frames, pcm16)
-            end.record()
-            torch.cuda.synchronize()
-            times.append(start.elapsed_time(end))
-            check(fused_conv_residual.launches - f0 == 30,
-                  f"{name}: {fused_conv_residual.launches - f0} fused ResBlock2 launches, not 30")
-            check(gru_fwd.launches - g0 == 1,
-                  f"{name}: {gru_fwd.launches - g0} BiGRU launches, not 1")
-        ms = float(np.median(times))
-        B = len(texts)
-        frames = n_samples // syn.v2w_cfg.total_upsample
-        check(wav.shape == (B, max_frames * syn.v2w_cfg.total_upsample),
-              f"{name}: wav shape {wav.shape}")
-        check(wav.dtype == (np.int16 if pcm16 else np.float32), f"{name}: dtype {wav.dtype}")
-        if not pcm16:
-            check(bool(np.isfinite(wav).all()), f"{name}: non-finite audio")
-        check(bool((frames > 0).all() and (frames <= max_frames).all()),
-              f"{name}: total_frames {frames} outside (0, {max_frames}]")
-        wavs[name] = wav
-        audio_s = float(n_samples.sum()) / SAMPLE_RATE
-        print(f"request {name}: B={B} max_frames={max_frames} total_frames={frames.tolist()} "
-              f"median {ms:.2f} ms of {REPEATS} (min {min(times):.2f}, max {max(times):.2f}), "
-              f"{audio_s:.2f} s of speech, realtime factor {audio_s / (ms / 1e3):.1f}, "
-              f"wav std {wav.std() / (32767.0 if pcm16 else 1.0):.3f}")
+    for s, repeats in ((syn, REPEATS), (pallas, 1)):
+        for name, texts, max_frames, pcm16 in requests:
+            B = len(texts)
+            kind = numerics(s.t2v_cfg, B)
+            kernel = GRU_KERNELS[kind][1]
+            times = []
+            for _ in range(repeats):
+                f0, g0 = fused_conv_residual.launches, kernel.launches
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                start.record()
+                wav, n_samples = run(s, texts, max_frames, pcm16)
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+                check(fused_conv_residual.launches - f0 == 30,
+                      f"{name}: {fused_conv_residual.launches - f0} fused ResBlock2 launches, "
+                      "not 30")
+                check(kernel.launches - g0 == 1,
+                      f"{name}: {kernel.launches - g0} {kind} BiGRU launches, not 1")
+            ms = float(np.median(times))
+            frames = n_samples // syn.v2w_cfg.total_upsample
+            check(wav.shape == (B, max_frames * syn.v2w_cfg.total_upsample),
+                  f"{name}: wav shape {wav.shape}")
+            check(wav.dtype == (np.int16 if pcm16 else np.float32), f"{name}: dtype {wav.dtype}")
+            if not pcm16:
+                check(bool(np.isfinite(wav).all()), f"{name}: non-finite audio")
+            check(bool((frames > 0).all() and (frames <= max_frames).all()),
+                  f"{name}: total_frames {frames} outside (0, {max_frames}]")
+            wavs[s.t2v_cfg.gru_impl, name] = wav
+            audio_s = float(n_samples.sum()) / SAMPLE_RATE
+            print(f"request {name} (gru_impl {s.t2v_cfg.gru_impl!r}: the {kind} BiGRU): B={B} "
+                  f"max_frames={max_frames} total_frames={frames.tolist()} median {ms:.2f} ms of "
+                  f"{repeats} (min {min(times):.2f}, max {max(times):.2f}), {audio_s:.2f} s of "
+                  f"speech, realtime factor {audio_s / (ms / 1e3):.1f}, "
+                  f"wav std {wav.std() / (32767.0 if pcm16 else 1.0):.3f}")
     print(f"serving peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for name in ("b1_f512", "b1_f3000", "b2_f1024"):
+        a, b = wavs["scan", name], wavs["pallas", name]
+        print(f"  {name}: the bf16 BiGRU's waveform {np.linalg.norm(b - a) / np.linalg.norm(a):.3g}"
+              " of the norm from the f32 one's")
+    del pallas
 
     # pcm16 is the float waveform clipped, scaled and truncated toward zero
-    want = (np.clip(wavs["b2_f1024"], -1.0, 1.0) * 32767.0).astype(np.int16)
-    diff = np.abs(wavs["b2_f1024_pcm16"].astype(np.int32) - want.astype(np.int32)).max()
+    want = (np.clip(wavs["scan", "b2_f1024"], -1.0, 1.0) * 32767.0).astype(np.int16)
+    diff = np.abs(wavs["scan", "b2_f1024_pcm16"].astype(np.int32) - want.astype(np.int32)).max()
     check(diff <= 1, f"pcm16 differs from the float waveform by {diff} steps")
 
     # the port's entry(): its own seeded full-size models (the default
-    # configs) and inputs, text -> latents -> wav at B = 1 over 256 frames
-    f0, g0 = fused_conv_residual.launches, gru_fwd.launches
+    # configs, gru_impl "scan") and inputs, text -> latents -> wav at B = 1
+    # over 256 frames
+    f0, g0 = fused_conv_residual.launches, gru_fwd_f32.launches
     fn, args = entry()
     wav, total = fn(*args)
     torch.cuda.synchronize()
     check(tuple(wav.shape) == (1, 256 * 320) and bool(torch.isfinite(wav).all()),
           f"entry(): wav {tuple(wav.shape)}")
-    check(fused_conv_residual.launches - f0 == 30 and gru_fwd.launches - g0 == 1,
+    check(fused_conv_residual.launches - f0 == 30 and gru_fwd_f32.launches - g0 == 1,
           "entry(): launch counts")
     print(f"entry(): wav {tuple(wav.shape)}, total_frames {total.tolist()}")
 
     launches = dict(fused_resblock=fused_conv_residual.launches, gru_fwd=gru_fwd.launches,
-                    gru_fwd_steps=gru_fwd.step_launches)
+                    gru_fwd_f32=gru_fwd_f32.launches, gru_fwd_steps=gru_step_launches())
     n_forwards = REPEATS * len(requests) + 1
-    check(launches["fused_resblock"] == 30 * n_forwards, f"launch counts {launches}")
-    check(launches["gru_fwd"] == n_forwards, f"launch counts {launches}")
+    check(launches["fused_resblock"] == 30 * (n_forwards + len(requests)),
+          f"launch counts {launches}")
+    check(launches["gru_fwd_f32"] == n_forwards and launches["gru_fwd"] == len(requests),
+          f"launch counts {launches}")
     # the BiGRU's serving shapes (B <= 2, H = 1024) take the persistent
-    # route: one device launch a call, not one a time step
-    check(launches["gru_fwd_steps"] == n_forwards, f"BiGRU device launches {launches}")
-    print(f"launches on the main path: {launches}; the persistent BiGRU ran "
-          f"{gru_fwd.time_steps} time steps in {gru_fwd.step_launches} launches, "
-          f"{gru_fwd.time_steps - gru_fwd.step_launches} step launches fewer than one a step")
+    # route in both numerics: one device launch a call, not one a time step
+    check(launches["gru_fwd_steps"] == n_forwards + len(requests),
+          f"BiGRU device launches {launches}")
+    steps = gru_fwd.time_steps + gru_fwd_f32.time_steps
+    print(f"launches on the main path: {launches}; the persistent BiGRU kernels ran {steps} time "
+          f"steps in {gru_step_launches()} launches, {steps - gru_step_launches()} step launches "
+          "fewer than one a step")
     return launches
 
 
@@ -989,67 +1025,109 @@ def check_fused(syn, frames: int = 512):
 
 
 # (B, T) of the BiGRU kernel checks: the serving requests, the training
-# batch and the long bucket
+# batch and the long bucket; and a batch where JAX's gate refuses "pallas"
+# at H = 1024 (B >= 29), so that both packages compute f32 there
 GRU_SHAPES = ((1, 512), (2, 512), (1, 3000), (2, 3000), (TRAIN_B, TRAIN_T), (LONG_B, LONG_T))
+GRU_GATE_SHAPE = (32, TRAIN_T)
+
+
+def gru_case(bigru, x, kind: str, n_sm: int, smem: int) -> dict:
+    """One BiGRU kernel (``kind`` "bf16" or "f32") at x's shape: against its
+    plain version on both routes, its times (the planner's route and the
+    one-launch-a-step route in turns, persistent, steps, steps, persistent,
+    where the planner's is persistent), the serial floor, the plain
+    version's time and the byte and operation bounds."""
+    B, T, H = x.shape
+    gi, w_hh, b_hh = bigru.recurrence_inputs(x)
+    w_hh = w_hh.to(torch.bfloat16) if kind == "bf16" else w_hh
+    kernel = GRU_KERNELS[kind][1]
+    plan = gru_fwd_plan(2, B, H, n_sm, smem, kind)
+    got = kernel(gi, w_hh, b_hh)
+    got_steps = gru_fwd_steps(gi, w_hh, b_hh)
+    want = gru_fwd_plain(gi, w_hh, b_hh, kind)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    err_steps = (got_steps - want).abs().max().item()
+    del got, got_steps, want
+    atol = GRU_ATOL if kind == "bf16" else GRU_F32_ATOL
+    check(err <= atol and err_steps <= atol,
+          f"{kind} BiGRU B={B} T={T}: max |err| {err:.3g} {plan.route}, {err_steps:.3g} steps")
+    runs = {"persistent": [], "steps": []}
+    order = (("persistent", kernel), ("steps", gru_fwd_steps), ("steps", gru_fwd_steps),
+             ("persistent", kernel)) if plan.route == "persistent" else (("steps", kernel),)
+    for route, fn in order:
+        runs[route].append(cuda_ms(lambda: fn(gi, w_hh, b_hh), 3))
+    steps_ms = float(np.mean(runs["steps"]))
+    ms = float(np.mean(runs[plan.route]))
+    floor = (cuda_ms(lambda: gru_barrier_loop(2, B, T, H, "cuda", kind), 3) * T / max(T - 1, 1)
+             if plan.route == "persistent" else float("nan"))
+    plain = cuda_ms(lambda: gru_fwd_plain(gi, w_hh, b_hh, kind), 1, warmup=0)
+    n_bytes = (4.0 * gi.numel() + w_hh.element_size() * w_hh.numel() + 4.0 * b_hh.numel()
+               + 4.0 * 2 * B * T * H)
+    n_ops = 2.0 * 2 * B * T * H * gi.shape[-1]
+    bms, by = bound_ms(n_bytes, n_ops, PEAK_BF16 if kind == "bf16" else PEAK_F32)
+    serial = max(bms, floor) if plan.route == "persistent" else bms
+    line = (f"    {kind:4s} err {err:.2e} (steps route {err_steps:.2e})  {plan.route} {ms:.3f} ms "
+            f"({1e3 * ms / T:.2f} us/step")
+    if plan.route == "persistent":
+        line += (f"; runs {runs['persistent'][0]:.3f}, {runs['persistent'][1]:.3f})  steps route "
+                 f"{steps_ms:.3f} ms ({1e3 * steps_ms / T:.2f} us/step; {steps_ms / ms:.2f}x)  "
+                 f"serial floor {floor:.3f} ms ({1e3 * floor / T:.2f} us/step)")
+    else:
+        line += ")"
+    line += (f"  plain {plain:.3f} ms  bound {bms:.4f} ms ({by}, {n_ops / 1e9:.1f} GFLOP); the "
+             f"larger with the floor {serial:.3f} ms ({'serial' if serial > bms else by}), "
+             f"{100 * serial / ms:.1f}% of it; {plan.blocks} blocks of {plan.units} units, "
+             f"{plan.smem} bytes of shared memory")
+    print(line)
+    return dict(max_abs_err=max(err, err_steps), ms=ms, plain_ms=plain, bound_ms=bms,
+                bound_by=by, floor_ms=floor, route=plan.route)
 
 
 def check_gru(syn):
+    """Phase 5's BiGRU: both kernels (bf16, f32) at every ``GRU_SHAPES``
+    entry and the f32 kernel at ``GRU_GATE_SHAPE``, beside cuDNN's f32
+    ``nn.GRU`` (TF32 off), the library yardstick, timed only.  Returns the
+    kernels line's entries of both (times at the 512-frame request's shape,
+    the worst error over all shapes)."""
     bigru = syn.t2v.postnet.gru
     H = bigru.hidden_size
+    check(not torch.backends.cudnn.allow_tf32, "cuDNN's yardstick must run without TF32")
     lib_gru = torch.nn.GRU(H, H, batch_first=True, bidirectional=True, device="cuda")
     lib_gru.load_state_dict(bigru.state_dict(), strict=True)
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    first = None
+    first = {}
     print("BiGRU kernels, ptxas:")
-    ptxas_report("gru_fwd", ("gru_persistent_kernel", "gru_barrier_loop_kernel",
-                             "gru_step_kernel"), ("gru_persistent_kernel",))
+    ptxas_report("gru_fwd", ("gru_persistent_kernel", "gru_persistent_f32_kernel",
+                             "gru_barrier_loop_kernel", "gru_step_kernel"),
+                 ("gru_persistent_kernel", "gru_persistent_f32_kernel"))
     n_sm, smem = device_limits(torch.device("cuda"))
-    print(f"BiGRU recurrence, kernel vs plain (atol {GRU_ATOL}), D=2, H={H}, on {n_sm} SMs with "
-          f"{smem} bytes of shared memory a block; the persistent route (one cooperative launch) "
-          f"and the steps route (one launch a step) timed in turns (persistent, steps, steps, "
-          f"persistent); the serial floor is T x a step of the persistent grid running barriers "
-          f"only:")
-    for B, T in GRU_SHAPES:
-        plan = gru_fwd_plan(2, B, H, n_sm, smem)
-        check(plan.route == "persistent", f"BiGRU B={B}: the planner picked {plan}")
+    print(f"BiGRU recurrence, kernel vs plain (atol {GRU_ATOL} bf16, {GRU_F32_ATOL} f32), D=2, "
+          f"H={H}, on {n_sm} SMs with {smem} bytes of shared memory a block; the serial floor is "
+          f"T x a step of the persistent grid running barriers only; bounds at "
+          f"{PEAK_BF16 / 1e12:.0f} TFLOP/s (bf16) and {PEAK_F32 / 1e12:.0f} (f32, the CUDA cores):")
+    for B, T in GRU_SHAPES + (GRU_GATE_SHAPE,):
         x = torch.randn((B, T, H), generator=g, device="cuda")
-        gi, w_hh, b_hh = bigru.recurrence_inputs(x)
-        w_hh = w_hh.to(torch.bfloat16)
-        got = gru_fwd(gi, w_hh, b_hh)
-        got_steps = gru_fwd_steps(gi, w_hh, b_hh)
-        want = gru_fwd_plain(gi, w_hh, b_hh)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        err_steps = (got_steps - want).abs().max().item()
-        del got, got_steps, want
-        check(err <= GRU_ATOL and err_steps <= GRU_ATOL,
-              f"BiGRU B={B} T={T}: max |err| {err:.3g} persistent, {err_steps:.3g} steps")
-        runs = {"persistent": [], "steps": []}
-        for route, fn in (("persistent", gru_fwd), ("steps", gru_fwd_steps),
-                          ("steps", gru_fwd_steps), ("persistent", gru_fwd)):
-            runs[route].append(cuda_ms(lambda: fn(gi, w_hh, b_hh), 3))
-        ms, steps_ms = (float(np.mean(runs[r])) for r in ("persistent", "steps"))
-        floor = cuda_ms(lambda: gru_barrier_loop(2, B, T, H, "cuda"), 3) * T / max(T - 1, 1)
-        plain = cuda_ms(lambda: gru_fwd_plain(gi, w_hh, b_hh), 1, warmup=0)
+        kinds = {"pallas": gru_numerics("pallas", 2, B, H), "scan": gru_numerics("scan", 2, B, H)}
+        check(kinds["scan"] == "f32", f"gru_impl scan at B={B}: {kinds}")
+        if (B, T) == GRU_GATE_SHAPE:
+            check(kinds["pallas"] == "f32", f"JAX's gate admits pallas at B={B}, H={H}: {kinds}")
+        else:
+            check(kinds["pallas"] == "bf16", f"JAX's gate refuses pallas at B={B}, H={H}: {kinds}")
         lib = cuda_ms(lambda: lib_gru(x), 3)
-        D, H3 = gi.shape[0], gi.shape[-1]
-        n_bytes = 4.0 * gi.numel() + 2.0 * w_hh.numel() + 4.0 * b_hh.numel() + 4.0 * D * B * T * H
-        n_ops = 2.0 * D * B * T * H * H3
-        bms, by = bound_ms(n_bytes, n_ops, PEAK_BF16)
-        serial = max(bms, floor)
-        print(f"  B={B:2d} T={T:4d}: err {err:.2e} (steps route {err_steps:.2e})  persistent "
-              f"{ms:.3f} ms ({1e3 * ms / T:.2f} us/step; runs {runs['persistent'][0]:.3f}, "
-              f"{runs['persistent'][1]:.3f})  steps route {steps_ms:.3f} ms ({1e3 * steps_ms / T:.2f}"
-              f" us/step; {steps_ms / ms:.2f}x)  plain {plain:.3f} ms  cuDNN nn.GRU {lib:.3f} ms  "
-              f"bound {bms:.4f} ms ({by}); serial floor {floor:.3f} ms ({1e3 * floor / T:.2f} "
-              f"us/step): bound {serial:.3f} ms ({'serial' if floor > bms else by}), "
-              f"{100 * serial / ms:.1f}% of it; {plan.blocks} blocks of {plan.units} units, "
-              f"{plan.smem} bytes of shared memory")
-        if first is None:  # the 512-frame request's shape goes into the summary line
-            first = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-                         library_ms=lib)
-        first["max_abs_err"] = max(first["max_abs_err"], err)
-        del x, gi
+        print(f"  B={B:2d} T={T:4d}: gru_impl pallas -> {kinds['pallas']}, scan -> f32; cuDNN "
+              f"nn.GRU (f32, TF32 off, with its input projection) {lib:.3f} ms")
+        for kind in sorted(set(kinds.values())):
+            case = gru_case(bigru, x, kind, n_sm, smem)
+            name = GRU_KERNELS[kind][0]
+            check(case["route"] == "persistent",
+                  f"{kind} BiGRU B={B}: the planner picked {case['route']}")
+            if name not in first:  # the 512-frame request's shape goes into the summary line
+                first[name] = dict(max_abs_err=case["max_abs_err"], ms=case["ms"],
+                                   plain_ms=case["plain_ms"], bound_ms=case["bound_ms"],
+                                   bound_by=case["bound_by"], library_ms=lib)
+            first[name]["max_abs_err"] = max(first[name]["max_abs_err"], case["max_abs_err"])
+        del x
         torch.cuda.empty_cache()
     return first
 
@@ -1217,17 +1295,48 @@ def run_step(trainer, batch):
     return metrics
 
 
+def reset_gru_counters() -> None:
+    for fn in (gru_fwd, gru_fwd_f32):
+        fn.launches = fn.step_launches = fn.time_steps = 0
+
+
 def reset_counters() -> None:
     mas_width1.launches = 0
-    gru_fwd.launches = gru_fwd.step_launches = gru_fwd.time_steps = 0
+    reset_gru_counters()
     GRURecurrence.backward_calls = 0
     flash_fwd.launches = flash_bwd_dkv.launches = flash_bwd_dq.launches = 0
 
 
 def read_counters() -> dict:
     return dict(mas=mas_width1.launches, gru_fwd=gru_fwd.launches,
-                gru_bwd=GRURecurrence.backward_calls, flash_fwd=flash_fwd.launches,
-                flash_bwd_dkv=flash_bwd_dkv.launches, flash_bwd_dq=flash_bwd_dq.launches)
+                gru_fwd_f32=gru_fwd_f32.launches, gru_bwd=GRURecurrence.backward_calls,
+                flash_fwd=flash_fwd.launches, flash_bwd_dkv=flash_bwd_dkv.launches,
+                flash_bwd_dq=flash_bwd_dq.launches)
+
+
+# The two BiGRU kernels by the numerics ops.gru.gru_numerics picks for a
+# config: bf16 (gru_impl "pallas" where JAX's gate holds) and f32 (every
+# other case, "scan" among them, the gru_impl of every config in the repo)
+GRU_KERNELS = {"bf16": ("gru_fwd", gru_fwd), "f32": ("gru_fwd_f32", gru_fwd_f32)}
+
+
+def numerics(cfg, B: int) -> str:
+    """The BiGRU numerics of a Text2Vec config at batch B, as JAX picks them."""
+    return gru_numerics(cfg.gru_impl, 2, B, cfg.n_feat_dim)
+
+
+def bigru_launches(counts: dict, cfg, B: int = 1) -> int:
+    """The BiGRU launches in ``counts``; all of them must be the kernel of
+    ``cfg``'s numerics at batch B (the other kernel launched none)."""
+    want = GRU_KERNELS[numerics(cfg, B)][0]
+    other = "gru_fwd" if want == "gru_fwd_f32" else "gru_fwd_f32"
+    check(counts.get(other, 0) == 0, f"{other} launched on a {want} path: {counts}")
+    return counts[want]
+
+
+def gru_step_launches() -> int:
+    """Device launches of both BiGRU kernels (1 a call on the persistent route)."""
+    return gru_fwd.step_launches + gru_fwd_f32.step_launches
 
 
 def timed_training(trainer, batch, frames: int, label: str, per_step: dict) -> dict:
@@ -1254,14 +1363,15 @@ def timed_training(trainer, batch, frames: int, label: str, per_step: dict) -> d
         check(all(math.isfinite(v) for v in values), f"non-finite losses {values}")
         totals.append(values[0])
     launches = read_counters()
+    steps = gru_fwd.time_steps + gru_fwd_f32.time_steps
     print(f"launches on the {label} path ({TIMED_STEPS} steps): {launches}, BiGRU device "
-          f"launches {gru_fwd.step_launches} for {gru_fwd.time_steps} time steps "
-          f"({gru_fwd.time_steps - gru_fwd.step_launches} step launches fewer than one a step)")
+          f"launches {gru_step_launches()} for {steps} time steps "
+          f"({steps - gru_step_launches()} step launches fewer than one a step)")
     want = {k: TIMED_STEPS * per_step.get(k, 0) for k in launches}
     check(launches == want, f"{label} launch counts {launches}, not {want}")
     # B = 16 at H = 1024 takes the persistent route: one device launch a call
-    check(gru_fwd.step_launches == launches["gru_fwd"],
-          f"{label}: {gru_fwd.step_launches} BiGRU device launches in {launches['gru_fwd']} calls")
+    check(gru_step_launches() == launches["gru_fwd"] + launches["gru_fwd_f32"],
+          f"{label}: {gru_step_launches()} BiGRU device launches in {launches} calls")
     ms = float(np.median(times))
     print(f"{label} step: median {ms:.2f} ms of {TIMED_STEPS} (min {min(times):.2f}, max "
           f"{max(times):.2f}), {frames / (ms / 1e3):.0f} frames/s, peak device memory "
@@ -1283,8 +1393,9 @@ def train(dev):
     print(f"training: Text2Vec at full size, {sum(p.numel() for p in trainer.params) / 1e6:.1f} M "
           f"trained parameters, B={TRAIN_B} N={TRAIN_N} T={TRAIN_T}, {frames} real frames, "
           f"dropout {cfg.dropout}, lr {cfg.learning_rate}")
+    print(f"the BiGRU's numerics: {numerics(cfg, TRAIN_B)} (gru_impl {cfg.gru_impl!r})")
     launches = timed_training(trainer, batch, frames, "training",
-                              dict(mas=1, gru_fwd=1, gru_bwd=1))
+                              {"mas": 1, GRU_KERNELS[numerics(cfg, TRAIN_B)][0]: 1, "gru_bwd": 1})
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_t2v_") as tmp:
         cfg = dataclasses.replace(load_config(Text2VecConfig, repo_path("data", "demo",
@@ -1425,7 +1536,7 @@ def check_gru_backward(bigru):
     with torch.no_grad():
         gi, w_hh, b_hh = (t.detach().cpu() for t in bigru.recurrence_inputs(
             torch.randn(B, T, H, generator=g).cuda()))
-    ys = gru_fwd_plain(gi, w_hh, b_hh)
+    ys = gru_fwd_plain(gi, w_hh, b_hh, bigru.numerics(B))
     hprev = torch.cat([ys.new_zeros(2, B, 1, H), ys[:, :, :-1]], dim=2)
     dys = torch.randn(ys.shape, generator=g)
     args = (dys, gi, hprev, w_hh.contiguous(), b_hh)
@@ -1561,14 +1672,16 @@ def profile_step(trainer, batch) -> None:
     x = torch.randn(B, T, bigru.hidden_size, device="cuda")
     with torch.no_grad():
         gi, w_hh, b_hh = bigru.recurrence_inputs(x)
-        w_bf16 = w_hh.to(torch.bfloat16)
-        ys = gru_fwd(gi, w_bf16, b_hh)
+        kind = bigru.numerics(B)
+        fwd_kernel = GRU_KERNELS[kind][1]
+        w_fwd = w_hh.to(torch.bfloat16) if kind == "bf16" else w_hh
+        ys = fwd_kernel(gi, w_fwd, b_hh)
         hprev = torch.cat([ys.new_zeros(2, B, 1, ys.shape[-1]), ys[:, :, :-1]], dim=2)
         dys = torch.randn_like(ys)
         w32 = w_hh.contiguous()
         parts = {
             "MAS kernel": cuda_ms(lambda: mas_width1(attn, il, ol), 5),
-            "BiGRU forward kernel": cuda_ms(lambda: gru_fwd(gi, w_bf16, b_hh), 3),
+            f"BiGRU forward kernel ({kind})": cuda_ms(lambda: fwd_kernel(gi, w_fwd, b_hh), 3),
             "BiGRU backward (plain)": cuda_ms(lambda: gru_bwd_plain(dys, gi, hprev, w32, b_hh), 2),
         }
     for name, ms in parts.items():
@@ -1845,8 +1958,8 @@ def train_long(dev):
           f"B={LONG_B} N={LONG_N} T={LONG_T}, {frames} real frames, dropout {cfg.dropout}, "
           f"lr {cfg.learning_rate}")
     launches = timed_training(trainer, batch, frames, "long-bucket training",
-                              dict(mas=1, gru_fwd=1, gru_bwd=1, flash_fwd=8, flash_bwd_dkv=8,
-                                   flash_bwd_dq=8))
+                              {"mas": 1, GRU_KERNELS[numerics(cfg, LONG_B)][0]: 1, "gru_bwd": 1,
+                               "flash_fwd": 8, "flash_bwd_dkv": 8, "flash_bwd_dq": 8})
     return trainer, host, batch, launches
 
 
@@ -1867,8 +1980,9 @@ def train_long_f32(dev):
           f"twice the bf16 step's memory) N={LONG_N} T={LONG_T}, {frames} real frames, dropout "
           f"{cfg.dropout}, lr {cfg.learning_rate}")
     launches = timed_training(trainer, batch, frames, "f32 long-bucket training",
-                              dict(mas=1, gru_fwd=1, gru_bwd=1, flash_fwd=8, flash_bwd_dkv=8,
-                                   flash_bwd_dq=8))
+                              {"mas": 1, GRU_KERNELS[numerics(cfg, LONG_F32_B)][0]: 1,
+                               "gru_bwd": 1, "flash_fwd": 8, "flash_bwd_dkv": 8,
+                               "flash_bwd_dq": 8})
     return trainer, batch, launches
 
 
@@ -2269,7 +2383,8 @@ def reset_serving_counters() -> None:
 
 def read_serving_counters() -> dict:
     return dict(fused_resblock=fused_conv_residual.launches, gru_fwd=gru_fwd.launches,
-                gru_fwd_steps=gru_fwd.step_launches, flash_fwd=flash_fwd.launches)
+                gru_fwd_f32=gru_fwd_f32.launches, gru_fwd_steps=gru_step_launches(),
+                flash_fwd=flash_fwd.launches)
 
 
 def median_ms(fn, reps: int = 3) -> float:
@@ -2428,17 +2543,20 @@ def check_serve_loop(synth, store, tmp: str) -> dict:
     batch against the same request alone."""
     n_sm, smem = device_limits(torch.device("cuda"))
     H = synth.t2v.postnet.gru.hidden_size
-    plans = {B: gru_fwd_plan(2, B, H, n_sm, smem).route for B in _batch_buckets(SERVE_MAX_BATCH)}
-    check(all(r == "persistent" for r in plans.values()), f"BiGRU routes by batch bucket {plans}")
-    print(f"BiGRU route by batch bucket (D=2, H={H}): {plans}")
+    plans = {B: (numerics(synth.t2v_cfg, B),
+                 gru_fwd_plan(2, B, H, n_sm, smem, numerics(synth.t2v_cfg, B)).route)
+             for B in _batch_buckets(SERVE_MAX_BATCH)}
+    check(all(r == "persistent" for _, r in plans.values()),
+          f"BiGRU routes by batch bucket {plans}")
+    print(f"BiGRU numerics and route by batch bucket (D=2, H={H}): {plans}")
     lines = burst_lines(synth, SERVE_REQUESTS)
     runs = {mb: serve_burst(synth, store, os.path.join(tmp, f"burst{mb}"), lines, mb)
             for mb in (1, SERVE_MAX_BATCH)}
     for mb, r in runs.items():
         forwards = r["n_warm"] + r["n_batches"]
         c = r["counts"]
-        check(c["fused_resblock"] == fused_units(synth.v2w_cfg) * forwards and c["gru_fwd"] == forwards
-              and c["gru_fwd_steps"] == forwards,
+        check(c["fused_resblock"] == fused_units(synth.v2w_cfg) * forwards
+              and bigru_launches(c, synth.t2v_cfg) == forwards and c["gru_fwd_steps"] == forwards,
               f"serve_loop max_batch={mb}: launches {c} for {forwards} forwards")
         print(f"serve_loop burst of {r['n']} (max_batch {mb}, frame bucket {SERVE_FRAMES}, "
               f"--warmup {r['n_warm']} shapes): client-perceived latency median "
@@ -2483,7 +2601,8 @@ def check_streaming(synth, store, tmp: str) -> dict:
     frames = streamed.shape[0] // cfg.total_upsample
     windows = -(-frames // STREAM_CHUNK)
     K = conservative_context_frames(cfg)
-    check(counts["fused_resblock"] == fused_units(cfg) * windows and counts["gru_fwd"] == 1,
+    check(counts["fused_resblock"] == fused_units(cfg) * windows
+          and bigru_launches(counts, synth.t2v_cfg) == 1,
           f"streaming launches {counts} for {windows} windows")
     check(streamed.shape == batched.shape and frames == STREAM_FRAMES,
           f"streamed {streamed.shape} vs batched {batched.shape}: not clipped at "
@@ -2577,7 +2696,7 @@ def check_http(synth, store) -> dict:
     check(max(batched) > 1, f"the HTTP service never coalesced: {batched}")
     n_batches = round(sum(1 / b for b in batched))
     check(counts["fused_resblock"] == fused_units(synth.v2w_cfg) * n_batches
-          and counts["gru_fwd"] == n_batches,
+          and bigru_launches(counts, synth.t2v_cfg, HTTP_CLIENTS) == n_batches,
           f"HTTP launches {counts} for {n_batches} batches")
     print(f"HTTP: /health {health}, {HTTP_CLIENTS} concurrent POST /synthesize (coalescing "
           f"window {HTTP_COALESCE_MS:g} ms): batched {batched}, client latency median "
@@ -2651,7 +2770,7 @@ def serve_long_loop(dev, tmp: str) -> dict:
     check(n == 2 and len(blocks) == 2 and all("batched=2" in h for h, _ in blocks),
           f"long-bucket serve_loop: {n} served, {[h for h, _ in blocks]}")
     n_flash = cfg.encoder_n_layer + cfg.decoder_n_layer
-    check(counts["flash_fwd"] == n_flash and counts["gru_fwd"] == 1
+    check(counts["flash_fwd"] == n_flash and bigru_launches(counts, syn.t2v_cfg, 2) == 1
           and counts["fused_resblock"] == fused_units(syn.v2w_cfg),
           f"long-bucket serve_loop launches {counts}: one batch of 2")
     worst = 0
@@ -2695,10 +2814,13 @@ def check_serving_shapes(synth) -> None:
     for B in _batch_buckets(SERVE_MAX_BATCH):
         x = torch.randn((B, SERVE_FRAMES, bigru.hidden_size), generator=g, device=dev)
         gi, w_hh, b_hh = bigru.recurrence_inputs(x)
-        w_hh = w_hh.to(torch.bfloat16)
-        err = (gru_fwd(gi, w_hh, b_hh) - gru_fwd_plain(gi, w_hh, b_hh)).abs().max().item()
-        check(err <= GRU_ATOL, f"BiGRU at B={B} x {SERVE_FRAMES}: max |err| {err:.3g}")
-        errs[f"BiGRU B={B} x {SERVE_FRAMES}"] = err
+        kind = bigru.numerics(B)
+        atol = GRU_ATOL if kind == "bf16" else GRU_F32_ATOL
+        w_hh = w_hh.to(torch.bfloat16) if kind == "bf16" else w_hh
+        got = GRU_KERNELS[kind][1](gi, w_hh, b_hh)
+        err = (got - gru_fwd_plain(gi, w_hh, b_hh, kind)).abs().max().item()
+        check(err <= atol, f"BiGRU ({kind}) at B={B} x {SERVE_FRAMES}: max |err| {err:.3g}")
+        errs[f"BiGRU {kind} B={B} x {SERVE_FRAMES}"] = err
     for T in (LONG_N, LONG_T):
         q, k, v, seg = flash_case(2, T, torch.float32, SEED)
         scale = 1.0 / math.sqrt(FLASH_D)
@@ -2709,7 +2831,8 @@ def check_serving_shapes(synth) -> None:
               f"f32 flash forward at [2, {FLASH_H}, {T}, {FLASH_D}]: {err:.3g}, lse {lse_err:.3g}")
         errs[f"flash f32 [2, {FLASH_H}, {T}, {FLASH_D}] (of max)"] = err
     print("kernels vs plain at the serving shapes (atol: fused "
-          f"{FUSED_ATOL}, BiGRU {GRU_ATOL}; flash {FLASH_F32_RTOL} of max): "
+          f"{FUSED_ATOL}, BiGRU {GRU_ATOL} bf16, {GRU_F32_ATOL} f32; flash {FLASH_F32_RTOL} of "
+          "max): "
           + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
 
 
@@ -2735,7 +2858,7 @@ def serving_stack(dev) -> dict:
           f"{per_batch}; a streamed utterance {stream['counts']} ({stream['windows']} windows); "
           f"a long-bucket batch {long_counts}")
     return {k: b8["counts"][k] + stream["counts"][k] + http[k] + long_counts[k]
-            for k in ("fused_resblock", "gru_fwd", "flash_fwd")}
+            for k in ("fused_resblock", "gru_fwd", "gru_fwd_f32", "flash_fwd")}
 
 
 # ---------------------------------------------------------------------------
@@ -2812,7 +2935,7 @@ def train_t2v_loop(tmp: str, loop_counts: dict) -> Text2VecConfig:
             f"{k} {v[k]:.4f}" for k in VAL_KEYS) + f", non-finite batches "
             f"{v['nonfinite_batches']} of {val_batches}, {v['seconds']:.2f} s")
     n_fwd = LOOP_STEPS + n_val * val_batches
-    check(counts["mas"] == n_fwd and counts["gru_fwd"] == n_fwd
+    check(counts["mas"] == n_fwd and bigru_launches(counts, cfg, cfg.batch_size) == n_fwd
           and counts["gru_bwd"] == LOOP_STEPS and counts["fused_resblock"] == 0,
           f"text2vec_loop launches {counts}: want MAS and BiGRU {LOOP_STEPS} steps + "
           f"{n_val * val_batches} validation batches")
@@ -2859,7 +2982,8 @@ def resume_t2v(cfg: Text2VecConfig, loop_counts: dict) -> None:
     check(sorted(rec.steps) == [LOOP_EVERY + 1]
           and all(math.isfinite(v) for v in rec.steps[LOOP_EVERY + 1].values()),
           f"--restore_step {LOOP_EVERY}: steps {rec.steps}")
-    check(counts["mas"] == 1 and counts["gru_fwd"] == 1, f"resumed step launches {counts}")
+    check(counts["mas"] == 1 and bigru_launches(counts, cfg, cfg.batch_size) == 1,
+          f"resumed step launches {counts}")
     print(f"--restore_step {LOOP_EVERY}: weights and LAMB state ({n_moments} moment tensors) "
           f"bit-equal to checkpoint_{LOOP_EVERY}.pth.tar (epoch {epoch}), loaded in "
           f"{load_s:.2f} s; the run went on at step {LOOP_EVERY + 1}, losses "
@@ -3002,8 +3126,8 @@ def serve_trained(t2v_cfg: Text2VecConfig, g_file: str, loop_counts: dict) -> No
                                 seed=SEED)
     counts = read_loop_counters()
     add_counts(loop_counts, counts)
-    check(counts["fused_resblock"] == fused_units(v2w_cfg) and counts["gru_fwd"] == 1,
-          f"serving the trained files: launches {counts}")
+    check(counts["fused_resblock"] == fused_units(v2w_cfg)
+          and bigru_launches(counts, run_cfg) == 1, f"serving the trained files: launches {counts}")
     check(np.isfinite(wav).all() and wav.shape[1] == 512 * v2w_cfg.total_upsample and n[0] > 0,
           f"served waveform {wav.shape}, {n[0]} samples, finite {np.isfinite(wav).all()}")
     print(f"served the trained checkpoint_{LOOP_STEPS}.pth.tar and {os.path.basename(g_file)}: "
@@ -3095,7 +3219,8 @@ def device_t2v_loop(tmp: str, counts: dict) -> None:
             records[name].append(text2vec_loop.main(text2vec_loop.parse_args(runs[name])))
             launches = read_loop_counters()
             add_counts(counts, launches)
-            check(launches["mas"] == 3 and launches["gru_fwd"] == 3 and launches["gru_bwd"] == 3,
+            check(launches["mas"] == 3 and bigru_launches(launches, cfg, cfg.batch_size) == 3
+                  and launches["gru_bwd"] == 3,
                   f"{name} Text2Vec loop launches {launches}: want one MAS and BiGRU a step")
     finally:
         torch.backends.cudnn.deterministic = False
@@ -3251,8 +3376,9 @@ def stage_at_scale(dev, tmp: str, counts: dict) -> None:
         check(all(math.isfinite(metrics[k].item()) for k in SCALAR_KEYS), f"losses {metrics}")
     launches = read_counters()
     add_counts(counts, launches)
-    want = dict(mas=TIMED_STEPS, gru_fwd=TIMED_STEPS, gru_bwd=TIMED_STEPS)
-    check(all(launches[k] == v for k, v in want.items()), f"fed from the cache: {launches}")
+    check(launches["mas"] == TIMED_STEPS and launches["gru_bwd"] == TIMED_STEPS
+          and bigru_launches(launches, cfg, TRAIN_B) == TIMED_STEPS,
+          f"fed from the cache: {launches}")
     ms = float(np.median(times[WARMUP_STEPS:]))
     print(f"  training fed from the cache (B = {TRAIN_B}, N = {STAGE_N}, T = {TRAIN_T}, a "
           f"new batch gathered each step and timed with it): median {ms:.2f} ms of "
@@ -3328,7 +3454,8 @@ def device_gan_loop(tmp: str, counts: dict) -> None:
                                 seed=SEED)
     launches = read_loop_counters()
     add_counts(counts, launches)
-    check(launches["fused_resblock"] == fused_units(gan_config()) and launches["gru_fwd"] == 1,
+    check(launches["fused_resblock"] == fused_units(gan_config())
+          and bigru_launches(launches, t2v_cfg) == 1,
           f"serving the device-trained g_: launches {launches}")
     check(np.isfinite(wav).all() and n[0] > 0, "served waveform not finite")
     print(f"  served {os.path.basename(g_file)}: {int(n[0])} samples, finite; launches {launches}")
@@ -3813,7 +3940,8 @@ def recalibrate_phase(dev, tmp: str, prep: dict, spk_dirs: dict, counts: dict) -
     runs = {}
     for label, key, argv, kernel, per_batch in (
             ("Text2Vec", "model", ["--t2v_checkpoint", t2v_src, "--config", cfg_path,
-                                   "--max_frames", str(RECAL_MAX_FRAMES)], "gru_fwd", 1),
+                                   "--max_frames", str(RECAL_MAX_FRAMES)],
+             GRU_KERNELS[numerics(cfg, TOOLS_B)][0], 1),
             ("Generator", "generator", ["--generator_checkpoint", g_src, "--config", v2w_path,
                                         "--spk_emb_dir", spk_dirs["speechbrain"],
                                         "--gen_frames", str(RECAL_GEN_FRAMES)],
@@ -3861,7 +3989,8 @@ def recalibrate_phase(dev, tmp: str, prep: dict, spk_dirs: dict, counts: dict) -
         wav, n = syn.synthesize([TEST_SENTENCES[1]], ref, spk, max_frames=512, seed=SEED)
     launches = read_loop_counters()
     add_counts(counts, launches)
-    check(launches["fused_resblock"] == fused_units(v2w_cfg) and launches["gru_fwd"] == 1,
+    check(launches["fused_resblock"] == fused_units(v2w_cfg)
+          and bigru_launches(launches, cfg) == 1,
           f"serving the recalibrated files: launches {launches}")
     check(np.isfinite(wav).all() and n[0] > 0, f"served waveform finite "
           f"{np.isfinite(wav).all()}, {n[0]} samples")
@@ -3895,7 +4024,8 @@ def eval_phase(dev, tmp: str, prep: dict, recal: dict, counts: dict) -> None:
     check(rc == 0, f"cli eval-text2vec failed: {log[-2000:]}")
     check(f"loaded checkpoint_{RECAL_STEP}.pth.tar" in log, "eval did not load the checkpoint")
     want = len(TEST_SENTENCES) + 1 + EVAL_RTF_ITERS
-    check(launches["gru_fwd"] == want, f"eval launches {launches}, want {want} BiGRU")
+    check(bigru_launches(launches, load_config(Text2VecConfig, recal["cfg_path"])) == want,
+          f"eval launches {launches}, want {want} BiGRU")
     for i in range(len(TEST_SENTENCES)):
         feat = np.load(os.path.join(results, "1", f"{RECAL_STEP}_{i}_feat.postnet.npy"))
         check(feat.ndim == 2 and feat.shape[0] > 0 and np.isfinite(feat).all(),
@@ -3958,8 +4088,8 @@ def input_wav_phase(dev, counts: dict) -> None:
     card_s = time.perf_counter() - t0
     launches = read_loop_counters()
     add_counts(counts, launches)
-    check(launches["mas"] == 1 and launches["gru_fwd"] == 1 and launches["gru_bwd"] == 1,
-          f"input_wav step launches {launches}")
+    check(launches["mas"] == 1 and bigru_launches(launches, cfg, CHECK_B) == 1
+          and launches["gru_bwd"] == 1, f"input_wav step launches {launches}")
     cpu = wav_step_result(cfg, state, host, ref_wav, "cpu")
     loss_err = compare_steps(card, cpu, STEP_LOSS_RTOL)
     total_err, worst, worst_name = grad_spread(card["grads"], cpu["grads"])
@@ -4518,7 +4648,8 @@ def data_parallel(dev, t2v_cfg=None, gan_cfg=None, shapes=None) -> dict:
         want = {k: v["losses"] for k, v in alone.items()}
         dp_check_step(f"Text2Vec step, global B = {B} at {N} x {T}, {B // DP_WORLD} a rank",
                       [r["t2v"] for r in ranks], want["t2v"],
-                      dict(mas=1, gru_fwd=1, gru_bwd=1, fused_resblock=0)
+                      {"mas": 1, "gru_bwd": 1, "fused_resblock": 0, "gru_fwd": 0,
+                       "gru_fwd_f32": 0, GRU_KERNELS[numerics(t2v_cfg, B // DP_WORLD)][0]: 1}
                       if dev.type == "cuda" else None)  # the CPU launches no kernel
         dp_check_step(f"GAN step, global B = {GB} x {GT} frames, {GB // DP_WORLD} a rank",
                       [r["gan"] for r in ranks], want["gan"])
@@ -4703,7 +4834,13 @@ def main() -> int:
         dict(name="gru_fwd", route="cuda",
              source="wavthruvec_pytorch_tpu_torch/csrc/gru_fwd.cu",
              replaces="wavthruvec_pytorch_tpu/ops/gru_pallas.py:41",
-             launches=launches["gru_fwd"], serving_launches=serving["gru_fwd"], **gru),
+             launches=launches["gru_fwd"], serving_launches=serving["gru_fwd"],
+             **gru["gru_fwd"]),
+        dict(name="gru_fwd_f32", route="cuda",
+             source="wavthruvec_pytorch_tpu_torch/csrc/gru_fwd.cu",
+             replaces="wavthruvec_pytorch_tpu/models/layers.py:776",
+             launches=launches["gru_fwd_f32"], serving_launches=serving["gru_fwd_f32"],
+             **gru["gru_fwd_f32"]),
         dict(name="mas", route="cuda",
              source="wavthruvec_pytorch_tpu_torch/csrc/mas.cu",
              replaces="wavthruvec_pytorch_tpu/ops/mas_pallas.py:30",

@@ -123,9 +123,57 @@ def test_cli_serve_cpu(tmp_path, monkeypatch, capsys):
     assert sorted(os.listdir(tmp_path)) == ["utt_000000.wav", "utt_000001.wav"]
 
 
-def test_cli_gru_impl_scan_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="BiGRU numerics"):
-        _synthesize(tmp_path, "scan", "--gru_impl", "scan")
+def test_cli_gru_impl_scan_synthesizes(tmp_path, monkeypatch):
+    """``--gru_impl scan`` (the JAX package's default: the BiGRU in f32)
+    synthesizes, and on a reference-format checkpoint written by the JAX
+    package its latents match the JAX Synthesizer's on the same texts and
+    reference: frame counts exact, latents atol 1e-4 (f32 on both sides,
+    sums in another order)."""
+    import jax
+    import jax.numpy as jnp
+
+    from tests.test_models import _t2v_batch
+    from tests.test_torch_train import _init_params, _randomize_stats
+    from wavthruvec_pytorch_tpu.config import Text2VecConfig as JT2V
+    from wavthruvec_pytorch_tpu.config import load_config as jload_config
+    from wavthruvec_pytorch_tpu.infer.synthesize import Synthesizer as JSynthesizer
+    from wavthruvec_pytorch_tpu.models import Text2Vec as JText2Vec
+    from wavthruvec_pytorch_tpu.text import TextFrontend as JTextFrontend
+
+    jcfg = jload_config(JT2V, repo_path("data", "demo", "text2vec_tiny.json"))
+    src_seq, src_pos, feat, in_lens, out_lens, feat_pos, prior = _t2v_batch(jcfg)
+    shapes = jax.eval_shape(lambda key: JText2Vec(jcfg).init(
+        {"params": key, "dropout": key}, src_seq, src_pos, feat, in_lens, out_lens, feat_pos,
+        attn_prior=prior, deterministic=True, train_bn=False), jax.random.PRNGKey(0))
+    variables = {"params": _init_params(shapes["params"], 2),
+                 "batch_stats": _randomize_stats(shapes["batch_stats"], 2)}
+    t2v_file = str(tmp_path / "checkpoint_0.pth.tar")
+    jckpt.save_reference_text2vec(t2v_file, variables, jcfg)
+
+    seen = []
+    latents = Synthesizer._latents
+
+    def record(self, *args, **kwargs):
+        out, lengths = latents(self, *args, **kwargs)
+        assert self.t2v.postnet.gru.gru_impl == "scan"
+        seen.append({k: out[k].detach().cpu().numpy()
+                     for k in ("feat_postnet_output", "total_frames")})
+        return out, lengths
+
+    monkeypatch.setattr(Synthesizer, "_latents", record)
+    wavs = _synthesize(tmp_path, "scan", "--gru_impl", "scan", "--t2v_checkpoint", t2v_file)
+    assert len(seen) == 1 and all(np.isfinite(w).all() for w in wavs)
+    texts = [_text(), _text()[:4]]
+    ref = np.load(repo_path("data", "demo", "w2v_feat_tiny", "train", "SSB0000", "u0.npy"))
+    ref = np.repeat(ref.squeeze()[None].astype(np.float32), 2, axis=0)
+    jsyn = JSynthesizer(jcfg, None, variables, None,
+                        JTextFrontend.from_vocab_file(repo_path("data", "demo", "vocab.txt")))
+    want = jsyn.text_to_latents(texts, ref, alpha=3.0)
+    np.testing.assert_array_equal(seen[0]["total_frames"], want["total_frames"])
+    assert want["total_frames"].min() > 0
+    got, ref_lat = seen[0]["feat_postnet_output"], want["feat_postnet_output"]
+    print(f"--gru_impl scan latents: max |port - JAX| {np.abs(got - ref_lat).max():.3g}")
+    np.testing.assert_allclose(got, ref_lat, atol=1e-4)
 
 
 @pytest.mark.parametrize("cmd", sorted(cli.NOT_PORTED))

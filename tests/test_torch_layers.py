@@ -143,7 +143,8 @@ def test_spectral_norm_dense_eval():
 
 def test_bigru_matches_jax_pallas_impl():
     """The port's BiGRU against JAX BiGRU(impl="pallas") (interpret mode on
-    the CPU): the same bf16 rounding on both sides, so atol 1e-4."""
+    the CPU), the port's BiGRU built with the same impl: the same bf16
+    rounding on both sides, so atol 1e-4."""
     x = _x((2, 19, 24)) * 0.5
     jm = jl.BiGRU(hidden=128, impl="pallas")
     jv = jm.init(jax.random.PRNGKey(9), jnp.asarray(x))
@@ -153,5 +154,5 @@ def test_bigru_matches_jax_pallas_impl():
                  ("linw", f"m.weight_hh_l0{t_}", f"m/{d_}_w_hh"),
                  ("raw", f"m.bias_ih_l0{t_}", f"m/{d_}_b_ih"),
                  ("raw", f"m.bias_hh_l0{t_}", f"m/{d_}_b_hh")]
-    tm = _load(tl.BiGRU(24, 128, device="cpu"), jv, rows)
+    tm = _load(tl.BiGRU(24, 128, gru_impl="pallas", device="cpu"), jv, rows)
     np.testing.assert_allclose(*_run(jm, jv, tm, x), atol=1e-4)

@@ -113,8 +113,9 @@ def test_duration_predictor():
 
 
 def test_cbhg_with_pallas_gru():
-    """CBHG against JAX CBHG(gru_impl="pallas") in interpret mode: the same
-    bf16 rounding in the BiGRU on both sides; atol 1e-4."""
+    """CBHG against JAX CBHG(gru_impl="pallas") in interpret mode, the
+    port's CBHG built with the same impl: the same bf16 rounding in the
+    BiGRU on both sides; atol 1e-4."""
     rng = np.random.default_rng(3)
     H = 128
     x = (rng.standard_normal((2, 21, H)) * 0.5).astype(np.float32)
@@ -124,7 +125,7 @@ def test_cbhg_with_pallas_gru():
     rows = [row for row in weights._text2vec_spec(JT2V()) if row[1].startswith("postnet.")]
     sd = weights._to_torch(weights._export({c: {"postnet": t} for c, t in jv.items()}, rows))
     sd["postnet.pre_highway.weight"] = torch.zeros(H, 1024)
-    tm = _strip_load(CBHG(H, K=8, device="cpu").eval(), sd, "postnet.")
+    tm = _strip_load(CBHG(H, K=8, gru_impl="pallas", device="cpu").eval(), sd, "postnet.")
     with torch.no_grad():
         got = tm(torch.tensor(x)).numpy()
     np.testing.assert_allclose(got, want, atol=1e-4)

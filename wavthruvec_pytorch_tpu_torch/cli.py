@@ -101,8 +101,9 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    help="vocoder serving precision: bf16 folds weight norm and stores and "
                    "computes the convolutions in bf16 (audio stays f32)")
     p.add_argument("--gru_impl", choices=("scan", "pallas"), default=None,
-                   help="CBHG BiGRU recurrence: the port computes 'pallas' (bf16 w_hh, "
-                   "f32 carry) only")
+                   help="CBHG BiGRU recurrence (default: the config's): 'scan' computes it in "
+                   "f32; 'pallas' rounds h and w_hh to bf16 with an f32 carry where the JAX "
+                   "package's Pallas gate admits the shape, and computes f32 elsewhere")
     p.add_argument("--device", default=None, help="default: the card (cuda)")
 
 
@@ -110,10 +111,6 @@ def _configs(a):
     from wavthruvec_pytorch_tpu_torch.config import Text2VecConfig, Vec2WavConfig, load_config
     from wavthruvec_pytorch_tpu_torch.text import TextFrontend
 
-    if a.gru_impl == "scan":
-        raise NotImplementedError(
-            "--gru_impl scan is not ported: the port has one set of BiGRU numerics, the JAX "
-            "package's 'pallas' (bf16 w_hh, f32 carry; ROADMAP.md, watch list 'BiGRU numerics')")
     if a.t2v_config:
         t2v_cfg = load_config(Text2VecConfig, a.t2v_config)
         vocab_path = t2v_cfg.vocab_path

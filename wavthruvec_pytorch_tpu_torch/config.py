@@ -6,9 +6,7 @@ JSON config files (``data/demo/*.json``) load into both packages.  Fields
 that only select a JAX implementation keep their names for file
 compatibility:
 
-* ``gru_impl`` selects nothing here: the CBHG BiGRU always computes what the
-  JAX ``gru_impl="pallas"`` kernel computes (bf16 ``w_hh``, f32 carry);
-* ``dropout_prng_impl`` selects nothing here either: it names the JAX PRNG
+* ``dropout_prng_impl`` selects nothing here: it names the JAX PRNG
   (threefry or rbg) that draws dropout keys, and the port draws from
   PyTorch's generator whatever it says;
 * ``MeshConfig`` names JAX's data axis; the port's data parallelism is one
@@ -25,6 +23,15 @@ compatibility:
   on raw waveforms through its fbank front end).  ``flash_attention=True``
   with a head dim above 256 is not ported yet; it raises
   ``NotImplementedError`` where a model is built.
+
+``gru_impl`` selects the CBHG BiGRU's numerics as it does in the JAX
+package (``ops/gru.py`` ``gru_numerics``): ``"scan"``, the default, computes
+the recurrence in f32 (``h`` and ``w_hh`` unrounded, JAX's ``lax.scan``);
+``"pallas"`` rounds ``h`` and ``w_hh`` to bf16 for the hidden matmul with
+an f32 carry (JAX's Pallas kernel) where JAX's gate ``gru_pallas_supported``
+admits the shape (H % 128 == 0, at H = 1024 a batch of at most 28), and
+computes f32 elsewhere, as JAX falls back to its scan.  Each has its own
+hand-written kernel on the card.
 
 Each config names its run's directories as the JAX package's does:
 ``{run_path}/{log_seed}/`` holds ``model_new/`` (the checkpoints),

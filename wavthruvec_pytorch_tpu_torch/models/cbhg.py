@@ -4,9 +4,9 @@
 The K=8 conv bank keeps the reference's per-k BatchNormConv1d (conv pad k//2,
 no bias, ReLU, BN) with the [:T] slice for even kernels; maxpool(k=2, s=1,
 pad=1) is sliced back to T.  The BiGRU runs the hand-written recurrence
-kernel on the card (``ops/gru.py``).  ``dtype`` is the convolutions' compute
-dtype; as in the JAX package the BatchNorms, the highways and the BiGRU
-have none and compute in f32.
+kernel of ``gru_impl``'s numerics on the card (``ops/gru.py``).  ``dtype``
+is the convolutions' compute dtype; as in the JAX package the BatchNorms,
+the highways and the BiGRU have none and compute in f32.
 """
 
 from __future__ import annotations
@@ -40,9 +40,11 @@ class BatchNormConv1d(nn.Module):
 
 
 class CBHG(nn.Module):
-    """[B, T, in_dim] -> [B, T, 2 * in_dim], with projections (256, in_dim)."""
+    """[B, T, in_dim] -> [B, T, 2 * in_dim], with projections (256, in_dim).
+    ``gru_impl`` is the JAX package's: "scan" (its default, f32) or
+    "pallas" (bf16 where JAX's Pallas gate admits the shape)."""
 
-    def __init__(self, in_dim: int, K: int = 8, dtype=None, device=None):
+    def __init__(self, in_dim: int, K: int = 8, dtype=None, gru_impl: str = "scan", device=None):
         super().__init__()
         self.conv1d_banks = nn.ModuleList(
             BatchNormConv1d(in_dim, in_dim, k, padding=k // 2, activation="relu",
@@ -59,7 +61,7 @@ class CBHG(nn.Module):
         # is kept so that reference-layout state dicts load strictly.
         self.pre_highway = nn.Linear(1024, in_dim, bias=False, device=device)
         self.highways = nn.ModuleList(Highway(in_dim, in_dim, device=device) for _ in range(4))
-        self.gru = BiGRU(in_dim, in_dim, device=device)
+        self.gru = BiGRU(in_dim, in_dim, gru_impl=gru_impl, device=device)
 
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:
         T = inputs.shape[1]

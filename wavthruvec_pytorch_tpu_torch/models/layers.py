@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from wavthruvec_pytorch_tpu_torch.ops.gru import GRURecurrence
+from wavthruvec_pytorch_tpu_torch.ops.gru import GRURecurrence, gru_numerics
 from wavthruvec_pytorch_tpu_torch.parallel.mesh import all_reduce_sum, world_size
 from wavthruvec_pytorch_tpu_torch.ops.tiled_conv import tiled_conv_supported, tiled_grouped_conv1d
 
@@ -496,20 +496,24 @@ class BiGRU(nn.Module):
     """Bidirectional single-layer GRU over ``[B, T, C]`` -> ``[B, T, 2H]``
     with torch nn.GRU's gate math and parameter names.
 
-    It computes what the JAX package's ``gru_impl="pallas"`` path computes:
-    the input projections in f32 by one matmul, then the recurrence through
-    ``ops.gru.GRURecurrence``, whose forward is ``gru_fwd`` with ``w_hh``
-    rounded to bf16 and h carried in f32 (on a CUDA tensor the hand-written
-    kernel, on a CPU tensor its plain version) and whose backward is JAX's
-    custom VJP.  The backward direction runs over ``flip(x)`` across the whole
-    padded length with no length masking, as the reference feeds the padded
-    sequence unpacked (text2vec/module.py:356-358), and its output is flipped
-    back.
+    It computes what the JAX package's BiGRU computes for ``gru_impl``: the
+    input projections in f32 by one matmul, then the recurrence through
+    ``ops.gru.GRURecurrence`` in the numerics ``ops.gru.gru_numerics`` maps
+    the impl and shape to, as JAX's ``_gru_fwd_core`` chooses them: f32
+    ``h`` and ``w_hh`` for ``"scan"`` (JAX's default) and for ``"pallas"``
+    where JAX's Pallas gate refuses the shape, bf16 ``h`` and ``w_hh`` with
+    an f32 carry for ``"pallas"`` where it admits it.  The forward is the
+    hand-written kernel of those numerics on a CUDA tensor and its plain
+    version on a CPU tensor; the backward is JAX's custom VJP for both.  The
+    backward direction runs over ``flip(x)`` across the whole padded length
+    with no length masking, as the reference feeds the padded sequence
+    unpacked (text2vec/module.py:356-358), and its output is flipped back.
     """
 
-    def __init__(self, input_size: int, hidden_size: int, device=None):
+    def __init__(self, input_size: int, hidden_size: int, gru_impl: str = "scan", device=None):
         super().__init__()
         self.hidden_size = hidden_size
+        self.gru_impl = gru_impl
         bound = 1.0 / math.sqrt(hidden_size)
         H3 = 3 * hidden_size
         for sfx in ("", "_reverse"):
@@ -538,6 +542,11 @@ class BiGRU(nn.Module):
         b_hh = torch.stack([self.bias_hh_l0, self.bias_hh_l0_reverse]).contiguous()
         return gi, w_hh.transpose(1, 2), b_hh
 
+    def numerics(self, batch: int) -> str:
+        """"bf16" or "f32": what the recurrence computes at this batch size."""
+        return gru_numerics(self.gru_impl, 2, batch, self.hidden_size)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        ys = GRURecurrence.apply(*self.recurrence_inputs(x))  # [2, B, T, H]
+        ys = GRURecurrence.apply(*self.recurrence_inputs(x),
+                                 self.numerics(x.shape[0]))  # [2, B, T, H]
         return torch.cat([ys[0], torch.flip(ys[1], dims=(1,))], dim=-1)

@@ -206,7 +206,8 @@ class Text2Vec(nn.Module):
         self.length_regulator = LengthRegulator(cfg, dtype=dtype, device=device)
         self.WVF_linear = Linear(cfg.decoder_model_dim, cfg.n_feat_dim, dtype=dtype,
                                  device=device)
-        self.postnet = CBHG(cfg.n_feat_dim, K=8, dtype=dtype, device=device)
+        self.postnet = CBHG(cfg.n_feat_dim, K=8, dtype=dtype, gru_impl=cfg.gru_impl,
+                            device=device)
         self.last_linear = Linear(2 * cfg.n_feat_dim, cfg.n_feat_dim, dtype=dtype,
                                   device=device)
         if cfg.learn_alignments:

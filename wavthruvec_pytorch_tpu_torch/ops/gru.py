@@ -1,19 +1,27 @@
-"""Forward recurrence of D stacked GRU directions as a hand-written CUDA
-kernel (``csrc/gru_fwd.cu``) with its plain PyTorch version beside it.
+"""Forward recurrence of D stacked GRU directions as hand-written CUDA
+kernels (``csrc/gru_fwd.cu``) with their plain PyTorch version beside them,
+in the two numerics of the JAX package's ``_gru_fwd_core``
+(models/layers.py:756-787), torch nn.GRU gates and h0 = 0 in both:
 
-JAX counterpart: ``wavthruvec_pytorch_tpu/ops/gru_pallas.py``
-(``gru_fwd_pallas``): torch nn.GRU gates, h0 = 0, ``h`` and ``w_hh``
-rounded to bf16 for the hidden matmul with f32 accumulation, h carried in
-f32.  The port's BiGRU always runs this function: on CUDA tensors it
-launches the kernel, on CPU tensors it runs ``gru_fwd_plain``.  On the card
-``gru_fwd_plan`` picks the kernel's route by shape: one persistent
-cooperative launch with ``w_hh`` resident in shared memory (the CBHG's
-shapes), or one launch a time step where the weights do not fit.
+* "bf16", ``gru_fwd``: JAX ``gru_impl="pallas"`` (``ops/gru_pallas.py``,
+  ``gru_fwd_pallas``): ``h`` and ``w_hh`` rounded to bf16 for the hidden
+  matmul with f32 accumulation, h carried in f32;
+* "f32", ``gru_fwd_f32``: JAX ``gru_impl="scan"`` (its ``lax.scan``), and
+  ``"pallas"`` wherever JAX's gate ``gru_pallas_supported`` refuses the
+  shape: ``h`` and ``w_hh`` in f32, f32 products and sums.
+
+``gru_numerics`` maps ``(gru_impl, D, B, H)`` to one of the two as JAX does.
+On CUDA tensors each wrapper launches its kernel, on CPU tensors it runs
+``gru_fwd_plain``.  On the card ``gru_fwd_plan`` picks the kernel's route by
+shape: one persistent cooperative launch with ``w_hh`` resident in shared
+memory (the CBHG's shapes), or one launch a time step where the weights do
+not fit.
 
 ``GRURecurrence`` makes the recurrence differentiable: its forward is
-``gru_fwd``, its backward ``gru_bwd_plain``, plain PyTorch, as the JAX
-package's backward ``_gru_stacked_bwd`` (models/layers.py:795-840) is a
-``lax.scan`` and not a Pallas kernel.
+``gru_fwd`` or ``gru_fwd_f32``, its backward ``gru_bwd_plain``, plain
+PyTorch, as the JAX package's backward ``_gru_stacked_bwd``
+(models/layers.py:795-840) is a ``lax.scan`` and not a Pallas kernel, the
+same for both impls.
 """
 
 from __future__ import annotations
@@ -26,17 +34,52 @@ import torch
 from wavthruvec_pytorch_tpu_torch.ops import kernel_build
 
 
-def gru_fwd_plain(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor) -> torch.Tensor:
+PRECISIONS = ("bf16", "f32")
+
+# JAX's Pallas gate (ops/gru_pallas.py:35,77-84), copied as a shape rule: the
+# 14 MiB budget is the TPU's VMEM and the H % 128 clause its lane width.  They
+# mean nothing on the card and are kept because they decide which numerics
+# JAX computes under gru_impl="pallas".
+_JAX_VMEM_BUDGET = 14 * 1024 * 1024
+
+
+def gru_pallas_supported(D: int, B: int, H: int) -> bool:
+    """JAX's ``gru_pallas_supported``: bf16 ``w_hh`` resident, the
+    double-buffered step rows and the f32 carry within 14 MiB, H % 128 == 0."""
+    w_bytes = D * H * 3 * H * 2
+    step_bytes = 2 * (D * B * 3 * H * 4 + D * B * H * 4)
+    scratch = D * B * H * 4 + D * 3 * H * 4
+    return H % 128 == 0 and (w_bytes + step_bytes + scratch) <= _JAX_VMEM_BUDGET
+
+
+def gru_numerics(impl: str, D: int, B: int, H: int) -> str:
+    """The numerics JAX's ``_gru_fwd_core`` computes for ``impl`` at D
+    directions, batch B and H units: "bf16" for ``"pallas"`` where its gate
+    holds, "f32" everywhere else (``"scan"``, the gate refusing, or any other
+    string, as JAX's ``if impl == "pallas"`` falls through to the scan)."""
+    return "bf16" if impl == "pallas" and gru_pallas_supported(D, B, H) else "f32"
+
+
+def _check_precision(precision: str) -> None:
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+
+
+def gru_fwd_plain(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
+                  precision: str = "bf16") -> torch.Tensor:
     """gi [D, B, T, 3H] f32 (input projections + b_ih), w_hh [D, H, 3H],
-    b_hh [D, 3H] -> hidden states [D, B, T, H].  ``h`` and ``w_hh`` are
-    rounded to bf16 and their products summed in f32, as the kernel does."""
+    b_hh [D, 3H] -> hidden states [D, B, T, H].  "bf16": ``h`` and ``w_hh``
+    are rounded to bf16 and their products summed in f32, as ``gru_fwd``'s
+    kernel does; "f32": neither is rounded (JAX's scan, ``gru_fwd_f32``)."""
+    _check_precision(precision)
+    bf16 = precision == "bf16"
     D, B, T, H3 = gi.shape
     H = H3 // 3
-    w = w_hh.to(torch.bfloat16).to(torch.float32)
+    w = w_hh.to(torch.bfloat16).to(torch.float32) if bf16 else w_hh.to(torch.float32)
     h = gi.new_zeros(D, B, H)
     ys = []
     for t in range(T):
-        gh = torch.bmm(h.to(torch.bfloat16).to(torch.float32), w) + b_hh[:, None]
+        gh = torch.bmm(h.to(torch.bfloat16).to(torch.float32) if bf16 else h, w) + b_hh[:, None]
         gi_t = gi[:, :, t]
         r = torch.sigmoid(gi_t[..., :H] + gh[..., :H])
         z = torch.sigmoid(gi_t[..., H:2 * H] + gh[..., H:2 * H])
@@ -46,15 +89,16 @@ def gru_fwd_plain(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor) -> t
     return torch.stack(ys, dim=2)
 
 
-# the persistent kernel's block (csrc/gru_fwd.cu): threads, warps, batch rows
-# a tile, and the hidden units a block may own (its template instances)
+# the persistent kernels' block (csrc/gru_fwd.cu): threads, warps, batch rows
+# a tile, and the hidden units a block may own (their template instances)
 _P_WARPS, _BM = 8, 16
 PERSISTENT_UNITS = (8, 16, 24, 32)
+_F_STAGE = 2048  # floats of one of the f32 kernel's two h stages
 _STEP_UNITS = 8  # the steps route's hidden units a block, one warp each
 
 
 class GRUPlan(NamedTuple):
-    """How ``gru_fwd`` runs a shape on the card: ``route`` "persistent" (one
+    """How a wrapper runs a shape on the card: ``route`` "persistent" (one
     cooperative launch for all T steps, ``units`` hidden units of one
     direction a block, their ``w_hh`` rows resident in ``smem`` bytes of
     shared memory) or "steps" (one launch a time step, ``units`` hidden
@@ -67,27 +111,42 @@ class GRUPlan(NamedTuple):
 
 
 def persistent_smem(U: int, B: int, H: int) -> int:
-    """Shared-memory bytes of the persistent kernel (``persistent_smem`` in
-    csrc/gru_fwd.cu): the [3U, H + 8] bf16 ``w_hh`` slice, a [16, H + 8]
+    """Shared-memory bytes of the bf16 persistent kernel (``persistent_smem``
+    in csrc/gru_fwd.cu): the [3U, H + 8] bf16 ``w_hh`` slice, a [16, H + 8]
     bf16 h tile, the 8 warps' [16, 3U] f32 partial sums, gi [B, 3U], the f32
     carry [B, U] and b_hh [3U]."""
     hp, r = H + 8, 3 * U
     return 2 * r * hp + 2 * _BM * hp + 4 * _P_WARPS * _BM * r + 4 * B * r + 4 * B * U + 4 * r
 
 
-def gru_fwd_plan(D: int, B: int, H: int, n_sm: int, smem_bytes: int) -> GRUPlan:
-    """The route for D directions of H units at batch B on a card with
-    ``n_sm`` SMs and ``smem_bytes`` of shared memory a block.  Persistent
-    when some ``U`` in ``PERSISTENT_UNITS`` gives at most one block an SM
-    (D * ceil(H / U) <= n_sm, so the cooperative launch is resident) and its
-    shared memory fits; the smallest such U (the most blocks).  Otherwise
-    the steps route, which takes any D, B and H % 8 == 0.  A choice by
-    shape, made before the launch."""
+def persistent_f32_smem(U: int, B: int, H: int) -> int:
+    """Shared-memory bytes of the f32 persistent kernel
+    (``persistent_f32_smem`` in csrc/gru_fwd.cu): the [3U, H + 4] f32
+    ``w_hh`` slice, the 8 warps' [16, 3U] f32 partial sums (at least two h
+    stages of 2048 floats, which lie there), gi [B, 3U], the f32 carry
+    [B, U] and b_hh [3U].  No whole h tile: h_{t-1} streams through the
+    stages from L2."""
+    hp, r = H + 4, 3 * U
+    red = max(_P_WARPS * _BM * r, 2 * _F_STAGE)
+    return 4 * (r * hp + red + B * r + B * U + r)
+
+
+def gru_fwd_plan(D: int, B: int, H: int, n_sm: int, smem_bytes: int,
+                 precision: str = "bf16") -> GRUPlan:
+    """The route of ``precision``'s kernel for D directions of H units at
+    batch B on a card with ``n_sm`` SMs and ``smem_bytes`` of shared memory a
+    block.  Persistent when some ``U`` in ``PERSISTENT_UNITS`` gives at most
+    one block an SM (D * ceil(H / U) <= n_sm, so the cooperative launch is
+    resident) and its shared memory fits; the smallest such U (the most
+    blocks).  Otherwise the steps route, which takes any D, B and
+    H % 8 == 0.  A choice by shape, made before the launch."""
+    _check_precision(precision)
+    smem_of = persistent_smem if precision == "bf16" else persistent_f32_smem
     for U in PERSISTENT_UNITS:
         blocks = D * -(-H // U)
         if blocks > n_sm:
             continue
-        smem = persistent_smem(U, B, H)
+        smem = smem_of(U, B, H)
         if smem <= smem_bytes:
             return GRUPlan("persistent", blocks, U, smem)
         break  # a larger U only needs more shared memory
@@ -99,10 +158,12 @@ def _lib() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.gru_fwd_device_limits.argtypes = [ctypes.POINTER(i32), ctypes.POINTER(i32)]
     lib.gru_fwd_persistent.argtypes = [ptr] * 6 + [i32] * 5 + [ctypes.c_longlong, ptr]
+    lib.gru_fwd_persistent_f32.argtypes = [ptr] * 5 + [i32] * 5 + [ctypes.c_longlong, ptr]
     lib.gru_fwd_barrier_loop.argtypes = [ptr] + [i32] * 3 + [ctypes.c_longlong, ptr]
     lib.gru_fwd_steps.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
-    for fn in (lib.gru_fwd_device_limits, lib.gru_fwd_persistent, lib.gru_fwd_barrier_loop,
-               lib.gru_fwd_steps):
+    lib.gru_fwd_steps_f32.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
+    for fn in (lib.gru_fwd_device_limits, lib.gru_fwd_persistent, lib.gru_fwd_persistent_f32,
+               lib.gru_fwd_barrier_loop, lib.gru_fwd_steps, lib.gru_fwd_steps_f32):
         fn.restype = ctypes.c_int
     return lib
 
@@ -124,8 +185,12 @@ def device_limits(device: torch.device) -> Tuple[int, int]:
     return _limits[index]
 
 
-def _checked_shape(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor):
-    """(D, B, T, H) of CUDA tensors the kernel takes; raises otherwise."""
+_W_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+
+def _checked_shape(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor, precision: str):
+    """(D, B, T, H) of CUDA tensors ``precision``'s kernel takes; raises
+    otherwise."""
     if gi.device.type != "cuda":
         raise ValueError(f"gru_fwd: unsupported device {gi.device}")
     if gi.dim() != 4 or gi.shape[-1] % 3 != 0:
@@ -134,8 +199,9 @@ def _checked_shape(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor):
     H = H3 // 3
     if H % 8 != 0:
         raise ValueError(f"gru_fwd needs H % 8 == 0 (16-byte weight rows), got H={H}")
-    if tuple(w_hh.shape) != (D, H, H3) or w_hh.dtype != torch.bfloat16:
-        raise ValueError(f"w_hh must be bf16 [{D}, {H}, {H3}], got {w_hh.dtype} "
+    w_dtype = _W_DTYPES[precision]
+    if tuple(w_hh.shape) != (D, H, H3) or w_hh.dtype != w_dtype:
+        raise ValueError(f"w_hh must be {w_dtype} [{D}, {H}, {H3}], got {w_hh.dtype} "
                          f"{tuple(w_hh.shape)}")
     if tuple(b_hh.shape) != (D, H3):
         raise ValueError(f"b_hh must be [{D}, {H3}], got {tuple(b_hh.shape)}")
@@ -149,67 +215,94 @@ def _checked_shape(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor):
     return D, B, T, H
 
 
-def _launch(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor, plan: GRUPlan) -> torch.Tensor:
-    """Run checked CUDA tensors on ``plan``'s route; an empty output
-    launches nothing."""
+def _launch(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor, plan: GRUPlan,
+            precision: str) -> torch.Tensor:
+    """Run checked CUDA tensors on ``plan``'s route of ``precision``'s
+    kernel; an empty output launches nothing."""
     D, B, T, H = gi.shape[0], gi.shape[1], gi.shape[2], gi.shape[3] // 3
     y = torch.empty(D, B, T, H, device=gi.device, dtype=torch.float32)
     if y.numel() == 0:
         return y
     lib = _lib()
+    wrapper = gru_fwd if precision == "bf16" else gru_fwd_f32
     w_t = w_hh.transpose(1, 2).contiguous()  # [D, 3H, H]: no copy for a transposed view
     stream = torch.cuda.current_stream(gi.device).cuda_stream
     if plan.route == "persistent":
-        hx = torch.empty(2, D, B, H, device=gi.device, dtype=torch.bfloat16)
         counter = torch.zeros(D, device=gi.device, dtype=torch.int32)
-        err = lib.gru_fwd_persistent(gi.data_ptr(), w_t.data_ptr(), b_hh.data_ptr(),
-                                     y.data_ptr(), hx.data_ptr(), counter.data_ptr(),
-                                     D, B, T, H, plan.units, plan.smem, stream)
-        kernel_build.check(lib, err, "gru_fwd_persistent")
-        gru_fwd.step_launches += 1
+        if precision == "bf16":
+            hx = torch.empty(2, D, B, H, device=gi.device, dtype=torch.bfloat16)
+            err = lib.gru_fwd_persistent(gi.data_ptr(), w_t.data_ptr(), b_hh.data_ptr(),
+                                         y.data_ptr(), hx.data_ptr(), counter.data_ptr(),
+                                         D, B, T, H, plan.units, plan.smem, stream)
+        else:  # h_{t-1} is read back from y itself
+            err = lib.gru_fwd_persistent_f32(gi.data_ptr(), w_t.data_ptr(), b_hh.data_ptr(),
+                                             y.data_ptr(), counter.data_ptr(),
+                                             D, B, T, H, plan.units, plan.smem, stream)
+        kernel_build.check(lib, err, f"gru_fwd_persistent ({precision})")
+        wrapper.step_launches += 1
     else:
-        err = lib.gru_fwd_steps(gi.data_ptr(), w_t.data_ptr(), b_hh.data_ptr(),
-                                y.data_ptr(), D, B, T, H, stream)
-        kernel_build.check(lib, err, "gru_fwd_steps")
-        gru_fwd.step_launches += T
-    gru_fwd.launches += 1
-    gru_fwd.time_steps += T
+        steps = lib.gru_fwd_steps if precision == "bf16" else lib.gru_fwd_steps_f32
+        err = steps(gi.data_ptr(), w_t.data_ptr(), b_hh.data_ptr(), y.data_ptr(),
+                    D, B, T, H, stream)
+        kernel_build.check(lib, err, f"gru_fwd_steps ({precision})")
+        wrapper.step_launches += T
+    wrapper.launches += 1
+    wrapper.time_steps += T
     return y
 
 
 def gru_fwd(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor) -> torch.Tensor:
-    """gi [D, B, T, 3H] f32 contiguous, w_hh [D, H, 3H] bf16 (any strides),
-    b_hh [D, 3H] f32 contiguous -> [D, B, T, H] f32.  CPU tensors take
-    ``gru_fwd_plain``; CUDA tensors launch the kernel on the route
-    ``gru_fwd_plan`` picks for the shape; anything else raises."""
+    """The bf16 numerics (JAX ``gru_impl="pallas"``): gi [D, B, T, 3H] f32
+    contiguous, w_hh [D, H, 3H] bf16 (any strides), b_hh [D, 3H] f32
+    contiguous -> [D, B, T, H] f32.  CPU tensors take ``gru_fwd_plain``;
+    CUDA tensors launch the kernel on the route ``gru_fwd_plan`` picks for
+    the shape; anything else raises."""
     if gi.device.type == "cpu":
         return gru_fwd_plain(gi, w_hh, b_hh)
-    D, B, T, H = _checked_shape(gi, w_hh, b_hh)
-    return _launch(gi, w_hh, b_hh, gru_fwd_plan(D, B, H, *device_limits(gi.device)))
+    D, B, T, H = _checked_shape(gi, w_hh, b_hh, "bf16")
+    return _launch(gi, w_hh, b_hh, gru_fwd_plan(D, B, H, *device_limits(gi.device)), "bf16")
+
+
+def gru_fwd_f32(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor) -> torch.Tensor:
+    """The f32 numerics (JAX ``gru_impl="scan"``): as ``gru_fwd`` with
+    w_hh [D, H, 3H] f32 (any strides), and h and w_hh unrounded.  CPU
+    tensors take ``gru_fwd_plain(..., "f32")``; CUDA tensors launch the f32
+    kernel on the route ``gru_fwd_plan(..., "f32")`` picks; anything else
+    raises."""
+    if gi.device.type == "cpu":
+        return gru_fwd_plain(gi, w_hh, b_hh, "f32")
+    D, B, T, H = _checked_shape(gi, w_hh, b_hh, "f32")
+    return _launch(gi, w_hh, b_hh, gru_fwd_plan(D, B, H, *device_limits(gi.device), "f32"),
+                   "f32")
 
 
 def gru_fwd_steps(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor) -> torch.Tensor:
-    """``gru_fwd`` on the one-launch-a-step route whatever the shape, CUDA
-    tensors only: to time that route beside the planner's (the main path
-    never calls it)."""
-    D, B, T, H = _checked_shape(gi, w_hh, b_hh)
-    return _launch(gi, w_hh, b_hh, GRUPlan("steps", D * -(-H // _STEP_UNITS), _STEP_UNITS, 0))
+    """``gru_fwd`` (bf16 ``w_hh``) or ``gru_fwd_f32`` (f32 ``w_hh``) on the
+    one-launch-a-step route whatever the shape, CUDA tensors only: to time
+    that route beside the planner's (the main path never calls it).  Counts
+    in the counters of the wrapper whose numerics it runs."""
+    precision = "f32" if w_hh.dtype == torch.float32 else "bf16"
+    D, B, T, H = _checked_shape(gi, w_hh, b_hh, precision)
+    plan = GRUPlan("steps", D * -(-H // _STEP_UNITS), _STEP_UNITS, 0)
+    return _launch(gi, w_hh, b_hh, plan, precision)
 
 
-# calls that launched the kernel, the device launches they issued (1 a call
-# on the persistent route, T on the steps route) and the time steps they ran
-gru_fwd.launches = 0
-gru_fwd.step_launches = 0
-gru_fwd.time_steps = 0
+# each wrapper's calls that launched its kernel, the device launches they
+# issued (1 a call on the persistent route, T on the steps route) and the
+# time steps they ran
+for _fn in (gru_fwd, gru_fwd_f32):
+    _fn.launches = 0
+    _fn.step_launches = 0
+    _fn.time_steps = 0
 
 
-def gru_barrier_loop(D: int, B: int, T: int, H: int, device) -> None:
-    """The persistent route's serial floor at (D, B, T, H): its grid and
-    shared memory, running the T - 1 per-direction barriers and nothing
-    else (to time; the main path never calls it).  Raises if the shape
-    takes the steps route."""
+def gru_barrier_loop(D: int, B: int, T: int, H: int, device, precision: str = "bf16") -> None:
+    """The persistent route's serial floor at (D, B, T, H) for
+    ``precision``'s kernel: its grid and shared memory, running the T - 1
+    per-direction barriers and nothing else (to time; the main path never
+    calls it).  Raises if the shape takes the steps route."""
     device = torch.device(device)
-    plan = gru_fwd_plan(D, B, H, *device_limits(device))
+    plan = gru_fwd_plan(D, B, H, *device_limits(device), precision)
     if plan.route != "persistent":
         raise ValueError(f"gru_barrier_loop: ({D}, {B}, {H}) takes the {plan.route} route")
     lib = _lib()
@@ -225,8 +318,9 @@ def gru_bwd_plain(dys: torch.Tensor, gi: torch.Tensor, hprev: torch.Tensor,
     [D, B, T, H], gi [D, B, T, 3H], w_hh [D, H, 3H] f32, b_hh [D, 3H] ->
     (dgi [D, B, T, 3H], dw_hh [D, H, 3H], db_hh [D, 3H]).
 
-    As in JAX, the gates are recomputed from the forward's f32 ``hprev``
-    with the f32 ``w_hh`` (not the bf16 copy the forward multiplied by).
+    As in JAX, for both numerics, the gates are recomputed from the
+    forward's f32 ``hprev`` with the f32 ``w_hh`` (under "bf16" not the
+    bf16 copy the forward multiplied by).
     Everything that does not depend on the carried gradient is computed for
     all T at once: the gates, and the factors that turn the total gradient
     on h_t into the gate gradients.  The reverse loop over T then carries
@@ -260,17 +354,22 @@ def gru_bwd_plain(dys: torch.Tensor, gi: torch.Tensor, hprev: torch.Tensor,
 
 
 class GRURecurrence(torch.autograd.Function):
-    """The D-direction recurrence with a gradient.  ``apply(gi, w_hh,
-    b_hh)``: gi [D, B, T, 3H] f32 (input projections + b_ih), w_hh
-    [D, H, 3H] f32 (the parameters; the bf16 copy the kernel reads is made
-    here), b_hh [D, 3H] -> [D, B, T, H].  The forward is ``gru_fwd`` (the
-    kernel on CUDA tensors), the backward ``gru_bwd_plain``; the gradients
-    of the input projection reach ``w_ih``, ``b_ih`` and x through the
-    autograd of the matmul that made ``gi``."""
+    """The D-direction recurrence with a gradient.  ``apply(gi, w_hh, b_hh,
+    precision="bf16")``: gi [D, B, T, 3H] f32 (input projections + b_ih),
+    w_hh [D, H, 3H] f32 (the parameters), b_hh [D, 3H] -> [D, B, T, H].  The
+    forward is ``gru_fwd`` on a bf16 copy of ``w_hh`` made here ("bf16") or
+    ``gru_fwd_f32`` on ``w_hh`` itself ("f32"): the kernel on CUDA tensors;
+    the backward ``gru_bwd_plain`` for both.  The gradients of the input
+    projection reach ``w_ih``, ``b_ih`` and x through the autograd of the
+    matmul that made ``gi``."""
 
     @staticmethod
-    def forward(ctx, gi, w_hh, b_hh):
-        ys = gru_fwd(gi, w_hh.to(torch.bfloat16), b_hh)
+    def forward(ctx, gi, w_hh, b_hh, precision="bf16"):
+        _check_precision(precision)
+        if precision == "bf16":
+            ys = gru_fwd(gi, w_hh.to(torch.bfloat16), b_hh)
+        else:
+            ys = gru_fwd_f32(gi, w_hh, b_hh)
         ctx.save_for_backward(gi, ys, w_hh, b_hh)
         return ys
 
@@ -279,7 +378,7 @@ class GRURecurrence(torch.autograd.Function):
         gi, ys, w_hh, b_hh = ctx.saved_tensors
         GRURecurrence.backward_calls += 1
         hprev = torch.cat([ys.new_zeros(ys.shape[:2] + (1, ys.shape[3])), ys[:, :, :-1]], dim=2)
-        return gru_bwd_plain(dys.contiguous(), gi, hprev, w_hh, b_hh)
+        return gru_bwd_plain(dys.contiguous(), gi, hprev, w_hh, b_hh) + (None,)
 
 
 # backward passes run, counted as gru_fwd counts its launches
