@@ -388,6 +388,37 @@ are set to 0 in each rank just before its step or job and read just after:
     ``rtf_bench`` at B = 1 and 4; ``serve_bench`` at B = 1 and 8.  Every
     row carries the card's name.
 
+Then flash attention past head dim 256 (the wide kernels of
+``csrc/flash_attn.cu``: the output's columns in chunks of 128 a block, the
+score products streamed over the whole head dim, zero-padded to a multiple
+of 128), on the long-bucket config at one head (``one_head_config``: d_model
+448, so d_k = d_v = 448 in both stacks, the same attention work as its two
+heads of 224):
+
+45. Each wide kernel against autograd of the plain version at D in
+    ``WIDE_DIMS`` (288, 300: no multiple of 32, 448: run at 512, 512): bf16
+    at [16, 1, 3072, D] with the last item padded from ``WIDE_TAIL`` on, f32
+    at [1, 1, 3072 | 768, D], within phase 13's tolerances; each with its
+    times (CUDA events on a filled queue), its bound (the function's own
+    work at the unpadded D: 4 T^2 D B H operations forward, 8 dK/dV, 6 dQ,
+    10 the backward), the plain version's times and SDPA's forward, forward
+    + backward and backward (the same boolean mask; the backend PyTorch
+    picks named by its own choice function); ``ptxas``'s registers and
+    spills of the six wide instances (none may spill).
+46. Phase 15 at one head: one bf16 flash step card against CPU (and the f32
+    step) at B = 8, N = 256, T = 512, the same weights and tolerances; 8
+    launches of each wide kernel a step and none of the templates'.
+47. Training and serving at full width: ``WARMUP_STEPS`` then
+    ``TIMED_STEPS`` bf16 steps of the one-head config at B = 16 x 768 x 3072,
+    the counters (set to 0 just before the timed steps) showing per step 8
+    launches of each wide kernel (one a kernel an FFT block: the column
+    chunks are one grid) and none of the templates'; one f32 request of
+    3072 frames through ``Synthesizer`` (8 wide forward launches).
+48. ``text2vec_loop.main`` on the demo corpus (``data/demo/text2vec.json``)
+    with ``--profile_dir`` and ``--precompile``: 9 steps, the precompile's
+    seconds, the trace's spans (iterations 3-8) and device kernels counted,
+    MAS, the f32 BiGRU and cuDNN's convolutions among them.
+
 Every float32 product and convolution in this run is full float32: TF32 is
 off for matmuls and cuDNN.  Every Text2Vec config it drives but phase 3's
 "pallas" copy says ``gru_impl`` "scan", so their BiGRU is the f32 kernel
@@ -397,7 +428,9 @@ one entry per kernel (``serving_launches``: the launches of phases 22-24
 and 26; ``loop_launches``: those of phases 28-31; ``data_launches``: those
 of phases 32-36; ``tools_launches``: those of phases 37-41;
 ``parallel_launches``: those of phases 42-43 summed over the ranks;
-``bench_launches``: those of phase 44); the last line is
+``bench_launches``: those of phase 44; the wide flash kernels' rows
+``launches``: those of phase 47's timed steps, their times phase 45's at
+[16, 1, 3072, 448] bf16, f32_ keys at [1, 1, 3072, 448]); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -511,11 +544,17 @@ from wavthruvec_pytorch_tpu_torch.ops.gru import (
     gru_numerics,
 )
 from wavthruvec_pytorch_tpu_torch.ops.flash_attention import (
+    KERNELS as FLASH_KERNELS,
     backward_inputs,
     flash_attention_plain,
     flash_bwd_dkv,
+    flash_bwd_dkv_wide,
     flash_bwd_dq,
+    flash_bwd_dq_wide,
     flash_fwd,
+    flash_fwd_wide,
+    kernel_width,
+    kernels_for,
 )
 from wavthruvec_pytorch_tpu_torch.ops.mas import MAX_K as MAS_MAX_K
 from wavthruvec_pytorch_tpu_torch.ops.mas import MAX_N as MAS_MAX_N
@@ -1304,14 +1343,23 @@ def reset_counters() -> None:
     mas_width1.launches = 0
     reset_gru_counters()
     GRURecurrence.backward_calls = 0
-    flash_fwd.launches = flash_bwd_dkv.launches = flash_bwd_dq.launches = 0
+    for fn in FLASH_KERNELS:
+        fn.launches = 0
 
 
 def read_counters() -> dict:
     return dict(mas=mas_width1.launches, gru_fwd=gru_fwd.launches,
                 gru_fwd_f32=gru_fwd_f32.launches, gru_bwd=GRURecurrence.backward_calls,
-                flash_fwd=flash_fwd.launches, flash_bwd_dkv=flash_bwd_dkv.launches,
-                flash_bwd_dq=flash_bwd_dq.launches)
+                **{fn.__name__: fn.launches for fn in FLASH_KERNELS})
+
+
+def flash_step_kernels(cfg) -> tuple:
+    """The names of the three flash kernels a step of ``cfg`` launches (both
+    FFT stacks take d_k = d_model // encoder_head; the long-bucket widths are
+    equal) and of the three it must not."""
+    d_k = cfg.decoder_model_dim // cfg.encoder_head
+    used = tuple(fn.__name__ for fn in kernels_for(d_k))
+    return used, tuple(fn.__name__ for fn in FLASH_KERNELS if fn.__name__ not in used)
 
 
 # The two BiGRU kernels by the numerics ops.gru.gru_numerics picks for a
@@ -1708,7 +1756,7 @@ def profile_step(trainer, batch) -> None:
         print(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:6d}  {e.key[:100]}")
     flash = {}
     for e in kernels:
-        name = re.search(r"flash_\w+", e.key)
+        name = re.search(r"flash_\w+|wide_(?:fwd|dkv|dq)_kernel", e.key)
         if name:
             ms, n = flash.get(name.group(0), (0.0, 0))
             flash[name.group(0)] = (ms + e.self_device_time_total / 1e3, n + e.count)
@@ -1724,12 +1772,12 @@ def long_config() -> Text2VecConfig:
     return load_config(Text2VecConfig, repo_path(*LONG_CFG))
 
 
-def flash_case(B: int, T: int, dtype, seed: int, lens=None, D: int = FLASH_D):
+def flash_case(B: int, T: int, dtype, seed: int, lens=None, D: int = FLASH_D, H: int = FLASH_H):
     """q, k, v [B, H, T, D] as the model passes them (transposed views of
     [B, T, H, D]), seeded N(0, 1), and segment ids of the lengths ``lens``,
     by default mixed lengths in [T/2, T] (the first item full)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v = (torch.randn((B, T, FLASH_H, D), generator=g, device="cuda")
+    q, k, v = (torch.randn((B, T, H, D), generator=g, device="cuda")
                .to(dtype).transpose(1, 2) for _ in range(3))
     if lens is None:
         lens = np.random.default_rng(seed).integers(T // 2, T + 1, B)
@@ -1740,16 +1788,16 @@ def flash_case(B: int, T: int, dtype, seed: int, lens=None, D: int = FLASH_D):
 
 
 def flash_bound(B: int, T: int, dtype, n_products: int, n_in: int, n_out: int, n_rows: int,
-                peak_f32: float = PEAK_F32_TC):
+                peak_f32: float = PEAK_F32_TC, H: int = FLASH_H, D: int = FLASH_D):
     """Bound of a flash kernel: ``n_products`` products of 2 B H T^2 D
     operations at the bf16 tensor-core peak, or in f32 at ``peak_f32`` (by
     default f32-accurate work on the tensor cores, ``PEAK_F32_TC``); bytes:
     ``n_in`` [B, T, H, D] tensors read and ``n_out`` written, ``n_rows`` f32
-    [B, H, T] rows moved and the int32 segment ids."""
+    [B, H, T] rows moved and the int32 segment ids.  D is the function's own
+    head dim, before any padding."""
     size = torch.tensor([], dtype=dtype).element_size()
-    n_bytes = (size * (n_in + n_out) * B * T * FLASH_H * FLASH_D
-               + 4.0 * n_rows * B * FLASH_H * T + 4.0 * B * T)
-    n_ops = 2.0 * n_products * B * FLASH_H * T * T * FLASH_D
+    n_bytes = (size * (n_in + n_out) * B * T * H * D + 4.0 * n_rows * B * H * T + 4.0 * B * T)
+    n_ops = 2.0 * n_products * B * H * T * T * D
     return bound_ms(n_bytes, n_ops, PEAK_BF16 if dtype == torch.bfloat16 else peak_f32)
 
 
@@ -1941,9 +1989,10 @@ def flash_backward_times(B: int, T: int, dtype, scale: float) -> dict:
     return t
 
 
-def train_long(dev):
-    """Phase 14: the long-bucket bf16 training step."""
-    cfg = long_config()
+def train_long(dev, cfg=None):
+    """Phase 14 (the long-bucket config) and phase 47 (its one-head copy):
+    the long-bucket bf16 training step."""
+    cfg = long_config() if cfg is None else cfg
     check(cfg.compute_dtype == "bfloat16" and cfg.flash_attention and cfg.dropout == 0.0,
           f"{'/'.join(LONG_CFG)} is not the bf16 flash config")
     torch.manual_seed(SEED)
@@ -1953,13 +2002,15 @@ def train_long(dev):
     host = synthetic_batch(cfg, LONG_B, LONG_N, LONG_T, SEED)
     batch = trainer.to_device(host)
     frames = int(host["output_lengths"].sum())
-    print(f"long-bucket training: {'/'.join(LONG_CFG)}, bf16, flash attention, "
+    heads = f"{cfg.encoder_head} head(s) of {cfg.decoder_model_dim // cfg.encoder_head}"
+    print(f"long-bucket training: {'/'.join(LONG_CFG)}, {heads}, bf16, flash attention, "
           f"{sum(p.numel() for p in trainer.params) / 1e6:.1f} M trained parameters, "
           f"B={LONG_B} N={LONG_N} T={LONG_T}, {frames} real frames, dropout {cfg.dropout}, "
-          f"lr {cfg.learning_rate}")
-    launches = timed_training(trainer, batch, frames, "long-bucket training",
+          f"lr {cfg.learning_rate}; {card_line()}")
+    used, _ = flash_step_kernels(cfg)
+    launches = timed_training(trainer, batch, frames, f"long-bucket training, {heads}",
                               {"mas": 1, GRU_KERNELS[numerics(cfg, LONG_B)][0]: 1, "gru_bwd": 1,
-                               "flash_fwd": 8, "flash_bwd_dkv": 8, "flash_bwd_dq": 8})
+                               **{name: 8 for name in used}})
     return trainer, host, batch, launches
 
 
@@ -2009,18 +2060,31 @@ def dense_long_step(dev, host) -> None:
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
-def check_flash_step_against_cpu():
-    """Phase 15: one bf16 flash step, card against CPU; the CPU's f32 step
-    on the same weights measures bf16's own noise in the gradients.  Then
-    the card's f32 flash step against that CPU f32 step."""
-    cfg = long_config()
+def check_flash_launches(cfg, per_kernel: int, label: str) -> None:
+    """Each of the three flash kernels of ``cfg``'s head dim launched
+    ``per_kernel`` times since the counters were set to 0; the other
+    family's three, none."""
+    used, other = flash_step_kernels(cfg)
+    counts = read_counters()
+    check(all(counts[n] == per_kernel for n in used) and not any(counts[n] for n in other),
+          f"{label}: flash launches {counts}, want {per_kernel} of each of {used}")
+
+
+def check_flash_step_against_cpu(cfg=None):
+    """Phase 15 (the long-bucket config) and phase 46 (its one-head copy):
+    one bf16 flash step, card against CPU; the CPU's f32 step on the same
+    weights measures bf16's own noise in the gradients.  Then the card's f32
+    flash step against that CPU f32 step.  The weights are seeded alike at
+    one head and two (the projections' shapes do not depend on the head
+    count)."""
+    cfg = long_config() if cfg is None else cfg
+    heads = f"{cfg.encoder_head} head(s) of {cfg.decoder_model_dim // cfg.encoder_head}"
     torch.manual_seed(SEED + 2)
     state = Text2Vec(cfg, device="cpu").state_dict()
     host = synthetic_batch(cfg, BF16_CHECK_B, BF16_CHECK_N, BF16_CHECK_T, SEED + 2, diagonal=True)
     reset_counters()
     card = step_result(cfg, state, host, "cuda", torch.bfloat16)
-    check(flash_fwd.launches == flash_bwd_dkv.launches == flash_bwd_dq.launches == 8,
-          f"card step: flash launches {read_counters()}")
+    check_flash_launches(cfg, 8, "card step")
     t0 = time.perf_counter()
     cpu = step_result(cfg, state, host, "cpu", torch.bfloat16)
     cpu_s = time.perf_counter() - t0
@@ -2028,7 +2092,7 @@ def check_flash_step_against_cpu():
     f32 = cpu_f32["grads"]
     loss_err = compare_steps(card, cpu, BF16_STEP_LOSS_RTOL)
     zeros = {n: torch.zeros_like(g) for n, g in f32.items()}
-    print(f"bf16 flash training step, card vs CPU (B={BF16_CHECK_B} N={BF16_CHECK_N} "
+    print(f"bf16 flash training step, {heads}, card vs CPU (B={BF16_CHECK_B} N={BF16_CHECK_N} "
           f"T={BF16_CHECK_T}, diagonal prior; CPU bf16 part {cpu_s:.1f} s): hard alignment and "
           f"durations equal, losses {loss_err:.2e} (rtol {BF16_STEP_LOSS_RTOL}); gradients, "
           f"||card - CPU|| against the CPU's ||bf16 - f32||, as shares of ||f32||:")
@@ -2045,24 +2109,25 @@ def check_flash_step_against_cpu():
 
     reset_counters()
     card_f32 = step_result(cfg, state, host, "cuda")
-    check(flash_fwd.launches == flash_bwd_dkv.launches == flash_bwd_dq.launches == 8,
-          f"card f32 step: flash launches {read_counters()}")
+    check_flash_launches(cfg, 8, "card f32 step")
     loss_err = compare_steps(card_f32, cpu_f32, STEP_LOSS_RTOL)
     total_err, worst, worst_name = grad_spread(card_f32["grads"], f32)
     check(total_err <= STEP_GRAD_GLOBAL_RTOL, f"f32 flash step gradients: card vs CPU "
                                               f"{total_err:.3g} of the norm")
     check(worst <= STEP_GRAD_RTOL, f"f32 flash step gradient {worst_name}: card vs CPU "
                                    f"{worst:.3g} of its norm")
-    print(f"f32 flash training step, card vs CPU (same weights and batch; 8 launches of each "
-          f"flash kernel on the card): hard alignment and durations equal, losses {loss_err:.2e} "
+    print(f"f32 flash training step, {heads}, card vs CPU (same weights and batch; 8 launches "
+          f"of each flash kernel on the card): hard alignment and durations equal, losses {loss_err:.2e} "
           f"(rtol {STEP_LOSS_RTOL}), {len(f32)} gradients: ||card - CPU|| / ||CPU|| "
           f"{total_err:.2e} in all (rtol {STEP_GRAD_GLOBAL_RTOL}), worst tensor {worst:.2e} in "
           f"{worst_name} (rtol {STEP_GRAD_RTOL})")
 
 
-def serve_long(dev):
-    """Phase 16: one long-bucket request in f32 through the flash forward."""
-    cfg = dataclasses.replace(long_config(), vocab_path="data/demo/vocab.txt")
+def serve_long(dev, cfg=None):
+    """Phase 16 (the long-bucket config) and phase 47 (its one-head copy):
+    one long-bucket request in f32 through the flash forward."""
+    cfg = dataclasses.replace(long_config() if cfg is None else cfg,
+                              vocab_path="data/demo/vocab.txt")
     syn = make_synthesizer(dev, cfg)
     text, ref, spk = demo_inputs(syn)
     texts = [text(300)]
@@ -2072,7 +2137,7 @@ def serve_long(dev):
 
     run()  # warm-up
     torch.cuda.synchronize()
-    flash_fwd.launches = 0
+    reset_counters()
     times = []
     for _ in range(REPEATS):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2081,17 +2146,230 @@ def serve_long(dev):
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
-    check(flash_fwd.launches == 8 * REPEATS,
-          f"long-bucket request: {flash_fwd.launches} flash launches in {REPEATS}, not 8 each")
+    fwd = flash_step_kernels(cfg)[0][0]
+    counts = read_counters()
+    check(counts[fwd] == 8 * REPEATS and sum(counts[fn.__name__] for fn in FLASH_KERNELS)
+          == 8 * REPEATS, f"long-bucket request: flash launches {counts} in {REPEATS}, not 8 "
+          f"{fwd} each")
     frames = n_samples // syn.v2w_cfg.total_upsample
     check(wav.shape == (1, LONG_T * syn.v2w_cfg.total_upsample) and bool(np.isfinite(wav).all())
           and 0 < int(frames[0]) <= LONG_T, f"long-bucket request: wav {wav.shape}, {frames}")
     ms = float(np.median(times))
     audio_s = float(n_samples.sum()) / SAMPLE_RATE
-    print(f"long-bucket request (f32, flash, text bucket {LONG_N}, {LONG_T} frames): "
+    print(f"long-bucket request (f32, flash, {cfg.encoder_head} head(s) of "
+          f"{cfg.decoder_model_dim // cfg.encoder_head}, text bucket {LONG_N}, {LONG_T} frames): "
           f"total_frames {frames.tolist()}, median {ms:.2f} ms of {REPEATS} (min {min(times):.2f}, "
           f"max {max(times):.2f}), {audio_s:.2f} s of speech, realtime factor "
-          f"{audio_s / (ms / 1e3):.1f}, 8 flash forward launches a request")
+          f"{audio_s / (ms / 1e3):.1f}, 8 {fwd} launches a request; {card_line()}")
+
+
+# phase 45: head dims past 256 on the wide kernels.  The bf16 training shape
+# [WIDE_B, 1, LONG_T, D] with its last item padded from WIDE_TAIL on, and the
+# f32 serving shapes [1, 1, LONG_T | LONG_N, D]; D = 300 is no multiple of 32
+# and 448 (the long bucket's d_model at one head) runs zero-padded to 512.
+# Tolerances: phase 13's FLASH_*_RTOL and FLASH_LSE_ATOL.
+WIDE_DIMS = (288, 300, 448, 512)
+WIDE_B, WIDE_TAIL = LONG_B, 2000
+WIDE_ROW_D = 448  # the kernels line's times: the one-head long-bucket step's shapes
+
+
+def one_head_config() -> Text2VecConfig:
+    """The long-bucket config at one head: d_k = d_v = 448 in both FFT
+    stacks, the same attention work as its two heads of 224."""
+    return dataclasses.replace(long_config(), encoder_head=1, decoder_head=1)
+
+
+def wide_ptxas() -> None:
+    """ptxas's register and spill report of each wide instance (f32 and
+    bf16); none may spill."""
+    log = kernel_build.build_log("flash_attn").splitlines()
+    seen = 0
+    for i, line in enumerate(log):
+        m = re.search(r"\d+(wide_(?:fwd|dkv|dq)_kernel)I(f|13__nv_bfloat16)E", line)
+        if m is None or "entry function" not in line:
+            continue
+        info = " ".join(x.strip() for x in log[i + 1:i + 4] if "registers" in x or "spill" in x)
+        name = f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'bf16'}>"
+        print(f"  {name}: {info}")
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", info)
+        check(spills is not None and spills.groups() == ("0", "0"), f"{name} spills: {info}")
+        seen += 1
+    check(seen == 6, f"ptxas reported {seen} wide instances, not 6")
+
+
+def sdpa_backend(q, k, v, mask, scale: float) -> str:
+    """The backend ``F.scaled_dot_product_attention`` picks for these inputs,
+    by PyTorch's own choice function."""
+    from torch.nn.attention import SDPBackend
+
+    return SDPBackend(torch._fused_sdp_choice(q, k, v, mask, 0.0, False, scale=scale)).name.lower()
+
+
+def check_flash_wide():
+    """Phase 45: the wide kernels (forward, dK/dV, dQ) against autograd of
+    the plain version at ``WIDE_DIMS``, each with its times, bound (its own
+    work at the unpadded D) and SDPA's forward and forward + backward; the
+    kernels line's rows take the training shape at ``WIDE_ROW_D`` (f32_ keys:
+    the f32 serving decoder's)."""
+    print(f"wide flash kernels (head dims past 256), ptxas; {card_line()}:")
+    wide_ptxas()
+    print(f"wide flash kernels vs the plain version (out, grads: rtol {FLASH_BF16_RTOL} bf16, "
+          f"{FLASH_F32_RTOL} f32 of max; lse: atol {FLASH_LSE_ATOL}), H=1; bounds at the "
+          f"function's own work (4 T^2 D B H forward, 8 and 6 T^2 D B H dK/dV and dQ, 10 the "
+          f"backward) at the unpadded D; {card_line()}:")
+    rows = {}
+    cases = []
+    for D in WIDE_DIMS:
+        cases += [("training decoder", WIDE_B, LONG_T, D, torch.bfloat16,
+                   [LONG_T] * (WIDE_B - 1) + [WIDE_TAIL]),
+                  ("serving decoder", 1, LONG_T, D, torch.float32, [LONG_T]),
+                  ("serving encoder", 1, LONG_N, D, torch.float32, [LONG_N])]
+    for label, B, T, D, dtype, lens in cases:
+        q, k, v, seg = flash_case(B, T, dtype, SEED + 3, lens, D, H=1)
+        dout = torch.randn(q.shape, device="cuda").to(dtype)
+        scale = 1.0 / math.sqrt(D)
+        out, lse = flash_fwd_wide(q, k, v, seg, scale)
+        ins = backward_inputs(q, k, v, seg, out, lse, dout)
+        dk, dv = flash_bwd_dkv_wide(ins, scale)
+        dq = flash_bwd_dq_wide(ins, scale)
+        qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+        o_plain, lse_plain = flash_attention_plain(*qkv, seg, scale)
+        want = torch.autograd.grad(o_plain, qkv, dout, retain_graph=True)
+        torch.cuda.synchronize()
+        errs = {"out": rel_err(out, o_plain)}
+        errs.update({n: rel_err(a, b) for n, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), want)})
+        lse_err = float((lse - lse_plain).abs().max())
+        tol = FLASH_BF16_RTOL if dtype == torch.bfloat16 else FLASH_F32_RTOL
+        check(max(errs.values()) <= tol and lse_err <= FLASH_LSE_ATOL,
+              f"wide flash {label} D={D} {dtype}: {errs}, lse {lse_err:.3g}")
+        abs_err = {n: float((a.float() - b.float()).abs().max())
+                   for n, a, b in zip(("out", "dq", "dk", "dv"), (out, dq, dk, dv),
+                                      (o_plain,) + tuple(want))}
+        reps = 3 if dtype == torch.bfloat16 else 10
+        t = dict(fwd=cuda_ms(lambda: flash_fwd_wide(q, k, v, seg, scale), reps, queued=True),
+                 prep=cuda_ms(lambda: backward_inputs(q, k, v, seg, out, lse, dout), reps,
+                              queued=True),
+                 dkv=cuda_ms(lambda: flash_bwd_dkv_wide(ins, scale), reps, queued=True),
+                 dq=cuda_ms(lambda: flash_bwd_dq_wide(ins, scale), reps, queued=True))
+        t["call_dkv"] = cuda_ms(lambda: flash_bwd_dkv_wide(
+            backward_inputs(q, k, v, seg, out, lse, dout), scale), reps, queued=True)
+        t["call_dq"] = cuda_ms(lambda: flash_bwd_dq_wide(
+            backward_inputs(q, k, v, seg, out, lse, dout), scale), reps, queued=True)
+        t["plain"] = cuda_ms(lambda: flash_attention_plain(q, k, v, seg, scale), 1, warmup=0)
+        t["plain_bwd"] = cuda_ms(lambda: torch.autograd.grad(o_plain, qkv, dout,
+                                                             retain_graph=True), 1, warmup=0)
+        del o_plain, ins
+        mask = (seg[:, :, None] == seg[:, None, :])[:, None]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
+
+        def sdpa_fwd_bwd():
+            o = F.scaled_dot_product_attention(*qkv, attn_mask=mask, scale=scale)
+            torch.autograd.grad(o, qkv, dout)
+
+        t["sdpa"] = cuda_ms(sdpa, reps, queued=True)
+        t["sdpa_fb"] = cuda_ms(sdpa_fwd_bwd, reps, queued=True)
+        o_sdpa = F.scaled_dot_product_attention(*qkv, attn_mask=mask, scale=scale)
+        t["sdpa_bwd"] = cuda_ms(lambda: torch.autograd.grad(o_sdpa, qkv, dout, retain_graph=True),
+                                reps, queued=True)
+        del o_sdpa
+        backend = sdpa_backend(q, k, v, mask, scale)
+        b_fwd, by_fwd = flash_bound(B, T, dtype, 2, 3, 1, 1, H=1, D=D)
+        b_dkv, by_dkv = flash_bound(B, T, dtype, 4, 4, 2, 2, H=1, D=D)
+        b_dq, by_dq = flash_bound(B, T, dtype, 3, 4, 1, 2, H=1, D=D)
+        b_bwd, _ = flash_bound(B, T, dtype, 5, 4, 3, 2, H=1, D=D)
+        product = 2.0 * B * T * T * D
+        bwd = t["prep"] + t["dkv"] + t["dq"]
+        print(f"  {label} [{B}, 1, {T}, {D}] {str(dtype)[6:]} (run at {kernel_width(D)}, "
+              f"{kernel_width(D) // 128} column chunks): out {errs['out']:.2e}, lse {lse_err:.2e}, "
+              f"dq {errs['dq']:.2e}, dk {errs['dk']:.2e}, dv {errs['dv']:.2e} of max; forward "
+              f"{t['fwd']:.3f} ms ({rate(2 * product, t['fwd'], b_fwd)}; bound {b_fwd:.4f}, "
+              f"{by_fwd}), dK/dV {t['dkv']:.3f} ms ({rate(4 * product, t['dkv'], b_dkv)}), dQ "
+              f"{t['dq']:.3f} ms ({rate(3 * product, t['dq'], b_dq)}), preparation "
+              f"{t['prep']:.3f} ms, the backward {bwd:.3f} ms (bound {b_bwd:.4f}); a call alone "
+              f"with its preparation: dK/dV {t['call_dkv']:.3f}, dQ {t['call_dq']:.3f} ms; plain "
+              f"forward {t['plain']:.3f}, backward {t['plain_bwd']:.3f} ms; SDPA [{backend}] "
+              f"forward {t['sdpa']:.3f}, forward + backward {t['sdpa_fb']:.3f}, backward "
+              f"{t['sdpa_bwd']:.3f} ms")
+        row_err = {"flash_fwd_wide": abs_err["out"],
+                   "flash_bwd_dkv_wide": max(abs_err["dk"], abs_err["dv"]),
+                   "flash_bwd_dq_wide": abs_err["dq"]}
+        for name, err in row_err.items():
+            row = rows.setdefault(name, dict(max_abs_err=0.0))
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+        if D != WIDE_ROW_D:
+            continue
+        if label == "training decoder":
+            rows["flash_fwd_wide"].update(ms=t["fwd"], plain_ms=t["plain"], bound_ms=b_fwd,
+                                          bound_by=by_fwd, library_ms=t["sdpa"])
+            for name, call, bms, by in (("flash_bwd_dkv_wide", t["call_dkv"], b_dkv, by_dkv),
+                                        ("flash_bwd_dq_wide", t["call_dq"], b_dq, by_dq)):
+                rows[name].update(ms=call, plain_ms=t["plain_bwd"], bound_ms=bms, bound_by=by,
+                                  library_ms=t["sdpa_fb"])
+        elif label == "serving decoder":
+            for name, call, bms, by in (("flash_bwd_dkv_wide", t["call_dkv"], b_dkv, by_dkv),
+                                        ("flash_bwd_dq_wide", t["call_dq"], b_dq, by_dq)):
+                rows[name].update(f32_ms=call, f32_plain_ms=t["plain_bwd"], f32_bound_ms=bms,
+                                  f32_bound_by=by, f32_sdpa_bwd_ms=t["sdpa_bwd"])
+    return rows
+
+
+def profile_t2v_loop(dev) -> None:
+    """Phase 48: ``cli train-text2vec``'s loop on the demo corpus with
+    ``--profile_dir`` and ``--precompile``: 9 steps, the trace of the steps
+    from iteration 3 to 8 (one span each), its device kernels counted, MAS,
+    the f32 BiGRU and cuDNN's convolutions among them; the precompile's
+    seconds."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_prof_") as tmp:
+        cfg = dataclasses.replace(load_config(Text2VecConfig, repo_path("data", "demo",
+                                                                        "text2vec.json")),
+                                  run_path=os.path.join(tmp, "run"), epochs=4, save_step=1000,
+                                  log_step=1000)
+        prof_dir = os.path.join(tmp, "prof")
+        args = text2vec_loop.parse_args(["--max_steps", "9", "--profile_dir", prof_dir,
+                                         "--precompile"])
+        buf = io.StringIO()
+        reset_counters()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rec = text2vec_loop.main(args, cfg=cfg)
+        wall = time.perf_counter() - t0
+        said = [line for line in buf.getvalue().splitlines()
+                if line.startswith(("precompiled", "profile:"))]
+        check(sorted(rec.steps) == list(range(1, 10)), f"profiled loop steps {sorted(rec.steps)}")
+        check(any(line.startswith("precompiled the step's kernels") for line in said),
+              f"--precompile printed nothing: {said}")
+        files = os.listdir(prof_dir)
+        check(files == ["text2vec_rank0.pt.trace.json"], f"--profile_dir wrote {files}")
+        path = os.path.join(prof_dir, files[0])
+        with open(path, encoding="utf-8") as f:
+            events = json.load(f)["traceEvents"]
+        size = os.path.getsize(path) / 2**20
+    spans = sorted(int(e["name"].rsplit(" ", 1)[1]) for e in events
+                   if e.get("name", "").startswith(text2vec_loop.PROFILE_SPAN)
+                   and e.get("cat") == "user_annotation")
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    by_name = {}
+    for e in kernels:
+        ms, n = by_name.get(e["name"], (0.0, 0))
+        by_name[e["name"]] = (ms + e.get("dur", 0) / 1e3, n + 1)
+    convs = [n for n in by_name if re.search(r"cudnn|implicit_gemm|fprop|dgrad|wgrad", n, re.I)]
+    has = {what: any(what in n for n in by_name)
+           for what in ("mas_cluster_kernel", "gru_persistent_f32_kernel")}
+    check(spans == list(range(text2vec_loop.PROFILE_START, text2vec_loop.PROFILE_STOP + 1)),
+          f"trace spans {spans}")
+    check(all(has.values()) and convs, f"trace kernels: {has}, cuDNN convolutions {convs[:3]}")
+    counts = read_counters()
+    check(counts["mas"] == 9 and counts["gru_fwd_f32"] == 9, f"profiled loop launches {counts}")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    print(f"text2vec loop with --profile_dir and --precompile (demo config, 9 steps, {wall:.1f} s "
+          f"of wall time): {'; '.join(said)}; the trace ({size:.1f} MiB) holds the spans of "
+          f"iterations {spans}, {len(kernels)} device kernel launches of {len(by_name)} kernels, "
+          f"{len(convs)} of them cuDNN convolution kernels; MAS and the f32 BiGRU present; "
+          f"{card_line()}")
+    for name, (ms, n) in top:
+        print(f"    {ms:8.3f} ms  x{n:5d}  {name[:100]}")
 
 
 def gan_config() -> Vec2WavConfig:
@@ -4824,6 +5102,20 @@ def main() -> int:
     t0 = time.perf_counter()
     bench = benches(dev)
     print(f"phase 44: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    wide = check_flash_wide()
+    torch.cuda.empty_cache()
+    check_flash_step_against_cpu(one_head_config())
+    trainer, _, _, wide_launches = train_long(dev, one_head_config())
+    del trainer
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        serve_long(dev, one_head_config())
+    torch.cuda.empty_cache()
+    profile_t2v_loop(dev)
+    print(f"phases 45-48: {time.perf_counter() - t0:.1f} s")
 
     kernels = [
         dict(name="fused_resblock", route="cuda",
@@ -4853,6 +5145,12 @@ def main() -> int:
                             replaces=f"{flash_src}:{line}", launches=long_launches[name],
                             **flash[name]))
     next(k for k in kernels if k["name"] == "flash_fwd")["serving_launches"] = serving["flash_fwd"]
+    for name, line in (("flash_fwd_wide", 589), ("flash_bwd_dkv_wide", 941),
+                       ("flash_bwd_dq_wide", 1287)):
+        kernels.append(dict(name=name, route="cuda",
+                            source="wavthruvec_pytorch_tpu_torch/csrc/flash_attn.cu",
+                            replaces=f"{flash_src}:{line}", launches=wide_launches[name],
+                            **wide[name]))
     for kern in kernels:
         kern["loop_launches"] = loop.get(kern["name"], 0)
         kern["data_launches"] = data.get(kern["name"], 0)

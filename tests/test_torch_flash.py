@@ -15,7 +15,6 @@ largest value (the attention), and for the block, whose projections round
 to bf16 in both packages at other sums, 3e-2.
 """
 
-import dataclasses
 import json
 import math
 
@@ -117,10 +116,10 @@ def test_wrapper_raises_on_other_dtypes_and_devices(bad):
         fa.flash_attention(q, q, q, torch.ones(1, 64, dtype=torch.int32, device=q.device), 1.0)
 
 
-def _block_pair(T, dtype, seed, use_flash=True):
-    """The port's and JAX's FFTBlock(d_model 32, d_inner 48, 2 heads of 16,
-    use_flash, dtype) on the same weights; a batch of 2 whose second item
-    is padded from 3/4 of T on."""
+def _block_pair(T, dtype, seed, use_flash=True, n_head=2, d_k=16):
+    """The port's and JAX's FFTBlock(d_model 32, d_inner 48, ``n_head``
+    heads of ``d_k``, use_flash, dtype) on the same weights; a batch of 2
+    whose second item is padded from 3/4 of T on."""
     rng = np.random.default_rng(seed)
     B, D = 2, 32
     x = rng.standard_normal((B, T, D)).astype(np.float32)
@@ -129,14 +128,14 @@ def _block_pair(T, dtype, seed, use_flash=True):
     non_pad = (seq != 0).astype(np.float32)[..., None]
     mask = np.broadcast_to((seq == 0)[:, None, :], (B, T, T))
     jdt = jnp.bfloat16 if dtype == "bfloat16" else None
-    jm = JFFT(D, 48, 2, 16, 16, dropout=0.0, use_flash=use_flash, dtype=jdt)
+    jm = JFFT(D, 48, n_head, d_k, d_k, dropout=0.0, use_flash=use_flash, dtype=jdt)
     jargs = (jnp.asarray(x), jnp.asarray(non_pad), jnp.asarray(mask))
     jv = jm.init(jax.random.PRNGKey(seed), *jargs)
     want = np.asarray(jm.apply(jv, *jargs)[0].astype(jnp.float32))
     sd = weights._to_torch(weights._export(
         {"params": {"m": {"layer_stack_0": jax.tree_util.tree_map(np.asarray, jv["params"])}}},
         weights._fft_stack_spec("m", "m", 1)))
-    tm = FFTBlock(D, 48, 2, 16, 16, dropout=0.0, use_flash=use_flash,
+    tm = FFTBlock(D, 48, n_head, d_k, d_k, dropout=0.0, use_flash=use_flash,
                   dtype=torch.bfloat16 if dtype == "bfloat16" else None, device="cpu")
     tm.load_state_dict({k[len("m.layer_stack.0."):]: v for k, v in sd.items()}, strict=True)
     with torch.no_grad():
@@ -157,6 +156,26 @@ def test_flash_block_matches_jax(dtype):
     err = np.abs(got[real] - want[real]).max()
     print(f"{dtype} flash FFTBlock vs JAX: real rows max |diff| {err:.3g}, "
           f"relative {_max_rel(got[real], want[real]):.3g}")
+    if dtype == "float32":
+        np.testing.assert_allclose(got[real], want[real], atol=2e-5)
+    else:
+        assert _max_rel(got[real], want[real]) <= BLOCK_BF16_RTOL
+
+
+@pytest.mark.parametrize("d_k", [288, 448])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wide_flash_block_matches_jax(dtype, d_k):
+    """FFTBlock(use_flash=True) with one head of d_k = 288 or 448 (the wide
+    kernels' head dims on the card: zero-padded to 384 and 512) at T = 256
+    against JAX's ``MultiHeadAttention`` block, which takes its dense branch
+    on the CPU, at ``test_flash_block_matches_jax``'s tolerances."""
+    got, attn, want, seq = _block_pair(256, dtype, seed=5, n_head=1, d_k=d_k)
+    assert tuple(attn.shape) == (2, 1, 0, 0)  # the flash branch ran
+    real = seq.astype(bool)
+    assert not got[~real].any() and not want[~real].any()
+    print(f"{dtype} d_k={d_k} flash FFTBlock vs JAX: real rows max |diff| "
+          f"{np.abs(got[real] - want[real]).max():.3g}, relative "
+          f"{_max_rel(got[real], want[real]):.3g}")
     if dtype == "float32":
         np.testing.assert_allclose(got[real], want[real], atol=2e-5)
     else:
@@ -194,8 +213,10 @@ def test_dropout_guard():
 def test_kernel_shape_rule():
     """``kernel_shape_ok`` takes every length the model's flash gate lets
     through at the head dim of both FFT stacks of the long-bucket config (an
-    instantiated width, run unpadded), and any head dim up to 256 in both
-    dtypes; it rejects what the kernels do not take."""
+    instantiated width, run unpadded), and any head dim in both dtypes: up
+    to 256 on the templates' widths, past it on the wide kernels at the next
+    multiple of 128 (JAX's padding); it rejects what the kernels do not
+    take."""
     cfg = load_config(Text2VecConfig, repo_path("artifacts", "flash_longbucket", "flash",
                                                 "longbucket", "config.json"))
     dims = {cfg.encoder_output_dim // cfg.encoder_head, cfg.decoder_model_dim // cfg.encoder_head}
@@ -206,14 +227,21 @@ def test_kernel_shape_rule():
         for B in (1, 16):
             for dtype in (torch.bfloat16, torch.float32):
                 assert fa.kernel_shape_ok(B, 2, T, 224, dtype), (B, T, dtype)
-    for D in (1, 12, 48, 64, 96, 128, 200, 256):
+    for D in (1, 12, 48, 64, 96, 128, 200, 256, 257, 288, 300, 448, 512, 1024, 1100):
         for dtype in (torch.bfloat16, torch.float32):
             assert fa.kernel_shape_ok(1, 2, 64, D, dtype), (D, dtype)
     assert [fa.kernel_width(D) for D in (1, 64, 65, 128, 129, 224, 225, 256)] == \
         [64, 64, 128, 128, 224, 224, 256, 256]
+    assert [fa.kernel_width(D) for D in (257, 288, 300, 384, 385, 448, 512, 1024, 1100)] == \
+        [384, 384, 384, 384, 512, 512, 512, 1024, 1152]
+    assert not any(fa.wide(D) for D in (1, 224, 256)) and all(fa.wide(D) for D in (257, 448))
+    assert fa.kernels_for(256) == (fa.flash_fwd, fa.flash_bwd_dkv, fa.flash_bwd_dq)
+    assert fa.kernels_for(288) == (fa.flash_fwd_wide, fa.flash_bwd_dkv_wide,
+                                   fa.flash_bwd_dq_wide)
     for bad in ((1, 2, 96, 224, torch.bfloat16), (0, 2, 64, 224, torch.bfloat16),
-                (1, 2, 64, 288, torch.bfloat16), (1, 2, 64, 320, torch.float32),
-                (1, 2, 64, 0, torch.float32), (1, 2, 64, 224, torch.float16)):
+                (1, 2, 96, 288, torch.bfloat16), (1, 2, 100, 448, torch.float32),
+                (1, 2, 64, 0, torch.float32), (1, 2, 64, 224, torch.float16),
+                (1, 2, 64, 448, torch.float16)):
         assert not fa.kernel_shape_ok(*bad), bad
 
 
@@ -236,13 +264,13 @@ def test_f32_splits():
         assert blocks / (waves * 132) > 0.7, (T, s, blocks)
 
 
-@pytest.mark.parametrize("D", [12, 48, 96])
+@pytest.mark.parametrize("D", [12, 48, 96, 300, 448])
 def test_head_dim_padding_is_exact(D):
-    """What the wrappers do for a head dim outside ``WIDTHS``: zero-pad q, k,
-    v and dout to ``kernel_width(D)``, keep sm_scale = 1/sqrt(D), slice the
-    output and gradients back.  On the plain version in f32 (B = 2, H = 2,
+    """What the wrappers do for a head dim outside ``WIDTHS`` (and past 256
+    not a multiple of 128): zero-pad q, k, v and dout to ``kernel_width(D)``,
+    keep sm_scale = 1/sqrt(D), slice the output and gradients back.  On the plain version in f32 (B = 2, H = 2,
     T = 128, the second item padded from 90 on) the output, lse and the
-    three gradients equal the unpadded ones within 1e-6."""
+    three gradients equal the unpadded ones within 1e-6 (2e-6 past 256)."""
     rng = np.random.default_rng(D)
     B, H, T = 2, 2, 128
     W = fa.kernel_width(D)
@@ -262,17 +290,20 @@ def test_head_dim_padding_is_exact(D):
     want, _ = run(D)
     got, pad_out = run(W)
     assert not pad_out.any()
+    # past 256 the CPU's f32 GEMM blocks the 512-column sums otherwise than
+    # the 448-column ones: ~10 ulp of the largest values (~2) apart
+    atol = 1e-6 if D <= fa.WIDTHS[-1] else 2e-6
     for name, g, w in zip(("out", "lse", "dq", "dk", "dv"), got, want):
-        np.testing.assert_allclose(g.detach().numpy(), w.detach().numpy(), atol=1e-6, err_msg=name)
+        np.testing.assert_allclose(g.detach().numpy(), w.detach().numpy(), atol=atol, err_msg=name)
 
 
 def test_backward_inputs_shared():
     """``backward_inputs``, made once a backward for both kernels: q, k, v
     and dout in the kernels' contiguous [B, T, H, D] layout (both dtypes
-    zero-padded to ``kernel_width(D)``), int32 segment ids, and delta =
-    rowsum(dout * out) in f32 (against float64, 1e-5 of the row's sum of
-    |terms|).  It raises for
-    a head dim above 256, and the kernels refuse CPU inputs."""
+    zero-padded to ``kernel_width(D)``, past 256 to a multiple of 128 for
+    the wide kernels), int32 segment ids, and delta = rowsum(dout * out) in
+    f32 (against float64, 1e-5 of the row's sum of |terms|).  The kernels
+    refuse CPU inputs."""
     rng = np.random.default_rng(4)
     B, H, T, D = 2, 2, 64, 224
     q, k, v, out, dout = (torch.tensor(rng.standard_normal((B, H, T, D)), dtype=torch.bfloat16)
@@ -299,52 +330,72 @@ def test_backward_inputs_shared():
     assert f32.q.shape == (B, T, H, 64)  # zero-padded to kernel_width(48), as bf16
     assert torch.equal(f32.q[..., :48], q[..., :48].float().transpose(1, 2))
     assert not f32.q[..., 48:].any() and not f32.dout[..., 48:].any()
-    wide = torch.zeros(B, H, T, 288, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="D <= 256"):
-        fa.backward_inputs(wide, wide, wide, seg, wide, lse, wide)
+    wide = [torch.tensor(rng.standard_normal((B, H, T, 300)), dtype=torch.bfloat16)
+            for _ in range(5)]
+    wins = fa.backward_inputs(*wide[:3], seg, wide[3], lse, wide[4])
+    assert wins.shape == (B, H, T, 300)
+    for name, t in (("q", wide[0]), ("k", wide[1]), ("v", wide[2]), ("dout", wide[4])):
+        got = getattr(wins, name)
+        assert got.shape == (B, T, H, 384) and got.is_contiguous(), name
+        assert torch.equal(got[..., :300], t.transpose(1, 2)) and not got[..., 300:].any(), name
+    want_delta = (wide[4].double() * wide[3].double()).sum(-1)
+    assert float(((wins.delta.double() - want_delta).abs()).max()) <= 1e-5 * float(
+        (wide[4].double() * wide[3].double()).abs().sum(-1).max())
+    with pytest.raises(ValueError, match="device"):
+        fa.flash_bwd_dkv_wide(wins, 0.1)
     with pytest.raises(ValueError, match="device"):
         fa.flash_bwd_dkv(ins, 0.1)
     with pytest.raises(ValueError, match="device"):
         fa.flash_bwd_dq(ins, 0.1)
 
 
-@pytest.mark.parametrize("d_k, dtype", [(288, torch.bfloat16), (288, None),
-                                        (320, torch.bfloat16)])
+@pytest.mark.parametrize("d_k, dtype", [(288, torch.bfloat16), (320, None),
+                                        (448, torch.bfloat16)])
 def test_flash_block_on_card_refuses_head_dim(d_k, dtype):
-    """A flash block built for a CUDA device raises ValueError at
-    construction for a head dim the kernels do not take (above 256), before
-    it allocates anything (so it raises here too); ``head_dim_ok`` holds the
-    rule, and the CPU block takes any head dim."""
-    with pytest.raises(ValueError, match="d_k <= 256"):
+    """A flash block built for a CUDA device takes a head dim past 256 (the
+    wide kernels run it): on a machine without a card it fails only where
+    torch first allocates on the card, with torch's own error, not the
+    block's; ``head_dim_ok`` takes it in both dtypes, and so does the CPU
+    block."""
+    try:
         FFTBlock(2 * d_k, 64, 2, d_k, d_k, dropout=0.0, use_flash=True, dtype=dtype,
                  device="cuda")
-    assert not fa.head_dim_ok(d_k, dtype or torch.float32)
-    for D in (1, 48, 224, 256):
+    except (AssertionError, RuntimeError) as err:  # torch's, without a card
+        assert "d_k" not in str(err)
+    for D in (1, 48, 224, 256, d_k):
         assert fa.head_dim_ok(D, torch.bfloat16) and fa.head_dim_ok(D, torch.float32)
     FFTBlock(2 * d_k, 64, 2, d_k, d_k, dropout=0.0, use_flash=True, dtype=dtype, device="cpu")
 
 
 @pytest.mark.parametrize("encoder_dim, decoder_dim, head", [(576, 448, 2), (448, 576, 2),
-                                                           (1152, 1152, 4)])
+                                                           (256, 256, 1)])
 def test_flash_config_past_head_dim_256_refused_on_cpu(tmp_path, encoder_dim, decoder_dim,
                                                         head):
-    """A Text2Vec config with flash_attention=True whose head dim (d_model //
-    encoder_head, either stack) exceeds 256 is refused where the model is
-    built, on the CPU as on the card: ``check_ported`` raises before any
-    module is made.  The same config without flash, and the shipped d_k =
-    224, pass the gate."""
+    """A Text2Vec config with flash_attention=True whose head dim exceeds 256
+    passes ``check_ported`` and builds: both FFT stacks take d_k = d_model //
+    encoder_head, d_model the encoder's output (``encoder_dim`` plus
+    ``n_speaker_dim`` with the multi-speaker condition, 192 here) or the
+    decoder's; (256, 256, 1) is the long-bucket config's widths at one head,
+    d_k 448, where ``encoder_dim // head`` alone would say 256."""
     from wavthruvec_pytorch_tpu_torch.config import check_ported
     from wavthruvec_pytorch_tpu_torch.models.text2vec import Text2Vec
     raw = dict(encoder_dim=encoder_dim, decoder_dim=decoder_dim, encoder_head=head,
-               decoder_head=head, flash_attention=True)
+               decoder_head=head, flash_attention=True, n_speaker_dim=192,
+               encoder_n_layer=1, decoder_n_layer=1, encoder_conv1d_filter_size=32,
+               decoder_conv1d_filter_size=32, n_feat_dim=32, spk_channel=32)
     path = tmp_path / "t2v.json"
     path.write_text(json.dumps(raw))
     cfg = load_config(Text2VecConfig, str(path))
-    assert max(encoder_dim, decoder_dim) // head == 288
-    with pytest.raises(NotImplementedError, match="d_k=288"):
-        Text2Vec(cfg, device="cpu")
-    check_ported(dataclasses.replace(cfg, flash_attention=False))
-    check_ported(dataclasses.replace(cfg, encoder_dim=448, decoder_dim=448, encoder_head=2))
+    assert cfg.use_multi_speaker_condition
+    d_ks = {cfg.encoder_output_dim // head, cfg.decoder_model_dim // head}
+    assert min(d_ks) > 256
+    check_ported(cfg)
+    model = Text2Vec(cfg, device="cpu")
+    built = {model.encoder.layer_stack[0].slf_attn.d_k,
+             model.decoder.layer_stack[0].slf_attn.d_k}
+    assert built == d_ks
+    assert all(stack.layer_stack[0].slf_attn.use_flash for stack in (model.encoder,
+                                                                      model.decoder))
 
 
 def test_flash_block_on_card_takes_padded_head_dim():

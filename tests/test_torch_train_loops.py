@@ -396,8 +396,16 @@ def test_loop_switches_parse_strictly(loop, flag, value, want):
 
 @pytest.mark.parametrize("flag", ["--precompile", "--profile_dir"])
 def test_text2vec_loop_refuses_jax_only_flags(flag):
-    with pytest.raises(SystemExit):
-        text2vec_loop.parse_args([flag, "x"])
+    """JAX's ``--precompile`` and ``--profile_dir`` parse in the port as in
+    JAX's loop (``tests/test_torch_loop_flags.py`` holds every option), and
+    are refused where JAX's parser refuses them: ``--precompile`` takes no
+    value, ``--profile_dir`` needs one."""
+    bad, good, want = (([flag, "x"], [flag], True) if flag == "--precompile"
+                       else ([flag], [flag, "x"], "x"))
+    for parse in (text2vec_loop.parse_args, jt2v_loop.parse_args):
+        with pytest.raises(SystemExit):
+            parse(bad)
+        assert getattr(parse(good), flag[2:]) == want
 
 
 @pytest.mark.parametrize("loop", ["text2vec", "vec2wav"])

@@ -21,8 +21,7 @@ compatibility:
   as the JAX package does, and bf16 serving goes through
   ``make_serving_generator``) and ``Text2VecConfig.input_wav=True`` (ECAPA
   on raw waveforms through its fbank front end).  ``flash_attention=True``
-  with a head dim above 256 is not ported yet; it raises
-  ``NotImplementedError`` where a model is built.
+  takes every head dim, as JAX's flash branch does.
 
 ``gru_impl`` selects the CBHG BiGRU's numerics as it does in the JAX
 package (``ops/gru.py`` ``gru_numerics``): ``"scan"``, the default, computes
@@ -237,10 +236,6 @@ def load_config(cls, path: str):
     return cls(**kwargs)
 
 
-# the largest head dim the flash kernels take (ops/flash_attention.py)
-FLASH_MAX_HEAD_DIM = 256
-
-
 def _run_dir(cfg, name: str) -> str:
     return os.path.join(cfg.run_path, cfg.log_seed, name)
 
@@ -267,17 +262,11 @@ def parse_bool(value: str) -> bool:
 
 
 def check_ported(cfg) -> None:
-    """Raise for a config flag whose JAX implementation is not ported yet."""
-    if isinstance(cfg, Text2VecConfig) and cfg.flash_attention:
-        # both FFT stacks take d_k = d_model // encoder_head (models/text2vec.py)
-        d_k = max(cfg.encoder_dim, cfg.decoder_dim) // cfg.encoder_head
-        if d_k > FLASH_MAX_HEAD_DIM:
-            raise NotImplementedError(
-                f"flash_attention=True with head dim d_k={d_k} is not ported: the flash "
-                f"kernels take d_k <= {FLASH_MAX_HEAD_DIM} (ROADMAP.md, queue 1 item 12: "
-                "flash kernels past head dim 256).  The gate holds on every device, so the CPU "
-                "refuses what the card would."
-            )
+    """Raise for a config flag whose JAX implementation is not ported yet,
+    on every device, before any module is made: the models, trainers and
+    loops call it.  Every flag of ``Text2VecConfig`` and ``Vec2WavConfig``
+    is ported, flash attention at any head dim included, so it raises for
+    none."""
 
 
 def repo_path(*parts: str) -> str:

@@ -23,13 +23,14 @@
 // which the JAX package calls at wavthruvec_pytorch_tpu/models/fft_block.py
 // :106-134: _flash_attention_impl (pallas_call :758), _flash_attention_bwd_dkv
 // (:1121) and _flash_attention_bwd_dq (:1456).  The JAX package zero-pads a
-// head dim above 128 to a multiple of 128 for it (224 -> 256).  Here every
-// kernel is a template on the head dim HD, built for HD = 64, 128, 224 and
-// 256 (a multiple of 32: a TMA box is 32 columns, a wgmma k-step 16; the f32
-// backward splits dQ's columns in halves of 8-column tiles); the wrapper
-// zero-pads any other D <= 256 to the next of them, which is exact (padded
-// columns add 0 to every q.k; padded v columns give output columns that are
-// dropped).
+// head dim above 128 to a multiple of 128 for it (224 -> 256) and so takes
+// any head dim.  Here every kernel is a template on the head dim HD, built
+// for HD = 64, 128, 224 and 256 (a multiple of 32: a TMA box is 32 columns,
+// a wgmma k-step 16; the f32 backward splits dQ's columns in halves of
+// 8-column tiles); past 256 three wide kernels (below) take any multiple of
+// 128.  The wrapper zero-pads any other D to the next width, which is exact
+// (padded columns add 0 to every q.k; padded v columns give output columns
+// that are dropped).
 //
 // What bounds them on an H100: at T = 3072, D = 224 the products (4 T^2 D
 // operations a head forward, 10 T^2 D backward) put them far above the
@@ -1206,6 +1207,540 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constan
 }
 
 // ===========================================================================
+// Head dims past 256: the wide kernels (mma.sync, f32 and bf16)
+// ===========================================================================
+//
+// JAX's flash branch takes any head dim: it zero-pads d_k above 128 to a
+// multiple of 128.  Past 256 the templates above run out of room, since
+// their output accumulator grows with HD (HD / 2 registers a thread in the
+// bf16 forward; flash_bwd_dkv_f32<256> takes 255) and so do their resident
+// tiles (a 128-row bf16 Q tile is 128 KB at HD = 512).  The wide kernels
+// hold both fixed whatever the head dim DP (a multiple of WC, the caller
+// zero-pads to it as JAX pads to 128):
+//
+//   * the output's columns are split over blockIdx.z in chunks of WC = 128,
+//     so a thread holds one 16-row x 128-column accumulator at most;
+//   * the score products (S = Q K^T, and dP = dO V^T in the backward) run
+//     over all DP columns, streamed through shared memory in stages of
+//     WK = 64 columns of both operands by a two-stage cp.async ring; their
+//     accumulators do not grow with DP.  Every chunk's block recomputes
+//     them with the same code on the same data in the same order, so all
+//     chunks see the same scores, maxima and row sums and normalise alike;
+//     chunk 0 alone writes lse.  The product operand of the chunk (V, or Q
+//     and dO, or K: 128 columns of a tile) is loaded beside the ring.
+//
+// Both dtypes run one code path on the TF32 tensor cores with mma.sync
+// m16n8k8 and the f32 kernels' fragment scheme: f32 inputs as 3xTF32 (f32
+// accuracy); bf16 inputs as one TF32 product, exact, since a bf16 value is
+// a TF32 value and the product of two is exact in f32 (the sums a bf16
+// product with f32 accumulation makes).  P and dS are rounded to bf16 before
+// their products, as the bf16 kernels round them.  So bf16 runs at TF32's
+// rate, half of bf16's: a first design, simple and right.
+//
+// Blocks are 8 warps.  Forward: 128 query rows (16 a warp), key tiles of
+// 32.  dK/dV and dQ: 64 rows as 4 pairs of warps, the pair splitting the
+// products as the f32 backward above does (dK/dV: role 0 S^T, P^T and dV,
+// role 1 dP^T, dS^T and dK; dQ: role 0 S and P, role 1 dP, both dS and half
+// of the chunk's dQ columns), tiles of 32.  Operations bound them; the
+// recomputed score products multiply the work by the chunk count.
+
+constexpr int WC = 128;   // output columns a block (blockIdx.z); DP is a multiple
+constexpr int WK = 64;    // head-dim columns a stage of the score products
+constexpr int WQ = 128;   // forward: query rows a block
+constexpr int WB = 64;    // backward: keys (dK/dV) or queries (dQ) a block
+constexpr int WN = 32;    // keys (forward, dQ) or queries (dK/dV) a tile
+constexpr int WT = 256;   // threads a block: 8 warps
+constexpr int WNT = WN / 8;
+
+// Shared row stride of a COLS-column tile: 16 bytes of padding keep rows
+// 16-byte aligned for cp.async and spread a fragment load over the banks.
+template <typename T>
+__host__ __device__ constexpr int wld(int cols) {
+  return cols + 16 / static_cast<int>(sizeof(T));
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+
+template <typename T>
+constexpr bool kF32 = std::is_same<T, float>::value;
+
+// x rounded to the input dtype (a bf16 P or dS before its product)
+template <typename T>
+__device__ __forceinline__ float round_in(float x) {
+  if constexpr (kF32<T>) return x;
+  else return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// An operand at the input dtype's accuracy: f32 split into TF32 hi and lo;
+// a bf16 value is a TF32 value (hi = x, lo unused).
+template <typename T>
+__device__ __forceinline__ void w_operand(float x, uint32_t& hi, uint32_t& lo) {
+  if constexpr (kF32<T>) {
+    split_tf32(x, hi, lo);
+  } else {
+    hi = __float_as_uint(x);
+    lo = 0u;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void w_mma(float (&c)[4], const uint32_t (&ah)[4],
+                                      const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
+                                      uint32_t bl0, uint32_t bl1) {
+  if constexpr (kF32<T>) mma_3xtf32(c, ah, al, bh0, bh1, bl0, bl1);
+  else hopper::mma_tf32(c, ah, bh0, bh1);
+}
+
+// Start copying rows [r0, r0 + rows) of COLS columns (src: the first column
+// of the head's row 0, row stride rs elements) into a shared tile of row
+// stride wld<T>(COLS); rows at or past `limit` are zero-filled.
+template <typename T, int COLS>
+__device__ __forceinline__ void w_load(T* dst, const T* src, int r0, int rows, int limit,
+                                       size_t rs) {
+  constexpr int E = 16 / static_cast<int>(sizeof(T)), CPR = COLS / E, LD = wld<T>(COLS);
+  for (int i = threadIdx.x; i < rows * CPR; i += WT) {
+    const int r = i / CPR, c = (i - r * CPR) * E;
+    const bool in = r0 + r < limit;
+    cp_async16(smem_u32(dst + r * LD + c), src + static_cast<size_t>(in ? r0 + r : 0) * rs + c,
+               in ? 16u : 0u);
+  }
+}
+
+// s += A B^T over one stage's WK columns: A's 16 rows at `ta` (the warp's
+// element (g, t)), B's WN rows from `tb` (row 0), both of row stride
+// wld<T>(WK), B read as the f32 forward reads K.  The stage sums into fresh
+// registers, added to s on the CUDA cores, so no tensor-core chain of adds
+// runs past a stage.
+template <typename T>
+__device__ __forceinline__ void w_scores(float (&s)[WNT][4], const T* ta, const T* tb) {
+  constexpr int LD = wld<T>(WK);
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  float part[WNT][4];
+#pragma unroll
+  for (int n = 0; n < WNT; ++n) part[n][0] = part[n][1] = part[n][2] = part[n][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < WK; kk += 8) {
+    uint32_t ah[4], al[4];
+    w_operand<T>(to_f32(ta[kk]), ah[0], al[0]);
+    w_operand<T>(to_f32(ta[kk + 8 * LD]), ah[1], al[1]);
+    w_operand<T>(to_f32(ta[kk + 4]), ah[2], al[2]);
+    w_operand<T>(to_f32(ta[kk + 8 * LD + 4]), ah[3], al[3]);
+#pragma unroll
+    for (int n = 0; n < WNT; ++n) {
+      const T* bp = tb + (8 * n + g) * LD + kk + t;
+      uint32_t bh0, bl0, bh1, bl1;
+      w_operand<T>(to_f32(bp[0]), bh0, bl0);
+      w_operand<T>(to_f32(bp[4]), bh1, bl1);
+      w_mma<T>(part[n], ah, al, bh0, bh1, bl0, bl1);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < WNT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] += part[n][e];
+}
+
+// acc[n] += round(x) B over a tile's WN rows, NO 8-column tiles of B: x (16
+// x WN, accumulator layout) is the A operand with the keys of each 8-key
+// step in the order (0, 2, 4, 6, 1, 3, 5, 7), as in the f32 kernels; `vb`
+// points at B's row 2 t, column g (row stride wld<T>(WC)).  Each 8-column
+// tile sums the tile's rows into fresh registers first.
+template <typename T, int NO>
+__device__ __forceinline__ void w_accumulate(float (&acc)[NO][4], const float (&x)[WNT][4],
+                                             const T* vb) {
+  constexpr int LD = wld<T>(WC);
+  uint32_t xh[WNT][4], xl[WNT][4];
+#pragma unroll
+  for (int ks = 0; ks < WNT; ++ks) {
+    w_operand<T>(round_in<T>(x[ks][0]), xh[ks][0], xl[ks][0]);
+    w_operand<T>(round_in<T>(x[ks][2]), xh[ks][1], xl[ks][1]);
+    w_operand<T>(round_in<T>(x[ks][1]), xh[ks][2], xl[ks][2]);
+    w_operand<T>(round_in<T>(x[ks][3]), xh[ks][3], xl[ks][3]);
+  }
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int ks = 0; ks < WNT; ++ks) {
+      uint32_t bh0, bl0, bh1, bl1;
+      w_operand<T>(to_f32(vb[8 * ks * LD + 8 * n]), bh0, bl0);
+      w_operand<T>(to_f32(vb[(8 * ks + 1) * LD + 8 * n]), bh1, bl1);
+      w_mma<T>(part, xh[ks], xl[ks], bh0, bh1, bl0, bl1);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
+  }
+}
+
+// Write a 16-row accumulator of NO 8-column tiles in the input dtype: rows
+// r and r + 8 of `base` (row stride rs; rows at or past `limit` skipped),
+// columns 8 n + 2 t and + 1, times mul0 (row r) and mul1 (row r + 8).
+template <typename T, int NO>
+__device__ __forceinline__ void w_store(T* base, size_t rs, int r, int limit,
+                                        const float (&acc)[NO][4], float mul0, float mul1) {
+  const int t = threadIdx.x % 4;
+  T* pa = base + static_cast<size_t>(r) * rs + 2 * t;
+  T* pb = pa + 8 * rs;
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    if constexpr (kF32<T>) {
+      if (r < limit)
+        *reinterpret_cast<float2*>(pa + 8 * n) = make_float2(acc[n][0] * mul0, acc[n][1] * mul0);
+      if (r + 8 < limit)
+        *reinterpret_cast<float2*>(pb + 8 * n) = make_float2(acc[n][2] * mul1, acc[n][3] * mul1);
+    } else {
+      if (r < limit)
+        *reinterpret_cast<uint32_t*>(pa + 8 * n) = pack(acc[n][0] * mul0, acc[n][1] * mul0);
+      if (r + 8 < limit)
+        *reinterpret_cast<uint32_t*>(pb + 8 * n) = pack(acc[n][2] * mul1, acc[n][3] * mul1);
+    }
+  }
+}
+
+// Shared memory of the wide forward, in elements of T: two stages of
+// Q [WQ][wld(WK)] and K [WN][wld(WK)], then V [WN][wld(WC)].
+template <typename T>
+struct WideFwd {
+  static constexpr int LK = wld<T>(WK), LC = wld<T>(WC);
+  static constexpr int STAGE = (WQ + WN) * LK;
+  static constexpr int V = 2 * STAGE;
+  static constexpr size_t SMEM = static_cast<size_t>(V + WN * LC) * sizeof(T);
+  static_assert(SMEM <= SMEM_MAX, "wide forward shared memory");
+  static_assert((WQ * LK * sizeof(T)) % 16 == 0 && (STAGE * sizeof(T)) % 16 == 0,
+                "cp.async alignment");
+};
+
+// Shared memory of the wide backward kernels: two stages of two [WB] and
+// two [WN] tiles of WK columns (elements of T), then two [WN][wld(WC)]
+// product operands; at byte ROWS the tile's lse, delta (f32) and segment
+// ids (int) [WN]; at byte X the f32 exchange buffers [4 pairs][2][WNT * 4][32].
+template <typename T>
+struct WideBwd {
+  static constexpr int LK = wld<T>(WK), LC = wld<T>(WC);
+  static constexpr int STAGE = 2 * (WB + WN) * LK;
+  static constexpr int C = 2 * STAGE;
+  static constexpr size_t ROWS = static_cast<size_t>(C + 2 * WN * LC) * sizeof(T);
+  static constexpr size_t X = ROWS + 3 * WN * 4;
+  static constexpr size_t SMEM = X + 4 * 2 * WNT * 4 * 32 * 4;
+  static_assert(SMEM <= SMEM_MAX, "wide backward shared memory");
+  static_assert((WB * LK * sizeof(T)) % 16 == 0 && (WN * LK * sizeof(T)) % 16 == 0 &&
+                    (STAGE * sizeof(T)) % 16 == 0 && ROWS % 16 == 0 && X % 16 == 0,
+                "cp.async alignment");
+};
+
+// forward: one block per (128 query rows, b * H + h, 128 output columns)
+template <typename T>
+__global__ void __launch_bounds__(WT, 1)
+wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                const int* __restrict__ seg, T* __restrict__ out, float* __restrict__ lse, int H,
+                int T_, int DP, float scale_log2) {
+  using L = WideFwd<T>;
+  constexpr int NO = WC / 8;
+  extern __shared__ __align__(16) unsigned char wsm[];
+  T* sm = reinterpret_cast<T*>(wsm);
+
+  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
+  const int q0 = blockIdx.x * WQ, c0 = blockIdx.z * WC;
+  const int nd = DP / WK, nkt = T_ / WN, total = nkt * nd;
+  const size_t rs = static_cast<size_t>(H) * DP;
+  const size_t head = static_cast<size_t>(b) * T_ * rs + static_cast<size_t>(h) * DP;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int ra = q0 + 16 * warp + g, rb = ra + 8;  // this thread's two query rows
+  const int* segb = seg + static_cast<size_t>(b) * T_;
+  const int sqa = ra < T_ ? segb[ra] : -1, sqb = rb < T_ ? segb[rb] : -1;
+
+  // stage i: columns WK (i % nd).. of the block's Q rows and of key tile i / nd
+  auto load_stage = [&](int i) {
+    const int j = i / nd, d = i - j * nd;
+    T* st = sm + (i & 1) * L::STAGE;
+    w_load<T, WK>(st, q + head + d * WK, q0, WQ, T_, rs);
+    w_load<T, WK>(st + WQ * L::LK, k + head + d * WK, j * WN, WN, T_, rs);
+  };
+  load_stage(0);
+  cp_async_commit();
+
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  // running row maxima (base-2 scores) and this thread's share of the row sums
+  float ma = -INFINITY, mb = -INFINITY, la = 0.f, lb = 0.f;
+
+  for (int j = 0; j < nkt; ++j) {
+    int2 sk[WNT];  // segment ids of keys 8 n + 2 t, + 1
+#pragma unroll
+    for (int n = 0; n < WNT; ++n)
+      sk[n] = *reinterpret_cast<const int2*>(segb + j * WN + 8 * n + 2 * t);
+    float s[WNT][4];
+#pragma unroll
+    for (int n = 0; n < WNT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    for (int d = 0; d < nd; ++d) {
+      const int i = j * nd + d;
+      cp_async_wait<0>();
+      __syncthreads();  // stage i is in; every warp is done with stage i - 1 (and V at d = 0)
+      if (i + 1 < total) load_stage(i + 1);
+      if (d == 0) w_load<T, WC>(sm + L::V, v + head + c0, j * WN, WN, T_, rs);
+      cp_async_commit();
+      const T* st = sm + (i & 1) * L::STAGE;
+      w_scores<T>(s, st + (16 * warp + g) * L::LK + t, st + WQ * L::LK);
+    }
+
+    // online softmax in base 2, masked scores at MASK (the f32 forward's)
+    float mxa = -INFINITY, mxb = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < WNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * scale_log2;
+        if ((e < 2 ? sqa : sqb) != ((e & 1) ? sk[n].y : sk[n].x)) x = MASK;
+        s[n][e] = x;
+        if (e < 2) mxa = fmaxf(mxa, x); else mxb = fmaxf(mxb, x);
+      }
+    const float mna = fmaxf(ma, quad_max(mxa)), mnb = fmaxf(mb, quad_max(mxb));
+    const float ala = ex2(ma - mna), alb = ex2(mb - mnb);  // 0 on the first tile
+    float suma = 0.f, sumb = 0.f;
+#pragma unroll
+    for (int n = 0; n < WNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = ex2(s[n][e] - (e < 2 ? mna : mnb));
+        s[n][e] = p;
+        if (e < 2) suma += p; else sumb += p;
+      }
+    la = la * ala + suma;
+    lb = lb * alb + sumb;
+    ma = mna;
+    mb = mnb;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      o[n][0] *= ala; o[n][1] *= ala; o[n][2] *= alb; o[n][3] *= alb;
+    }
+
+    cp_async_wait<0>();
+    __syncthreads();  // V's columns c0.. of key tile j are in
+    // O += round(P) V
+    w_accumulate<T, NO>(o, s, sm + L::V + 2 * t * L::LC + g);
+  }
+
+  la = quad_sum(la);
+  lb = quad_sum(lb);
+  w_store<T, NO>(out + head + c0, rs, ra, T_, o, 1.f / la, 1.f / lb);
+  if (blockIdx.z == 0 && t == 0) {
+    if (ra < T_) lse[static_cast<size_t>(bh) * T_ + ra] = ma * LN2 + logf(la);
+    if (rb < T_) lse[static_cast<size_t>(bh) * T_ + rb] = mb * LN2 + logf(lb);
+  }
+}
+
+// dK, dV: one block per (64 keys, b * H + h, 128 output columns); query
+// tiles of WN.  Role 0 of a pair: S^T = K Q^T, P^T, dV += round(P^T) dO;
+// role 1: dP^T = V dO^T, dS^T = P^T (dP^T - delta) sm_scale, dK +=
+// round(dS^T) Q, P^T passed through shared memory as in flash_bwd_dkv_f32.
+template <typename T>
+__global__ void __launch_bounds__(WT, 1)
+wide_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                const int* __restrict__ seg, const T* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                T* __restrict__ dk, T* __restrict__ dv, int H, int T_, int DP, float scale_log2,
+                float sm_scale) {
+  using L = WideBwd<T>;
+  constexpr int NO = WC / 8;
+  extern __shared__ __align__(16) unsigned char wsm[];
+  T* sm = reinterpret_cast<T*>(wsm);
+  float* rows_s = reinterpret_cast<float*>(wsm + L::ROWS);  // lse, delta, seg of the tile
+
+  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
+  const int k0 = blockIdx.x * WB, c0 = blockIdx.z * WC;
+  const int nd = DP / WK, nqt = T_ / WN, total = nqt * nd;
+  const size_t rs = static_cast<size_t>(H) * DP;
+  const size_t head = static_cast<size_t>(b) * T_ * rs + static_cast<size_t>(h) * DP;
+  const size_t rows = static_cast<size_t>(bh) * T_;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int pair = warp % 4, role = warp / 4;
+  const int* segb = seg + static_cast<size_t>(b) * T_;
+  const int kr = k0 + 16 * pair + g;  // this thread's key rows kr, kr + 8
+  const int segk0 = segb[kr], segk1 = segb[kr + 8];
+
+  // stage i: columns WK (i % nd).. of the block's K and V rows and of query tile i / nd's
+  // Q and dO rows
+  auto load_stage = [&](int i) {
+    const int j = i / nd, d = i - j * nd;
+    T* st = sm + (i & 1) * L::STAGE;
+    w_load<T, WK>(st, k + head + d * WK, k0, WB, T_, rs);
+    w_load<T, WK>(st + WB * L::LK, v + head + d * WK, k0, WB, T_, rs);
+    w_load<T, WK>(st + 2 * WB * L::LK, q + head + d * WK, j * WN, WN, T_, rs);
+    w_load<T, WK>(st + (2 * WB + WN) * L::LK, dout + head + d * WK, j * WN, WN, T_, rs);
+  };
+  load_stage(0);
+  cp_async_commit();
+
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float* xbuf = reinterpret_cast<float*>(wsm + L::X) + pair * (WNT * 4 * 32) + lane;
+
+  for (int j = 0; j < nqt; ++j) {
+    float s[WNT][4];
+#pragma unroll
+    for (int n = 0; n < WNT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    for (int d = 0; d < nd; ++d) {
+      const int i = j * nd + d;
+      cp_async_wait<0>();
+      __syncthreads();  // stage i is in; every warp is done with stage i - 1 (and tile j - 1)
+      if (i + 1 < total) load_stage(i + 1);
+      if (d == 0) {
+        w_load<T, WC>(sm + L::C, q + head + c0, j * WN, WN, T_, rs);
+        w_load<T, WC>(sm + L::C + WN * L::LC, dout + head + c0, j * WN, WN, T_, rs);
+        row_load(rows_s, lse + rows + j * WN, WN);
+        row_load(rows_s + WN, delta + rows + j * WN, WN);
+        row_load(rows_s + 2 * WN, segb + j * WN, WN);
+      }
+      cp_async_commit();
+      const T* st = sm + (i & 1) * L::STAGE;
+      // S^T = K Q^T (role 0) or dP^T = V dO^T (role 1)
+      w_scores<T>(s, st + (role * WB + 16 * pair + g) * L::LK + t,
+                  st + (2 * WB + role * WN) * L::LK);
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the tile's Q and dO columns c0.., lse, delta and segment ids are in
+    const float* lse_s = rows_s;
+    const float* delta_s = rows_s + WN;
+    const int* segq = reinterpret_cast<const int*>(rows_s + 2 * WN);
+    // this thread: keys kr (e < 2) and kr + 8, queries 8 n + 2 t (+ 1 for odd e)
+    if (role == 0) {
+#pragma unroll
+      for (int n = 0; n < WNT; ++n) {
+        const int c = 8 * n + 2 * t;
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_s + c);
+        const int2 sq = *reinterpret_cast<const int2*>(segq + c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[n][e] * scale_log2;
+          if ((e < 2 ? segk0 : segk1) != ((e & 1) ? sq.y : sq.x)) x = MASK;
+          s[n][e] = ex2(x - ((e & 1) ? l2.y : l2.x) * LOG2E);
+          xbuf[(4 * n + e) * 32] = s[n][e];
+        }
+      }
+      hopper::named_arrive(1 + pair, 64);
+    } else {
+      hopper::named_sync(1 + pair, 64);
+#pragma unroll
+      for (int n = 0; n < WNT; ++n) {
+        const float2 dl = *reinterpret_cast<const float2*>(delta_s + 8 * n + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[n][e] = xbuf[(4 * n + e) * 32] * (s[n][e] - ((e & 1) ? dl.y : dl.x)) * sm_scale;
+      }
+    }
+    // dV += round(P^T) dO (role 0) or dK += round(dS^T) Q (role 1), columns c0..
+    w_accumulate<T, NO>(acc, s, sm + L::C + (role == 0 ? WN * L::LC : 0) + 2 * t * L::LC + g);
+  }
+
+  w_store<T, NO>((role == 0 ? dv : dk) + head + c0, rs, kr, T_, acc, 1.f, 1.f);
+}
+
+// dQ: one block per (64 queries, b * H + h, 128 output columns); key tiles
+// of WN.  Role 0 of a pair computes S = Q K^T and P, role 1 dP = dO V^T;
+// they swap P and dP through shared memory, both form dS = P (dP - delta)
+// sm_scale, and each sums dQ += round(dS) K over half of the chunk's columns.
+template <typename T>
+__global__ void __launch_bounds__(WT, 1)
+wide_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+               const int* __restrict__ seg, const T* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               T* __restrict__ dq, int H, int T_, int DP, float scale_log2, float sm_scale) {
+  using L = WideBwd<T>;
+  constexpr int NO = WC / 16;  // 8-column tiles of a half of the chunk
+  constexpr int XB = WNT * 4 * 32;
+  extern __shared__ __align__(16) unsigned char wsm[];
+  T* sm = reinterpret_cast<T*>(wsm);
+  const int* segk = reinterpret_cast<const int*>(wsm + L::ROWS);  // the key tile's segment ids
+
+  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
+  const int q0 = blockIdx.x * WB, c0 = blockIdx.z * WC;
+  const int nd = DP / WK, nkt = T_ / WN, total = nkt * nd;
+  const size_t rs = static_cast<size_t>(H) * DP;
+  const size_t head = static_cast<size_t>(b) * T_ * rs + static_cast<size_t>(h) * DP;
+  const size_t rows = static_cast<size_t>(bh) * T_;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int pair = warp % 4, role = warp / 4;
+  const int* segb = seg + static_cast<size_t>(b) * T_;
+  const int ra = q0 + 16 * pair + g, rb = ra + 8;  // this thread's query rows
+  const int sqa = segb[ra], sqb = segb[rb];
+  const float la = lse[rows + ra] * LOG2E, lb = lse[rows + rb] * LOG2E;
+  const float da = delta[rows + ra], db = delta[rows + rb];
+
+  // stage i: columns WK (i % nd).. of the block's Q and dO rows and of key tile i / nd's
+  // K and V rows
+  auto load_stage = [&](int i) {
+    const int j = i / nd, d = i - j * nd;
+    T* st = sm + (i & 1) * L::STAGE;
+    w_load<T, WK>(st, q + head + d * WK, q0, WB, T_, rs);
+    w_load<T, WK>(st + WB * L::LK, dout + head + d * WK, q0, WB, T_, rs);
+    w_load<T, WK>(st + 2 * WB * L::LK, k + head + d * WK, j * WN, WN, T_, rs);
+    w_load<T, WK>(st + (2 * WB + WN) * L::LK, v + head + d * WK, j * WN, WN, T_, rs);
+  };
+  load_stage(0);
+  cp_async_commit();
+
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float* xmine = reinterpret_cast<float*>(wsm + L::X) + (2 * pair + role) * XB + lane;
+  const float* xother = reinterpret_cast<const float*>(wsm + L::X) + (2 * pair + (role ^ 1)) * XB +
+                        lane;
+
+  for (int j = 0; j < nkt; ++j) {
+    float s[WNT][4];
+#pragma unroll
+    for (int n = 0; n < WNT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    for (int d = 0; d < nd; ++d) {
+      const int i = j * nd + d;
+      cp_async_wait<0>();
+      __syncthreads();  // stage i is in; every warp is done with stage i - 1 (and tile j - 1)
+      if (i + 1 < total) load_stage(i + 1);
+      if (d == 0) {
+        w_load<T, WC>(sm + L::C, k + head + c0, j * WN, WN, T_, rs);
+        row_load(wsm + L::ROWS, segb + j * WN, WN);
+      }
+      cp_async_commit();
+      const T* st = sm + (i & 1) * L::STAGE;
+      // S = Q K^T (role 0) or dP = dO V^T (role 1)
+      w_scores<T>(s, st + (role * WB + 16 * pair + g) * L::LK + t,
+                  st + (2 * WB + role * WN) * L::LK);
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the tile's K columns c0.. and segment ids are in
+    // this thread: query rows ra (e < 2) and rb, keys 8 n + 2 t (+ 1 for odd e)
+    if (role == 0) {
+#pragma unroll
+      for (int n = 0; n < WNT; ++n) {
+        const int2 sk = *reinterpret_cast<const int2*>(segk + 8 * n + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[n][e] * scale_log2;
+          if ((e < 2 ? sqa : sqb) != ((e & 1) ? sk.y : sk.x)) x = MASK;
+          s[n][e] = ex2(x - (e < 2 ? la : lb));
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4 * WNT; ++i) xmine[i * 32] = s[i / 4][i % 4];
+    hopper::named_sync(1 + pair, 64);
+    // dS = P (dP - delta) sm_scale, the same in both warps of the pair
+#pragma unroll
+    for (int i = 0; i < 4 * WNT; ++i) {
+      const float o = xother[i * 32], mine = s[i / 4][i % 4];
+      const float p = role == 0 ? mine : o, dp = role == 0 ? o : mine;
+      s[i / 4][i % 4] = p * (dp - ((i & 2) ? db : da)) * sm_scale;
+    }
+    // dQ[:, c0 + half..] += round(dS) K[:, c0 + half..]
+    w_accumulate<T, NO>(acc, s, sm + L::C + role * (WC / 2) + 2 * t * L::LC + g);
+  }
+
+  w_store<T, NO>(dq + head + c0 + role * (WC / 2), rs, ra, T_, acc, 1.f, 1.f);
+}
+
+// ===========================================================================
 // launches
 // ===========================================================================
 
@@ -1272,15 +1807,21 @@ int bf16_map(CUtensorMap* map, const void* ptr, int B, int H, int T, int HD, int
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+bool wide_shape_ok(int B, int H, int T, int D) {
+  return B > 0 && H > 0 && T > 0 && T % 64 == 0 && D > MAX_D && D % WC == 0 &&
+         static_cast<long long>(B) * H <= 65535 && D / WC <= 65535;
+}
+
 }  // namespace
 
 extern "C" {
 
 // All tensors contiguous: q, k, v, out, dout, dq, dk, dv [B, T, H, D] in
 // bf16 (is_bf16 = 1) or f32; seg [B, T] int32 (keys and queries attend
-// where their ids are equal); lse, delta [B, H, T] f32.  T % 64 == 0; every
-// kernel takes D in {64, 128, 224, 256} (the caller zero-pads other head
-// dims) and pointers 16-byte aligned.  The f32 forward splits the
+// where their ids are equal); lse, delta [B, H, T] f32.  T % 64 == 0; these
+// three take D in {64, 128, 224, 256}, the _wide ones below any multiple of
+// 128 past 256 (the caller zero-pads other head dims); pointers 16-byte
+// aligned.  The f32 forward splits the
 // keys nsplit ways (1 <= nsplit <= 32, every split non-empty), with
 // nsplit * B * H * T * (D + 2) floats of scratch at `part` when nsplit > 1.
 // Each returns the first cudaError_t (0 on success), cudaErrorInvalidValue
@@ -1384,6 +1925,55 @@ int flash_bwd_dq(const void* q, const void* k, const void* v, const void* seg, c
     return launch(flash_bwd_dq_f32<HD>, dim3(T / FB_ROWS, B * H), BT, DqF32<HD>::SMEM, s, q, k, v,
                   seg, dout, lse, delta, dq, H, T, sm_scale * LOG2E, sm_scale);
   });
+}
+
+// The wide kernels: as above, for a head dim D > 256 that is a multiple of
+// 128 (the caller zero-pads other head dims), no key splits.
+int flash_fwd_wide(const void* q, const void* k, const void* v, const void* seg, void* out,
+                   void* lse, int B, int H, int T, int D, float sm_scale, int is_bf16,
+                   void* stream) {
+  if (!wide_shape_ok(B, H, T, D)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(seg))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((T + WQ - 1) / WQ, B * H, D / WC);
+  if (is_bf16)
+    return launch(wide_fwd_kernel<bf16>, grid, WT, WideFwd<bf16>::SMEM, s, q, k, v, seg, out,
+                  lse, H, T, D, sm_scale * LOG2E);
+  return launch(wide_fwd_kernel<float>, grid, WT, WideFwd<float>::SMEM, s, q, k, v, seg, out, lse,
+                H, T, D, sm_scale * LOG2E);
+}
+
+int flash_bwd_dkv_wide(const void* q, const void* k, const void* v, const void* seg,
+                       const void* dout, const void* lse, const void* delta, void* dk, void* dv,
+                       int B, int H, int T, int D, float sm_scale, int is_bf16, void* stream) {
+  if (!wide_shape_ok(B, H, T, D)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout) || !aligned16(seg) ||
+      !aligned16(lse) || !aligned16(delta))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(T / WB, B * H, D / WC);
+  if (is_bf16)
+    return launch(wide_dkv_kernel<bf16>, grid, WT, WideBwd<bf16>::SMEM, s, q, k, v, seg, dout,
+                  lse, delta, dk, dv, H, T, D, sm_scale * LOG2E, sm_scale);
+  return launch(wide_dkv_kernel<float>, grid, WT, WideBwd<float>::SMEM, s, q, k, v, seg, dout,
+                lse, delta, dk, dv, H, T, D, sm_scale * LOG2E, sm_scale);
+}
+
+int flash_bwd_dq_wide(const void* q, const void* k, const void* v, const void* seg,
+                      const void* dout, const void* lse, const void* delta, void* dq, int B,
+                      int H, int T, int D, float sm_scale, int is_bf16, void* stream) {
+  if (!wide_shape_ok(B, H, T, D)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout) || !aligned16(seg) ||
+      !aligned16(lse) || !aligned16(delta))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(T / WB, B * H, D / WC);
+  if (is_bf16)
+    return launch(wide_dq_kernel<bf16>, grid, WT, WideBwd<bf16>::SMEM, s, q, k, v, seg, dout, lse,
+                  delta, dq, H, T, D, sm_scale * LOG2E, sm_scale);
+  return launch(wide_dq_kernel<float>, grid, WT, WideBwd<float>::SMEM, s, q, k, v, seg, dout,
+                lse, delta, dq, H, T, D, sm_scale * LOG2E, sm_scale);
 }
 
 const char* wtv_error_string(int err) {

@@ -19,9 +19,9 @@ positions: real queries see real keys, as in the dense branch, and pad
 queries see pad keys, rows the block's non-pad mask zeroes.  It keeps no
 probabilities (``attn`` is ``[B, H, 0, 0]``) and cannot drop them out, so a
 training forward with ``use_flash`` and dropout > 0 raises, gate or not.
-A block with ``use_flash`` built on a CUDA device raises at construction
-for a head dim the kernels do not take (``head_dim_ok``: d_k <= 256, in
-either dtype); on the CPU the plain version takes any.
+Both devices take every head dim, as JAX's flash branch does: the kernels
+run d_k up to 256 on their templates and past it on the wide kernels
+(``ops/flash_attention.py``), the CPU the plain version.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ import torch
 from torch import nn
 
 from wavthruvec_pytorch_tpu_torch.models.layers import Conv1d, LayerNorm, TorchLinear
-from wavthruvec_pytorch_tpu_torch.ops.flash_attention import flash_attention, head_dim_ok
+from wavthruvec_pytorch_tpu_torch.ops.flash_attention import flash_attention
 
 _MASK_VALUE = -1e9
 
@@ -47,10 +47,6 @@ class MultiHeadAttention(nn.Module):
     def __init__(self, n_head: int, d_model: int, d_k: int, d_v: int, dropout: float = 0.1,
                  use_flash: bool = False, dtype=None, device=None):
         super().__init__()
-        if (use_flash and device is not None and torch.device(device).type == "cuda"
-                and not head_dim_ok(d_k, dtype or torch.float32)):
-            raise ValueError(f"flash_attention=True on the card takes head dim d_k <= 256, got "
-                             f"d_k={d_k} in {dtype or torch.float32}")
         self.n_head, self.d_k, self.d_v = n_head, d_k, d_v
         self.use_flash = use_flash
         qkv_std = math.sqrt(2.0 / (d_model + d_k))

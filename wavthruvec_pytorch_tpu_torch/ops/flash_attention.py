@@ -16,14 +16,17 @@ CUDA tensor its forward is the forward kernel and its backward the two
 backward kernels, after one shared ``backward_inputs``; on a CPU tensor
 both are the plain version (the backward by autograd through it).  Any
 other device or dtype raises, and so does a CUDA shape the kernels do not
-take (``kernel_shape_ok``: T % 64 == 0 and D <= 256).  Every kernel, in
-both dtypes, is built for the head dims ``WIDTHS``; the wrappers zero-pad
-any other D to the next of them and slice the results back, which is exact
-(padded columns add 0 to every q.k, and padded v columns give output
-columns that are dropped; ``sm_scale`` stays the caller's).  The f32
-kernels, forward and backward, run on the tensor cores at f32 accuracy
-(3xTF32), whatever ``torch.backends.cuda.matmul.allow_tf32`` says, which
-governs cuBLAS only.
+take (``kernel_shape_ok``: T % 64 == 0).  The kernels take every head dim
+JAX's flash branch takes: up to 256 the templates built for ``WIDTHS``
+(``flash_fwd``, ``flash_bwd_dkv``, ``flash_bwd_dq``), past 256 the wide
+kernels (``flash_fwd_wide``, ``flash_bwd_dkv_wide``, ``flash_bwd_dq_wide``)
+at any multiple of ``WIDE_CHUNK``, each output chunk of 128 columns a block
+of its own.  The wrappers zero-pad D to ``kernel_width(D)`` and slice the
+results back, which is exact (padded columns add 0 to every q.k, and padded
+v columns give output columns that are dropped; ``sm_scale`` stays the
+caller's), as JAX pads d_k above 128 to a multiple of 128.  The f32 kernels
+run on the tensor cores at f32 accuracy (3xTF32), whatever
+``torch.backends.cuda.matmul.allow_tf32`` says, which governs cuBLAS only.
 """
 
 from __future__ import annotations
@@ -33,13 +36,12 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from wavthruvec_pytorch_tpu_torch.config import FLASH_MAX_HEAD_DIM
 from wavthruvec_pytorch_tpu_torch.ops import kernel_build
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 _DTYPES = (torch.float32, torch.bfloat16)
-_MAX_D = FLASH_MAX_HEAD_DIM
-WIDTHS = (64, 128, 224, 256)  # head dims the kernels are built for (csrc/flash_attn.cu)
+WIDTHS = (64, 128, 224, 256)  # head dims the templates are built for (csrc/flash_attn.cu)
+WIDE_CHUNK = 128  # past WIDTHS[-1]: the wide kernels' output columns a block (WC)
 _SPLIT_ROWS, _SPLIT_KEYS = 128, 32  # the f32 forward's query rows a block, keys a tile
 
 
@@ -67,21 +69,31 @@ def _lib() -> ctypes.CDLL:
     lib.flash_fwd.argtypes = [ptr] * 6 + [i32] * 4 + [f32, i32, i32, ptr, ptr]
     lib.flash_bwd_dkv.argtypes = [ptr] * 9 + [i32] * 4 + [f32, i32, ptr]
     lib.flash_bwd_dq.argtypes = [ptr] * 8 + [i32] * 4 + [f32, i32, ptr]
-    for fn in (lib.flash_fwd, lib.flash_bwd_dkv, lib.flash_bwd_dq):
+    lib.flash_fwd_wide.argtypes = [ptr] * 6 + [i32] * 4 + [f32, i32, ptr]
+    lib.flash_bwd_dkv_wide.argtypes = lib.flash_bwd_dkv.argtypes
+    lib.flash_bwd_dq_wide.argtypes = lib.flash_bwd_dq.argtypes
+    for fn in (lib.flash_fwd, lib.flash_bwd_dkv, lib.flash_bwd_dq, lib.flash_fwd_wide,
+               lib.flash_bwd_dkv_wide, lib.flash_bwd_dq_wide):
         fn.restype = ctypes.c_int
     return lib
 
 
 def head_dim_ok(D: int, dtype: torch.dtype) -> bool:
-    """Whether the kernels take head dim D in ``dtype``: any D <= 256 in
-    float32 or bfloat16 (a D outside ``WIDTHS`` is zero-padded to
-    ``kernel_width(D)``)."""
-    return dtype in _DTYPES and 1 <= D <= _MAX_D
+    """Whether the kernels take head dim D in ``dtype``: any D >= 1 in
+    float32 or bfloat16 (zero-padded to ``kernel_width(D)``)."""
+    return dtype in _DTYPES and D >= 1
+
+
+def wide(D: int) -> bool:
+    """Whether head dim D runs the wide kernels (D > 256)."""
+    return D > WIDTHS[-1]
 
 
 def kernel_width(D: int) -> int:
-    """The head dim of the kernel instance that runs head dim D: the least
-    of ``WIDTHS`` that is at least D."""
+    """The head dim the kernels run head dim D at: the least of ``WIDTHS``
+    that is at least D, or past 256 the next multiple of ``WIDE_CHUNK``."""
+    if wide(D):
+        return -(-D // WIDE_CHUNK) * WIDE_CHUNK
     return next(w for w in WIDTHS if w >= D)
 
 
@@ -125,8 +137,8 @@ def _check(q, k, v, seg, *more):
             raise ValueError(f"k, v (and dout) must match q {q.dtype} {tuple(q.shape)} on "
                              f"{q.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
     if not kernel_shape_ok(B, H, T, D, q.dtype):
-        raise ValueError(f"flash attention kernels take T % 64 == 0 and D <= {_MAX_D}; got "
-                         f"T={T}, D={D}, {q.dtype}")
+        raise ValueError(f"flash attention kernels take T % 64 == 0; got T={T}, D={D}, "
+                         f"{q.dtype}")
     if tuple(seg.shape) != (B, T) or seg.dtype.is_floating_point or seg.device != q.device:
         raise ValueError(f"seg must be an integer [{B}, {T}] tensor on {q.device}, got "
                          f"{seg.dtype} {tuple(seg.shape)} on {seg.device}")
@@ -159,33 +171,56 @@ def _btkd(t: torch.Tensor, width: int) -> torch.Tensor:
     return padded
 
 
-def flash_fwd(q, k, v, seg, sm_scale: float):
-    """The forward kernel: q, k, v [B, H, T, D] CUDA f32 or bf16, seg [B, T]
-    -> (out [B, H, T, D], a view of a [B, T, H, width] tensor; lse [B, H, T]
-    f32).  One call (in f32 with split keys, the kernel and its merge)."""
+def _forward(q, k, v, seg, sm_scale: float, is_wide: bool):
+    """Launch the forward kernels of one family (the templates, or the wide
+    kernels); returns (out, lse) as ``flash_fwd`` documents them."""
     _require_cuda(q)
     B, H, T, D = _check(q, k, v, seg)
+    if wide(D) != is_wide:
+        raise ValueError(f"head dim D={D} runs flash_fwd{'_wide' if wide(D) else ''}")
     W = kernel_width(D)
     qc, kc, vc = _btkd(q, W), _btkd(k, W), _btkd(v, W)
     out = torch.empty_like(qc)
     lse = torch.empty(B, H, T, device=q.device, dtype=torch.float32)
     seg32 = seg.to(torch.int32).contiguous()
     _aligned(qc, kc, vc, seg32)
+    lib, is_bf16 = _lib(), int(q.dtype == torch.bfloat16)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if is_wide:
+        err = lib.flash_fwd_wide(qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), seg32.data_ptr(),
+                                 out.data_ptr(), lse.data_ptr(), B, H, T, W, float(sm_scale),
+                                 is_bf16, stream)
+        kernel_build.check(lib, err, "flash_fwd_wide")
+        return out[..., :D].transpose(1, 2), lse
     nsplit, part = 1, None
     if q.dtype == torch.float32:
         n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
         nsplit = f32_splits(B * H, T, n_sm)
         if nsplit > 1:
             part = torch.empty(nsplit * B * H * T * (W + 2), device=q.device, dtype=torch.float32)
-    lib = _lib()
     err = lib.flash_fwd(qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), seg32.data_ptr(),
-                        out.data_ptr(), lse.data_ptr(), B, H, T, W, float(sm_scale),
-                        int(q.dtype == torch.bfloat16), nsplit,
-                        None if part is None else part.data_ptr(),
-                        torch.cuda.current_stream(q.device).cuda_stream)
+                        out.data_ptr(), lse.data_ptr(), B, H, T, W, float(sm_scale), is_bf16,
+                        nsplit, None if part is None else part.data_ptr(), stream)
     kernel_build.check(lib, err, "flash_fwd")
-    flash_fwd.launches += 1
     return out[..., :D].transpose(1, 2), lse
+
+
+def flash_fwd(q, k, v, seg, sm_scale: float):
+    """The forward kernel at D <= 256: q, k, v [B, H, T, D] CUDA f32 or
+    bf16, seg [B, T] -> (out [B, H, T, D], a view of a [B, T, H, width]
+    tensor; lse [B, H, T] f32).  One call (in f32 with split keys, the
+    kernel and its merge)."""
+    result = _forward(q, k, v, seg, sm_scale, is_wide=False)
+    flash_fwd.launches += 1
+    return result
+
+
+def flash_fwd_wide(q, k, v, seg, sm_scale: float):
+    """The wide forward kernel at D > 256, as ``flash_fwd``: one launch, a
+    block per 128 query rows, head and 128 output columns."""
+    result = _forward(q, k, v, seg, sm_scale, is_wide=True)
+    flash_fwd_wide.launches += 1
+    return result
 
 
 class BackwardInputs(NamedTuple):
@@ -218,46 +253,68 @@ def backward_inputs(q, k, v, seg, out, lse, dout) -> BackwardInputs:
     return ins
 
 
-def flash_bwd_dkv(ins: BackwardInputs, sm_scale: float):
-    """The dK/dV kernel on ``backward_inputs``' result -> (dk, dv)
-    [B, H, T, D] in q's dtype.  One launch."""
+def _backward(ins: BackwardInputs, sm_scale: float, name: str, n_out: int):
+    """Launch the backward kernel ``name`` of the C library on
+    ``backward_inputs``' result; returns its ``n_out`` gradients [B, H, T, D]
+    in q's dtype."""
     _require_cuda(ins.q)
     B, H, T, D = ins.shape
+    if wide(D) != name.endswith("_wide"):
+        raise ValueError(f"head dim D={D} does not run {name}")
     W = ins.q.shape[-1]
-    dk, dv = torch.empty_like(ins.q), torch.empty_like(ins.q)
+    grads = [torch.empty_like(ins.q) for _ in range(n_out)]
     lib = _lib()
-    err = lib.flash_bwd_dkv(ins.q.data_ptr(), ins.k.data_ptr(), ins.v.data_ptr(),
-                            ins.seg.data_ptr(), ins.dout.data_ptr(), ins.lse.data_ptr(),
-                            ins.delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, T, W,
-                            float(sm_scale), int(ins.q.dtype == torch.bfloat16),
-                            torch.cuda.current_stream(ins.q.device).cuda_stream)
-    kernel_build.check(lib, err, "flash_bwd_dkv")
+    err = getattr(lib, name)(ins.q.data_ptr(), ins.k.data_ptr(), ins.v.data_ptr(),
+                             ins.seg.data_ptr(), ins.dout.data_ptr(), ins.lse.data_ptr(),
+                             ins.delta.data_ptr(), *(g.data_ptr() for g in grads), B, H, T, W,
+                             float(sm_scale), int(ins.q.dtype == torch.bfloat16),
+                             torch.cuda.current_stream(ins.q.device).cuda_stream)
+    kernel_build.check(lib, err, name)
+    return [g[..., :D].transpose(1, 2) for g in grads]
+
+
+def flash_bwd_dkv(ins: BackwardInputs, sm_scale: float):
+    """The dK/dV kernel at D <= 256 on ``backward_inputs``' result -> (dk,
+    dv) [B, H, T, D] in q's dtype.  One launch."""
+    dk, dv = _backward(ins, sm_scale, "flash_bwd_dkv", 2)
     flash_bwd_dkv.launches += 1
-    return dk[..., :D].transpose(1, 2), dv[..., :D].transpose(1, 2)
+    return dk, dv
 
 
 def flash_bwd_dq(ins: BackwardInputs, sm_scale: float):
-    """The dQ kernel on ``backward_inputs``' result -> dq [B, H, T, D] in
-    q's dtype.  One launch."""
-    _require_cuda(ins.q)
-    B, H, T, D = ins.shape
-    W = ins.q.shape[-1]
-    dq = torch.empty_like(ins.q)
-    lib = _lib()
-    err = lib.flash_bwd_dq(ins.q.data_ptr(), ins.k.data_ptr(), ins.v.data_ptr(),
-                           ins.seg.data_ptr(), ins.dout.data_ptr(), ins.lse.data_ptr(),
-                           ins.delta.data_ptr(), dq.data_ptr(), B, H, T, W, float(sm_scale),
-                           int(ins.q.dtype == torch.bfloat16),
-                           torch.cuda.current_stream(ins.q.device).cuda_stream)
-    kernel_build.check(lib, err, "flash_bwd_dq")
+    """The dQ kernel at D <= 256 on ``backward_inputs``' result -> dq
+    [B, H, T, D] in q's dtype.  One launch."""
+    (dq,) = _backward(ins, sm_scale, "flash_bwd_dq", 1)
     flash_bwd_dq.launches += 1
-    return dq[..., :D].transpose(1, 2)
+    return dq
+
+
+def flash_bwd_dkv_wide(ins: BackwardInputs, sm_scale: float):
+    """The wide dK/dV kernel at D > 256, as ``flash_bwd_dkv``: one launch,
+    a block per 64 keys, head and 128 output columns."""
+    dk, dv = _backward(ins, sm_scale, "flash_bwd_dkv_wide", 2)
+    flash_bwd_dkv_wide.launches += 1
+    return dk, dv
+
+
+def flash_bwd_dq_wide(ins: BackwardInputs, sm_scale: float):
+    """The wide dQ kernel at D > 256, as ``flash_bwd_dq``: one launch, a
+    block per 64 queries, head and 128 output columns."""
+    (dq,) = _backward(ins, sm_scale, "flash_bwd_dq_wide", 1)
+    flash_bwd_dq_wide.launches += 1
+    return dq
 
 
 # launches of each kernel
-flash_fwd.launches = 0
-flash_bwd_dkv.launches = 0
-flash_bwd_dq.launches = 0
+KERNELS = (flash_fwd, flash_bwd_dkv, flash_bwd_dq, flash_fwd_wide, flash_bwd_dkv_wide,
+           flash_bwd_dq_wide)
+for _fn in KERNELS:
+    _fn.launches = 0
+
+
+def kernels_for(D: int):
+    """The (forward, dK/dV, dQ) wrappers that run head dim D."""
+    return KERNELS[3:] if wide(D) else KERNELS[:3]
 
 
 class FlashAttention(torch.autograd.Function):
@@ -270,7 +327,7 @@ class FlashAttention(torch.autograd.Function):
         if q.device.type == "cpu":
             out, lse = flash_attention_plain(q, k, v, seg, sm_scale)
         else:
-            out, lse = flash_fwd(q, k, v, seg, sm_scale)
+            out, lse = kernels_for(q.shape[-1])[0](q, k, v, seg, sm_scale)
         ctx.save_for_backward(q, k, v, seg, out, lse)
         ctx.sm_scale = sm_scale
         return out
@@ -284,9 +341,10 @@ class FlashAttention(torch.autograd.Function):
                 o, _ = flash_attention_plain(*qkv, seg, ctx.sm_scale)
                 dq, dk, dv = torch.autograd.grad(o, qkv, dout)
         else:
+            _, bwd_dkv, bwd_dq = kernels_for(q.shape[-1])
             ins = backward_inputs(q, k, v, seg, out, lse, dout)
-            dk, dv = flash_bwd_dkv(ins, ctx.sm_scale)
-            dq = flash_bwd_dq(ins, ctx.sm_scale)
+            dk, dv = bwd_dkv(ins, ctx.sm_scale)
+            dq = bwd_dq(ins, ctx.sm_scale)
         return dq, dk, dv, None, None
 
 

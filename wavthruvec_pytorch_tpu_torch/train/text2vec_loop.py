@@ -3,7 +3,7 @@ reference: text2vec/train.py:199-455):
 
     python -m wavthruvec_pytorch_tpu_torch.train.text2vec_loop \\
         --config data/demo/text2vec.json [--max_steps N] [--restore_step K] \\
-        [--validate] [--device cpu]
+        [--validate] [--profile_dir DIR] [--no-precompile] [--device cpu]
 
 It loads ``cfg.train_list`` into host memory (the native reader,
 ``data/native_io.py``), builds a Text2Vec from a seed and trains over
@@ -31,9 +31,16 @@ writes:
   ``val_step`` steps (``compute_validation_loss``).
 
 ``--frozen_learning_rate`` holds the lr at ``--learning_rate_frozen``.
-Paths in the config are relative to the working directory, as in the JAX
-package.  It runs on the card unless ``--device cpu`` is passed.  The JAX loop's
-``--precompile`` and ``--profile_dir`` have no counterpart here.
+``--precompile`` (the default; JAX: its AOT compile of the step programs)
+builds and loads every kernel library the step launches before the first
+step and prints the seconds; ``--no-precompile`` leaves the build to their
+first launch.  ``--profile_dir DIR`` traces the steps JAX's loop traces,
+from iteration 3 through the step that starts at iteration 8, with
+``torch.profiler`` (CPU activity, and CUDA activity on a card) and writes
+the trace to ``DIR/text2vec_rank{rank}.pt.trace.json`` (Chrome's trace
+format, which TensorBoard's profiler plugin reads).  Paths in the config
+are relative to the working directory, as in the JAX package.  It runs on
+the card unless ``--device cpu`` is passed.
 
 Under ``torchrun --nproc_per_node N`` it trains data-parallel, one process
 per card (``parallel/mesh.py``; JAX: text2vec_loop.py:150-160): each rank
@@ -72,6 +79,8 @@ from wavthruvec_pytorch_tpu_torch.data.dataset import BucketedLoader, load_buffe
 from wavthruvec_pytorch_tpu_torch.data.device_cache import DeviceResidentData
 from wavthruvec_pytorch_tpu_torch.data.prefetch import prefetched
 from wavthruvec_pytorch_tpu_torch.device import resolve_device
+from wavthruvec_pytorch_tpu_torch.models.fft_block import flash_gate
+from wavthruvec_pytorch_tpu_torch.ops import kernel_build
 from wavthruvec_pytorch_tpu_torch.parallel.mesh import (
     barrier,
     globalize_state,
@@ -135,6 +144,61 @@ def compute_validation_loss(trainer: Text2VecTrainer, val_loader: BucketedLoader
     return out
 
 
+# JAX's loop traces the steps it starts at iterations 3 through 8; in the
+# trace each is a span named "{PROFILE_SPAN} {iteration}"
+PROFILE_START, PROFILE_STOP = 3, 8
+PROFILE_SPAN = "text2vec iteration"
+
+
+def step_kernels(cfg: Text2VecConfig) -> list:
+    """The kernel libraries (``ops/kernel_build.py``) a training step launches:
+    the BiGRU forward and MAS, and flash attention where the config's flash
+    gate can pass at one of its buckets."""
+    names = ["gru_fwd", "mas"]
+    d_k = cfg.decoder_model_dim // cfg.encoder_head  # both stacks take d_v == d_k
+    if any(flash_gate(cfg.flash_attention, d_k, d_k, T)
+           for T in tuple(cfg.text_buckets) + tuple(cfg.frame_buckets)):
+        names.append("flash_attn")
+    return names
+
+
+def precompile(cfg: Text2VecConfig, device: torch.device) -> None:
+    """``--precompile``: build and load the step's kernel libraries before
+    the first step, the port's counterpart of JAX's AOT compile."""
+    if device.type != "cuda":
+        print("precompile: nothing to build on the CPU (the step runs the kernels' plain "
+              "versions)")
+        return
+    names = step_kernels(cfg)
+    t0 = time.perf_counter()
+    kernel_build.build_all(names)
+    for name in names:
+        kernel_build.load(name)
+    print(f"precompiled the step's kernels ({', '.join(names)}) in "
+          f"{time.perf_counter() - t0:.1f}s")
+
+
+def start_profile(device: torch.device) -> torch.profiler.profile:
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def stop_profile(prof: torch.profiler.profile, device: torch.device, profile_dir: str) -> str:
+    """Stop the trace and write it into ``profile_dir``; returns its path."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, f"text2vec_rank{rank()}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    print(f"profile: steps from iteration {PROFILE_START} to {PROFILE_STOP} written to {path}")
+    return path
+
+
 def _validation_loader(cfg: Text2VecConfig, frontend: TextFrontend,
                        seed: int) -> Optional[BucketedLoader]:
     """The validation batches in file order, ``batch_expand_size`` 1 so
@@ -177,6 +241,8 @@ def main(args: Optional[argparse.Namespace] = None,
     torch.manual_seed(args.seed)
     trainer = Text2VecTrainer(cfg, device=device)
     print(f"Number of TTS Parameters: {sum(p.numel() for p in trainer.params)}")
+    if args.precompile:
+        precompile(cfg, device)
 
     # resume (reference: --restore_step and checkpoint_{step}, train.py:237-248)
     iteration, first_epoch = 0, 0
@@ -249,6 +315,7 @@ def main(args: Optional[argparse.Namespace] = None,
                      else device_data.batch(idx, pad_to_max=loader.pad_to_max))
             yield loader.buffer[idx[0]]["audiopath"], batch
 
+    profiler = None
     try:
         if args.max_steps and iteration >= args.max_steps:
             print(f"step {iteration} has reached --max_steps {args.max_steps}: nothing to train")
@@ -259,9 +326,16 @@ def main(args: Optional[argparse.Namespace] = None,
                 for audiopath, batch in epoch_batches:
                     is_log_step = (iteration + 1) % cfg.log_step == 0
                     lr = trainer.learning_rate
-                    total, metrics, out = trainer.forward(trainer.to_device(batch))
-                    trainer.backward(total)
-                    trainer.apply_gradients()
+                    if args.profile_dir and iteration == PROFILE_START:
+                        profiler = start_profile(device)
+                    with (torch.profiler.record_function(f"{PROFILE_SPAN} {iteration}")
+                          if profiler is not None else contextlib.nullcontext()):
+                        total, metrics, out = trainer.forward(trainer.to_device(batch))
+                        trainer.backward(total)
+                        trainer.apply_gradients()
+                    if profiler is not None and iteration == PROFILE_STOP:
+                        stop_profile(profiler, device, args.profile_dir)
+                        profiler = None
                     iteration += 1
                     viz = None
                     if is_log_step and logger.takes_figures:
@@ -298,7 +372,10 @@ def main(args: Optional[argparse.Namespace] = None,
                     if args.max_steps and iteration >= args.max_steps:
                         return record
     finally:
-        # on any exit the last steps' scalars are written and the logs flushed
+        # on any exit the last steps' scalars are written, a trace still open
+        # is written, and the logs flushed
+        if profiler is not None:
+            stop_profile(profiler, device, args.profile_dir)
         flush()
         logger.close()
     return record
@@ -321,6 +398,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--metric_flush_steps", type=int, default=20,
                         help="fetch the steps' scalars from the card in one transfer every "
                         "this many steps (and at each log step)")
+    parser.add_argument("--profile_dir", type=str, default="",
+                        help="trace the steps from iteration 3 to 8 with torch.profiler into "
+                        "DIR/text2vec_rank{rank}.pt.trace.json")
+    parser.add_argument("--precompile", action=argparse.BooleanOptionalAction, default=True,
+                        help="build and load the step's kernels before the first step "
+                        "(--no-precompile: at their first launch)")
     parser.add_argument("--prefetch", action=argparse.BooleanOptionalAction, default=True,
                         help="pad the next batch on a thread while the card runs the step")
     parser.add_argument("--validate", action="store_true",

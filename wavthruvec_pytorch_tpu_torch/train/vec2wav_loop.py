@@ -28,7 +28,9 @@ are numbered from 0, as the reference numbers them.  Into
 ``--stdout_interval`` prints a step's losses; ``--num_workers`` threads
 load a batch's items and ``--prefetch`` loads the next batch while the card
 runs the step.  ``--fine_tuning`` and ``--input_mels_dir`` select the
-reference's branch of precomputed mels (``data/vocoder_data.py``).  With
+reference's branch of precomputed mels (``data/vocoder_data.py``).
+``--group_name``, ``--input_wavs_dir`` and ``--validation_interval`` parse
+and select nothing, as in the JAX loop, which declares and ignores them.  With
 ``device_resident_data=True``, ``split=True`` and ``device_mel_target=True``
 and without ``--fine_tuning``, the corpus is staged on the card once
 (``data/vocoder_device_cache.py``) and each step's windows are gathered
@@ -267,10 +269,19 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", type=str, default="",
                         help="a Vec2WavConfig JSON file (e.g. data/demo/vec2wav.json)")
+    parser.add_argument("--group_name", default=None,
+                        help="read by nothing, as in the JAX loop (the reference's "
+                        "distributed group name)")
+    parser.add_argument("--input_wavs_dir", default="LJSpeech-1.1/wavs",
+                        help="read by nothing, as in the JAX loop: the wavs come from the "
+                        "config's file lists")
     parser.add_argument("--input_mels_dir", default="ft_dataset",
                         help="the precomputed mels of --fine_tuning")
     parser.add_argument("--training_epochs", default=100, type=int)
     parser.add_argument("--stdout_interval", default=50, type=int)
+    parser.add_argument("--validation_interval", default=1000, type=int,
+                        help="read by nothing, as in the JAX loop: validation runs every "
+                        "cfg.val_step steps")
     parser.add_argument("--fine_tuning", default=False, type=parse_bool,
                         help="true/false: train on the precomputed mels of --input_mels_dir")
     parser.add_argument("--max_steps", type=int, default=0,
