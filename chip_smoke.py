@@ -389,14 +389,17 @@ are set to 0 in each rank just before its step or job and read just after:
     row carries the card's name.
 
 Then flash attention past head dim 256 (the wide kernels of
-``csrc/flash_attn.cu``: the output's columns in chunks of 128 a block, the
-score products streamed over the whole head dim, zero-padded to a multiple
-of 128), on the long-bucket config at one head (``one_head_config``: d_model
-448, so d_k = d_v = 448 in both stacks, the same attention work as its two
-heads of 224):
+``csrc/flash_attn.cu``: the head dim zero-padded to a multiple of 64, the
+output's columns in chunks a block (``wide_chunks``: 256 in the forward and
+the bf16 dK/dV, which run on wgmma and TMA; 128 in the rest), the score
+products streamed over the whole head dim), on the long-bucket config at one
+head (``one_head_config``: d_model 448, so d_k = d_v = 448 in both stacks,
+the same attention work as its two heads of 224):
 
 45. Each wide kernel against autograd of the plain version at D in
-    ``WIDE_DIMS`` (288, 300: no multiple of 32, 448: run at 512, 512): bf16
+    ``WIDE_DIMS`` (288 and 300: run at 320; 448 and 512: two chunks, K and V
+    or Q resident; 768: three chunks, the bf16 kernels' own operand
+    streamed): bf16
     at [16, 1, 3072, D] with the last item padded from ``WIDE_TAIL`` on, f32
     at [1, 1, 3072 | 768, D], within phase 13's tolerances; each with its
     times (CUDA events on a filled queue), its bound (the function's own
@@ -404,7 +407,9 @@ heads of 224):
     10 the backward), the plain version's times and SDPA's forward, forward
     + backward and backward (the same boolean mask; the backend PyTorch
     picks named by its own choice function); ``ptxas``'s registers and
-    spills of the six wide instances (none may spill).
+    spills of the six wide instances (none may spill): ``wide_fwd_bf16``,
+    ``wide_dkv_bf16``, ``wide_fwd_f32``, ``wide_dkv_kernel<float>``,
+    ``wide_dq_kernel<float>`` and ``<bf16>``.
 46. Phase 15 at one head: one bf16 flash step card against CPU (and the f32
     step) at B = 8, N = 256, T = 512, the same weights and tolerances; 8
     launches of each wide kernel a step and none of the templates'.
@@ -430,7 +435,8 @@ of phases 32-36; ``tools_launches``: those of phases 37-41;
 ``parallel_launches``: those of phases 42-43 summed over the ranks;
 ``bench_launches``: those of phase 44; the wide flash kernels' rows
 ``launches``: those of phase 47's timed steps, their times phase 45's at
-[16, 1, 3072, 448] bf16, f32_ keys at [1, 1, 3072, 448]); the last line is
+[16, 1, 3072, 448] bf16, f32_ keys at [1, 1, 3072, 448]; a backward row's
+``ms`` is a call with its preparation, ``kernel_ms`` the kernel alone); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -555,6 +561,7 @@ from wavthruvec_pytorch_tpu_torch.ops.flash_attention import (
     flash_fwd_wide,
     kernel_width,
     kernels_for,
+    wide_chunks,
 )
 from wavthruvec_pytorch_tpu_torch.ops.mas import MAX_K as MAS_MAX_K
 from wavthruvec_pytorch_tpu_torch.ops.mas import MAX_N as MAS_MAX_N
@@ -2165,10 +2172,12 @@ def serve_long(dev, cfg=None):
 
 # phase 45: head dims past 256 on the wide kernels.  The bf16 training shape
 # [WIDE_B, 1, LONG_T, D] with its last item padded from WIDE_TAIL on, and the
-# f32 serving shapes [1, 1, LONG_T | LONG_N, D]; D = 300 is no multiple of 32
-# and 448 (the long bucket's d_model at one head) runs zero-padded to 512.
-# Tolerances: phase 13's FLASH_*_RTOL and FLASH_LSE_ATOL.
-WIDE_DIMS = (288, 300, 448, 512)
+# f32 serving shapes [1, 1, LONG_T | LONG_N, D]; D = 288 and 300 run
+# zero-padded to 320 (chunks of 256 and 64), 448 (the long bucket's d_model
+# at one head) unpadded in chunks of 256 and 192, 768 in three of 256 with
+# the bf16 kernels' own operand streamed.  Tolerances: phase 13's
+# FLASH_*_RTOL and FLASH_LSE_ATOL.
+WIDE_DIMS = (288, 300, 448, 512, 768)
 WIDE_B, WIDE_TAIL = LONG_B, 2000
 WIDE_ROW_D = 448  # the kernels line's times: the one-head long-bucket step's shapes
 
@@ -2180,16 +2189,19 @@ def one_head_config() -> Text2VecConfig:
 
 
 def wide_ptxas() -> None:
-    """ptxas's register and spill report of each wide instance (f32 and
-    bf16); none may spill."""
+    """ptxas's register and spill report of each wide instance (the bf16
+    forward and dK/dV on wgmma, the f32 forward, and the mma.sync backward's
+    templates in f32 and bf16); none may spill."""
     log = kernel_build.build_log("flash_attn").splitlines()
     seen = 0
     for i, line in enumerate(log):
-        m = re.search(r"\d+(wide_(?:fwd|dkv|dq)_kernel)I(f|13__nv_bfloat16)E", line)
+        # the mangled name: its length, the name, then any template argument
+        m = re.search(r"\d+(wide_(?:fwd|dkv|dq)_(?:kernel|bf16|f32))(?:I(f|13__nv_bfloat16)E)?E",
+                      line)
         if m is None or "entry function" not in line:
             continue
         info = " ".join(x.strip() for x in log[i + 1:i + 4] if "registers" in x or "spill" in x)
-        name = f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'bf16'}>"
+        name = m.group(1) + ({"f": "<float>", "13__nv_bfloat16": "<bf16>"}.get(m.group(2), ""))
         print(f"  {name}: {info}")
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", info)
         check(spills is not None and spills.groups() == ("0", "0"), f"{name} spills: {info}")
@@ -2281,8 +2293,8 @@ def check_flash_wide():
         b_bwd, _ = flash_bound(B, T, dtype, 5, 4, 3, 2, H=1, D=D)
         product = 2.0 * B * T * T * D
         bwd = t["prep"] + t["dkv"] + t["dq"]
-        print(f"  {label} [{B}, 1, {T}, {D}] {str(dtype)[6:]} (run at {kernel_width(D)}, "
-              f"{kernel_width(D) // 128} column chunks): out {errs['out']:.2e}, lse {lse_err:.2e}, "
+        print(f"  {label} [{B}, 1, {T}, {D}] {str(dtype)[6:]} (run at {kernel_width(D)}, forward "
+              f"chunks {wide_chunks(kernel_width(D))}): out {errs['out']:.2e}, lse {lse_err:.2e}, "
               f"dq {errs['dq']:.2e}, dk {errs['dk']:.2e}, dv {errs['dv']:.2e} of max; forward "
               f"{t['fwd']:.3f} ms ({rate(2 * product, t['fwd'], b_fwd)}; bound {b_fwd:.4f}, "
               f"{by_fwd}), dK/dV {t['dkv']:.3f} ms ({rate(4 * product, t['dkv'], b_dkv)}), dQ "
@@ -2303,11 +2315,16 @@ def check_flash_wide():
         if label == "training decoder":
             rows["flash_fwd_wide"].update(ms=t["fwd"], plain_ms=t["plain"], bound_ms=b_fwd,
                                           bound_by=by_fwd, library_ms=t["sdpa"])
-            for name, call, bms, by in (("flash_bwd_dkv_wide", t["call_dkv"], b_dkv, by_dkv),
-                                        ("flash_bwd_dq_wide", t["call_dq"], b_dq, by_dq)):
-                rows[name].update(ms=call, plain_ms=t["plain_bwd"], bound_ms=bms, bound_by=by,
-                                  library_ms=t["sdpa_fb"])
+            # ms: a call with its share of the preparation; kernel_ms: the kernel alone
+            for name, call, alone, bms, by in (
+                    ("flash_bwd_dkv_wide", t["call_dkv"], t["dkv"], b_dkv, by_dkv),
+                    ("flash_bwd_dq_wide", t["call_dq"], t["dq"], b_dq, by_dq)):
+                rows[name].update(ms=call, kernel_ms=alone, plain_ms=t["plain_bwd"], bound_ms=bms,
+                                  bound_by=by, library_ms=t["sdpa_fb"])
         elif label == "serving decoder":
+            rows["flash_fwd_wide"].update(f32_ms=t["fwd"], f32_plain_ms=t["plain"],
+                                          f32_bound_ms=b_fwd, f32_bound_by=by_fwd,
+                                          f32_library_ms=t["sdpa"])
             for name, call, bms, by in (("flash_bwd_dkv_wide", t["call_dkv"], b_dkv, by_dkv),
                                         ("flash_bwd_dq_wide", t["call_dq"], b_dq, by_dq)):
                 rows[name].update(f32_ms=call, f32_plain_ms=t["plain_bwd"], f32_bound_ms=bms,
@@ -5161,6 +5178,8 @@ def main() -> int:
         keys = ("ms", "plain_ms", "bound_ms") + (("f32_ms", "f32_plain_ms", "f32_bound_ms",
                                                    "f32_sdpa_bwd_ms")
                                                   if kern["name"].startswith("flash_bwd") else ())
+        if kern["name"] == "flash_fwd_wide":
+            keys += ("f32_ms", "f32_plain_ms", "f32_bound_ms", "f32_library_ms")
         check(all(math.isfinite(kern[key]) for key in keys), f"{kern['name']}: non-finite time")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

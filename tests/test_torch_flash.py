@@ -166,7 +166,7 @@ def test_flash_block_matches_jax(dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_wide_flash_block_matches_jax(dtype, d_k):
     """FFTBlock(use_flash=True) with one head of d_k = 288 or 448 (the wide
-    kernels' head dims on the card: zero-padded to 384 and 512) at T = 256
+    kernels' head dims on the card: 288 zero-padded to 320, 448 unpadded) at T = 256
     against JAX's ``MultiHeadAttention`` block, which takes its dense branch
     on the CPU, at ``test_flash_block_matches_jax``'s tolerances."""
     got, attn, want, seq = _block_pair(256, dtype, seed=5, n_head=1, d_k=d_k)
@@ -215,8 +215,8 @@ def test_kernel_shape_rule():
     through at the head dim of both FFT stacks of the long-bucket config (an
     instantiated width, run unpadded), and any head dim in both dtypes: up
     to 256 on the templates' widths, past it on the wide kernels at the next
-    multiple of 128 (JAX's padding); it rejects what the kernels do not
-    take."""
+    multiple of 64 (their score-product stage); it rejects what the kernels
+    do not take."""
     cfg = load_config(Text2VecConfig, repo_path("artifacts", "flash_longbucket", "flash",
                                                 "longbucket", "config.json"))
     dims = {cfg.encoder_output_dim // cfg.encoder_head, cfg.decoder_model_dim // cfg.encoder_head}
@@ -233,7 +233,7 @@ def test_kernel_shape_rule():
     assert [fa.kernel_width(D) for D in (1, 64, 65, 128, 129, 224, 225, 256)] == \
         [64, 64, 128, 128, 224, 224, 256, 256]
     assert [fa.kernel_width(D) for D in (257, 288, 300, 384, 385, 448, 512, 1024, 1100)] == \
-        [384, 384, 384, 384, 512, 512, 512, 1024, 1152]
+        [320, 320, 320, 384, 448, 448, 512, 1024, 1152]
     assert not any(fa.wide(D) for D in (1, 224, 256)) and all(fa.wide(D) for D in (257, 448))
     assert fa.kernels_for(256) == (fa.flash_fwd, fa.flash_bwd_dkv, fa.flash_bwd_dq)
     assert fa.kernels_for(288) == (fa.flash_fwd_wide, fa.flash_bwd_dkv_wide,
@@ -264,17 +264,58 @@ def test_f32_splits():
         assert blocks / (waves * 132) > 0.7, (T, s, blocks)
 
 
-@pytest.mark.parametrize("D", [12, 48, 96, 300, 448])
+def test_wide_chunk_plan():
+    """The wide kernels' output chunks (a block each) at every head dim from
+    257 to 1024: the padded width W is the next multiple of ``WIDE_PAD``;
+    its chunks cover W in order, none is empty or wider than 256 columns
+    (wgmma's widest N), every one is a multiple of the 32-column TMA box,
+    all but the last are 256 wide, and D <= 512 takes at most two."""
+    assert (fa.WIDE_PAD, fa.WIDE_CHUNK) == (64, 256)
+    for D in range(257, 1025):
+        W = fa.kernel_width(D)
+        assert W % fa.WIDE_PAD == 0 and D <= W < D + fa.WIDE_PAD, (D, W)
+        chunks = fa.wide_chunks(W)
+        assert sum(chunks) == W and len(chunks) == -(-W // 256), (D, chunks)
+        assert all(0 < c <= 256 and c % 32 == 0 for c in chunks), (D, chunks)
+        assert all(c == 256 for c in chunks[:-1]), (D, chunks)
+        assert len(chunks) <= 2 or D > 512, (D, chunks)
+    assert fa.wide_chunks(448) == [256, 192] and fa.wide_chunks(320) == [256, 64]
+    assert fa.wide_chunks(512) == [256, 256] and fa.wide_chunks(768) == [256] * 3
+
+
+@pytest.mark.parametrize("BH, T", [(1, 768), (1, 3072), (2, 3072), (16, 3072), (1, 64), (4, 320)])
+def test_wide_f32_splits(BH, T):
+    """The wide f32 forward's key splits (``f32_splits`` with its chunk
+    count: a block per 128 query rows, chunk and split): every split is
+    non-empty and at most 32 at every wide width up to 1024; at the one-head
+    serving shapes (B H = 1, T = 768 and 3072, D = 448: two chunks) the
+    blocks fill more than 70% of an H100's 132 SMs in every wave, where one
+    split gives 12 or 48 blocks."""
+    tiles = T // 32
+    for W in range(320, 1025, 64):
+        chunks = len(fa.wide_chunks(W))
+        s = fa.f32_splits(BH, T, 132, chunks)
+        per = -(-tiles // s)
+        assert 1 <= s <= min(32, tiles) and -(-tiles // per) == s, (W, s)
+    if BH == 1 and T in (768, 3072):
+        s = fa.f32_splits(BH, T, 132, len(fa.wide_chunks(448)))
+        blocks = (T // 128) * 2 * s
+        assert s > 1 and blocks / (-(-blocks // 132) * 132) > 0.7, (T, s, blocks)
+
+
+@pytest.mark.parametrize("D", [12, 48, 96, 300, 448, 700, 768])
 def test_head_dim_padding_is_exact(D):
     """What the wrappers do for a head dim outside ``WIDTHS`` (and past 256
-    not a multiple of 128): zero-pad q, k, v and dout to ``kernel_width(D)``,
-    keep sm_scale = 1/sqrt(D), slice the output and gradients back.  On the plain version in f32 (B = 2, H = 2,
-    T = 128, the second item padded from 90 on) the output, lse and the
-    three gradients equal the unpadded ones within 1e-6 (2e-6 past 256)."""
+    not a multiple of 64): zero-pad q, k, v and dout to ``kernel_width(D)``,
+    keep sm_scale = 1/sqrt(D), slice the output and gradients back.  On the
+    plain version in f32 (B = 2, H = 2, T = 128, the second item padded from
+    90 on) the output, lse and the three gradients equal the unpadded ones
+    within 1e-6 (2e-6 past 256).  Past 256 the wide kernels run 300 at 320
+    and 700 at 704; 448 and 768, multiples of 64, run unpadded."""
     rng = np.random.default_rng(D)
     B, H, T = 2, 2, 128
     W = fa.kernel_width(D)
-    assert W > D
+    assert W == D if fa.wide(D) and D % fa.WIDE_PAD == 0 else W > D
     q, k, v, dout = (torch.tensor(rng.standard_normal((B, H, T, D)).astype(np.float32))
                      for _ in range(4))
     seg = torch.ones(B, T, dtype=torch.int32)
@@ -290,8 +331,8 @@ def test_head_dim_padding_is_exact(D):
     want, _ = run(D)
     got, pad_out = run(W)
     assert not pad_out.any()
-    # past 256 the CPU's f32 GEMM blocks the 512-column sums otherwise than
-    # the 448-column ones: ~10 ulp of the largest values (~2) apart
+    # past 256 the CPU's f32 GEMM may block the padded sums otherwise than
+    # the unpadded ones: ~10 ulp of the largest values (~2) apart
     atol = 1e-6 if D <= fa.WIDTHS[-1] else 2e-6
     for name, g, w in zip(("out", "lse", "dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(g.detach().numpy(), w.detach().numpy(), atol=atol, err_msg=name)
@@ -300,7 +341,7 @@ def test_head_dim_padding_is_exact(D):
 def test_backward_inputs_shared():
     """``backward_inputs``, made once a backward for both kernels: q, k, v
     and dout in the kernels' contiguous [B, T, H, D] layout (both dtypes
-    zero-padded to ``kernel_width(D)``, past 256 to a multiple of 128 for
+    zero-padded to ``kernel_width(D)``, past 256 to a multiple of 64 for
     the wide kernels), int32 segment ids, and delta = rowsum(dout * out) in
     f32 (against float64, 1e-5 of the row's sum of |terms|).  The kernels
     refuse CPU inputs."""
@@ -336,7 +377,7 @@ def test_backward_inputs_shared():
     assert wins.shape == (B, H, T, 300)
     for name, t in (("q", wide[0]), ("k", wide[1]), ("v", wide[2]), ("dout", wide[4])):
         got = getattr(wins, name)
-        assert got.shape == (B, T, H, 384) and got.is_contiguous(), name
+        assert got.shape == (B, T, H, 320) and got.is_contiguous(), name
         assert torch.equal(got[..., :300], t.transpose(1, 2)) and not got[..., 300:].any(), name
     want_delta = (wide[4].double() * wide[3].double()).sum(-1)
     assert float(((wins.delta.double() - want_delta).abs()).max()) <= 1e-5 * float(

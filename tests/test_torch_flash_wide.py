@@ -81,7 +81,7 @@ def test_one_head_step_past_256_matches_jax():
     for stack in (trainer.model.encoder, trainer.model.decoder):
         attn = stack.layer_stack[0].slf_attn
         assert attn.use_flash and attn.n_head == 1 and attn.d_k == attn.d_v == 288
-        assert fa.kernels_for(attn.d_k) == fa.KERNELS[3:] and fa.kernel_width(attn.d_k) == 384
+        assert fa.kernels_for(attn.d_k) == fa.KERNELS[3:] and fa.kernel_width(attn.d_k) == 320
     trainer.model.load_state_dict(start, strict=True)
     launches = [k.launches for k in fa.KERNELS]
     losses, out, grads = _port_step(trainer, batch)

@@ -27,8 +27,8 @@
 // any head dim.  Here every kernel is a template on the head dim HD, built
 // for HD = 64, 128, 224 and 256 (a multiple of 32: a TMA box is 32 columns,
 // a wgmma k-step 16; the f32 backward splits dQ's columns in halves of
-// 8-column tiles); past 256 three wide kernels (below) take any multiple of
-// 128.  The wrapper zero-pads any other D to the next width, which is exact
+// 8-column tiles); past 256 the wide kernels (below) take any multiple of
+// 64.  The wrapper zero-pads any other D to the next width, which is exact
 // (padded columns add 0 to every q.k; padded v columns give output columns
 // that are dropped).
 //
@@ -767,16 +767,19 @@ __device__ __forceinline__ void product_nmajor(float (&acc)[HD / 2], const float
 }
 
 // Write a 64 x HD f32 accumulator as bf16 rows r0 + 16 w + g (and + 8) of one
-// head (row stride rs elements), times `mul0` (`mul1`); rows >= nrows skipped.
+// head (row stride rs elements), times `mul0` (`mul1`); rows >= nrows and
+// columns >= ncols (a multiple of 8) skipped.
 template <int HD>
 __device__ __forceinline__ void store_rows(bf16* base, size_t rs, int r0, int nrows,
-                                           const float (&acc)[HD / 2], float mul0, float mul1) {
+                                           const float (&acc)[HD / 2], float mul0, float mul1,
+                                           int ncols = HD) {
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4, w = (threadIdx.x % WG) / 32;
   const int ra = r0 + 16 * w + g, rb = ra + 8;
   bf16* pa = base + static_cast<size_t>(ra) * rs + 2 * t;
   bf16* pb = base + static_cast<size_t>(rb) * rs + 2 * t;
 #pragma unroll
   for (int n = 0; n < HD / 8; ++n) {
+    if (8 * n >= ncols) break;
     if (ra < nrows)
       *reinterpret_cast<uint32_t*>(pa + 8 * n) = pack(acc[4 * n] * mul0, acc[4 * n + 1] * mul0);
     if (rb < nrows)
@@ -1207,50 +1210,498 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constan
 }
 
 // ===========================================================================
-// Head dims past 256: the wide kernels (mma.sync, f32 and bf16)
+// Head dims past 256: the wide kernels
 // ===========================================================================
 //
 // JAX's flash branch takes any head dim: it zero-pads d_k above 128 to a
 // multiple of 128.  Past 256 the templates above run out of room, since
 // their output accumulator grows with HD (HD / 2 registers a thread in the
 // bf16 forward; flash_bwd_dkv_f32<256> takes 255) and so do their resident
-// tiles (a 128-row bf16 Q tile is 128 KB at HD = 512).  The wide kernels
-// hold both fixed whatever the head dim DP (a multiple of WC, the caller
-// zero-pads to it as JAX pads to 128):
+// tiles.  The wide kernels take any head dim DP that is a multiple of WK =
+// 64 (the caller zero-pads to it: 448 runs as 448) and hold the accumulator
+// fixed whatever DP:
 //
-//   * the output's columns are split over blockIdx.z in chunks of WC = 128,
-//     so a thread holds one 16-row x 128-column accumulator at most;
+//   * the output's columns are split over blockIdx.z in chunks, so a thread
+//     holds the accumulator of one chunk at most;
 //   * the score products (S = Q K^T, and dP = dO V^T in the backward) run
-//     over all DP columns, streamed through shared memory in stages of
-//     WK = 64 columns of both operands by a two-stage cp.async ring; their
+//     over all DP columns in stages through shared memory; their
 //     accumulators do not grow with DP.  Every chunk's block recomputes
-//     them with the same code on the same data in the same order, so all
-//     chunks see the same scores, maxima and row sums and normalise alike;
-//     chunk 0 alone writes lse.  The product operand of the chunk (V, or Q
-//     and dO, or K: 128 columns of a tile) is loaded beside the ring.
+//     them.  In the forward they run with the same code on the same data in
+//     the same order, so all chunks see the same scores, maxima and row sums
+//     and normalise alike; chunk 0 alone writes lse.
 //
-// Both dtypes run one code path on the TF32 tensor cores with mma.sync
-// m16n8k8 and the f32 kernels' fragment scheme: f32 inputs as 3xTF32 (f32
-// accuracy); bf16 inputs as one TF32 product, exact, since a bf16 value is
-// a TF32 value and the product of two is exact in f32 (the sums a bf16
-// product with f32 accumulation makes).  P and dS are rounded to bf16 before
-// their products, as the bf16 kernels round them.  So bf16 runs at TF32's
-// rate, half of bf16's: a first design, simple and right.
+// Three designs:
 //
-// Blocks are 8 warps.  Forward: 128 query rows (16 a warp), key tiles of
-// 32.  dK/dV and dQ: 64 rows as 4 pairs of warps, the pair splitting the
-// products as the f32 backward above does (dK/dV: role 0 S^T, P^T and dV,
-// role 1 dP^T, dS^T and dK; dQ: role 0 S and P, role 1 dP, both dS and half
-// of the chunk's dQ columns), tiles of 32.  Operations bound them; the
-// recomputed score products multiply the work by the chunk count.
+//   * bf16 forward and dK/dV (training): the templates' Hopper design, one
+//     TMA producer warpgroup and two wgmma consumer warpgroups, with chunks
+//     of WCH = 256 columns (wgmma's widest N; 128 accumulator registers a
+//     consumer thread, as flash_fwd_bf16<256>), so D = 288-512 takes two
+//     chunks and the scores are computed twice, not once per 128 columns.
+//     The last chunk may be narrower (448 = 256 + 192): its missing V (or Q
+//     and dO) boxes are not loaded, and the accumulator columns they feed
+//     are not stored (chunks of 224 would do 5% less work at D = 448; a
+//     224-column dK/dV drew more of ptxas's injected wgmma fences, C7519,
+//     and was not kept).  The operand the block keeps (the forward's 128 rows
+//     of Q; dK/dV's 64 keys of K and V) stays in shared memory while it
+//     fits beside the rest (DP <= 576 forward, DP <= 512 dK/dV); past that
+//     it streams through the ring with the other operand.  WidePlan, made on
+//     the host from DP, lays shared memory out.
+//   * f32 forward (serving): 3xTF32 mma.sync (f32 accuracy), 8 warps of 16
+//     query rows, key tiles of WN = 32 with the score products streamed in
+//     WK-column cp.async stages, the bf16 kernels' chunks, and the keys
+//     split over blocks as flash_fwd_f32 splits them (merged by
+//     flash_fwd_f32_merge), since one head gives few query blocks.
+//   * f32 dK/dV, and dQ in both dtypes: a first design on mma.sync (TF32 for
+//     bf16, whose values and products are exact there; 3xTF32 for f32),
+//     chunks of WC = 128 columns; see wide_dkv_kernel below.
 
-constexpr int WC = 128;   // output columns a block (blockIdx.z); DP is a multiple
-constexpr int WK = 64;    // head-dim columns a stage of the score products
+constexpr int WC = 128;   // mma.sync backward: output columns a block (blockIdx.z)
+constexpr int WK = 64;    // head-dim columns a stage of the score products; DP is a multiple
 constexpr int WQ = 128;   // forward: query rows a block
 constexpr int WB = 64;    // backward: keys (dK/dV) or queries (dQ) a block
-constexpr int WN = 32;    // keys (forward, dQ) or queries (dK/dV) a tile
-constexpr int WT = 256;   // threads a block: 8 warps
+constexpr int WN = 32;    // mma.sync kernels: keys (forward, dQ) or queries (dK/dV) a tile
+constexpr int WT = 256;   // threads of an mma.sync block: 8 warps
 constexpr int WNT = WN / 8;
+constexpr int WCH = 256;  // bf16 kernels and the f32 forward: output columns a chunk
+
+// ---------------------------------------------------------------------------
+// bf16 forward and dK/dV on wgmma + TMA
+// ---------------------------------------------------------------------------
+//
+// Tiles are 32-column boxes of 64 rows (BOXB bytes; the forward's Q boxes
+// 128 rows) in the 64-byte swizzle, as the templates keep them.
+//
+// Forward: one block per (128 query rows, b * H + h, chunk).  A ring stage
+// is 64 columns of the key tile (with Q's, when Q streams); per key tile
+// the consumers run S = Q K^T over the DP / 64 stages (four m64n64k16 a
+// stage), the base-2 online softmax, and
+// O += round(P) V with the chunk's V as the N-major B operand and P the
+// register A operand (wgmma_rs<256>).  V and the key segment ids come
+// through a ring of two.
+//
+// dK/dV: one block per (64 keys, b * H + h, chunk), query tiles of 64, the
+// consumers split as flash_bwd_dkv_bf16: A computes S^T = K Q^T, P^T and
+// dV += round(P^T) dO_c; B computes dP^T = V dO^T, takes P^T through shared
+// memory (named barriers), dS^T and dK += round(dS^T) Q_c, where Q_c and dO_c
+// are the chunk's columns of the query tile.  Those columns are the last
+// stages of the score products: they arrive once, into a chunk buffer that
+// stays for the second products, with the tile's lse, delta and segment
+// ids; the other DP - 256 columns stream through the ring, two boxes of Q
+// and dO a stage.  So a query tile moves DP columns of Q and dO, not
+// DP + 256.
+//
+// What bounds them: the products.  A chunk multiplies over DP + 256
+// columns forward (S, then P V) and 2 DP + 512 in dK/dV, against the
+// function's 2 D and 4 D in all: at D = 448 (two chunks) 1.57x the
+// function's work in both.
+
+constexpr uint32_t BOXB = 64 * 64;  // bytes of a 32-column box of 64 rows
+constexpr int WRING = 8;            // ring stages at most
+constexpr int WSB = 2;              // boxes of each streamed operand a ring stage
+constexpr uint32_t WBARS = 8 * (5 + 2 * WRING);
+constexpr int BAR_WP_FULL = 1, BAR_WP_FREE = 2;  // dK/dV: P^T written, P^T read
+
+// Shared memory of a wide bf16 kernel (byte offsets from the 1024-aligned
+// base): [the resident operand, at 0][ring][c: the forward's two V stages, or
+// dK/dV's chunk buffer Q_c, dO_c][x: dK/dV's P^T, f32 [NS][WG]][rows: the
+// forward's two stages of key segment ids, or dK/dV's lse, delta and
+// segment ids of the query tile][barriers].
+struct WidePlan {
+  int res;         // 1: the block's own operand stays in shared memory
+  int stages;      // ring stages
+  uint32_t stage;  // bytes a ring stage
+  uint32_t ring, c, x, rows, bar, smem;
+};
+
+WidePlan wide_plan(int DP, bool dkv) {
+  const uint32_t own = 256u * static_cast<uint32_t>(DP);  // Q of 128 rows, or K and V of 64
+  const uint32_t c = 2 * (WCH / BOX) * BOXB;
+  const uint32_t x = dkv ? NS * WG * 4 : 0, rows = (dkv ? 3 : 2) * 64 * 4;
+  const uint32_t fixed = c + x + rows + WBARS + 1024;  // + alignment slack
+  // a stage: WSB boxes of the streamed operands (forward: K; dK/dV: Q and
+  // dO), and without the resident operand WSB of it too (forward: Q of 128
+  // rows)
+  const uint32_t res_stage = (dkv ? 2 : 1) * WSB * BOXB, str_stage = (dkv ? 4 : 3) * WSB * BOXB;
+  const uint32_t min_res = dkv ? 1 : 2;
+  WidePlan p{};
+  if (own + fixed + min_res * res_stage <= SMEM_MAX) {
+    p.res = 1;
+    p.stage = res_stage;
+    p.stages = static_cast<int>((SMEM_MAX - own - fixed) / res_stage);
+    p.ring = own;
+  } else {
+    p.res = 0;
+    p.stage = str_stage;
+    p.stages = static_cast<int>((SMEM_MAX - fixed) / str_stage);
+    p.ring = 0;
+  }
+  if (p.stages > WRING) p.stages = WRING;
+  p.c = p.ring + p.stages * p.stage;
+  p.x = p.c + c;
+  p.rows = p.x + x;
+  p.bar = p.rows + rows;
+  p.smem = p.bar + WBARS + 1024;
+  return p;
+}
+
+__global__ void __launch_bounds__(3 * WG, 1)
+wide_fwd_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+              const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ seg,
+              bf16* __restrict__ out, float* __restrict__ lse, int H, int T_, int DP,
+              const WidePlan p, float scale_log2) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const uint32_t sb = smem_u32(smem);
+  const uint32_t full_q = sb + p.bar;
+  auto full_k = [&](int s) { return full_q + 8 * (1 + s); };
+  auto empty_k = [&](int s) { return full_q + 8 * (1 + WRING + s); };
+  auto full_v = [&](int s) { return full_q + 8 * (1 + 2 * WRING + s); };
+  auto empty_v = [&](int s) { return full_q + 8 * (3 + 2 * WRING + s); };
+  auto v_tile = [&](int s) { return sb + p.c + s * (WCH / BOX) * BOXB; };
+
+  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
+  const int q0 = blockIdx.x * WQ, c0 = blockIdx.z * WCH;
+  const int nkt = T_ / 64, nd = DP / WK, ST = p.stages;
+  const int ncols = min(WCH, DP - c0);
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(full_q, 1);
+    for (int s = 0; s < ST; ++s) {
+      hopper::mbar_init(full_k(s), 1);
+      hopper::mbar_init(empty_k(s), 2);
+    }
+    for (int s = 0; s < 2; ++s) {
+      hopper::mbar_init(full_v(s), 1);
+      hopper::mbar_init(empty_v(s), 2);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x / WG == 0) {  // producer
+    hopper::setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      const int row0 = b * T_;
+      if (p.res) {
+        hopper::mbar_expect_tx(full_q, static_cast<uint32_t>(WQ) * DP * 2);
+        for (int c = 0; c < DP / BOX; ++c)
+          hopper::tma_load_3d(sb + c * 2 * BOXB, &tm_q, full_q, c * BOX, h, row0 + q0);
+      }
+      int it = 0;
+      for (int j = 0; j < nkt; ++j) {
+        for (int d = 0; d < nd; ++d, ++it) {
+          const int s = it % ST;
+          if (it >= ST) hopper::mbar_wait(empty_k(s), (it / ST - 1) & 1);
+          const uint32_t st = sb + p.ring + s * p.stage;
+          hopper::mbar_expect_tx(full_k(s), p.stage);
+          if (!p.res)
+            for (int x = 0; x < 2; ++x)
+              hopper::tma_load_3d(st + x * 2 * BOXB, &tm_q, full_k(s), (2 * d + x) * BOX, h,
+                                  row0 + q0);
+          const uint32_t kt = st + (p.res ? 0 : 4 * BOXB);
+          for (int x = 0; x < 2; ++x)
+            hopper::tma_load_3d(kt + x * BOXB, &tm_k, full_k(s), (2 * d + x) * BOX, h,
+                                row0 + j * 64);
+        }
+        const int sv = j & 1;
+        if (j >= 2) hopper::mbar_wait(empty_v(sv), (j / 2 - 1) & 1);
+        hopper::mbar_expect_tx(full_v(sv), (ncols / BOX) * BOXB + 64 * 4);
+        for (int x = 0; x < ncols / BOX; ++x)
+          hopper::tma_load_3d(v_tile(sv) + x * BOXB, &tm_v, full_v(sv), c0 + x * BOX, h,
+                              row0 + j * 64);
+        hopper::bulk_load(sb + p.rows + sv * 64 * 4, seg + row0 + j * 64, 64 * 4, full_v(sv));
+      }
+    }
+  } else {  // consumers
+    hopper::setmaxnreg_inc<232>();
+    const int cw = threadIdx.x / WG - 1, tid = threadIdx.x % WG;
+    const int lane = tid % 32, g = lane / 4, t = lane % 4;
+    const int r0 = q0 + 64 * cw + 16 * (tid / 32) + g, r1 = r0 + 8;
+    const int segq0 = r0 < T_ ? seg[static_cast<size_t>(b) * T_ + r0] : -1;
+    const int segq1 = r1 < T_ ? seg[static_cast<size_t>(b) * T_ + r1] : -1;
+    float o[WCH / 2], sc[NS];
+#pragma unroll
+    for (int i = 0; i < WCH / 2; ++i) o[i] = 0.f;
+    // running row maxima (base-2 scores) and this thread's share of the row sums
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+    if (p.res) hopper::mbar_wait(full_q, 0);
+    int it = 0;
+    for (int j = 0; j < nkt; ++j) {
+      // S = Q K^T over DP, a 64-column stage at a time, each stage's products
+      // done before it is released: left in flight across the next stage's,
+      // ptxas serialized them (C7515) and the forward took 1.39x the time at
+      // D = 448 on an H100 80GB HBM3 at 700 W (tools/wide_variants.py)
+      for (int d = 0; d < nd; ++d, ++it) {
+        const int s = it % ST;
+        hopper::mbar_wait(full_k(s), (it / ST) & 1);
+        const uint32_t st = sb + p.ring + s * p.stage;
+        const uint32_t qa = p.res ? sb + d * 4 * BOXB : st;
+        const uint32_t kt = st + (p.res ? 0 : 4 * BOXB);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < WK; kk += 16)
+          hopper::wgmma_m64n64k16_ss(sc, hopper::kmajor_desc(qa, WQ, 64 * cw, kk),
+                                     hopper::kmajor_desc(kt, 64, 0, kk), d > 0 || kk > 0);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(sc);
+        if (tid == 0) hopper::mbar_arrive(empty_k(s));
+      }
+
+      // online softmax in base 2: x = s * sm_scale * log2(e), masked x = MASK
+      // (flash_fwd_bf16's)
+      const int sv = j & 1;
+      hopper::mbar_wait(full_v(sv), (j / 2) & 1);
+      const int* segk = reinterpret_cast<const int*>(smem + p.rows) + sv * 64;
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int2 sk = *reinterpret_cast<const int2*>(segk + 8 * n + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[4 * n + e] * scale_log2;
+          if ((e < 2 ? segq0 : segq1) != ((e & 1) ? sk.y : sk.x)) x = MASK;
+          sc[4 * n + e] = x;
+          if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
+        }
+      }
+      const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
+      const float al0 = ex2(m0 - mn0), al1 = ex2(m1 - mn1);  // 0 on the first tile
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const float pr = ex2(sc[i] - ((i & 2) ? mn1 : mn0));
+        sc[i] = pr;
+        if (i & 2) sum1 += pr; else sum0 += pr;
+      }
+      l0 = l0 * al0 + sum0;
+      l1 = l1 * al1 + sum1;
+      m0 = mn0;
+      m1 = mn1;
+#pragma unroll
+      for (int n = 0; n < WCH / 8; ++n) {
+        o[4 * n] *= al0; o[4 * n + 1] *= al0; o[4 * n + 2] *= al1; o[4 * n + 3] *= al1;
+      }
+
+      // O += round(P) V over the chunk's columns
+      product_nmajor<WCH>(o, sc, v_tile(sv));
+      if (tid == 0) hopper::mbar_arrive(empty_v(sv));
+    }
+
+    l0 = quad_sum(l0);
+    l1 = quad_sum(l1);
+    const size_t rs = static_cast<size_t>(H) * DP;
+    store_rows<WCH>(out + static_cast<size_t>(b) * T_ * rs + static_cast<size_t>(h) * DP + c0, rs,
+                    q0 + 64 * cw, T_, o, 1.f / l0, 1.f / l1, ncols);
+    if (blockIdx.z == 0 && t == 0) {
+      if (r0 < T_) lse[static_cast<size_t>(bh) * T_ + r0] = m0 * LN2 + logf(l0);
+      if (r1 < T_) lse[static_cast<size_t>(bh) * T_ + r1] = m1 * LN2 + logf(l1);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(3 * WG, 1)
+wide_dkv_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+              const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+              const int* __restrict__ seg, const float* __restrict__ lse,
+              const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
+              int H, int T_, int DP, const WidePlan p, float scale_log2, float sm_scale) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const uint32_t sb = smem_u32(smem);
+  const uint32_t full_kv = sb + p.bar, full_c = full_kv + 8, empty_c = full_kv + 16;
+  auto full = [&](int s) { return full_kv + 8 * (3 + s); };
+  auto empty = [&](int s) { return full_kv + 8 * (3 + WRING + s); };
+
+  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
+  const int k0 = blockIdx.x * 64, c0 = blockIdx.z * WCH, nqt = T_ / 64, ST = p.stages;
+  const int nb = DP / BOX, cb0 = c0 / BOX, ncols = min(WCH, DP - c0), ncb = ncols / BOX;
+  // boxes a query tile sends through the ring: all but the chunk's while K
+  // and V stay (the chunk's come last, into the chunk buffer), else all
+  const int nring = p.res ? nb - ncb : nb, nrs = (nring + WSB - 1) / WSB;
+  auto box = [&](int i) { return p.res && i >= cb0 ? i + ncb : i; };
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(full_kv, 1);
+    hopper::mbar_init(full_c, 1);
+    hopper::mbar_init(empty_c, 2);
+    for (int s = 0; s < ST; ++s) {
+      hopper::mbar_init(full(s), 1);
+      hopper::mbar_init(empty(s), 2);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x / WG == 0) {  // producer
+    hopper::setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      const int row0 = b * T_;
+      if (p.res) {
+        hopper::mbar_expect_tx(full_kv, 2u * 64 * DP * 2);
+        for (int c = 0; c < nb; ++c) {
+          hopper::tma_load_3d(sb + c * BOXB, &tm_k, full_kv, c * BOX, h, row0 + k0);
+          hopper::tma_load_3d(sb + (nb + c) * BOXB, &tm_v, full_kv, c * BOX, h, row0 + k0);
+        }
+      }
+      int it = 0;
+      for (int j = 0; j < nqt; ++j) {
+        for (int r = 0; r < nrs; ++r, ++it) {
+          const int s = it % ST, nbx = min(WSB, nring - WSB * r);
+          if (it >= ST) hopper::mbar_wait(empty(s), (it / ST - 1) & 1);
+          const uint32_t st = sb + p.ring + s * p.stage;
+          hopper::mbar_expect_tx(full(s), nbx * (p.res ? 2 : 4) * BOXB);
+          for (int x = 0; x < nbx; ++x) {
+            const int col = box(WSB * r + x) * BOX;
+            hopper::tma_load_3d(st + x * BOXB, &tm_q, full(s), col, h, row0 + j * 64);
+            hopper::tma_load_3d(st + (WSB + x) * BOXB, &tm_do, full(s), col, h, row0 + j * 64);
+            if (!p.res) {
+              hopper::tma_load_3d(st + (2 * WSB + x) * BOXB, &tm_k, full(s), col, h, row0 + k0);
+              hopper::tma_load_3d(st + (3 * WSB + x) * BOXB, &tm_v, full(s), col, h, row0 + k0);
+            }
+          }
+        }
+        if (j >= 1) hopper::mbar_wait(empty_c, (j - 1) & 1);
+        hopper::mbar_expect_tx(full_c, 2 * ncb * BOXB + 3 * 64 * 4);
+        for (int x = 0; x < ncb; ++x) {
+          hopper::tma_load_3d(sb + p.c + x * BOXB, &tm_q, full_c, c0 + x * BOX, h, row0 + j * 64);
+          hopper::tma_load_3d(sb + p.c + (WCH / BOX + x) * BOXB, &tm_do, full_c, c0 + x * BOX, h,
+                              row0 + j * 64);
+        }
+        const size_t rr = static_cast<size_t>(bh) * T_ + j * 64;
+        hopper::bulk_load(sb + p.rows, lse + rr, 64 * 4, full_c);
+        hopper::bulk_load(sb + p.rows + 64 * 4, delta + rr, 64 * 4, full_c);
+        hopper::bulk_load(sb + p.rows + 2 * 64 * 4, seg + row0 + j * 64, 64 * 4, full_c);
+      }
+    }
+  } else {  // consumers: A (cw 0) and B (cw 1)
+    hopper::setmaxnreg_inc<232>();
+    const int cw = threadIdx.x / WG - 1, tid = threadIdx.x % WG;
+    const int lane = tid % 32, t = lane % 4;
+    const int kr = k0 + 16 * (tid / 32) + lane / 4;  // this thread's key rows kr, kr + 8
+    const int segk0 = seg[static_cast<size_t>(b) * T_ + kr];
+    const int segk1 = seg[static_cast<size_t>(b) * T_ + kr + 8];
+    // A: S^T = K Q^T, then dV += P^T dO_c; B: dP^T = V dO^T, then dK += dS^T Q_c
+    const uint32_t own = sb + (cw == 0 ? 0 : nb * BOXB);  // resident K or V
+    const uint32_t chunk_a = sb + p.c + cw * (WCH / BOX) * BOXB;         // Q_c or dO_c
+    const uint32_t chunk_b = sb + p.c + (1 - cw) * (WCH / BOX) * BOXB;   // dO_c or Q_c
+    const float* lse_s = reinterpret_cast<const float*>(smem + p.rows);
+    const float* delta_s = lse_s + 64;
+    const int* segq = reinterpret_cast<const int*>(lse_s + 128);
+    float* xbuf = reinterpret_cast<float*>(smem + p.x);
+    float acc[WCH / 2], sc[NS];
+#pragma unroll
+    for (int i = 0; i < WCH / 2; ++i) acc[i] = 0.f;
+
+    if (p.res) hopper::mbar_wait(full_kv, 0);
+    int it = 0;
+    for (int j = 0; j < nqt; ++j) {
+      // each stage's products done before its release, as in the forward (in
+      // flight, dK/dV took 1.18x the time at D = 448), and the box loops
+      // unrolled (over runtime bounds, 1.03x; H100 80GB HBM3 at 700 W,
+      // tools/wide_variants.py)
+      for (int r = 0; r < nrs; ++r, ++it) {
+        const int s = it % ST, nbx = min(WSB, nring - WSB * r);
+        hopper::mbar_wait(full(s), (it / ST) & 1);
+        const uint32_t st = sb + p.ring + s * p.stage;
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int x = 0; x < WSB; ++x) {
+          if (x >= nbx) break;
+          const uint32_t ta =
+              p.res ? own + box(WSB * r + x) * BOXB : st + ((2 + cw) * WSB + x) * BOXB;
+          const uint32_t tb = st + (cw * WSB + x) * BOXB;
+#pragma unroll
+          for (int kk = 0; kk < BOX; kk += 16)
+            hopper::wgmma_m64n64k16_ss(sc, hopper::kmajor_desc(ta, 64, 0, kk),
+                                       hopper::kmajor_desc(tb, 64, 0, kk), r > 0 || x > 0 || kk > 0);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(sc);
+        if (tid == 0) hopper::mbar_arrive(empty(s));
+      }
+      hopper::mbar_wait(full_c, j & 1);
+      if (p.res) {  // the chunk's columns, last
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int x = 0; x < WCH / BOX; ++x) {
+          if (x >= ncb) break;
+          const uint32_t ta = own + (cb0 + x) * BOXB, tb = chunk_a + x * BOXB;
+#pragma unroll
+          for (int kk = 0; kk < BOX; kk += 16)
+            hopper::wgmma_m64n64k16_ss(sc, hopper::kmajor_desc(ta, 64, 0, kk),
+                                       hopper::kmajor_desc(tb, 64, 0, kk),
+                                       nring > 0 || x > 0 || kk > 0);
+        }
+        hopper::wgmma_commit();
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+
+      // this thread: keys kr (e < 2) and kr + 8, queries 8 n + 2 t (+ 1 for odd e)
+      if (cw == 0) {
+        // P^T = exp2(s * sm_scale * log2(e) - lse * log2(e)); masked: MASK
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const int c = 8 * n + 2 * t;
+          const float2 l2 = *reinterpret_cast<const float2*>(lse_s + c);
+          const int2 sq = *reinterpret_cast<const int2*>(segq + c);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x = sc[4 * n + e] * scale_log2;
+            if ((e < 2 ? segk0 : segk1) != ((e & 1) ? sq.y : sq.x)) x = MASK;
+            sc[4 * n + e] = ex2(x - ((e & 1) ? l2.y : l2.x) * LOG2E);
+          }
+        }
+        if (j >= 1) hopper::named_sync(BAR_WP_FREE, 2 * WG);
+#pragma unroll
+        for (int i = 0; i < NS; ++i) xbuf[i * WG + tid] = sc[i];
+        hopper::named_arrive(BAR_WP_FULL, 2 * WG);
+      } else {
+        hopper::named_sync(BAR_WP_FULL, 2 * WG);
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const float2 dl = *reinterpret_cast<const float2*>(delta_s + 8 * n + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * n + e;
+            sc[i] = xbuf[i * WG + tid] * (sc[i] - ((e & 1) ? dl.y : dl.x)) * sm_scale;
+          }
+        }
+        if (j < nqt - 1) hopper::named_arrive(BAR_WP_FREE, 2 * WG);
+      }
+      product_nmajor<WCH>(acc, sc, chunk_b);
+      if (tid == 0) hopper::mbar_arrive(empty_c);
+    }
+
+    const size_t rs = static_cast<size_t>(H) * DP;
+    const size_t head = static_cast<size_t>(b) * T_ * rs + static_cast<size_t>(h) * DP;
+    store_rows<WCH>((cw == 0 ? dv : dk) + head + c0, rs, k0, T_, acc, 1.f, 1.f, ncols);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// mma.sync kernels: the f32 forward, the f32 dK/dV, dQ in both dtypes
+// ---------------------------------------------------------------------------
+//
+// They take the f32 kernels' fragment scheme on mma.sync m16n8k8: f32
+// inputs as 3xTF32 (f32 accuracy); bf16 inputs as one TF32 product, exact,
+// since a bf16 value is a TF32 value and the product of two is exact in f32
+// (the sums a bf16 product with f32 accumulation makes).  P and dS are
+// rounded to bf16 before their products, as the bf16 kernels round them.
+// Operands are read from shared tiles one element at a time and converted:
+// the backward's first design, simple and right, with the bf16 dQ at TF32's
+// rate.  Tiles stream by cp.async through two stages of WK columns.
+//
+// Blocks are 8 warps.  Forward: 128 query rows (16 a warp), key tiles of
+// WN = 32, chunks of up to WCH columns (a warp's accumulator 16 x 256, as
+// flash_fwd_f32<256>), the keys split over blocks.  dK/dV and dQ: 64 rows as
+// 4 pairs of warps, the pair splitting the products as the f32 backward
+// above does (dK/dV: role 0 S^T, P^T and dV, role 1 dP^T, dS^T and dK; dQ:
+// role 0 S and P, role 1 dP, both dS and half of the chunk's dQ columns),
+// tiles of WN, chunks of WC = 128 columns (the last may be 64).  Operations
+// bound them; the recomputed score products multiply the work by the chunk
+// count.
 
 // Shared row stride of a COLS-column tile: 16 bytes of padding keep rows
 // 16-byte aligned for cp.async and spread a fragment load over the banks.
@@ -1294,16 +1745,17 @@ __device__ __forceinline__ void w_mma(float (&c)[4], const uint32_t (&ah)[4],
 
 // Start copying rows [r0, r0 + rows) of COLS columns (src: the first column
 // of the head's row 0, row stride rs elements) into a shared tile of row
-// stride wld<T>(COLS); rows at or past `limit` are zero-filled.
+// stride wld<T>(COLS); rows at or past `limit`, and columns at or past
+// `cols` (a multiple of 16 bytes), are zero-filled.
 template <typename T, int COLS>
 __device__ __forceinline__ void w_load(T* dst, const T* src, int r0, int rows, int limit,
-                                       size_t rs) {
+                                       size_t rs, int cols = COLS) {
   constexpr int E = 16 / static_cast<int>(sizeof(T)), CPR = COLS / E, LD = wld<T>(COLS);
   for (int i = threadIdx.x; i < rows * CPR; i += WT) {
     const int r = i / CPR, c = (i - r * CPR) * E;
-    const bool in = r0 + r < limit;
-    cp_async16(smem_u32(dst + r * LD + c), src + static_cast<size_t>(in ? r0 + r : 0) * rs + c,
-               in ? 16u : 0u);
+    const bool in = r0 + r < limit && c < cols;
+    cp_async16(smem_u32(dst + r * LD + c),
+               src + (in ? static_cast<size_t>(r0 + r) * rs + c : 0), in ? 16u : 0u);
   }
 }
 
@@ -1341,15 +1793,14 @@ __device__ __forceinline__ void w_scores(float (&s)[WNT][4], const T* ta, const 
     for (int e = 0; e < 4; ++e) s[n][e] += part[n][e];
 }
 
-// acc[n] += round(x) B over a tile's WN rows, NO 8-column tiles of B: x (16
-// x WN, accumulator layout) is the A operand with the keys of each 8-key
-// step in the order (0, 2, 4, 6, 1, 3, 5, 7), as in the f32 kernels; `vb`
-// points at B's row 2 t, column g (row stride wld<T>(WC)).  Each 8-column
-// tile sums the tile's rows into fresh registers first.
-template <typename T, int NO>
+// acc[n] += round(x) B over a tile's WN rows, NO 8-column tiles of B (those
+// from column `cols` on skipped): x (16 x WN, accumulator layout) is the A
+// operand with the keys of each 8-key step in the order (0, 2, 4, 6, 1, 3, 5,
+// 7), as in the f32 kernels; `vb` points at B's row 2 t, column g (row stride
+// LD).  Each 8-column tile sums the tile's rows into fresh registers first.
+template <typename T, int NO, int LD>
 __device__ __forceinline__ void w_accumulate(float (&acc)[NO][4], const float (&x)[WNT][4],
-                                             const T* vb) {
-  constexpr int LD = wld<T>(WC);
+                                             const T* vb, int cols = 8 * NO) {
   uint32_t xh[WNT][4], xl[WNT][4];
 #pragma unroll
   for (int ks = 0; ks < WNT; ++ks) {
@@ -1360,6 +1811,7 @@ __device__ __forceinline__ void w_accumulate(float (&acc)[NO][4], const float (&
   }
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
+    if (8 * n >= cols) break;
     float part[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
     for (int ks = 0; ks < WNT; ++ks) {
@@ -1375,15 +1827,18 @@ __device__ __forceinline__ void w_accumulate(float (&acc)[NO][4], const float (&
 
 // Write a 16-row accumulator of NO 8-column tiles in the input dtype: rows
 // r and r + 8 of `base` (row stride rs; rows at or past `limit` skipped),
-// columns 8 n + 2 t and + 1, times mul0 (row r) and mul1 (row r + 8).
+// columns 8 n + 2 t and + 1 below `cols`, times mul0 (row r) and mul1 (row
+// r + 8).
 template <typename T, int NO>
 __device__ __forceinline__ void w_store(T* base, size_t rs, int r, int limit,
-                                        const float (&acc)[NO][4], float mul0, float mul1) {
+                                        const float (&acc)[NO][4], float mul0, float mul1,
+                                        int cols = 8 * NO) {
   const int t = threadIdx.x % 4;
   T* pa = base + static_cast<size_t>(r) * rs + 2 * t;
   T* pb = pa + 8 * rs;
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
+    if (8 * n >= cols) break;
     if constexpr (kF32<T>) {
       if (r < limit)
         *reinterpret_cast<float2*>(pa + 8 * n) = make_float2(acc[n][0] * mul0, acc[n][1] * mul0);
@@ -1398,17 +1853,15 @@ __device__ __forceinline__ void w_store(T* base, size_t rs, int r, int limit,
   }
 }
 
-// Shared memory of the wide forward, in elements of T: two stages of
-// Q [WQ][wld(WK)] and K [WN][wld(WK)], then V [WN][wld(WC)].
-template <typename T>
-struct WideFwd {
-  static constexpr int LK = wld<T>(WK), LC = wld<T>(WC);
+// Shared memory of the f32 wide forward, in floats: two stages of
+// Q [WQ][wld(WK)] and K [WN][wld(WK)], then V [WN][wld(WCH)].
+struct WideFwdF32 {
+  static constexpr int LK = wld<float>(WK), LC = wld<float>(WCH);
   static constexpr int STAGE = (WQ + WN) * LK;
   static constexpr int V = 2 * STAGE;
-  static constexpr size_t SMEM = static_cast<size_t>(V + WN * LC) * sizeof(T);
+  static constexpr size_t SMEM = static_cast<size_t>(V + WN * LC) * sizeof(float);
   static_assert(SMEM <= SMEM_MAX, "wide forward shared memory");
-  static_assert((WQ * LK * sizeof(T)) % 16 == 0 && (STAGE * sizeof(T)) % 16 == 0,
-                "cp.async alignment");
+  static_assert((WQ * LK * 4) % 16 == 0 && (STAGE * 4) % 16 == 0, "cp.async alignment");
 };
 
 // Shared memory of the wide backward kernels: two stages of two [WB] and
@@ -1429,20 +1882,26 @@ struct WideBwd {
                 "cp.async alignment");
 };
 
-// forward: one block per (128 query rows, b * H + h, 128 output columns)
-template <typename T>
+// f32 forward: one block per (128 query rows, b * H + h, split of the key
+// tiles x chunk of WCH output columns: blockIdx.z = split * chunks +
+// chunk); part_o / part_ml (null without a split) as flash_fwd_f32's, with
+// DP columns: each chunk writes its columns of the split's unnormalised
+// output, chunk 0 its (m, l) rows.
 __global__ void __launch_bounds__(WT, 1)
-wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                const int* __restrict__ seg, T* __restrict__ out, float* __restrict__ lse, int H,
-                int T_, int DP, float scale_log2) {
-  using L = WideFwd<T>;
-  constexpr int NO = WC / 8;
+wide_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+             const int* __restrict__ seg, float* __restrict__ out, float* __restrict__ lse,
+             float* __restrict__ part_o, float* __restrict__ part_ml, int H, int T_, int DP,
+             int tiles_per_split, float scale_log2) {
+  using L = WideFwdF32;
+  constexpr int NO = WCH / 8;
   extern __shared__ __align__(16) unsigned char wsm[];
-  T* sm = reinterpret_cast<T*>(wsm);
+  float* sm = reinterpret_cast<float*>(wsm);
 
+  const int nc = (DP + WCH - 1) / WCH, chunk = blockIdx.z % nc, split = blockIdx.z / nc;
   const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
-  const int q0 = blockIdx.x * WQ, c0 = blockIdx.z * WC;
-  const int nd = DP / WK, nkt = T_ / WN, total = nkt * nd;
+  const int q0 = blockIdx.x * WQ, c0 = chunk * WCH, ncols = min(WCH, DP - c0);
+  const int kt0 = split * tiles_per_split, kt1 = min(T_ / WN, kt0 + tiles_per_split);
+  const int nd = DP / WK, total = (kt1 - kt0) * nd;
   const size_t rs = static_cast<size_t>(H) * DP;
   const size_t head = static_cast<size_t>(b) * T_ * rs + static_cast<size_t>(h) * DP;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
@@ -1450,12 +1909,12 @@ wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   const int* segb = seg + static_cast<size_t>(b) * T_;
   const int sqa = ra < T_ ? segb[ra] : -1, sqb = rb < T_ ? segb[rb] : -1;
 
-  // stage i: columns WK (i % nd).. of the block's Q rows and of key tile i / nd
+  // stage i: columns WK (i % nd).. of the block's Q rows and of key tile kt0 + i / nd
   auto load_stage = [&](int i) {
-    const int j = i / nd, d = i - j * nd;
-    T* st = sm + (i & 1) * L::STAGE;
-    w_load<T, WK>(st, q + head + d * WK, q0, WQ, T_, rs);
-    w_load<T, WK>(st + WQ * L::LK, k + head + d * WK, j * WN, WN, T_, rs);
+    const int j = kt0 + i / nd, d = i % nd;
+    float* st = sm + (i & 1) * L::STAGE;
+    w_load<float, WK>(st, q + head + d * WK, q0, WQ, T_, rs);
+    w_load<float, WK>(st + WQ * L::LK, k + head + d * WK, j * WN, WN, T_, rs);
   };
   load_stage(0);
   cp_async_commit();
@@ -1466,7 +1925,7 @@ wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   // running row maxima (base-2 scores) and this thread's share of the row sums
   float ma = -INFINITY, mb = -INFINITY, la = 0.f, lb = 0.f;
 
-  for (int j = 0; j < nkt; ++j) {
+  for (int j = kt0; j < kt1; ++j) {
     int2 sk[WNT];  // segment ids of keys 8 n + 2 t, + 1
 #pragma unroll
     for (int n = 0; n < WNT; ++n)
@@ -1475,17 +1934,17 @@ wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 #pragma unroll
     for (int n = 0; n < WNT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
     for (int d = 0; d < nd; ++d) {
-      const int i = j * nd + d;
+      const int i = (j - kt0) * nd + d;
       cp_async_wait<0>();
       __syncthreads();  // stage i is in; every warp is done with stage i - 1 (and V at d = 0)
       if (i + 1 < total) load_stage(i + 1);
-      if (d == 0) w_load<T, WC>(sm + L::V, v + head + c0, j * WN, WN, T_, rs);
+      if (d == 0) w_load<float, WCH>(sm + L::V, v + head + c0, j * WN, WN, T_, rs, ncols);
       cp_async_commit();
-      const T* st = sm + (i & 1) * L::STAGE;
-      w_scores<T>(s, st + (16 * warp + g) * L::LK + t, st + WQ * L::LK);
+      const float* st = sm + (i & 1) * L::STAGE;
+      w_scores<float>(s, st + (16 * warp + g) * L::LK + t, st + WQ * L::LK);
     }
 
-    // online softmax in base 2, masked scores at MASK (the f32 forward's)
+    // online softmax in base 2, masked scores at MASK (flash_fwd_f32's)
     float mxa = -INFINITY, mxb = -INFINITY;
 #pragma unroll
     for (int n = 0; n < WNT; ++n)
@@ -1518,23 +1977,32 @@ wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 
     cp_async_wait<0>();
     __syncthreads();  // V's columns c0.. of key tile j are in
-    // O += round(P) V
-    w_accumulate<T, NO>(o, s, sm + L::V + 2 * t * L::LC + g);
+    // O += P V over the chunk's columns
+    w_accumulate<float, NO, L::LC>(o, s, sm + L::V + 2 * t * L::LC + g, ncols);
   }
 
   la = quad_sum(la);
   lb = quad_sum(lb);
-  w_store<T, NO>(out + head + c0, rs, ra, T_, o, 1.f / la, 1.f / lb);
-  if (blockIdx.z == 0 && t == 0) {
-    if (ra < T_) lse[static_cast<size_t>(bh) * T_ + ra] = ma * LN2 + logf(la);
-    if (rb < T_) lse[static_cast<size_t>(bh) * T_ + rb] = mb * LN2 + logf(lb);
+  if (part_o == nullptr) {
+    w_store<float, NO>(out + head + c0, rs, ra, T_, o, 1.f / la, 1.f / lb, ncols);
+    if (chunk == 0 && t == 0) {
+      if (ra < T_) lse[static_cast<size_t>(bh) * T_ + ra] = ma * LN2 + logf(la);
+      if (rb < T_) lse[static_cast<size_t>(bh) * T_ + rb] = mb * LN2 + logf(lb);
+    }
+  } else {
+    const size_t row = (static_cast<size_t>(split) * gridDim.y + bh) * T_;
+    w_store<float, NO>(part_o + row * DP + c0, DP, ra, T_, o, 1.f, 1.f, ncols);
+    if (chunk == 0 && t == 0) {
+      if (ra < T_) *reinterpret_cast<float2*>(part_ml + 2 * (row + ra)) = make_float2(ma, la);
+      if (rb < T_) *reinterpret_cast<float2*>(part_ml + 2 * (row + rb)) = make_float2(mb, lb);
+    }
   }
 }
 
-// dK, dV: one block per (64 keys, b * H + h, 128 output columns); query
-// tiles of WN.  Role 0 of a pair: S^T = K Q^T, P^T, dV += round(P^T) dO;
-// role 1: dP^T = V dO^T, dS^T = P^T (dP^T - delta) sm_scale, dK +=
-// round(dS^T) Q, P^T passed through shared memory as in flash_bwd_dkv_f32.
+// dK, dV (f32): one block per (64 keys, b * H + h, 128 output columns);
+// query tiles of WN.  Role 0 of a pair: S^T = K Q^T, P^T, dV += P^T dO;
+// role 1: dP^T = V dO^T, dS^T = P^T (dP^T - delta) sm_scale, dK += dS^T Q,
+// P^T passed through shared memory as in flash_bwd_dkv_f32.
 template <typename T>
 __global__ void __launch_bounds__(WT, 1)
 wide_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -1549,7 +2017,7 @@ wide_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   float* rows_s = reinterpret_cast<float*>(wsm + L::ROWS);  // lse, delta, seg of the tile
 
   const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
-  const int k0 = blockIdx.x * WB, c0 = blockIdx.z * WC;
+  const int k0 = blockIdx.x * WB, c0 = blockIdx.z * WC, ncols = min(WC, DP - c0);
   const int nd = DP / WK, nqt = T_ / WN, total = nqt * nd;
   const size_t rs = static_cast<size_t>(H) * DP;
   const size_t head = static_cast<size_t>(b) * T_ * rs + static_cast<size_t>(h) * DP;
@@ -1588,8 +2056,8 @@ wide_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
       __syncthreads();  // stage i is in; every warp is done with stage i - 1 (and tile j - 1)
       if (i + 1 < total) load_stage(i + 1);
       if (d == 0) {
-        w_load<T, WC>(sm + L::C, q + head + c0, j * WN, WN, T_, rs);
-        w_load<T, WC>(sm + L::C + WN * L::LC, dout + head + c0, j * WN, WN, T_, rs);
+        w_load<T, WC>(sm + L::C, q + head + c0, j * WN, WN, T_, rs, ncols);
+        w_load<T, WC>(sm + L::C + WN * L::LC, dout + head + c0, j * WN, WN, T_, rs, ncols);
         row_load(rows_s, lse + rows + j * WN, WN);
         row_load(rows_s + WN, delta + rows + j * WN, WN);
         row_load(rows_s + 2 * WN, segb + j * WN, WN);
@@ -1632,10 +2100,11 @@ wide_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
       }
     }
     // dV += round(P^T) dO (role 0) or dK += round(dS^T) Q (role 1), columns c0..
-    w_accumulate<T, NO>(acc, s, sm + L::C + (role == 0 ? WN * L::LC : 0) + 2 * t * L::LC + g);
+    w_accumulate<T, NO, L::LC>(acc, s, sm + L::C + (role == 0 ? WN * L::LC : 0) + 2 * t * L::LC + g,
+                               ncols);
   }
 
-  w_store<T, NO>((role == 0 ? dv : dk) + head + c0, rs, kr, T_, acc, 1.f, 1.f);
+  w_store<T, NO>((role == 0 ? dv : dk) + head + c0, rs, kr, T_, acc, 1.f, 1.f, ncols);
 }
 
 // dQ: one block per (64 queries, b * H + h, 128 output columns); key tiles
@@ -1656,7 +2125,7 @@ wide_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   const int* segk = reinterpret_cast<const int*>(wsm + L::ROWS);  // the key tile's segment ids
 
   const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
-  const int q0 = blockIdx.x * WB, c0 = blockIdx.z * WC;
+  const int q0 = blockIdx.x * WB, c0 = blockIdx.z * WC, ncols = min(WC, DP - c0);
   const int nd = DP / WK, nkt = T_ / WN, total = nkt * nd;
   const size_t rs = static_cast<size_t>(H) * DP;
   const size_t head = static_cast<size_t>(b) * T_ * rs + static_cast<size_t>(h) * DP;
@@ -1668,6 +2137,7 @@ wide_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   const int sqa = segb[ra], sqb = segb[rb];
   const float la = lse[rows + ra] * LOG2E, lb = lse[rows + rb] * LOG2E;
   const float da = delta[rows + ra], db = delta[rows + rb];
+  const int half_cols = ncols - role * (WC / 2);  // this role's columns (<= 0: none)
 
   // stage i: columns WK (i % nd).. of the block's Q and dO rows and of key tile i / nd's
   // K and V rows
@@ -1699,7 +2169,7 @@ wide_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
       __syncthreads();  // stage i is in; every warp is done with stage i - 1 (and tile j - 1)
       if (i + 1 < total) load_stage(i + 1);
       if (d == 0) {
-        w_load<T, WC>(sm + L::C, k + head + c0, j * WN, WN, T_, rs);
+        w_load<T, WC>(sm + L::C, k + head + c0, j * WN, WN, T_, rs, ncols);
         row_load(wsm + L::ROWS, segb + j * WN, WN);
       }
       cp_async_commit();
@@ -1734,10 +2204,11 @@ wide_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
       s[i / 4][i % 4] = p * (dp - ((i & 2) ? db : da)) * sm_scale;
     }
     // dQ[:, c0 + half..] += round(dS) K[:, c0 + half..]
-    w_accumulate<T, NO>(acc, s, sm + L::C + role * (WC / 2) + 2 * t * L::LC + g);
+    w_accumulate<T, NO, L::LC>(acc, s, sm + L::C + role * (WC / 2) + 2 * t * L::LC + g,
+                               half_cols);
   }
 
-  w_store<T, NO>(dq + head + c0 + role * (WC / 2), rs, ra, T_, acc, 1.f, 1.f);
+  w_store<T, NO>(dq + head + c0 + role * (WC / 2), rs, ra, T_, acc, 1.f, 1.f, half_cols);
 }
 
 // ===========================================================================
@@ -1808,8 +2279,16 @@ int bf16_map(CUtensorMap* map, const void* ptr, int B, int H, int T, int HD, int
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 bool wide_shape_ok(int B, int H, int T, int D) {
-  return B > 0 && H > 0 && T > 0 && T % 64 == 0 && D > MAX_D && D % WC == 0 &&
-         static_cast<long long>(B) * H <= 65535 && D / WC <= 65535;
+  return B > 0 && H > 0 && T > 0 && T % 64 == 0 && D > MAX_D && D % WK == 0 &&
+         static_cast<long long>(B) * H <= 65535 && D / WC < 65535;
+}
+
+// Whether the f32 forward can split nkt key tiles nsplit ways (every split
+// non-empty, scratch given); its tiles a split, or 0.
+int split_tiles(int nkt, int nsplit, const void* part) {
+  if (nsplit < 1 || nsplit > 32 || nsplit > nkt || (nsplit > 1 && part == nullptr)) return 0;
+  const int tps = (nkt + nsplit - 1) / nsplit;
+  return (nkt + tps - 1) / tps == nsplit ? tps : 0;
 }
 
 }  // namespace
@@ -1820,10 +2299,10 @@ extern "C" {
 // bf16 (is_bf16 = 1) or f32; seg [B, T] int32 (keys and queries attend
 // where their ids are equal); lse, delta [B, H, T] f32.  T % 64 == 0; these
 // three take D in {64, 128, 224, 256}, the _wide ones below any multiple of
-// 128 past 256 (the caller zero-pads other head dims); pointers 16-byte
-// aligned.  The f32 forward splits the
-// keys nsplit ways (1 <= nsplit <= 32, every split non-empty), with
-// nsplit * B * H * T * (D + 2) floats of scratch at `part` when nsplit > 1.
+// 64 past 256 (the caller zero-pads other head dims); pointers 16-byte
+// aligned.  The f32 forwards split the keys nsplit ways (1 <= nsplit <= 32,
+// every split non-empty: 32-key tiles), with nsplit * B * H * T * (D + 2)
+// floats of scratch at `part` when nsplit > 1.
 // Each returns the first cudaError_t (0 on success), cudaErrorInvalidValue
 // for a shape it does not take, or TMAP_ERROR + the CUresult of a failed
 // tensor-map encode.
@@ -1847,11 +2326,8 @@ int flash_fwd(const void* q, const void* k, const void* v, const void* seg, void
                     mk, mv, seg, out, lse, H, T, sm_scale * LOG2E);
     });
   }
-  const int nkt = T / XK;
-  if (nsplit < 1 || nsplit > 32 || nsplit > nkt || (nsplit > 1 && part == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int tps = (nkt + nsplit - 1) / nsplit;
-  if ((nkt + tps - 1) / tps != nsplit) return static_cast<int>(cudaErrorInvalidValue);
+  const int tps = split_tiles(T / XK, nsplit, part);
+  if (tps == 0) return static_cast<int>(cudaErrorInvalidValue);
   return by_width(D, [&](auto width) {
     constexpr int HD = decltype(width)::value;
     float* part_o = nsplit > 1 ? static_cast<float*>(part) : nullptr;
@@ -1928,20 +2404,38 @@ int flash_bwd_dq(const void* q, const void* k, const void* v, const void* seg, c
 }
 
 // The wide kernels: as above, for a head dim D > 256 that is a multiple of
-// 128 (the caller zero-pads other head dims), no key splits.
+// 64 (the caller zero-pads other head dims).  The forwards and the bf16
+// dK/dV take blockIdx.z chunks of WCH columns (in the f32 forward times
+// nsplit key splits), the rest chunks of WC.
 int flash_fwd_wide(const void* q, const void* k, const void* v, const void* seg, void* out,
-                   void* lse, int B, int H, int T, int D, float sm_scale, int is_bf16,
-                   void* stream) {
+                   void* lse, int B, int H, int T, int D, float sm_scale, int is_bf16, int nsplit,
+                   void* part, void* stream) {
   if (!wide_shape_ok(B, H, T, D)) return static_cast<int>(cudaErrorInvalidValue);
   if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(seg))
     return static_cast<int>(cudaErrorMisalignedAddress);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((T + WQ - 1) / WQ, B * H, D / WC);
-  if (is_bf16)
-    return launch(wide_fwd_kernel<bf16>, grid, WT, WideFwd<bf16>::SMEM, s, q, k, v, seg, out,
-                  lse, H, T, D, sm_scale * LOG2E);
-  return launch(wide_fwd_kernel<float>, grid, WT, WideFwd<float>::SMEM, s, q, k, v, seg, out, lse,
-                H, T, D, sm_scale * LOG2E);
+  const int nc = (D + WCH - 1) / WCH;
+  if (is_bf16) {
+    const WidePlan p = wide_plan(D, false);
+    if (p.stages < 1 || p.smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
+    CUtensorMap mq, mk, mv;
+    int e;
+    if ((e = bf16_map(&mq, q, B, H, T, D, WQ)) || (e = bf16_map(&mk, k, B, H, T, D, 64)) ||
+        (e = bf16_map(&mv, v, B, H, T, D, 64)))
+      return e;
+    return launch(wide_fwd_bf16, dim3((T + WQ - 1) / WQ, B * H, nc), 3 * WG, p.smem, s, mq, mk, mv,
+                  seg, out, lse, H, T, D, p, sm_scale * LOG2E);
+  }
+  const int tps = split_tiles(T / WN, nsplit, part);
+  if (tps == 0 || nc * nsplit > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  float* part_o = nsplit > 1 ? static_cast<float*>(part) : nullptr;
+  float* part_ml = nsplit > 1 ? part_o + static_cast<size_t>(nsplit) * B * H * T * D : nullptr;
+  const int e = launch(wide_fwd_f32, dim3((T + WQ - 1) / WQ, B * H, nc * nsplit), WT,
+                       WideFwdF32::SMEM, s, q, k, v, seg, out, lse, part_o, part_ml, H, T, D, tps,
+                       sm_scale * LOG2E);
+  if (e != 0 || nsplit == 1) return e;
+  return launch(flash_fwd_f32_merge, dim3(T / 8, B * H), 256, 0, s, part_o, part_ml, out, lse, H,
+                T, D, nsplit);
 }
 
 int flash_bwd_dkv_wide(const void* q, const void* k, const void* v, const void* seg,
@@ -1952,12 +2446,20 @@ int flash_bwd_dkv_wide(const void* q, const void* k, const void* v, const void* 
       !aligned16(lse) || !aligned16(delta))
     return static_cast<int>(cudaErrorMisalignedAddress);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(T / WB, B * H, D / WC);
-  if (is_bf16)
-    return launch(wide_dkv_kernel<bf16>, grid, WT, WideBwd<bf16>::SMEM, s, q, k, v, seg, dout,
-                  lse, delta, dk, dv, H, T, D, sm_scale * LOG2E, sm_scale);
-  return launch(wide_dkv_kernel<float>, grid, WT, WideBwd<float>::SMEM, s, q, k, v, seg, dout,
-                lse, delta, dk, dv, H, T, D, sm_scale * LOG2E, sm_scale);
+  if (is_bf16) {
+    const WidePlan p = wide_plan(D, true);
+    if (p.stages < 1 || p.smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
+    CUtensorMap mq, mk, mv, mdo;
+    int e;
+    if ((e = bf16_map(&mq, q, B, H, T, D, 64)) || (e = bf16_map(&mk, k, B, H, T, D, 64)) ||
+        (e = bf16_map(&mv, v, B, H, T, D, 64)) || (e = bf16_map(&mdo, dout, B, H, T, D, 64)))
+      return e;
+    return launch(wide_dkv_bf16, dim3(T / 64, B * H, (D + WCH - 1) / WCH), 3 * WG, p.smem, s, mq,
+                  mk, mv, mdo, seg, lse, delta, dk, dv, H, T, D, p, sm_scale * LOG2E, sm_scale);
+  }
+  return launch(wide_dkv_kernel<float>, dim3(T / WB, B * H, (D + WC - 1) / WC), WT,
+                WideBwd<float>::SMEM, s, q, k, v, seg, dout, lse, delta, dk, dv, H, T, D,
+                sm_scale * LOG2E, sm_scale);
 }
 
 int flash_bwd_dq_wide(const void* q, const void* k, const void* v, const void* seg,
@@ -1968,7 +2470,7 @@ int flash_bwd_dq_wide(const void* q, const void* k, const void* v, const void* s
       !aligned16(lse) || !aligned16(delta))
     return static_cast<int>(cudaErrorMisalignedAddress);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(T / WB, B * H, D / WC);
+  const dim3 grid(T / WB, B * H, (D + WC - 1) / WC);
   if (is_bf16)
     return launch(wide_dq_kernel<bf16>, grid, WT, WideBwd<bf16>::SMEM, s, q, k, v, seg, dout, lse,
                   delta, dq, H, T, D, sm_scale * LOG2E, sm_scale);

@@ -20,8 +20,9 @@ take (``kernel_shape_ok``: T % 64 == 0).  The kernels take every head dim
 JAX's flash branch takes: up to 256 the templates built for ``WIDTHS``
 (``flash_fwd``, ``flash_bwd_dkv``, ``flash_bwd_dq``), past 256 the wide
 kernels (``flash_fwd_wide``, ``flash_bwd_dkv_wide``, ``flash_bwd_dq_wide``)
-at any multiple of ``WIDE_CHUNK``, each output chunk of 128 columns a block
-of its own.  The wrappers zero-pad D to ``kernel_width(D)`` and slice the
+at any multiple of ``WIDE_PAD``, each output chunk a block of its own
+(``wide_chunks``: 256 columns in the forward and the bf16 dK/dV, 128 in the
+rest).  The wrappers zero-pad D to ``kernel_width(D)`` and slice the
 results back, which is exact (padded columns add 0 to every q.k, and padded
 v columns give output columns that are dropped; ``sm_scale`` stays the
 caller's), as JAX pads d_k above 128 to a multiple of 128.  The f32 kernels
@@ -41,8 +42,9 @@ from wavthruvec_pytorch_tpu_torch.ops import kernel_build
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 _DTYPES = (torch.float32, torch.bfloat16)
 WIDTHS = (64, 128, 224, 256)  # head dims the templates are built for (csrc/flash_attn.cu)
-WIDE_CHUNK = 128  # past WIDTHS[-1]: the wide kernels' output columns a block (WC)
-_SPLIT_ROWS, _SPLIT_KEYS = 128, 32  # the f32 forward's query rows a block, keys a tile
+WIDE_PAD = 64  # past WIDTHS[-1]: the wide kernels' head dim is a multiple of it (WK)
+WIDE_CHUNK = 256  # the wide forward's and bf16 dK/dV's output columns a block (WCH)
+_SPLIT_ROWS, _SPLIT_KEYS = 128, 32  # the f32 forwards' query rows a block, keys a tile
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seg: torch.Tensor,
@@ -69,7 +71,7 @@ def _lib() -> ctypes.CDLL:
     lib.flash_fwd.argtypes = [ptr] * 6 + [i32] * 4 + [f32, i32, i32, ptr, ptr]
     lib.flash_bwd_dkv.argtypes = [ptr] * 9 + [i32] * 4 + [f32, i32, ptr]
     lib.flash_bwd_dq.argtypes = [ptr] * 8 + [i32] * 4 + [f32, i32, ptr]
-    lib.flash_fwd_wide.argtypes = [ptr] * 6 + [i32] * 4 + [f32, i32, ptr]
+    lib.flash_fwd_wide.argtypes = lib.flash_fwd.argtypes
     lib.flash_bwd_dkv_wide.argtypes = lib.flash_bwd_dkv.argtypes
     lib.flash_bwd_dq_wide.argtypes = lib.flash_bwd_dq.argtypes
     for fn in (lib.flash_fwd, lib.flash_bwd_dkv, lib.flash_bwd_dq, lib.flash_fwd_wide,
@@ -91,10 +93,19 @@ def wide(D: int) -> bool:
 
 def kernel_width(D: int) -> int:
     """The head dim the kernels run head dim D at: the least of ``WIDTHS``
-    that is at least D, or past 256 the next multiple of ``WIDE_CHUNK``."""
+    that is at least D, or past 256 the next multiple of ``WIDE_PAD`` (the
+    wide kernels' score-product stage; 448 runs unpadded)."""
     if wide(D):
-        return -(-D // WIDE_CHUNK) * WIDE_CHUNK
+        return -(-D // WIDE_PAD) * WIDE_PAD
     return next(w for w in WIDTHS if w >= D)
+
+
+def wide_chunks(W: int) -> list:
+    """The output-column chunks, one a block (blockIdx.z), of the wide
+    forward and bf16 dK/dV at padded head dim W = ``kernel_width(D)``:
+    ``WIDE_CHUNK`` columns each, the last what remains (448 -> [256, 192]),
+    every one a multiple of the kernels' 32-column TMA box."""
+    return [min(WIDE_CHUNK, W - c) for c in range(0, W, WIDE_CHUNK)]
 
 
 def kernel_shape_ok(B: int, H: int, T: int, D: int, dtype: torch.dtype) -> bool:
@@ -103,15 +114,17 @@ def kernel_shape_ok(B: int, H: int, T: int, D: int, dtype: torch.dtype) -> bool:
     return min(B, H, T) >= 1 and T % 64 == 0 and head_dim_ok(D, dtype)
 
 
-def f32_splits(BH: int, T: int, n_sm: int) -> int:
+def f32_splits(BH: int, T: int, n_sm: int, chunks: int = 1) -> int:
     """Key splits of the f32 forward for B * H = BH heads of length T on
-    ``n_sm`` SMs.  A block takes 128 query rows and one SM, so serving's
-    B * H = 2 gives 2 T / 128 blocks, too few for the card; each split adds
-    that many blocks over a share of the 32-key tiles.  Chooses the split
-    count s (every split non-empty, at most 32) that minimises
-    waves(s) * (tiles a split + 2), the 2 standing for a block's Q load and
-    its share of the merge; ties go to fewer splits."""
-    q_blocks = BH * -(-T // _SPLIT_ROWS)
+    ``n_sm`` SMs, its output in ``chunks`` column chunks (the wide forward's
+    ``len(wide_chunks(W))``, a block each).  A block takes 128 query rows of
+    one chunk and one SM, so serving's B * H = 2 gives 2 T / 128 blocks a
+    chunk, too few for the card; each split adds that many blocks over a
+    share of the 32-key tiles.  Chooses the split count s (every split
+    non-empty, at most 32) that minimises waves(s) * (tiles a split + 2),
+    the 2 standing for a block's Q load and its share of the merge; ties go
+    to fewer splits."""
+    q_blocks = BH * -(-T // _SPLIT_ROWS) * chunks
     tiles = T // _SPLIT_KEYS
     best, best_cost = 1, None
     for s in range(1, min(32, tiles) + 1):
@@ -186,22 +199,17 @@ def _forward(q, k, v, seg, sm_scale: float, is_wide: bool):
     _aligned(qc, kc, vc, seg32)
     lib, is_bf16 = _lib(), int(q.dtype == torch.bfloat16)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if is_wide:
-        err = lib.flash_fwd_wide(qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), seg32.data_ptr(),
-                                 out.data_ptr(), lse.data_ptr(), B, H, T, W, float(sm_scale),
-                                 is_bf16, stream)
-        kernel_build.check(lib, err, "flash_fwd_wide")
-        return out[..., :D].transpose(1, 2), lse
     nsplit, part = 1, None
     if q.dtype == torch.float32:
         n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
-        nsplit = f32_splits(B * H, T, n_sm)
+        nsplit = f32_splits(B * H, T, n_sm, len(wide_chunks(W)) if is_wide else 1)
         if nsplit > 1:
             part = torch.empty(nsplit * B * H * T * (W + 2), device=q.device, dtype=torch.float32)
-    err = lib.flash_fwd(qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), seg32.data_ptr(),
-                        out.data_ptr(), lse.data_ptr(), B, H, T, W, float(sm_scale), is_bf16,
-                        nsplit, None if part is None else part.data_ptr(), stream)
-    kernel_build.check(lib, err, "flash_fwd")
+    name = "flash_fwd_wide" if is_wide else "flash_fwd"
+    err = getattr(lib, name)(qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), seg32.data_ptr(),
+                             out.data_ptr(), lse.data_ptr(), B, H, T, W, float(sm_scale), is_bf16,
+                             nsplit, None if part is None else part.data_ptr(), stream)
+    kernel_build.check(lib, err, name)
     return out[..., :D].transpose(1, 2), lse
 
 
@@ -217,7 +225,8 @@ def flash_fwd(q, k, v, seg, sm_scale: float):
 
 def flash_fwd_wide(q, k, v, seg, sm_scale: float):
     """The wide forward kernel at D > 256, as ``flash_fwd``: one launch, a
-    block per 128 query rows, head and 128 output columns."""
+    block per 128 query rows, head and chunk of ``wide_chunks`` (in f32 also
+    per key split, and then the merge)."""
     result = _forward(q, k, v, seg, sm_scale, is_wide=True)
     flash_fwd_wide.launches += 1
     return result
@@ -291,7 +300,8 @@ def flash_bwd_dq(ins: BackwardInputs, sm_scale: float):
 
 def flash_bwd_dkv_wide(ins: BackwardInputs, sm_scale: float):
     """The wide dK/dV kernel at D > 256, as ``flash_bwd_dkv``: one launch,
-    a block per 64 keys, head and 128 output columns."""
+    a block per 64 keys, head and output chunk (bf16: ``wide_chunks``; f32:
+    128 columns)."""
     dk, dv = _backward(ins, sm_scale, "flash_bwd_dkv_wide", 2)
     flash_bwd_dkv_wide.launches += 1
     return dk, dv
