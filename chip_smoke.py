@@ -390,26 +390,30 @@ are set to 0 in each rank just before its step or job and read just after:
 
 Then flash attention past head dim 256 (the wide kernels of
 ``csrc/flash_attn.cu``: the head dim zero-padded to a multiple of 64, the
-output's columns in chunks a block (``wide_chunks``: 256 in the forward and
-the bf16 dK/dV, which run on wgmma and TMA; 128 in the rest), the score
-products streamed over the whole head dim), on the long-bucket config at one
-head (``one_head_config``: d_model 448, so d_k = d_v = 448 in both stacks,
-the same attention work as its two heads of 224):
+output's columns in chunks of 256 (``wide_chunks``), a block each, two a
+block in the bf16 dQ, 128 in the f32 dQ (``wide_blocks``); the bf16 kernels
+on wgmma and TMA, the f32 ones on 3xTF32 mma.sync, the f32 dK/dV with its
+queries split over blocks where one head gives too few; the score products
+streamed over the whole head dim), on the long-bucket config at one head
+(``one_head_config``: d_model 448, so d_k = d_v = 448 in both stacks, the
+same attention work as its two heads of 224):
 
 45. Each wide kernel against autograd of the plain version at D in
     ``WIDE_DIMS`` (288 and 300: run at 320; 448 and 512: two chunks, K and V
-    or Q resident; 768: three chunks, the bf16 kernels' own operand
-    streamed): bf16
+    or Q resident (dQ: Q and dO to 448); 768: three chunks, the bf16
+    kernels' own operand streamed): bf16
     at [16, 1, 3072, D] with the last item padded from ``WIDE_TAIL`` on, f32
-    at [1, 1, 3072 | 768, D], within phase 13's tolerances; each with its
+    at [1, 1, 3072 | 768, D], and the f32 training shape [``LONG_F32_B``,
+    1, 3072, 448], within phase 13's tolerances; each with its
     times (CUDA events on a filled queue), its bound (the function's own
     work at the unpadded D: 4 T^2 D B H operations forward, 8 dK/dV, 6 dQ,
     10 the backward), the plain version's times and SDPA's forward, forward
     + backward and backward (the same boolean mask; the backend PyTorch
     picks named by its own choice function); ``ptxas``'s registers and
     spills of the six wide instances (none may spill): ``wide_fwd_bf16``,
-    ``wide_dkv_bf16``, ``wide_fwd_f32``, ``wide_dkv_kernel<float>``,
-    ``wide_dq_kernel<float>`` and ``<bf16>``.
+    ``wide_dkv_bf16``, ``wide_dq_bf16``, ``wide_fwd_f32``,
+    ``wide_dkv_f32`` and ``wide_dq_kernel`` (f32), and its C7515 (wgmma
+    serialized) and C7519 (fences injected) lines about ``wide_dq_bf16``.
 46. Phase 15 at one head: one bf16 flash step card against CPU (and the f32
     step) at B = 8, N = 256, T = 512, the same weights and tolerances; 8
     launches of each wide kernel a step and none of the templates'.
@@ -435,7 +439,8 @@ of phases 32-36; ``tools_launches``: those of phases 37-41;
 ``parallel_launches``: those of phases 42-43 summed over the ranks;
 ``bench_launches``: those of phase 44; the wide flash kernels' rows
 ``launches``: those of phase 47's timed steps, their times phase 45's at
-[16, 1, 3072, 448] bf16, f32_ keys at [1, 1, 3072, 448]; a backward row's
+[16, 1, 3072, 448] bf16, f32_ keys at [1, 1, 3072, 448], f32_train_ keys
+(backward rows) at [``LONG_F32_B``, 1, 3072, 448]; a backward row's
 ``ms`` is a call with its preparation, ``kernel_ms`` the kernel alone); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -552,6 +557,7 @@ from wavthruvec_pytorch_tpu_torch.ops.gru import (
 from wavthruvec_pytorch_tpu_torch.ops.flash_attention import (
     KERNELS as FLASH_KERNELS,
     backward_inputs,
+    dkv_f32_splits,
     flash_attention_plain,
     flash_bwd_dkv,
     flash_bwd_dkv_wide,
@@ -561,6 +567,7 @@ from wavthruvec_pytorch_tpu_torch.ops.flash_attention import (
     flash_fwd_wide,
     kernel_width,
     kernels_for,
+    wide_blocks,
     wide_chunks,
 )
 from wavthruvec_pytorch_tpu_torch.ops.mas import MAX_K as MAS_MAX_K
@@ -2171,8 +2178,9 @@ def serve_long(dev, cfg=None):
 
 
 # phase 45: head dims past 256 on the wide kernels.  The bf16 training shape
-# [WIDE_B, 1, LONG_T, D] with its last item padded from WIDE_TAIL on, and the
-# f32 serving shapes [1, 1, LONG_T | LONG_N, D]; D = 288 and 300 run
+# [WIDE_B, 1, LONG_T, D] with its last item padded from WIDE_TAIL on, the
+# f32 serving shapes [1, 1, LONG_T | LONG_N, D] and, at WIDE_ROW_D, the f32
+# training shape [LONG_F32_B, 1, LONG_T, D]; D = 288 and 300 run
 # zero-padded to 320 (chunks of 256 and 64), 448 (the long bucket's d_model
 # at one head) unpadded in chunks of 256 and 192, 768 in three of 256 with
 # the bf16 kernels' own operand streamed.  Tolerances: phase 13's
@@ -2190,18 +2198,22 @@ def one_head_config() -> Text2VecConfig:
 
 def wide_ptxas() -> None:
     """ptxas's register and spill report of each wide instance (the bf16
-    forward and dK/dV on wgmma, the f32 forward, and the mma.sync backward's
-    templates in f32 and bf16); none may spill."""
+    forward, dK/dV and dQ on wgmma, the f32 forward and dK/dV, and the f32
+    dQ, ``wide_dq_kernel``); none may spill.  Also ptxas's C7515 (wgmma
+    serialized) and C7519 (fences injected) lines about the bf16 dQ."""
     log = kernel_build.build_log("flash_attn").splitlines()
     seen = 0
+    diags = [line.strip() for line in log
+             if re.search(r"\(C751[59]\)", line) and "wide_dq_bf16" in line]
+    print(f"  wide_dq_bf16: {len(diags)} C7515/C7519 line(s)"
+          + "".join(f"\n    {d}" for d in diags))
     for i, line in enumerate(log):
-        # the mangled name: its length, the name, then any template argument
-        m = re.search(r"\d+(wide_(?:fwd|dkv|dq)_(?:kernel|bf16|f32))(?:I(f|13__nv_bfloat16)E)?E",
-                      line)
+        # the mangled name: its length, the name
+        m = re.search(r"\d+(wide_(?:fwd|dkv|dq)_(?:kernel|bf16|f32))E", line)
         if m is None or "entry function" not in line:
             continue
         info = " ".join(x.strip() for x in log[i + 1:i + 4] if "registers" in x or "spill" in x)
-        name = m.group(1) + ({"f": "<float>", "13__nv_bfloat16": "<bf16>"}.get(m.group(2), ""))
+        name = m.group(1)
         print(f"  {name}: {info}")
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", info)
         check(spills is not None and spills.groups() == ("0", "0"), f"{name} spills: {info}")
@@ -2236,6 +2248,8 @@ def check_flash_wide():
                    [LONG_T] * (WIDE_B - 1) + [WIDE_TAIL]),
                   ("serving decoder", 1, LONG_T, D, torch.float32, [LONG_T]),
                   ("serving encoder", 1, LONG_N, D, torch.float32, [LONG_N])]
+    cases.append(("f32 training decoder", LONG_F32_B, LONG_T, WIDE_ROW_D, torch.float32,
+                  [LONG_T] * (LONG_F32_B - 1) + [WIDE_TAIL]))
     for label, B, T, D, dtype, lens in cases:
         q, k, v, seg = flash_case(B, T, dtype, SEED + 3, lens, D, H=1)
         dout = torch.randn(q.shape, device="cuda").to(dtype)
@@ -2293,8 +2307,12 @@ def check_flash_wide():
         b_bwd, _ = flash_bound(B, T, dtype, 5, 4, 3, 2, H=1, D=D)
         product = 2.0 * B * T * T * D
         bwd = t["prep"] + t["dkv"] + t["dq"]
-        print(f"  {label} [{B}, 1, {T}, {D}] {str(dtype)[6:]} (run at {kernel_width(D)}, forward "
-              f"chunks {wide_chunks(kernel_width(D))}): out {errs['out']:.2e}, lse {lse_err:.2e}, "
+        W = kernel_width(D)
+        splits = dkv_f32_splits(B, T, torch.cuda.get_device_properties(0).multi_processor_count,
+                                len(wide_chunks(W))) if dtype == torch.float32 else 1
+        print(f"  {label} [{B}, 1, {T}, {D}] {str(dtype)[6:]} (run at {W}, chunks "
+              f"{wide_chunks(W)}, dQ blocks {wide_blocks('flash_bwd_dq_wide', dtype, W)}, dK/dV "
+              f"query splits {splits}): out {errs['out']:.2e}, lse {lse_err:.2e}, "
               f"dq {errs['dq']:.2e}, dk {errs['dk']:.2e}, dv {errs['dv']:.2e} of max; forward "
               f"{t['fwd']:.3f} ms ({rate(2 * product, t['fwd'], b_fwd)}; bound {b_fwd:.4f}, "
               f"{by_fwd}), dK/dV {t['dkv']:.3f} ms ({rate(4 * product, t['dkv'], b_dkv)}), dQ "
@@ -2325,10 +2343,14 @@ def check_flash_wide():
             rows["flash_fwd_wide"].update(f32_ms=t["fwd"], f32_plain_ms=t["plain"],
                                           f32_bound_ms=b_fwd, f32_bound_by=by_fwd,
                                           f32_library_ms=t["sdpa"])
-            for name, call, bms, by in (("flash_bwd_dkv_wide", t["call_dkv"], b_dkv, by_dkv),
-                                        ("flash_bwd_dq_wide", t["call_dq"], b_dq, by_dq)):
-                rows[name].update(f32_ms=call, f32_plain_ms=t["plain_bwd"], f32_bound_ms=bms,
-                                  f32_bound_by=by, f32_sdpa_bwd_ms=t["sdpa_bwd"])
+        if dtype == torch.float32 and label != "serving encoder":
+            key = "f32_" if label == "serving decoder" else "f32_train_"
+            for name, call, alone, bms, by in (
+                    ("flash_bwd_dkv_wide", t["call_dkv"], t["dkv"], b_dkv, by_dkv),
+                    ("flash_bwd_dq_wide", t["call_dq"], t["dq"], b_dq, by_dq)):
+                rows[name].update({key + "ms": call, key + "kernel_ms": alone,
+                                   key + "plain_ms": t["plain_bwd"], key + "bound_ms": bms,
+                                   key + "bound_by": by, key + "sdpa_bwd_ms": t["sdpa_bwd"]})
     return rows
 
 
@@ -5178,6 +5200,9 @@ def main() -> int:
         keys = ("ms", "plain_ms", "bound_ms") + (("f32_ms", "f32_plain_ms", "f32_bound_ms",
                                                    "f32_sdpa_bwd_ms")
                                                   if kern["name"].startswith("flash_bwd") else ())
+        if kern["name"] in ("flash_bwd_dkv_wide", "flash_bwd_dq_wide"):
+            keys += ("f32_train_ms", "f32_train_kernel_ms", "f32_train_plain_ms",
+                     "f32_train_bound_ms", "f32_train_sdpa_bwd_ms")
         if kern["name"] == "flash_fwd_wide":
             keys += ("f32_ms", "f32_plain_ms", "f32_bound_ms", "f32_library_ms")
         check(all(math.isfinite(kern[key]) for key in keys), f"{kern['name']}: non-finite time")

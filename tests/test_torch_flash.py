@@ -303,6 +303,54 @@ def test_wide_f32_splits(BH, T):
         assert s > 1 and blocks / (-(-blocks // 132) * 132) > 0.7, (T, s, blocks)
 
 
+@pytest.mark.parametrize("name", ["flash_fwd_wide", "flash_bwd_dkv_wide", "flash_bwd_dq_wide"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wide_kernel_blocks(name, dtype):
+    """Each wide kernel's blocks along blockIdx.z (``wide_blocks``) at every
+    head dim from 257 to 1024: together they cover the padded width W in
+    order; every kernel but the f32 dQ takes ``wide_chunks(W)`` (chunks of
+    256), one a block, but the bf16 dQ two a block, so at D <= 512 one block
+    of each query tile computes the scores once for all of dQ; the f32 dQ
+    takes chunks of ``F32_DQ_CHUNK`` = 128."""
+    f32_dq = name == "flash_bwd_dq_wide" and dtype == torch.float32
+    for D in range(257, 1025):
+        W = fa.kernel_width(D)
+        blocks = fa.wide_blocks(name, dtype, W)
+        flat = [c for blk in blocks for c in blk]
+        assert flat == fa.wide_chunks(W, fa.F32_DQ_CHUNK if f32_dq else fa.WIDE_CHUNK), (D, blocks)
+        per_block = 2 if name == "flash_bwd_dq_wide" and dtype == torch.bfloat16 else 1
+        assert all(len(blk) == per_block for blk in blocks[:-1]), (D, blocks)
+        assert 1 <= len(blocks[-1]) <= per_block and all(c % 32 == 0 for c in flat), (D, blocks)
+        if per_block == 2 and W <= 512:
+            assert len(blocks) == 1, (D, blocks)
+    assert fa.wide_blocks("flash_bwd_dq_wide", torch.bfloat16, 448) == [[256, 192]]
+    assert fa.wide_blocks("flash_bwd_dq_wide", torch.bfloat16, 768) == [[256, 256], [256]]
+    assert fa.wide_blocks("flash_bwd_dq_wide", torch.float32, 448) == [[128]] * 3 + [[64]]
+    assert fa.wide_blocks("flash_bwd_dkv_wide", dtype, 448) == [[256], [192]]
+
+
+@pytest.mark.parametrize("BH, T", [(1, 768), (1, 3072), (8, 3072), (2, 3072), (1, 64), (4, 320)])
+def test_wide_dkv_f32_splits(BH, T):
+    """The wide f32 dK/dV's query splits (``dkv_f32_splits``: a block per 32
+    keys, chunk and split, 16-query tiles): every split is non-empty and at
+    most 32 at every wide width up to 1024; at one head of 3072 or 768
+    frames at D = 448 (two chunks: 192 or 48 blocks unsplit) the blocks fill
+    at least 70% of an H100's 132 SMs in every wave; at the f32 training
+    batch [8, 1, 3072, 448] (1536 blocks) there is one split."""
+    tiles = T // 16
+    for W in range(320, 1025, 64):
+        chunks = len(fa.wide_blocks("flash_bwd_dkv_wide", torch.float32, W))
+        s = fa.dkv_f32_splits(BH, T, 132, chunks)
+        per = -(-tiles // s)
+        assert 1 <= s <= min(32, tiles) and -(-tiles // per) == s, (W, s)
+    s = fa.dkv_f32_splits(BH, T, 132, 2)
+    blocks = BH * (T // 32) * 2 * s
+    if BH == 1 and T in (768, 3072):
+        assert s > 1 and blocks / (-(-blocks // 132) * 132) >= 0.7, (T, s, blocks)
+    if (BH, T) == (8, 3072):
+        assert s == 1
+
+
 @pytest.mark.parametrize("D", [12, 48, 96, 300, 448, 700, 768])
 def test_head_dim_padding_is_exact(D):
     """What the wrappers do for a head dim outside ``WIDTHS`` (and past 256

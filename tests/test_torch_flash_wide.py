@@ -26,8 +26,11 @@ step's, every tensor within 1e-3 of its largest plus 1e-6.
 """
 
 import dataclasses
+import math
 
 import numpy as np
+import pytest
+import torch
 
 import jax.numpy as jnp
 
@@ -124,3 +127,35 @@ def test_one_head_step_past_256_matches_jax():
     assert total <= NORM_GRAD_GLOBAL_RTOL
     attn_grads = [n for n in grads if "slf_attn.w_qs" in n]
     assert attn_grads and all(float(grads[n].abs().max()) > 0 for n in attn_grads)
+
+
+@pytest.mark.parametrize("D", [300, 448])
+def test_query_splits_sum_to_the_backward(D):
+    """What ``wide_dkv_f32_merge`` does: dK and dV are sums over query rows,
+    so the plain backward with dout kept on one split's 16-query tiles (and
+    zero elsewhere, which zeroes delta and dS there) summed over the splits
+    in order equals the unsplit backward, in f32 at the kernels' padded
+    width (300 runs at 320), within 1e-6.  Splits as ``split_tiles`` cuts
+    T = 128 (8 tiles) three ways: 3, 3 and 2 tiles; B = 2, the second item
+    padded from 90 on."""
+    rng = np.random.default_rng(D)
+    B, H, T, W = 2, 1, 128, fa.kernel_width(D)
+    q, k, v, dout = (torch.tensor(rng.standard_normal((B, H, T, W)).astype(np.float32))
+                     for _ in range(4))
+    seg = torch.ones(B, T, dtype=torch.int32)
+    seg[1, 90:] = 0
+    scale = 1.0 / math.sqrt(D)
+    qkv = [t.requires_grad_() for t in (q, k, v)]
+    out, _ = fa.flash_attention_plain(*qkv, seg, scale)
+    _, want_k, want_v = torch.autograd.grad(out, qkv, dout, retain_graph=True)
+    tiles, nsplit = T // 16, 3
+    per = -(-tiles // nsplit)
+    got_k, got_v = torch.zeros_like(k), torch.zeros_like(v)
+    for s in range(nsplit):
+        part = torch.zeros_like(dout)
+        rows = slice(16 * per * s, min(T, 16 * per * (s + 1)))
+        part[:, :, rows] = dout[:, :, rows]
+        _, dk, dv = torch.autograd.grad(out, qkv, part, retain_graph=True)
+        got_k, got_v = got_k + dk, got_v + dv
+    np.testing.assert_allclose(got_k.numpy(), want_k.numpy(), atol=1e-6)
+    np.testing.assert_allclose(got_v.numpy(), want_v.numpy(), atol=1e-6)

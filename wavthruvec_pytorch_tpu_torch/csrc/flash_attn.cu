@@ -1230,7 +1230,7 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constan
 //     the same order, so all chunks see the same scores, maxima and row sums
 //     and normalise alike; chunk 0 alone writes lse.
 //
-// Three designs:
+// Four designs:
 //
 //   * bf16 forward and dK/dV (training): the templates' Hopper design, one
 //     TMA producer warpgroup and two wgmma consumer warpgroups, with chunks
@@ -1246,26 +1246,29 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constan
 //     fits beside the rest (DP <= 576 forward, DP <= 512 dK/dV); past that
 //     it streams through the ring with the other operand.  WidePlan, made on
 //     the host from DP, lays shared memory out.
-//   * f32 forward (serving): 3xTF32 mma.sync (f32 accuracy), 8 warps of 16
-//     query rows, key tiles of WN = 32 with the score products streamed in
-//     WK-column cp.async stages, the bf16 kernels' chunks, and the keys
-//     split over blocks as flash_fwd_f32 splits them (merged by
-//     flash_fwd_f32_merge), since one head gives few query blocks.
-//   * f32 dK/dV, and dQ in both dtypes: a first design on mma.sync (TF32 for
-//     bf16, whose values and products are exact there; 3xTF32 for f32),
-//     chunks of WC = 128 columns; see wide_dkv_kernel below.
+//   * bf16 dQ (training): the same machinery with the two consumers sharing
+//     64 query rows, so the scores are computed once for up to 512 columns
+//     of dQ: A computes S and dS, B dP, and each sums 256 of dQ's columns
+//     (wide_dq_bf16 below).
+//   * f32 forward (serving) and f32 dK/dV (f32 training): 3xTF32 mma.sync
+//     (f32 accuracy), 8 warps, the bf16 kernels' chunks, the score products
+//     streamed in WK-column cp.async stages, and the keys (forward) or
+//     queries (dK/dV) split over blocks, since one head gives few blocks:
+//     flash_fwd_f32_merge and wide_dkv_f32_merge sum the splits.
+//   * f32 dQ: a first design on mma.sync, chunks of WC = 128 columns; see
+//     wide_dq_kernel below.
 
-constexpr int WC = 128;   // mma.sync backward: output columns a block (blockIdx.z)
+constexpr int WC = 128;   // wide_dq_kernel: output columns a block (blockIdx.z)
 constexpr int WK = 64;    // head-dim columns a stage of the score products; DP is a multiple
 constexpr int WQ = 128;   // forward: query rows a block
-constexpr int WB = 64;    // backward: keys (dK/dV) or queries (dQ) a block
-constexpr int WN = 32;    // mma.sync kernels: keys (forward, dQ) or queries (dK/dV) a tile
+constexpr int WB = 64;    // wide_dq_kernel: queries a block
+constexpr int WN = 32;    // the f32 forward and wide_dq_kernel: keys a tile
 constexpr int WT = 256;   // threads of an mma.sync block: 8 warps
 constexpr int WNT = WN / 8;
-constexpr int WCH = 256;  // bf16 kernels and the f32 forward: output columns a chunk
+constexpr int WCH = 256;  // all but wide_dq_kernel: output columns a chunk (bf16 dQ: two)
 
 // ---------------------------------------------------------------------------
-// bf16 forward and dK/dV on wgmma + TMA
+// bf16 forward, dK/dV and dQ on wgmma + TMA
 // ---------------------------------------------------------------------------
 //
 // Tiles are 32-column boxes of 64 rows (BOXB bytes; the forward's Q boxes
@@ -1290,10 +1293,29 @@ constexpr int WCH = 256;  // bf16 kernels and the f32 forward: output columns a 
 // and dO a stage.  So a query tile moves DP columns of Q and dO, not
 // DP + 256.
 //
+// dQ: one block per (64 queries, b * H + h, pair of chunks: 512 columns).
+// Q and dO stay in shared memory while they fit (DP <= 448), else stream
+// with K and V.  A computes S = Q K^T and B dP = dO V^T over the DP / 64
+// ring stages (K and V boxes, two each); B hands dP to A through shared
+// memory, A forms P and dS = P (dP - delta) sm_scale and hands round(dS),
+// as bf16 A-operand registers, back to B (named barriers BAR_WX_*); then A
+// sums dQ[:, c0..c0+255] += round(dS) K_c and B dQ[:, c0+256..c0+511], K_c
+// the key tile's columns of the pair read N-major from a buffer of 512
+// columns, loaded by a second producer thread once both consumers are done
+// with the last tile's, so it streams while the next S and dP run.  K
+// moves twice a key tile (ring and K_c), not once per chunk.  Where the
+// pair is narrower than 512 (448 = 256 + 192), B's product still runs 256
+// columns wide (the tensor cores' work at 448 is 1.05x the function's, and
+// A's 256 columns set the time) and the columns past the pair are not
+// stored.
+//
 // What bounds them: the products.  A chunk multiplies over DP + 256
 // columns forward (S, then P V) and 2 DP + 512 in dK/dV, against the
 // function's 2 D and 4 D in all: at D = 448 (two chunks) 1.57x the
-// function's work in both.
+// function's work in both; dQ's pair 2 DP + 512 against 3 D, 1.05x.  At
+// 64 query rows dQ streams K and V (and K_c) through L2 for every block, so
+// at D = 448 its 172 KB a key tile per block may bound it before the
+// tensor cores do.
 
 constexpr uint32_t BOXB = 64 * 64;  // bytes of a 32-column box of 64 rows
 constexpr int WRING = 8;            // ring stages at most
@@ -1302,27 +1324,35 @@ constexpr uint32_t WBARS = 8 * (5 + 2 * WRING);
 constexpr int BAR_WP_FULL = 1, BAR_WP_FREE = 2;  // dK/dV: P^T written, P^T read
 
 // Shared memory of a wide bf16 kernel (byte offsets from the 1024-aligned
-// base): [the resident operand, at 0][ring][c: the forward's two V stages, or
-// dK/dV's chunk buffer Q_c, dO_c][x: dK/dV's P^T, f32 [NS][WG]][rows: the
-// forward's two stages of key segment ids, or dK/dV's lse, delta and
-// segment ids of the query tile][barriers].
+// base): [the resident operand, at 0][ring][c: the forward's two V stages,
+// dK/dV's chunk buffer Q_c, dO_c, or dQ's K_c of 2 WCH columns][x: dK/dV's
+// P^T, or dQ's dP and dS, f32 [NS][WG]][rows: the forward's two stages of
+// key segment ids, dK/dV's lse, delta and segment ids of the query tile, or
+// dQ's key segment ids][barriers].  wide_dkv_f32 lays its own out in the
+// same fields (wide_dkv_f32_plan).
 struct WidePlan {
   int res;         // 1: the block's own operand stays in shared memory
   int stages;      // ring stages
   uint32_t stage;  // bytes a ring stage
   uint32_t ring, c, x, rows, bar, smem;
+  int step_cols;   // wide_dkv_f32: columns a ring step at most
 };
 
-WidePlan wide_plan(int DP, bool dkv) {
-  const uint32_t own = 256u * static_cast<uint32_t>(DP);  // Q of 128 rows, or K and V of 64
+enum WideKind { WIDE_FWD, WIDE_DKV, WIDE_DQ };
+
+WidePlan wide_plan(int DP, WideKind kind) {
+  // Q of 128 rows (forward), K and V of 64 (dK/dV), or Q and dO of 64 (dQ)
+  const uint32_t own = 256u * static_cast<uint32_t>(DP);
   const uint32_t c = 2 * (WCH / BOX) * BOXB;
-  const uint32_t x = dkv ? NS * WG * 4 : 0, rows = (dkv ? 3 : 2) * 64 * 4;
+  const uint32_t x = kind == WIDE_FWD ? 0 : NS * WG * 4;
+  const uint32_t rows = (kind == WIDE_FWD ? 2 : kind == WIDE_DKV ? 3 : 1) * 64 * 4;
   const uint32_t fixed = c + x + rows + WBARS + 1024;  // + alignment slack
   // a stage: WSB boxes of the streamed operands (forward: K; dK/dV: Q and
-  // dO), and without the resident operand WSB of it too (forward: Q of 128
-  // rows)
-  const uint32_t res_stage = (dkv ? 2 : 1) * WSB * BOXB, str_stage = (dkv ? 4 : 3) * WSB * BOXB;
-  const uint32_t min_res = dkv ? 1 : 2;
+  // dO; dQ: K and V), and without the resident operand WSB of it too
+  // (forward: Q of 128 rows; dQ: Q and dO)
+  const uint32_t res_stage = (kind == WIDE_FWD ? 1 : 2) * WSB * BOXB;
+  const uint32_t str_stage = (kind == WIDE_FWD ? 3 : 4) * WSB * BOXB;
+  const uint32_t min_res = kind == WIDE_DKV ? 1 : 2;
   WidePlan p{};
   if (own + fixed + min_res * res_stage <= SMEM_MAX) {
     p.res = 1;
@@ -1680,79 +1710,215 @@ wide_dkv_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ 
   }
 }
 
-// ---------------------------------------------------------------------------
-// mma.sync kernels: the f32 forward, the f32 dK/dV, dQ in both dtypes
-// ---------------------------------------------------------------------------
-//
-// They take the f32 kernels' fragment scheme on mma.sync m16n8k8: f32
-// inputs as 3xTF32 (f32 accuracy); bf16 inputs as one TF32 product, exact,
-// since a bf16 value is a TF32 value and the product of two is exact in f32
-// (the sums a bf16 product with f32 accumulation makes).  P and dS are
-// rounded to bf16 before their products, as the bf16 kernels round them.
-// Operands are read from shared tiles one element at a time and converted:
-// the backward's first design, simple and right, with the bf16 dQ at TF32's
-// rate.  Tiles stream by cp.async through two stages of WK columns.
-//
-// Blocks are 8 warps.  Forward: 128 query rows (16 a warp), key tiles of
-// WN = 32, chunks of up to WCH columns (a warp's accumulator 16 x 256, as
-// flash_fwd_f32<256>), the keys split over blocks.  dK/dV and dQ: 64 rows as
-// 4 pairs of warps, the pair splitting the products as the f32 backward
-// above does (dK/dV: role 0 S^T, P^T and dV, role 1 dP^T, dS^T and dK; dQ:
-// role 0 S and P, role 1 dP, both dS and half of the chunk's dQ columns),
-// tiles of WN, chunks of WC = 128 columns (the last may be 64).  Operations
-// bound them; the recomputed score products multiply the work by the chunk
-// count.
+constexpr int BAR_WX_DP = 1, BAR_WX_DS = 2;  // dQ: dP written (by B), dS written (by A)
 
-// Shared row stride of a COLS-column tile: 16 bytes of padding keep rows
-// 16-byte aligned for cp.async and spread a fragment load over the banks.
-template <typename T>
-__host__ __device__ constexpr int wld(int cols) {
-  return cols + 16 / static_cast<int>(sizeof(T));
-}
+__global__ void __launch_bounds__(3 * WG, 1)
+wide_dq_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+             const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+             const int* __restrict__ seg, const float* __restrict__ lse,
+             const float* __restrict__ delta, bf16* __restrict__ dq, int H, int T_, int DP,
+             const WidePlan p, float scale_log2, float sm_scale) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const uint32_t sb = smem_u32(smem);
+  const uint32_t full_qd = sb + p.bar, full_c = full_qd + 8, empty_c = full_qd + 16;
+  auto full = [&](int s) { return full_qd + 8 * (3 + s); };
+  auto empty = [&](int s) { return full_qd + 8 * (3 + WRING + s); };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
+  const int q0 = blockIdx.x * 64, c0 = blockIdx.z * 2 * WCH, nkt = T_ / 64, ST = p.stages;
+  const int nb = DP / BOX, nd = DP / WK, ncols = min(2 * WCH, DP - c0), ncb = ncols / BOX;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(full_qd, 1);
+    hopper::mbar_init(full_c, 1);
+    hopper::mbar_init(empty_c, 2);
+    for (int s = 0; s < ST; ++s) {
+      hopper::mbar_init(full(s), 1);
+      hopper::mbar_init(empty(s), 2);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
 
-template <typename T>
-constexpr bool kF32 = std::is_same<T, float>::value;
+  if (threadIdx.x / WG == 0) {  // producer: thread 0 the ring, thread 32 the chunk buffer
+    hopper::setmaxnreg_dec<40>();
+    const int row0 = b * T_;
+    if (threadIdx.x == 0) {
+      if (p.res) {
+        hopper::mbar_expect_tx(full_qd, 2u * 64 * DP * 2);
+        for (int c = 0; c < nb; ++c) {
+          hopper::tma_load_3d(sb + c * BOXB, &tm_q, full_qd, c * BOX, h, row0 + q0);
+          hopper::tma_load_3d(sb + (nb + c) * BOXB, &tm_do, full_qd, c * BOX, h, row0 + q0);
+        }
+      }
+      int it = 0;
+      for (int j = 0; j < nkt; ++j) {
+        for (int d = 0; d < nd; ++d, ++it) {
+          const int s = it % ST;
+          if (it >= ST) hopper::mbar_wait(empty(s), (it / ST - 1) & 1);
+          const uint32_t st = sb + p.ring + s * p.stage;
+          hopper::mbar_expect_tx(full(s), p.stage);
+          for (int x = 0; x < WSB; ++x) {
+            const int col = (WSB * d + x) * BOX;
+            hopper::tma_load_3d(st + x * BOXB, &tm_k, full(s), col, h, row0 + j * 64);
+            hopper::tma_load_3d(st + (WSB + x) * BOXB, &tm_v, full(s), col, h, row0 + j * 64);
+            if (!p.res) {
+              hopper::tma_load_3d(st + (2 * WSB + x) * BOXB, &tm_q, full(s), col, h, row0 + q0);
+              hopper::tma_load_3d(st + (3 * WSB + x) * BOXB, &tm_do, full(s), col, h, row0 + q0);
+            }
+          }
+        }
+      }
+    } else if (threadIdx.x == 32) {
+      for (int j = 0; j < nkt; ++j) {
+        if (j >= 1) hopper::mbar_wait(empty_c, (j - 1) & 1);
+        hopper::mbar_expect_tx(full_c, ncb * BOXB + 64 * 4);
+        for (int x = 0; x < ncb; ++x)
+          hopper::tma_load_3d(sb + p.c + x * BOXB, &tm_k, full_c, c0 + x * BOX, h, row0 + j * 64);
+        hopper::bulk_load(sb + p.rows, seg + row0 + j * 64, 64 * 4, full_c);
+      }
+    }
+  } else {  // consumers: A (cw 0) and B (cw 1)
+    hopper::setmaxnreg_inc<232>();
+    const int cw = threadIdx.x / WG - 1, tid = threadIdx.x % WG;
+    const int lane = tid % 32, t = lane % 4;
+    const int r0 = q0 + 16 * (tid / 32) + lane / 4, r1 = r0 + 8;  // this thread's query rows
+    const size_t rr = static_cast<size_t>(bh) * T_;
+    const int segq0 = seg[static_cast<size_t>(b) * T_ + r0];
+    const int segq1 = seg[static_cast<size_t>(b) * T_ + r1];
+    const float lse0 = lse[rr + r0] * LOG2E, lse1 = lse[rr + r1] * LOG2E;
+    const float dl0 = delta[rr + r0], dl1 = delta[rr + r1];
+    // A: S = Q K^T, then dQ[:, c0..c0+255] += round(dS) K_c; B: dP = dO V^T, then
+    // dQ[:, c0+256..] += round(dS) K_c, over this consumer's columns of the pair
+    const uint32_t own = sb + (cw == 0 ? 0 : nb * BOXB);  // resident Q or dO
+    const int my_cols = cw == 0 ? min(WCH, ncols) : ncols - WCH;  // <= 0: none
+    const int* segk = reinterpret_cast<const int*>(smem + p.rows);
+    float* xbuf = reinterpret_cast<float*>(smem + p.x);
+    float acc[WCH / 2], sc[NS];
+#pragma unroll
+    for (int i = 0; i < WCH / 2; ++i) acc[i] = 0.f;
 
-// x rounded to the input dtype (a bf16 P or dS before its product)
-template <typename T>
-__device__ __forceinline__ float round_in(float x) {
-  if constexpr (kF32<T>) return x;
-  else return __bfloat162float(__float2bfloat16_rn(x));
-}
+    if (p.res) hopper::mbar_wait(full_qd, 0);
+    int it = 0;
+    for (int j = 0; j < nkt; ++j) {
+      // S (A) or dP (B) over DP, each ring stage's products done before its
+      // release, as in wide_dkv_bf16
+      for (int d = 0; d < nd; ++d, ++it) {
+        const int s = it % ST;
+        hopper::mbar_wait(full(s), (it / ST) & 1);
+        const uint32_t st = sb + p.ring + s * p.stage;
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int x = 0; x < WSB; ++x) {
+          const uint32_t ta =
+              p.res ? own + (WSB * d + x) * BOXB : st + ((2 + cw) * WSB + x) * BOXB;
+          const uint32_t tb = st + (cw * WSB + x) * BOXB;
+#pragma unroll
+          for (int kk = 0; kk < BOX; kk += 16)
+            hopper::wgmma_m64n64k16_ss(sc, hopper::kmajor_desc(ta, 64, 0, kk),
+                                       hopper::kmajor_desc(tb, 64, 0, kk), d > 0 || x > 0 || kk > 0);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(sc);
+        if (tid == 0) hopper::mbar_arrive(empty(s));
+      }
 
-// An operand at the input dtype's accuracy: f32 split into TF32 hi and lo;
-// a bf16 value is a TF32 value (hi = x, lo unused).
-template <typename T>
-__device__ __forceinline__ void w_operand(float x, uint32_t& hi, uint32_t& lo) {
-  if constexpr (kF32<T>) {
-    split_tf32(x, hi, lo);
-  } else {
-    hi = __float_as_uint(x);
-    lo = 0u;
+      // this thread: query rows r0 (e < 2) and r1, keys 8 n + 2 t (+ 1 for odd e).
+      // B hands dP to A through its slots of xbuf; A forms dS = P (dP - delta)
+      // sm_scale and hands back round(dS), the A operand of both dQ products,
+      // in the same slots (each pair of threads tid owns its own).
+      uint32_t a[4][4];
+      uint32_t* xw = reinterpret_cast<uint32_t*>(xbuf) + tid;
+      hopper::mbar_wait(full_c, j & 1);
+      if (cw == 0) {
+        // P = exp2(s * sm_scale * log2(e) - lse * log2(e)); masked: MASK
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const int2 sk = *reinterpret_cast<const int2*>(segk + 8 * n + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x = sc[4 * n + e] * scale_log2;
+            if ((e < 2 ? segq0 : segq1) != ((e & 1) ? sk.y : sk.x)) x = MASK;
+            sc[4 * n + e] = ex2(x - (e < 2 ? lse0 : lse1));
+          }
+        }
+        hopper::named_sync(BAR_WX_DP, 2 * WG);
+#pragma unroll
+        for (int i = 0; i < NS; ++i)
+          sc[i] *= (xbuf[i * WG + tid] - ((i & 2) ? dl1 : dl0)) * sm_scale;
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          scores_to_a(a[ks], sc, ks);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) xw[(4 * ks + i) * WG] = a[ks][i];
+        }
+        hopper::named_arrive(BAR_WX_DS, 2 * WG);
+      } else {
+#pragma unroll
+        for (int i = 0; i < NS; ++i) xbuf[i * WG + tid] = sc[i];
+        hopper::named_arrive(BAR_WX_DP, 2 * WG);
+        hopper::named_sync(BAR_WX_DS, 2 * WG);
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) a[ks][i] = xw[(4 * ks + i) * WG];
+      }
+
+      // dQ[:, this consumer's columns] += round(dS) K_c, K_c read N-major; the
+      // columns past the pair's (a narrower last chunk) feed accumulator
+      // columns that are not stored
+      if (my_cols > 0) {
+        const uint32_t kc = sb + p.c + cw * (WCH / BOX) * BOXB;
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          hopper::wgmma_rs<WCH>(acc, a[ks], hopper::nmajor_desc(kc, 64, 16 * ks));
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(acc);
+      }
+      if (tid == 0) hopper::mbar_arrive(empty_c);
+    }
+
+    const size_t rs = static_cast<size_t>(H) * DP;
+    store_rows<WCH>(dq + static_cast<size_t>(b) * T_ * rs + static_cast<size_t>(h) * DP + c0 +
+                        cw * WCH,
+                    rs, q0, T_, acc, 1.f, 1.f, my_cols);
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void w_mma(float (&c)[4], const uint32_t (&ah)[4],
-                                      const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
-                                      uint32_t bl0, uint32_t bl1) {
-  if constexpr (kF32<T>) mma_3xtf32(c, ah, al, bh0, bh1, bl0, bl1);
-  else hopper::mma_tf32(c, ah, bh0, bh1);
-}
+// ---------------------------------------------------------------------------
+// mma.sync kernels: the f32 forward, dK/dV and dQ
+// ---------------------------------------------------------------------------
+//
+// They take the f32 kernels' fragment scheme on mma.sync m16n8k8: 3xTF32
+// (f32 accuracy), each operand split into TF32 hi and lo where it is read.
+// Tiles stream by cp.async in stages of WK columns.
+//
+// Blocks are 8 warps.  Forward: 128 query rows (16 a warp), key tiles of
+// WN = 32, chunks of up to WCH columns (a warp's accumulator 16 x 256, as
+// flash_fwd_f32<256>), the keys split over blocks.  dK/dV: see wide_dkv_f32.
+// dQ: 64 rows as 4 pairs of warps (role 0 S and P, role 1 dP, both dS and
+// half of the chunk's dQ columns), tiles of WN, chunks of WC = 128 columns
+// (the last may be 64), two cp.async stages.  Operations bound them; dQ's
+// recomputed score products multiply its work by the chunk count.
+
+// Shared row stride of a COLS-column f32 tile: 16 bytes of padding keep
+// rows 16-byte aligned for cp.async and spread a fragment load over the
+// banks.
+__host__ __device__ constexpr int wld(int cols) { return cols + 4; }
 
 // Start copying rows [r0, r0 + rows) of COLS columns (src: the first column
-// of the head's row 0, row stride rs elements) into a shared tile of row
-// stride wld<T>(COLS); rows at or past `limit`, and columns at or past
-// `cols` (a multiple of 16 bytes), are zero-filled.
-template <typename T, int COLS>
-__device__ __forceinline__ void w_load(T* dst, const T* src, int r0, int rows, int limit,
+// of the head's row 0, row stride rs floats) into a shared tile of row
+// stride wld(COLS); rows at or past `limit`, and columns at or past `cols`
+// (a multiple of 4), are zero-filled.
+template <int COLS>
+__device__ __forceinline__ void w_load(float* dst, const float* src, int r0, int rows, int limit,
                                        size_t rs, int cols = COLS) {
-  constexpr int E = 16 / static_cast<int>(sizeof(T)), CPR = COLS / E, LD = wld<T>(COLS);
+  constexpr int CPR = COLS / 4, LD = wld(COLS);
   for (int i = threadIdx.x; i < rows * CPR; i += WT) {
-    const int r = i / CPR, c = (i - r * CPR) * E;
+    const int r = i / CPR, c = (i - r * CPR) * 4;
     const bool in = r0 + r < limit && c < cols;
     cp_async16(smem_u32(dst + r * LD + c),
                src + (in ? static_cast<size_t>(r0 + r) * rs + c : 0), in ? 16u : 0u);
@@ -1761,12 +1927,11 @@ __device__ __forceinline__ void w_load(T* dst, const T* src, int r0, int rows, i
 
 // s += A B^T over one stage's WK columns: A's 16 rows at `ta` (the warp's
 // element (g, t)), B's WN rows from `tb` (row 0), both of row stride
-// wld<T>(WK), B read as the f32 forward reads K.  The stage sums into fresh
+// wld(WK), B read as the f32 forward reads K.  The stage sums into fresh
 // registers, added to s on the CUDA cores, so no tensor-core chain of adds
 // runs past a stage.
-template <typename T>
-__device__ __forceinline__ void w_scores(float (&s)[WNT][4], const T* ta, const T* tb) {
-  constexpr int LD = wld<T>(WK);
+__device__ __forceinline__ void w_scores(float (&s)[WNT][4], const float* ta, const float* tb) {
+  constexpr int LD = wld(WK);
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   float part[WNT][4];
 #pragma unroll
@@ -1774,17 +1939,17 @@ __device__ __forceinline__ void w_scores(float (&s)[WNT][4], const T* ta, const 
 #pragma unroll
   for (int kk = 0; kk < WK; kk += 8) {
     uint32_t ah[4], al[4];
-    w_operand<T>(to_f32(ta[kk]), ah[0], al[0]);
-    w_operand<T>(to_f32(ta[kk + 8 * LD]), ah[1], al[1]);
-    w_operand<T>(to_f32(ta[kk + 4]), ah[2], al[2]);
-    w_operand<T>(to_f32(ta[kk + 8 * LD + 4]), ah[3], al[3]);
+    split_tf32(ta[kk], ah[0], al[0]);
+    split_tf32(ta[kk + 8 * LD], ah[1], al[1]);
+    split_tf32(ta[kk + 4], ah[2], al[2]);
+    split_tf32(ta[kk + 8 * LD + 4], ah[3], al[3]);
 #pragma unroll
     for (int n = 0; n < WNT; ++n) {
-      const T* bp = tb + (8 * n + g) * LD + kk + t;
+      const float* bp = tb + (8 * n + g) * LD + kk + t;
       uint32_t bh0, bl0, bh1, bl1;
-      w_operand<T>(to_f32(bp[0]), bh0, bl0);
-      w_operand<T>(to_f32(bp[4]), bh1, bl1);
-      w_mma<T>(part[n], ah, al, bh0, bh1, bl0, bl1);
+      split_tf32(bp[0], bh0, bl0);
+      split_tf32(bp[4], bh1, bl1);
+      mma_3xtf32(part[n], ah, al, bh0, bh1, bl0, bl1);
     }
   }
 #pragma unroll
@@ -1793,21 +1958,21 @@ __device__ __forceinline__ void w_scores(float (&s)[WNT][4], const T* ta, const 
     for (int e = 0; e < 4; ++e) s[n][e] += part[n][e];
 }
 
-// acc[n] += round(x) B over a tile's WN rows, NO 8-column tiles of B (those
-// from column `cols` on skipped): x (16 x WN, accumulator layout) is the A
+// acc[n] += x B over a tile's WN rows, NO 8-column tiles of B (those from
+// column `cols` on skipped): x (16 x WN, accumulator layout) is the A
 // operand with the keys of each 8-key step in the order (0, 2, 4, 6, 1, 3, 5,
 // 7), as in the f32 kernels; `vb` points at B's row 2 t, column g (row stride
 // LD).  Each 8-column tile sums the tile's rows into fresh registers first.
-template <typename T, int NO, int LD>
+template <int NO, int LD>
 __device__ __forceinline__ void w_accumulate(float (&acc)[NO][4], const float (&x)[WNT][4],
-                                             const T* vb, int cols = 8 * NO) {
+                                             const float* vb, int cols = 8 * NO) {
   uint32_t xh[WNT][4], xl[WNT][4];
 #pragma unroll
   for (int ks = 0; ks < WNT; ++ks) {
-    w_operand<T>(round_in<T>(x[ks][0]), xh[ks][0], xl[ks][0]);
-    w_operand<T>(round_in<T>(x[ks][2]), xh[ks][1], xl[ks][1]);
-    w_operand<T>(round_in<T>(x[ks][1]), xh[ks][2], xl[ks][2]);
-    w_operand<T>(round_in<T>(x[ks][3]), xh[ks][3], xl[ks][3]);
+    split_tf32(x[ks][0], xh[ks][0], xl[ks][0]);
+    split_tf32(x[ks][2], xh[ks][1], xl[ks][1]);
+    split_tf32(x[ks][1], xh[ks][2], xl[ks][2]);
+    split_tf32(x[ks][3], xh[ks][3], xl[ks][3]);
   }
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
@@ -1816,47 +1981,39 @@ __device__ __forceinline__ void w_accumulate(float (&acc)[NO][4], const float (&
 #pragma unroll
     for (int ks = 0; ks < WNT; ++ks) {
       uint32_t bh0, bl0, bh1, bl1;
-      w_operand<T>(to_f32(vb[8 * ks * LD + 8 * n]), bh0, bl0);
-      w_operand<T>(to_f32(vb[(8 * ks + 1) * LD + 8 * n]), bh1, bl1);
-      w_mma<T>(part, xh[ks], xl[ks], bh0, bh1, bl0, bl1);
+      split_tf32(vb[8 * ks * LD + 8 * n], bh0, bl0);
+      split_tf32(vb[(8 * ks + 1) * LD + 8 * n], bh1, bl1);
+      mma_3xtf32(part, xh[ks], xl[ks], bh0, bh1, bl0, bl1);
     }
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
   }
 }
 
-// Write a 16-row accumulator of NO 8-column tiles in the input dtype: rows
-// r and r + 8 of `base` (row stride rs; rows at or past `limit` skipped),
-// columns 8 n + 2 t and + 1 below `cols`, times mul0 (row r) and mul1 (row
-// r + 8).
-template <typename T, int NO>
-__device__ __forceinline__ void w_store(T* base, size_t rs, int r, int limit,
+// Write a 16-row accumulator of NO 8-column tiles: rows r and r + 8 of
+// `base` (row stride rs; rows at or past `limit` skipped), columns 8 n + 2 t
+// and + 1 below `cols`, times mul0 (row r) and mul1 (row r + 8).
+template <int NO>
+__device__ __forceinline__ void w_store(float* base, size_t rs, int r, int limit,
                                         const float (&acc)[NO][4], float mul0, float mul1,
                                         int cols = 8 * NO) {
   const int t = threadIdx.x % 4;
-  T* pa = base + static_cast<size_t>(r) * rs + 2 * t;
-  T* pb = pa + 8 * rs;
+  float* pa = base + static_cast<size_t>(r) * rs + 2 * t;
+  float* pb = pa + 8 * rs;
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
     if (8 * n >= cols) break;
-    if constexpr (kF32<T>) {
-      if (r < limit)
-        *reinterpret_cast<float2*>(pa + 8 * n) = make_float2(acc[n][0] * mul0, acc[n][1] * mul0);
-      if (r + 8 < limit)
-        *reinterpret_cast<float2*>(pb + 8 * n) = make_float2(acc[n][2] * mul1, acc[n][3] * mul1);
-    } else {
-      if (r < limit)
-        *reinterpret_cast<uint32_t*>(pa + 8 * n) = pack(acc[n][0] * mul0, acc[n][1] * mul0);
-      if (r + 8 < limit)
-        *reinterpret_cast<uint32_t*>(pb + 8 * n) = pack(acc[n][2] * mul1, acc[n][3] * mul1);
-    }
+    if (r < limit)
+      *reinterpret_cast<float2*>(pa + 8 * n) = make_float2(acc[n][0] * mul0, acc[n][1] * mul0);
+    if (r + 8 < limit)
+      *reinterpret_cast<float2*>(pb + 8 * n) = make_float2(acc[n][2] * mul1, acc[n][3] * mul1);
   }
 }
 
 // Shared memory of the f32 wide forward, in floats: two stages of
 // Q [WQ][wld(WK)] and K [WN][wld(WK)], then V [WN][wld(WCH)].
 struct WideFwdF32 {
-  static constexpr int LK = wld<float>(WK), LC = wld<float>(WCH);
+  static constexpr int LK = wld(WK), LC = wld(WCH);
   static constexpr int STAGE = (WQ + WN) * LK;
   static constexpr int V = 2 * STAGE;
   static constexpr size_t SMEM = static_cast<size_t>(V + WN * LC) * sizeof(float);
@@ -1864,21 +2021,20 @@ struct WideFwdF32 {
   static_assert((WQ * LK * 4) % 16 == 0 && (STAGE * 4) % 16 == 0, "cp.async alignment");
 };
 
-// Shared memory of the wide backward kernels: two stages of two [WB] and
-// two [WN] tiles of WK columns (elements of T), then two [WN][wld(WC)]
-// product operands; at byte ROWS the tile's lse, delta (f32) and segment
-// ids (int) [WN]; at byte X the f32 exchange buffers [4 pairs][2][WNT * 4][32].
-template <typename T>
+// Shared memory of wide_dq_kernel: two stages of two [WB] and two [WN]
+// tiles of WK columns, then the [WN][wld(WC)] product
+// operand K_c; at byte ROWS the tile's segment ids (int) [WN]; at byte X the
+// f32 exchange buffers [4 pairs][2][WNT * 4][32].
 struct WideBwd {
-  static constexpr int LK = wld<T>(WK), LC = wld<T>(WC);
+  static constexpr int LK = wld(WK), LC = wld(WC);
   static constexpr int STAGE = 2 * (WB + WN) * LK;
   static constexpr int C = 2 * STAGE;
-  static constexpr size_t ROWS = static_cast<size_t>(C + 2 * WN * LC) * sizeof(T);
-  static constexpr size_t X = ROWS + 3 * WN * 4;
+  static constexpr size_t ROWS = static_cast<size_t>(C + WN * LC) * sizeof(float);
+  static constexpr size_t X = ROWS + WN * 4;
   static constexpr size_t SMEM = X + 4 * 2 * WNT * 4 * 32 * 4;
-  static_assert(SMEM <= SMEM_MAX, "wide backward shared memory");
-  static_assert((WB * LK * sizeof(T)) % 16 == 0 && (WN * LK * sizeof(T)) % 16 == 0 &&
-                    (STAGE * sizeof(T)) % 16 == 0 && ROWS % 16 == 0 && X % 16 == 0,
+  static_assert(SMEM <= SMEM_MAX, "wide dQ shared memory");
+  static_assert((WB * LK * sizeof(float)) % 16 == 0 && (WN * LK * sizeof(float)) % 16 == 0 &&
+                    (STAGE * sizeof(float)) % 16 == 0 && ROWS % 16 == 0 && X % 16 == 0,
                 "cp.async alignment");
 };
 
@@ -1913,8 +2069,8 @@ wide_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const flo
   auto load_stage = [&](int i) {
     const int j = kt0 + i / nd, d = i % nd;
     float* st = sm + (i & 1) * L::STAGE;
-    w_load<float, WK>(st, q + head + d * WK, q0, WQ, T_, rs);
-    w_load<float, WK>(st + WQ * L::LK, k + head + d * WK, j * WN, WN, T_, rs);
+    w_load<WK>(st, q + head + d * WK, q0, WQ, T_, rs);
+    w_load<WK>(st + WQ * L::LK, k + head + d * WK, j * WN, WN, T_, rs);
   };
   load_stage(0);
   cp_async_commit();
@@ -1938,10 +2094,10 @@ wide_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const flo
       cp_async_wait<0>();
       __syncthreads();  // stage i is in; every warp is done with stage i - 1 (and V at d = 0)
       if (i + 1 < total) load_stage(i + 1);
-      if (d == 0) w_load<float, WCH>(sm + L::V, v + head + c0, j * WN, WN, T_, rs, ncols);
+      if (d == 0) w_load<WCH>(sm + L::V, v + head + c0, j * WN, WN, T_, rs, ncols);
       cp_async_commit();
       const float* st = sm + (i & 1) * L::STAGE;
-      w_scores<float>(s, st + (16 * warp + g) * L::LK + t, st + WQ * L::LK);
+      w_scores(s, st + (16 * warp + g) * L::LK + t, st + WQ * L::LK);
     }
 
     // online softmax in base 2, masked scores at MASK (flash_fwd_f32's)
@@ -1978,20 +2134,20 @@ wide_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const flo
     cp_async_wait<0>();
     __syncthreads();  // V's columns c0.. of key tile j are in
     // O += P V over the chunk's columns
-    w_accumulate<float, NO, L::LC>(o, s, sm + L::V + 2 * t * L::LC + g, ncols);
+    w_accumulate<NO, L::LC>(o, s, sm + L::V + 2 * t * L::LC + g, ncols);
   }
 
   la = quad_sum(la);
   lb = quad_sum(lb);
   if (part_o == nullptr) {
-    w_store<float, NO>(out + head + c0, rs, ra, T_, o, 1.f / la, 1.f / lb, ncols);
+    w_store<NO>(out + head + c0, rs, ra, T_, o, 1.f / la, 1.f / lb, ncols);
     if (chunk == 0 && t == 0) {
       if (ra < T_) lse[static_cast<size_t>(bh) * T_ + ra] = ma * LN2 + logf(la);
       if (rb < T_) lse[static_cast<size_t>(bh) * T_ + rb] = mb * LN2 + logf(lb);
     }
   } else {
     const size_t row = (static_cast<size_t>(split) * gridDim.y + bh) * T_;
-    w_store<float, NO>(part_o + row * DP + c0, DP, ra, T_, o, 1.f, 1.f, ncols);
+    w_store<NO>(part_o + row * DP + c0, DP, ra, T_, o, 1.f, 1.f, ncols);
     if (chunk == 0 && t == 0) {
       if (ra < T_) *reinterpret_cast<float2*>(part_ml + 2 * (row + ra)) = make_float2(ma, la);
       if (rb < T_) *reinterpret_cast<float2*>(part_ml + 2 * (row + rb)) = make_float2(mb, lb);
@@ -1999,129 +2155,359 @@ wide_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const flo
   }
 }
 
-// dK, dV (f32): one block per (64 keys, b * H + h, 128 output columns);
-// query tiles of WN.  Role 0 of a pair: S^T = K Q^T, P^T, dV += P^T dO;
-// role 1: dP^T = V dO^T, dS^T = P^T (dP^T - delta) sm_scale, dK += dS^T Q,
-// P^T passed through shared memory as in flash_bwd_dkv_f32.
-template <typename T>
-__global__ void __launch_bounds__(WT, 1)
-wide_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                const int* __restrict__ seg, const T* __restrict__ dout,
-                const float* __restrict__ lse, const float* __restrict__ delta,
-                T* __restrict__ dk, T* __restrict__ dv, int H, int T_, int DP, float scale_log2,
-                float sm_scale) {
-  using L = WideBwd<T>;
-  constexpr int NO = WC / 8;
-  extern __shared__ __align__(16) unsigned char wsm[];
-  T* sm = reinterpret_cast<T*>(wsm);
-  float* rows_s = reinterpret_cast<float*>(wsm + L::ROWS);  // lse, delta, seg of the tile
+// dK, dV (f32): one block per (FK = 32 keys, b * H + h, chunk of WCH output
+// columns x split of the query tiles: blockIdx.z = split * chunks + chunk),
+// query tiles of FQ = 16.  K and V of the block's keys stay in shared
+// memory while they fit (WidePlan res; DP <= 640), else stream with Q and
+// dO.  Per query tile the score products run over DP in steps of a
+// cp.async ring (Q and dO, and K and V when they stream) as wide as shared
+// memory allows two of (step_cols: 256 at DP = 448, 64 at 640; one
+// __syncthreads a step), all but the chunk's own columns, which arrive last
+// into a chunk buffer kept for dV and dK with the tile's lse, delta and
+// segment ids.  The 8 warps are (kg, role,
+// hf): key group kg of 16 keys; role 0 computes S^T = K Q^T, role 1
+// dP^T = V dO^T, each warp over the k-steps of parity hf of every step
+// (both n-tiles of the 16 queries from one A fragment); the four partial
+// sums of a key group meet in shared memory, every warp adds them in the
+// same order, role 0 forms P^T and dV += P^T dO_c, role 1 P^T, dS^T = P^T
+// (dP^T - delta) sm_scale and dK += dS^T Q_c, each over half hf of the
+// chunk's columns (a 16 x 128 accumulator, 64 registers a thread).  With
+// splits (gridDim.z > chunks) each split writes its partial dK and dV at
+// `split_stride` floats from the last and wide_dkv_f32_merge sums them.
+constexpr int FK = 32, FQ = 16;
+constexpr int FLC = WCH + 4;  // row stride (floats) of the chunk buffer
+constexpr int FXB = 2 * 2 * 2 * 8 * 32;     // exchange: [kg][role][hf][8 values][32 lanes]
 
+// Byte offsets of wide_dkv_f32's shared memory: [K, V [FK][DP + 4] while
+// resident][ring: steps of Q, dO [FQ][step_cols + 4] (+ K, V [FK][...]
+// streamed)][c: Q_c, dO_c [FQ][FLC] (+ K_c, V_c [FK][FLC])][x: FXB floats]
+// [rows: lse, delta, seg [FQ]].  step_cols: the widest of 256, 192, 128, 64
+// that leaves room for two ring steps.
+WidePlan wide_dkv_f32_plan(int DP) {
+  const uint32_t kv = 2u * FK * (DP + 4) * 4;
+  WidePlan p{};
+  for (int res = 1; res >= 0; --res) {
+    const uint32_t rows_a = 2 * FQ + (res ? 0 : 2 * FK);  // rows a ring step or the chunk holds
+    p.res = res;
+    p.ring = res ? kv : 0;
+    const uint32_t fixed = p.ring + rows_a * FLC * 4 + FXB * 4 + 3 * FQ * 4;
+    for (p.step_cols = WCH; p.step_cols >= WK; p.step_cols -= WK) {
+      p.stage = rows_a * (p.step_cols + 4) * 4;
+      if (fixed + 2 * p.stage > SMEM_MAX) continue;
+      p.stages = static_cast<int>((SMEM_MAX - fixed) / p.stage);
+      if (p.stages > WRING) p.stages = WRING;
+      p.c = p.ring + p.stages * p.stage;
+      p.x = p.c + rows_a * FLC * 4;
+      p.rows = p.x + FXB * 4;
+      p.bar = p.smem = p.rows + 3 * FQ * 4;
+      return p;
+    }
+  }
+  p.stages = 0;  // refused
+  return p;
+}
+
+// cp.async.wait_group n for a run-time n < 8
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    default: cp_async_wait<7>(); break;
+  }
+}
+
+// Start copying `rows` rows (a multiple of 16) of `cols` floats (a multiple
+// of 64; src: row 0, row stride rs) into shared rows of `ld` floats: each
+// pass a thread copies 16 bytes of 16 rows x 64 columns.
+__device__ __forceinline__ void f32_rows_load(float* dst, int ld, const float* src, int rows,
+                                              int cols, size_t rs) {
+  const int r = threadIdx.x / 16, c = (threadIdx.x % 16) * 4;
+  for (int r0 = 0; r0 < rows; r0 += 16)
+    for (int c0 = 0; c0 < cols; c0 += WK)
+      cp_async16(smem_u32(dst + (r0 + r) * ld + c0 + c), src + (r0 + r) * rs + c0 + c, 16u);
+}
+
+// s += A B^T over `cols` columns (a multiple of 64), k-steps 16 m + 8 hf:
+// A's 16 rows at `ta` (the warp's element (g, t), row stride lda), B's 16
+// rows at `tb` (row 0, row stride ldb), read as the f32 forward reads K.
+// The hi-hi and the cross terms, of even and odd m, go to separate
+// accumulators (as in scores_f32): eight independent chains rather than two,
+// summed on the CUDA cores into s; the loop is unrolled to four k-steps so
+// the next fragments load under the current products.
+__device__ __forceinline__ void f32_step_scores(float (&s)[2][4], const float* ta, int lda,
+                                                const float* tb, int ldb, int hf, int cols) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  float hh[2][2][4], hl[2][2][4];
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) hh[p][n][e] = hl[p][n][e] = 0.f;
+#pragma unroll 2
+  for (int m2 = 0; m2 < cols / 16; m2 += 2) {
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int kk = 16 * (m2 + p) + 8 * hf;
+      uint32_t ah[4], al[4];
+      split_tf32(ta[kk], ah[0], al[0]);
+      split_tf32(ta[kk + 8 * lda], ah[1], al[1]);
+      split_tf32(ta[kk + 4], ah[2], al[2]);
+      split_tf32(ta[kk + 8 * lda + 4], ah[3], al[3]);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const float* bp = tb + (8 * n + g) * ldb + kk + t;
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(bp[0], bh0, bl0);
+        split_tf32(bp[4], bh1, bl1);
+        hopper::mma_tf32(hl[p][n], al, bh0, bh1);
+        hopper::mma_tf32(hl[p][n], ah, bl0, bl1);
+        hopper::mma_tf32(hh[p][n], ah, bh0, bh1);
+      }
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] += (hl[0][n][e] + hl[1][n][e]) + (hh[0][n][e] + hh[1][n][e]);
+}
+
+// acc[n] += x B for the NO 8-column tiles of B over 16 rows: x (16 x 16,
+// accumulator layout) the A operand split in xh, xl with the rows of each
+// 8-row step in the order (0, 2, 4, 6, 1, 3, 5, 7), `vb` at B's row 2 t,
+// column g (row stride ldb), as accumulate_f32; every tile sums into fresh
+// registers, and NO is a constant, so the tiles' chains interleave.
+template <int NO>
+__device__ __forceinline__ void f32_accumulate(float (&acc)[WCH / 16][4], const uint32_t (&xh)[2][4],
+                                               const uint32_t (&xl)[2][4], const float* vb,
+                                               int ldb) {
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      uint32_t bh0, bl0, bh1, bl1;
+      split_tf32(vb[8 * ks * ldb + 8 * n], bh0, bl0);
+      split_tf32(vb[(8 * ks + 1) * ldb + 8 * n], bh1, bl1);
+      mma_3xtf32(part, xh[ks], xl[ks], bh0, bh1, bl0, bl1);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
+  }
+}
+
+__global__ void __launch_bounds__(WT, 1)
+wide_dkv_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+             const int* __restrict__ seg, const float* __restrict__ dout,
+             const float* __restrict__ lse, const float* __restrict__ delta,
+             float* __restrict__ dk, float* __restrict__ dv, size_t split_stride, int H, int T_,
+             int DP, const WidePlan p, int tiles_per_split, float scale_log2, float sm_scale) {
+  constexpr int NO = WCH / 16;  // 8-column tiles of a warp's half of the chunk
+  extern __shared__ __align__(16) unsigned char wsm[];
+  float* ring = reinterpret_cast<float*>(wsm + p.ring);
+  float* chunk_s = reinterpret_cast<float*>(wsm + p.c);
+  float* xs = reinterpret_cast<float*>(wsm + p.x);
+  float* rows_s = reinterpret_cast<float*>(wsm + p.rows);
+
+  const int nc = (DP + WCH - 1) / WCH, chunk = blockIdx.z % nc, split = blockIdx.z / nc;
   const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
-  const int k0 = blockIdx.x * WB, c0 = blockIdx.z * WC, ncols = min(WC, DP - c0);
-  const int nd = DP / WK, nqt = T_ / WN, total = nqt * nd;
+  const int k0 = blockIdx.x * FK, c0 = chunk * WCH, ncols = min(WCH, DP - c0);
+  const int jt0 = split * tiles_per_split, ntile = min(T_ / FQ, jt0 + tiles_per_split) - jt0;
+  // steps a query tile: the ring's over the columns before the chunk (nbef
+  // steps) and after it, each at most step_cols wide; then the chunk's
+  const int sw = p.step_cols, ldr = sw + 4;
+  const int nbef = (c0 + sw - 1) / sw, nring = nbef + (DP - c0 - ncols + sw - 1) / sw;
+  const int nstep = nring + 1, total = ntile * nstep;
+  const int ahead = min(nring, p.stages - 1);  // steps in flight beyond the current one
   const size_t rs = static_cast<size_t>(H) * DP;
   const size_t head = static_cast<size_t>(b) * T_ * rs + static_cast<size_t>(h) * DP;
   const size_t rows = static_cast<size_t>(bh) * T_;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int pair = warp % 4, role = warp / 4;
+  const int kg = warp & 1, role = (warp >> 1) & 1, hf = warp >> 2;
   const int* segb = seg + static_cast<size_t>(b) * T_;
-  const int kr = k0 + 16 * pair + g;  // this thread's key rows kr, kr + 8
+  const int kr = k0 + 16 * kg + g;  // this thread's key rows kr, kr + 8
   const int segk0 = segb[kr], segk1 = segb[kr + 8];
+  const int half_cols = min(WCH / 2, ncols - hf * (WCH / 2));  // this warp's columns (<= 0: none)
+  const int rows_a = p.res ? 2 * FQ : 2 * FQ + 2 * FK;
 
-  // stage i: columns WK (i % nd).. of the block's K and V rows and of query tile i / nd's
-  // Q and dO rows
-  auto load_stage = [&](int i) {
-    const int j = i / nd, d = i - j * nd;
-    T* st = sm + (i & 1) * L::STAGE;
-    w_load<T, WK>(st, k + head + d * WK, k0, WB, T_, rs);
-    w_load<T, WK>(st + WB * L::LK, v + head + d * WK, k0, WB, T_, rs);
-    w_load<T, WK>(st + 2 * WB * L::LK, q + head + d * WK, j * WN, WN, T_, rs);
-    w_load<T, WK>(st + (2 * WB + WN) * L::LK, dout + head + d * WK, j * WN, WN, T_, rs);
+  // ring step r: its first column and width
+  auto step_col = [&](int r) { return r < nbef ? r * sw : c0 + ncols + (r - nbef) * sw; };
+  auto step_width = [&](int r) { return min(sw, (r < nbef ? c0 : DP) - step_col(r)); };
+  // step (jj, r) of query tile jt0 + jj: ring step r < nring into ring slot
+  // `slot`, then step nring, the chunk's columns
+  auto load_step = [&](int jj, int r, int slot) {
+    const int j = jt0 + jj;
+    if (r < nring) {
+      const int col = step_col(r), w = step_width(r);
+      float* st = ring + slot * (rows_a * ldr);
+      const size_t qrow = head + static_cast<size_t>(j) * FQ * rs + col;
+      f32_rows_load(st, ldr, q + qrow, FQ, w, rs);
+      f32_rows_load(st + FQ * ldr, ldr, dout + qrow, FQ, w, rs);
+      if (!p.res) {
+        const size_t krow = head + static_cast<size_t>(k0) * rs + col;
+        f32_rows_load(st + 2 * FQ * ldr, ldr, k + krow, FK, w, rs);
+        f32_rows_load(st + (2 * FQ + FK) * ldr, ldr, v + krow, FK, w, rs);
+      }
+    } else {
+      w_load<WCH>(chunk_s, q + head + c0, j * FQ, FQ, T_, rs, ncols);
+      w_load<WCH>(chunk_s + FQ * FLC, dout + head + c0, j * FQ, FQ, T_, rs, ncols);
+      if (!p.res) {
+        w_load<WCH>(chunk_s + 2 * FQ * FLC, k + head + c0, k0, FK, T_, rs, ncols);
+        w_load<WCH>(chunk_s + (2 * FQ + FK) * FLC, v + head + c0, k0, FK, T_, rs, ncols);
+      }
+      row_load(rows_s, lse + rows + j * FQ, FQ);
+      row_load(rows_s + FQ, delta + rows + j * FQ, FQ);
+      row_load(rows_s + 2 * FQ, segb + j * FQ, FQ);
+    }
   };
-  load_stage(0);
-  cp_async_commit();
+  // one cp.async group a step (the first also K and V), so step i is in
+  // once all but the `ahead` newest groups are
+  if (p.res) {
+    float* kv = reinterpret_cast<float*>(wsm);
+    f32_rows_load(kv, DP + 4, k + head + static_cast<size_t>(k0) * rs, FK, DP, rs);
+    f32_rows_load(kv + FK * (DP + 4), DP + 4, v + head + static_cast<size_t>(k0) * rs, FK, DP, rs);
+  }
+  // the steps loaded (lj, lr, lslot) and consumed (jj, r, slot), advanced
+  // step by step; a ring step takes the next ring slot
+  int lj = 0, lr = 0, lslot = 0;
+  auto next = [&](int& sj, int& sr, int& sslot) {
+    if (sr < nring && ++sslot == p.stages) sslot = 0;
+    if (++sr == nstep) sr = 0, ++sj;
+  };
+  for (int i = 0; i < ahead; ++i) {
+    if (i < total) load_step(lj, lr, lslot);
+    next(lj, lr, lslot);
+    cp_async_commit();
+  }
 
   float acc[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float* xbuf = reinterpret_cast<float*>(wsm + L::X) + pair * (WNT * 4 * 32) + lane;
+  float s[2][4];
+  // A's element (g, t) of this warp's 16 keys: resident, or in a step of the ring or the chunk
+  const int arow = role * FK + 16 * kg + g;
+  const float* ta_res = reinterpret_cast<const float*>(wsm) + arow * (DP + 4) + t;
 
-  for (int j = 0; j < nqt; ++j) {
-    float s[WNT][4];
+  for (int i = 0, jj = 0, r = 0, slot = 0; i < total; ++i, next(jj, r, slot)) {
+    cp_async_wait_n(ahead - 1);
+    __syncthreads();  // step i is in; every warp is done with step i - 1 (and its buffers)
+    if (i + ahead < total) load_step(lj, lr, lslot);
+    next(lj, lr, lslot);
+    cp_async_commit();
+    if (r == 0) {
 #pragma unroll
-    for (int n = 0; n < WNT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-    for (int d = 0; d < nd; ++d) {
-      const int i = j * nd + d;
-      cp_async_wait<0>();
-      __syncthreads();  // stage i is in; every warp is done with stage i - 1 (and tile j - 1)
-      if (i + 1 < total) load_stage(i + 1);
-      if (d == 0) {
-        w_load<T, WC>(sm + L::C, q + head + c0, j * WN, WN, T_, rs, ncols);
-        w_load<T, WC>(sm + L::C + WN * L::LC, dout + head + c0, j * WN, WN, T_, rs, ncols);
-        row_load(rows_s, lse + rows + j * WN, WN);
-        row_load(rows_s + WN, delta + rows + j * WN, WN);
-        row_load(rows_s + 2 * WN, segb + j * WN, WN);
-      }
-      cp_async_commit();
-      const T* st = sm + (i & 1) * L::STAGE;
-      // S^T = K Q^T (role 0) or dP^T = V dO^T (role 1)
-      w_scores<T>(s, st + (role * WB + 16 * pair + g) * L::LK + t,
-                  st + (2 * WB + role * WN) * L::LK);
+      for (int n = 0; n < 2; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
     }
-    cp_async_wait<0>();
-    __syncthreads();  // the tile's Q and dO columns c0.., lse, delta and segment ids are in
+    if (r < nring) {
+      // S^T = K Q^T (role 0) or dP^T = V dO^T (role 1) over the step's columns
+      const int col = step_col(r), w = step_width(r);
+      const float* st = ring + slot * (rows_a * ldr);
+      if (p.res)
+        f32_step_scores(s, ta_res + col, DP + 4, st + role * FQ * ldr, ldr, hf, w);
+      else
+        f32_step_scores(s, st + (2 * FQ + arow) * ldr + t, ldr, st + role * FQ * ldr, ldr, hf, w);
+      continue;
+    }
+    // the chunk's columns
+    if (p.res)
+      f32_step_scores(s, ta_res + c0, DP + 4, chunk_s + role * FQ * FLC, FLC, hf, ncols);
+    else
+      f32_step_scores(s, chunk_s + (2 * FQ + arow) * FLC + t, FLC, chunk_s + role * FQ * FLC, FLC,
+                      hf, ncols);
+
+    // the key group's four partial sums (its warps meet at named barrier
+    // 1 + kg), added in one order by every warp; this thread: keys kr (e < 2)
+    // and kr + 8, queries 8 n + 2 t (+ 1 for odd e)
+    float* mine = xs + ((kg * 2 + role) * 2 + hf) * 256 + lane;
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mine[(4 * n + e) * 32] = s[n][e];
+    hopper::named_sync(1 + kg, 128);
+    const float* xst = xs + kg * 4 * 256 + lane;  // S^T halves, then dP^T halves
     const float* lse_s = rows_s;
-    const float* delta_s = rows_s + WN;
-    const int* segq = reinterpret_cast<const int*>(rows_s + 2 * WN);
-    // this thread: keys kr (e < 2) and kr + 8, queries 8 n + 2 t (+ 1 for odd e)
-    if (role == 0) {
+    const float* delta_s = rows_s + FQ;
+    const int* segq = reinterpret_cast<const int*>(rows_s + 2 * FQ);
 #pragma unroll
-      for (int n = 0; n < WNT; ++n) {
-        const int c = 8 * n + 2 * t;
-        const float2 l2 = *reinterpret_cast<const float2*>(lse_s + c);
-        const int2 sq = *reinterpret_cast<const int2*>(segq + c);
+    for (int n = 0; n < 2; ++n) {
+      const int c = 8 * n + 2 * t;
+      const float2 l2 = *reinterpret_cast<const float2*>(lse_s + c);
+      const float2 dl = *reinterpret_cast<const float2*>(delta_s + c);
+      const int2 sq = *reinterpret_cast<const int2*>(segq + c);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = s[n][e] * scale_log2;
-          if ((e < 2 ? segk0 : segk1) != ((e & 1) ? sq.y : sq.x)) x = MASK;
-          s[n][e] = ex2(x - ((e & 1) ? l2.y : l2.x) * LOG2E);
-          xbuf[(4 * n + e) * 32] = s[n][e];
-        }
-      }
-      hopper::named_arrive(1 + pair, 64);
-    } else {
-      hopper::named_sync(1 + pair, 64);
-#pragma unroll
-      for (int n = 0; n < WNT; ++n) {
-        const float2 dl = *reinterpret_cast<const float2*>(delta_s + 8 * n + 2 * t);
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s[n][e] = xbuf[(4 * n + e) * 32] * (s[n][e] - ((e & 1) ? dl.y : dl.x)) * sm_scale;
+      for (int e = 0; e < 4; ++e) {
+        const int o = (4 * n + e) * 32;
+        // P^T = exp2(s * sm_scale * log2(e) - lse * log2(e)); masked: MASK
+        float x = (xst[o] + xst[256 + o]) * scale_log2;
+        if ((e < 2 ? segk0 : segk1) != ((e & 1) ? sq.y : sq.x)) x = MASK;
+        const float pt = ex2(x - ((e & 1) ? l2.y : l2.x) * LOG2E);
+        if (role == 0)
+          s[n][e] = pt;
+        else  // dS^T = P^T (dP^T - delta) sm_scale
+          s[n][e] = pt * ((xst[512 + o] + xst[768 + o]) - ((e & 1) ? dl.y : dl.x)) * sm_scale;
       }
     }
-    // dV += round(P^T) dO (role 0) or dK += round(dS^T) Q (role 1), columns c0..
-    w_accumulate<T, NO, L::LC>(acc, s, sm + L::C + (role == 0 ? WN * L::LC : 0) + 2 * t * L::LC + g,
-                               ncols);
+    // dV += P^T dO_c (role 0) or dK += dS^T Q_c (role 1) over this warp's half
+    // of the chunk, the queries of each 8-query step in the order (0, 2, 4, 6,
+    // 1, 3, 5, 7) as in accumulate_f32
+    if (half_cols > 0) {
+      const float* vb = chunk_s + (role == 0 ? FQ * FLC : 0) + 2 * t * FLC + hf * (WCH / 2) + g;
+      uint32_t xh[2][4], xl[2][4];
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        split_tf32(s[ks][0], xh[ks][0], xl[ks][0]);
+        split_tf32(s[ks][2], xh[ks][1], xl[ks][1]);
+        split_tf32(s[ks][1], xh[ks][2], xl[ks][2]);
+        split_tf32(s[ks][3], xh[ks][3], xl[ks][3]);
+      }
+      // a warp's columns are 128 or, in a last chunk of 64 or 192, 64
+      if (half_cols == WCH / 2)
+        f32_accumulate<WCH / 16>(acc, xh, xl, vb, FLC);
+      else
+        f32_accumulate<WCH / 32>(acc, xh, xl, vb, FLC);
+    }
   }
+  cp_async_wait<0>();
 
-  w_store<T, NO>((role == 0 ? dv : dk) + head + c0, rs, kr, T_, acc, 1.f, 1.f, ncols);
+  float* out = (role == 0 ? dv : dk) + split * split_stride + head + c0 + hf * (WCH / 2);
+  w_store<NO>(out, rs, kr, T_, acc, 1.f, 1.f, half_cols);
+}
+
+// Sum wide_dkv_f32's nsplit partial dK (blockIdx.y 0) or dV (1), n floats
+// each ([nsplit][n] at part, dV's after dK's), in split order: 4 floats a thread.
+__global__ void __launch_bounds__(256)
+wide_dkv_f32_merge(const float* __restrict__ part, float* __restrict__ dk, float* __restrict__ dv,
+                   size_t n, int nsplit) {
+  const size_t i = (static_cast<size_t>(blockIdx.x) * 256 + threadIdx.x) * 4;
+  if (i >= n) return;
+  const float* src = part + blockIdx.y * nsplit * n + i;
+  float4 acc = *reinterpret_cast<const float4*>(src);
+  for (int s = 1; s < nsplit; ++s) {
+    const float4 x = *reinterpret_cast<const float4*>(src + s * n);
+    acc.x += x.x; acc.y += x.y; acc.z += x.z; acc.w += x.w;
+  }
+  *reinterpret_cast<float4*>((blockIdx.y == 0 ? dk : dv) + i) = acc;
 }
 
 // dQ: one block per (64 queries, b * H + h, 128 output columns); key tiles
 // of WN.  Role 0 of a pair computes S = Q K^T and P, role 1 dP = dO V^T;
 // they swap P and dP through shared memory, both form dS = P (dP - delta)
 // sm_scale, and each sums dQ += round(dS) K over half of the chunk's columns.
-template <typename T>
 __global__ void __launch_bounds__(WT, 1)
-wide_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-               const int* __restrict__ seg, const T* __restrict__ dout,
+wide_dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+               const int* __restrict__ seg, const float* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
-               T* __restrict__ dq, int H, int T_, int DP, float scale_log2, float sm_scale) {
-  using L = WideBwd<T>;
+               float* __restrict__ dq, int H, int T_, int DP, float scale_log2, float sm_scale) {
+  using L = WideBwd;
   constexpr int NO = WC / 16;  // 8-column tiles of a half of the chunk
   constexpr int XB = WNT * 4 * 32;
   extern __shared__ __align__(16) unsigned char wsm[];
-  T* sm = reinterpret_cast<T*>(wsm);
+  float* sm = reinterpret_cast<float*>(wsm);
   const int* segk = reinterpret_cast<const int*>(wsm + L::ROWS);  // the key tile's segment ids
 
   const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
@@ -2143,11 +2529,11 @@ wide_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   // K and V rows
   auto load_stage = [&](int i) {
     const int j = i / nd, d = i - j * nd;
-    T* st = sm + (i & 1) * L::STAGE;
-    w_load<T, WK>(st, q + head + d * WK, q0, WB, T_, rs);
-    w_load<T, WK>(st + WB * L::LK, dout + head + d * WK, q0, WB, T_, rs);
-    w_load<T, WK>(st + 2 * WB * L::LK, k + head + d * WK, j * WN, WN, T_, rs);
-    w_load<T, WK>(st + (2 * WB + WN) * L::LK, v + head + d * WK, j * WN, WN, T_, rs);
+    float* st = sm + (i & 1) * L::STAGE;
+    w_load<WK>(st, q + head + d * WK, q0, WB, T_, rs);
+    w_load<WK>(st + WB * L::LK, dout + head + d * WK, q0, WB, T_, rs);
+    w_load<WK>(st + 2 * WB * L::LK, k + head + d * WK, j * WN, WN, T_, rs);
+    w_load<WK>(st + (2 * WB + WN) * L::LK, v + head + d * WK, j * WN, WN, T_, rs);
   };
   load_stage(0);
   cp_async_commit();
@@ -2169,14 +2555,14 @@ wide_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
       __syncthreads();  // stage i is in; every warp is done with stage i - 1 (and tile j - 1)
       if (i + 1 < total) load_stage(i + 1);
       if (d == 0) {
-        w_load<T, WC>(sm + L::C, k + head + c0, j * WN, WN, T_, rs, ncols);
+        w_load<WC>(sm + L::C, k + head + c0, j * WN, WN, T_, rs, ncols);
         row_load(wsm + L::ROWS, segb + j * WN, WN);
       }
       cp_async_commit();
-      const T* st = sm + (i & 1) * L::STAGE;
+      const float* st = sm + (i & 1) * L::STAGE;
       // S = Q K^T (role 0) or dP = dO V^T (role 1)
-      w_scores<T>(s, st + (role * WB + 16 * pair + g) * L::LK + t,
-                  st + (2 * WB + role * WN) * L::LK);
+      w_scores(s, st + (role * WB + 16 * pair + g) * L::LK + t,
+               st + (2 * WB + role * WN) * L::LK);
     }
     cp_async_wait<0>();
     __syncthreads();  // the tile's K columns c0.. and segment ids are in
@@ -2203,12 +2589,12 @@ wide_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
       const float p = role == 0 ? mine : o, dp = role == 0 ? o : mine;
       s[i / 4][i % 4] = p * (dp - ((i & 2) ? db : da)) * sm_scale;
     }
-    // dQ[:, c0 + half..] += round(dS) K[:, c0 + half..]
-    w_accumulate<T, NO, L::LC>(acc, s, sm + L::C + role * (WC / 2) + 2 * t * L::LC + g,
-                               half_cols);
+    // dQ[:, c0 + half..] += dS K[:, c0 + half..]
+    w_accumulate<NO, L::LC>(acc, s, sm + L::C + role * (WC / 2) + 2 * t * L::LC + g,
+                            half_cols);
   }
 
-  w_store<T, NO>(dq + head + c0 + role * (WC / 2), rs, ra, T_, acc, 1.f, 1.f, half_cols);
+  w_store<NO>(dq + head + c0 + role * (WC / 2), rs, ra, T_, acc, 1.f, 1.f, half_cols);
 }
 
 // ===========================================================================
@@ -2404,9 +2790,12 @@ int flash_bwd_dq(const void* q, const void* k, const void* v, const void* seg, c
 }
 
 // The wide kernels: as above, for a head dim D > 256 that is a multiple of
-// 64 (the caller zero-pads other head dims).  The forwards and the bf16
-// dK/dV take blockIdx.z chunks of WCH columns (in the f32 forward times
-// nsplit key splits), the rest chunks of WC.
+// 64 (the caller zero-pads other head dims).  The forwards and dK/dV take
+// blockIdx.z chunks of WCH columns (in f32 times nsplit key or query
+// splits), the bf16 dQ pairs of them, the f32 dQ chunks of WC.  The f32
+// dK/dV splits the queries nsplit ways (1 <= nsplit <= 32, every split
+// non-empty: 16-query tiles), with 2 * nsplit * B * H * T * D floats of
+// scratch at `part` when nsplit > 1.
 int flash_fwd_wide(const void* q, const void* k, const void* v, const void* seg, void* out,
                    void* lse, int B, int H, int T, int D, float sm_scale, int is_bf16, int nsplit,
                    void* part, void* stream) {
@@ -2416,7 +2805,7 @@ int flash_fwd_wide(const void* q, const void* k, const void* v, const void* seg,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nc = (D + WCH - 1) / WCH;
   if (is_bf16) {
-    const WidePlan p = wide_plan(D, false);
+    const WidePlan p = wide_plan(D, WIDE_FWD);
     if (p.stages < 1 || p.smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
     CUtensorMap mq, mk, mv;
     int e;
@@ -2440,26 +2829,38 @@ int flash_fwd_wide(const void* q, const void* k, const void* v, const void* seg,
 
 int flash_bwd_dkv_wide(const void* q, const void* k, const void* v, const void* seg,
                        const void* dout, const void* lse, const void* delta, void* dk, void* dv,
-                       int B, int H, int T, int D, float sm_scale, int is_bf16, void* stream) {
+                       int B, int H, int T, int D, float sm_scale, int is_bf16, int nsplit,
+                       void* part, void* stream) {
   if (!wide_shape_ok(B, H, T, D)) return static_cast<int>(cudaErrorInvalidValue);
   if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout) || !aligned16(seg) ||
       !aligned16(lse) || !aligned16(delta))
     return static_cast<int>(cudaErrorMisalignedAddress);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nc = (D + WCH - 1) / WCH;
   if (is_bf16) {
-    const WidePlan p = wide_plan(D, true);
+    const WidePlan p = wide_plan(D, WIDE_DKV);
     if (p.stages < 1 || p.smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
     CUtensorMap mq, mk, mv, mdo;
     int e;
     if ((e = bf16_map(&mq, q, B, H, T, D, 64)) || (e = bf16_map(&mk, k, B, H, T, D, 64)) ||
         (e = bf16_map(&mv, v, B, H, T, D, 64)) || (e = bf16_map(&mdo, dout, B, H, T, D, 64)))
       return e;
-    return launch(wide_dkv_bf16, dim3(T / 64, B * H, (D + WCH - 1) / WCH), 3 * WG, p.smem, s, mq,
-                  mk, mv, mdo, seg, lse, delta, dk, dv, H, T, D, p, sm_scale * LOG2E, sm_scale);
+    return launch(wide_dkv_bf16, dim3(T / 64, B * H, nc), 3 * WG, p.smem, s, mq, mk, mv, mdo, seg,
+                  lse, delta, dk, dv, H, T, D, p, sm_scale * LOG2E, sm_scale);
   }
-  return launch(wide_dkv_kernel<float>, dim3(T / WB, B * H, (D + WC - 1) / WC), WT,
-                WideBwd<float>::SMEM, s, q, k, v, seg, dout, lse, delta, dk, dv, H, T, D,
-                sm_scale * LOG2E, sm_scale);
+  const WidePlan p = wide_dkv_f32_plan(D);
+  const int tps = split_tiles(T / FQ, nsplit, part);
+  if (p.stages < 2 || tps == 0 || nc * nsplit > 65535 || !aligned16(part))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t n = static_cast<size_t>(B) * T * H * D;
+  float* part_k = nsplit > 1 ? static_cast<float*>(part) : static_cast<float*>(dk);
+  float* part_v = nsplit > 1 ? part_k + nsplit * n : static_cast<float*>(dv);
+  const int e = launch(wide_dkv_f32, dim3(T / FK, B * H, nc * nsplit), WT, p.smem, s, q, k, v, seg,
+                       dout, lse, delta, part_k, part_v, nsplit > 1 ? n : 0, H, T, D, p, tps,
+                       sm_scale * LOG2E, sm_scale);
+  if (e != 0 || nsplit == 1) return e;
+  return launch(wide_dkv_f32_merge, dim3(static_cast<unsigned>((n / 4 + 255) / 256), 2), 256, 0, s,
+                part_k, dk, dv, n, nsplit);
 }
 
 int flash_bwd_dq_wide(const void* q, const void* k, const void* v, const void* seg,
@@ -2470,12 +2871,20 @@ int flash_bwd_dq_wide(const void* q, const void* k, const void* v, const void* s
       !aligned16(lse) || !aligned16(delta))
     return static_cast<int>(cudaErrorMisalignedAddress);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(T / WB, B * H, (D + WC - 1) / WC);
-  if (is_bf16)
-    return launch(wide_dq_kernel<bf16>, grid, WT, WideBwd<bf16>::SMEM, s, q, k, v, seg, dout, lse,
-                  delta, dq, H, T, D, sm_scale * LOG2E, sm_scale);
-  return launch(wide_dq_kernel<float>, grid, WT, WideBwd<float>::SMEM, s, q, k, v, seg, dout,
-                lse, delta, dq, H, T, D, sm_scale * LOG2E, sm_scale);
+  if (is_bf16) {
+    const WidePlan p = wide_plan(D, WIDE_DQ);
+    if (p.stages < 1 || p.smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
+    CUtensorMap mq, mk, mv, mdo;
+    int e;
+    if ((e = bf16_map(&mq, q, B, H, T, D, 64)) || (e = bf16_map(&mk, k, B, H, T, D, 64)) ||
+        (e = bf16_map(&mv, v, B, H, T, D, 64)) || (e = bf16_map(&mdo, dout, B, H, T, D, 64)))
+      return e;
+    return launch(wide_dq_bf16, dim3(T / 64, B * H, (D + 2 * WCH - 1) / (2 * WCH)), 3 * WG, p.smem,
+                  s, mq, mk, mv, mdo, seg, lse, delta, dq, H, T, D, p, sm_scale * LOG2E, sm_scale);
+  }
+  return launch(wide_dq_kernel, dim3(T / WB, B * H, (D + WC - 1) / WC), WT, WideBwd::SMEM, s,
+                q, k, v, seg, dout, lse, delta, dq, H, T, D,
+                sm_scale * LOG2E, sm_scale);
 }
 
 const char* wtv_error_string(int err) {

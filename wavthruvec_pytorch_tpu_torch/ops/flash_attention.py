@@ -21,12 +21,13 @@ JAX's flash branch takes: up to 256 the templates built for ``WIDTHS``
 (``flash_fwd``, ``flash_bwd_dkv``, ``flash_bwd_dq``), past 256 the wide
 kernels (``flash_fwd_wide``, ``flash_bwd_dkv_wide``, ``flash_bwd_dq_wide``)
 at any multiple of ``WIDE_PAD``, each output chunk a block of its own
-(``wide_chunks``: 256 columns in the forward and the bf16 dK/dV, 128 in the
-rest).  The wrappers zero-pad D to ``kernel_width(D)`` and slice the
-results back, which is exact (padded columns add 0 to every q.k, and padded
-v columns give output columns that are dropped; ``sm_scale`` stays the
-caller's), as JAX pads d_k above 128 to a multiple of 128.  The f32 kernels
-run on the tensor cores at f32 accuracy (3xTF32), whatever
+(``wide_chunks``: 256 columns, a pair of them a block in the bf16 dQ; 128
+in the f32 dQ, ``F32_DQ_CHUNK``; ``wide_blocks``).  The wrappers zero-pad
+D to ``kernel_width(D)`` and slice the results back, which is exact
+(padded columns add 0 to every q.k, and padded v columns give output
+columns that are dropped; ``sm_scale`` stays the caller's), as JAX pads
+d_k above 128 to a multiple of 128.  The f32 kernels run on the tensor
+cores at f32 accuracy (3xTF32), whatever
 ``torch.backends.cuda.matmul.allow_tf32`` says, which governs cuBLAS only.
 """
 
@@ -43,8 +44,10 @@ MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 _DTYPES = (torch.float32, torch.bfloat16)
 WIDTHS = (64, 128, 224, 256)  # head dims the templates are built for (csrc/flash_attn.cu)
 WIDE_PAD = 64  # past WIDTHS[-1]: the wide kernels' head dim is a multiple of it (WK)
-WIDE_CHUNK = 256  # the wide forward's and bf16 dK/dV's output columns a block (WCH)
+WIDE_CHUNK = 256  # the wide kernels' output columns a chunk (WCH), but the f32 dQ's
+F32_DQ_CHUNK = 128  # the wide f32 dQ's output columns a block (WC)
 _SPLIT_ROWS, _SPLIT_KEYS = 128, 32  # the f32 forwards' query rows a block, keys a tile
+_DKV_KEYS, _DKV_QUERIES = 32, 16  # the wide f32 dK/dV's keys a block, queries a tile
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seg: torch.Tensor,
@@ -72,7 +75,7 @@ def _lib() -> ctypes.CDLL:
     lib.flash_bwd_dkv.argtypes = [ptr] * 9 + [i32] * 4 + [f32, i32, ptr]
     lib.flash_bwd_dq.argtypes = [ptr] * 8 + [i32] * 4 + [f32, i32, ptr]
     lib.flash_fwd_wide.argtypes = lib.flash_fwd.argtypes
-    lib.flash_bwd_dkv_wide.argtypes = lib.flash_bwd_dkv.argtypes
+    lib.flash_bwd_dkv_wide.argtypes = lib.flash_bwd_dkv.argtypes[:-1] + [i32, ptr, ptr]
     lib.flash_bwd_dq_wide.argtypes = lib.flash_bwd_dq.argtypes
     for fn in (lib.flash_fwd, lib.flash_bwd_dkv, lib.flash_bwd_dq, lib.flash_fwd_wide,
                lib.flash_bwd_dkv_wide, lib.flash_bwd_dq_wide):
@@ -100,12 +103,28 @@ def kernel_width(D: int) -> int:
     return next(w for w in WIDTHS if w >= D)
 
 
-def wide_chunks(W: int) -> list:
-    """The output-column chunks, one a block (blockIdx.z), of the wide
-    forward and bf16 dK/dV at padded head dim W = ``kernel_width(D)``:
-    ``WIDE_CHUNK`` columns each, the last what remains (448 -> [256, 192]),
-    every one a multiple of the kernels' 32-column TMA box."""
-    return [min(WIDE_CHUNK, W - c) for c in range(0, W, WIDE_CHUNK)]
+def wide_chunks(W: int, chunk: int = WIDE_CHUNK) -> list:
+    """The output-column chunks of the wide kernels at padded head dim W =
+    ``kernel_width(D)``: ``chunk`` columns each, the last what remains (448
+    -> [256, 192]), every one a multiple of the kernels' 32-column TMA box.
+    Every wide kernel takes ``WIDE_CHUNK`` (a block each; the bf16 dQ a
+    block per two), but the f32 dQ, ``F32_DQ_CHUNK``."""
+    return [min(chunk, W - c) for c in range(0, W, chunk)]
+
+
+def wide_blocks(name: str, dtype: torch.dtype, W: int) -> list:
+    """The output-column chunks each block of the wide kernel ``name``
+    (``flash_fwd_wide``, ``flash_bwd_dkv_wide`` or ``flash_bwd_dq_wide``)
+    covers in ``dtype`` at padded head dim W, one list a blockIdx.z (before
+    any split): ``wide_chunks(W)`` one a block, but two a block in the bf16
+    dQ (a consumer warpgroup each) and chunks of ``F32_DQ_CHUNK`` in the
+    f32 dQ."""
+    if name == "flash_bwd_dq_wide":
+        if dtype == torch.float32:
+            return [[c] for c in wide_chunks(W, F32_DQ_CHUNK)]
+        chunks = wide_chunks(W)
+        return [chunks[i:i + 2] for i in range(0, len(chunks), 2)]
+    return [[c] for c in wide_chunks(W)]
 
 
 def kernel_shape_ok(B: int, H: int, T: int, D: int, dtype: torch.dtype) -> bool:
@@ -124,17 +143,38 @@ def f32_splits(BH: int, T: int, n_sm: int, chunks: int = 1) -> int:
     non-empty, at most 32) that minimises waves(s) * (tiles a split + 2),
     the 2 standing for a block's Q load and its share of the merge; ties go
     to fewer splits."""
-    q_blocks = BH * -(-T // _SPLIT_ROWS) * chunks
-    tiles = T // _SPLIT_KEYS
-    best, best_cost = 1, None
+    return _splits(BH * -(-T // _SPLIT_ROWS) * chunks, T // _SPLIT_KEYS, n_sm)
+
+
+def dkv_f32_splits(BH: int, T: int, n_sm: int, chunks: int) -> int:
+    """Query splits of the wide f32 dK/dV (``wide_dkv_f32``) for B * H = BH
+    heads of length T on ``n_sm`` SMs, at ``chunks = len(wide_chunks(W))``.
+    A block takes 32 keys of one chunk and one SM, so one head of 3072
+    gives 192 blocks at D = 448, 1.45 waves of 132; each split adds that
+    many blocks over a share of the 16-query tiles, and its partial dK and
+    dV are summed afterwards by a second pass over them.  The cost is
+    ``f32_splits``' (the 2 standing for a block's K and V load), and a
+    split must save a tenth of the unsplit cost, the rest standing for that
+    pass: so a grid that already fills the card, as the f32 training batch
+    [8, 1, 3072, 448] does (1536 blocks), takes none."""
+    return _splits(BH * (T // _DKV_KEYS) * chunks, T // _DKV_QUERIES, n_sm, min_gain=0.1)
+
+
+def _splits(blocks: int, tiles: int, n_sm: int, min_gain: float = 0.0) -> int:
+    """The split count s (every split of the ``tiles`` non-empty, at most
+    32) that minimises waves(s) * (tiles a split + 2) for ``blocks`` blocks
+    a split on ``n_sm`` SMs, one block an SM; ties go to fewer splits, and
+    1 unless the best saves more than ``min_gain`` of the unsplit cost."""
+    best, best_cost, one = 1, None, None
     for s in range(1, min(32, tiles) + 1):
         per = -(-tiles // s)
         if -(-tiles // per) != s:  # some split would be empty
             continue
-        cost = -(-q_blocks * s // n_sm) * (per + 2)
+        cost = -(-blocks * s // n_sm) * (per + 2)
+        one = cost if s == 1 else one
         if best_cost is None or cost < best_cost:
             best, best_cost = s, cost
-    return best
+    return best if best_cost < (1.0 - min_gain) * one else 1
 
 
 def _check(q, k, v, seg, *more):
@@ -202,7 +242,8 @@ def _forward(q, k, v, seg, sm_scale: float, is_wide: bool):
     nsplit, part = 1, None
     if q.dtype == torch.float32:
         n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
-        nsplit = f32_splits(B * H, T, n_sm, len(wide_chunks(W)) if is_wide else 1)
+        chunks = len(wide_blocks("flash_fwd_wide", q.dtype, W)) if is_wide else 1
+        nsplit = f32_splits(B * H, T, n_sm, chunks)
         if nsplit > 1:
             part = torch.empty(nsplit * B * H * T * (W + 2), device=q.device, dtype=torch.float32)
     name = "flash_fwd_wide" if is_wide else "flash_fwd"
@@ -265,18 +306,29 @@ def backward_inputs(q, k, v, seg, out, lse, dout) -> BackwardInputs:
 def _backward(ins: BackwardInputs, sm_scale: float, name: str, n_out: int):
     """Launch the backward kernel ``name`` of the C library on
     ``backward_inputs``' result; returns its ``n_out`` gradients [B, H, T, D]
-    in q's dtype."""
+    in q's dtype.  The wide dK/dV also takes its query splits and their
+    scratch (``dkv_f32_splits``; one split in bf16)."""
     _require_cuda(ins.q)
     B, H, T, D = ins.shape
     if wide(D) != name.endswith("_wide"):
         raise ValueError(f"head dim D={D} does not run {name}")
     W = ins.q.shape[-1]
     grads = [torch.empty_like(ins.q) for _ in range(n_out)]
+    splits = []
+    if name == "flash_bwd_dkv_wide":
+        nsplit, part = 1, None
+        if ins.q.dtype == torch.float32:
+            n_sm = torch.cuda.get_device_properties(ins.q.device).multi_processor_count
+            nsplit = dkv_f32_splits(B * H, T, n_sm, len(wide_blocks(name, ins.q.dtype, W)))
+            if nsplit > 1:
+                part = torch.empty(2 * nsplit * B * H * T * W, device=ins.q.device,
+                                   dtype=torch.float32)
+        splits = [nsplit, None if part is None else part.data_ptr()]
     lib = _lib()
     err = getattr(lib, name)(ins.q.data_ptr(), ins.k.data_ptr(), ins.v.data_ptr(),
                              ins.seg.data_ptr(), ins.dout.data_ptr(), ins.lse.data_ptr(),
                              ins.delta.data_ptr(), *(g.data_ptr() for g in grads), B, H, T, W,
-                             float(sm_scale), int(ins.q.dtype == torch.bfloat16),
+                             float(sm_scale), int(ins.q.dtype == torch.bfloat16), *splits,
                              torch.cuda.current_stream(ins.q.device).cuda_stream)
     kernel_build.check(lib, err, name)
     return [g[..., :D].transpose(1, 2) for g in grads]
@@ -299,9 +351,10 @@ def flash_bwd_dq(ins: BackwardInputs, sm_scale: float):
 
 
 def flash_bwd_dkv_wide(ins: BackwardInputs, sm_scale: float):
-    """The wide dK/dV kernel at D > 256, as ``flash_bwd_dkv``: one launch,
-    a block per 64 keys, head and output chunk (bf16: ``wide_chunks``; f32:
-    128 columns)."""
+    """The wide dK/dV kernel at D > 256, as ``flash_bwd_dkv``: one call, a
+    block per 64 keys (bf16) or 32 keys and query split (f32), head and
+    chunk of ``wide_chunks``; in f32 with split queries, the kernel and the
+    sum of its splits."""
     dk, dv = _backward(ins, sm_scale, "flash_bwd_dkv_wide", 2)
     flash_bwd_dkv_wide.launches += 1
     return dk, dv
@@ -309,7 +362,8 @@ def flash_bwd_dkv_wide(ins: BackwardInputs, sm_scale: float):
 
 def flash_bwd_dq_wide(ins: BackwardInputs, sm_scale: float):
     """The wide dQ kernel at D > 256, as ``flash_bwd_dq``: one launch, a
-    block per 64 queries, head and 128 output columns."""
+    block per 64 queries and head, and per two chunks of ``wide_chunks``
+    (bf16) or one of ``F32_DQ_CHUNK`` columns (f32)."""
     (dq,) = _backward(ins, sm_scale, "flash_bwd_dq_wide", 1)
     flash_bwd_dq_wide.launches += 1
     return dq
