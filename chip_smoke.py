@@ -412,7 +412,7 @@ same attention work as its two heads of 224):
     picks named by its own choice function); ``ptxas``'s registers and
     spills of the six wide instances (none may spill): ``wide_fwd_bf16``,
     ``wide_dkv_bf16``, ``wide_dq_bf16``, ``wide_fwd_f32``,
-    ``wide_dkv_f32`` and ``wide_dq_kernel`` (f32), and its C7515 (wgmma
+    ``wide_dkv_f32`` and ``wide_dq_f32`` (f32), and its C7515 (wgmma
     serialized) and C7519 (fences injected) lines about ``wide_dq_bf16``.
 46. Phase 15 at one head: one bf16 flash step card against CPU (and the f32
     step) at B = 8, N = 256, T = 512, the same weights and tolerances; 8
@@ -558,6 +558,8 @@ from wavthruvec_pytorch_tpu_torch.ops.flash_attention import (
     KERNELS as FLASH_KERNELS,
     backward_inputs,
     dkv_f32_splits,
+    dq_f32_chunks,
+    dq_f32_splits,
     flash_attention_plain,
     flash_bwd_dkv,
     flash_bwd_dkv_wide,
@@ -1770,7 +1772,7 @@ def profile_step(trainer, batch) -> None:
         print(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:6d}  {e.key[:100]}")
     flash = {}
     for e in kernels:
-        name = re.search(r"flash_\w+|wide_(?:fwd|dkv|dq)_kernel", e.key)
+        name = re.search(r"flash_\w+|wide_\w+", e.key)
         if name:
             ms, n = flash.get(name.group(0), (0.0, 0))
             flash[name.group(0)] = (ms + e.self_device_time_total / 1e3, n + e.count)
@@ -2183,7 +2185,8 @@ def serve_long(dev, cfg=None):
 # training shape [LONG_F32_B, 1, LONG_T, D]; D = 288 and 300 run
 # zero-padded to 320 (chunks of 256 and 64), 448 (the long bucket's d_model
 # at one head) unpadded in chunks of 256 and 192, 768 in three of 256 with
-# the bf16 kernels' own operand streamed.  Tolerances: phase 13's
+# the bf16 kernels' own operand streamed; the f32 dQ takes one chunk up to
+# 512 and two of 384 at 768 (Q and dO streamed).  Tolerances: phase 13's
 # FLASH_*_RTOL and FLASH_LSE_ATOL.
 WIDE_DIMS = (288, 300, 448, 512, 768)
 WIDE_B, WIDE_TAIL = LONG_B, 2000
@@ -2198,8 +2201,8 @@ def one_head_config() -> Text2VecConfig:
 
 def wide_ptxas() -> None:
     """ptxas's register and spill report of each wide instance (the bf16
-    forward, dK/dV and dQ on wgmma, the f32 forward and dK/dV, and the f32
-    dQ, ``wide_dq_kernel``); none may spill.  Also ptxas's C7515 (wgmma
+    forward, dK/dV and dQ on wgmma, the f32 forward, dK/dV and dQ); none
+    may spill.  Also ptxas's C7515 (wgmma
     serialized) and C7519 (fences injected) lines about the bf16 dQ."""
     log = kernel_build.build_log("flash_attn").splitlines()
     seen = 0
@@ -2209,7 +2212,7 @@ def wide_ptxas() -> None:
           + "".join(f"\n    {d}" for d in diags))
     for i, line in enumerate(log):
         # the mangled name: its length, the name
-        m = re.search(r"\d+(wide_(?:fwd|dkv|dq)_(?:kernel|bf16|f32))E", line)
+        m = re.search(r"\d+(wide_(?:fwd|dkv|dq)_(?:bf16|f32))E", line)
         if m is None or "entry function" not in line:
             continue
         info = " ".join(x.strip() for x in log[i + 1:i + 4] if "registers" in x or "spill" in x)
@@ -2308,11 +2311,14 @@ def check_flash_wide():
         product = 2.0 * B * T * T * D
         bwd = t["prep"] + t["dkv"] + t["dq"]
         W = kernel_width(D)
-        splits = dkv_f32_splits(B, T, torch.cuda.get_device_properties(0).multi_processor_count,
-                                len(wide_chunks(W))) if dtype == torch.float32 else 1
+        n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+        f32 = dtype == torch.float32
+        splits = dkv_f32_splits(B, T, n_sm, len(wide_chunks(W))) if f32 else 1
+        dq_splits = dq_f32_splits(B, T, n_sm, len(dq_f32_chunks(W))) if f32 else 1
         print(f"  {label} [{B}, 1, {T}, {D}] {str(dtype)[6:]} (run at {W}, chunks "
               f"{wide_chunks(W)}, dQ blocks {wide_blocks('flash_bwd_dq_wide', dtype, W)}, dK/dV "
-              f"query splits {splits}): out {errs['out']:.2e}, lse {lse_err:.2e}, "
+              f"query splits {splits}, dQ key splits {dq_splits}): out {errs['out']:.2e}, lse "
+              f"{lse_err:.2e}, "
               f"dq {errs['dq']:.2e}, dk {errs['dk']:.2e}, dv {errs['dv']:.2e} of max; forward "
               f"{t['fwd']:.3f} ms ({rate(2 * product, t['fwd'], b_fwd)}; bound {b_fwd:.4f}, "
               f"{by_fwd}), dK/dV {t['dkv']:.3f} ms ({rate(4 * product, t['dkv'], b_dkv)}), dQ "
@@ -2321,7 +2327,8 @@ def check_flash_wide():
               f"with its preparation: dK/dV {t['call_dkv']:.3f}, dQ {t['call_dq']:.3f} ms; plain "
               f"forward {t['plain']:.3f}, backward {t['plain_bwd']:.3f} ms; SDPA [{backend}] "
               f"forward {t['sdpa']:.3f}, forward + backward {t['sdpa_fb']:.3f}, backward "
-              f"{t['sdpa_bwd']:.3f} ms")
+              f"{t['sdpa_bwd']:.3f} ms; the dQ call {t['call_dq'] / t['sdpa_bwd']:.2f}x SDPA's "
+              f"backward, {t['call_dq'] / t['plain_bwd']:.2f}x the plain one")
         row_err = {"flash_fwd_wide": abs_err["out"],
                    "flash_bwd_dkv_wide": max(abs_err["dk"], abs_err["dv"]),
                    "flash_bwd_dq_wide": abs_err["dq"]}

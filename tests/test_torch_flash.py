@@ -311,13 +311,22 @@ def test_wide_kernel_blocks(name, dtype):
     order; every kernel but the f32 dQ takes ``wide_chunks(W)`` (chunks of
     256), one a block, but the bf16 dQ two a block, so at D <= 512 one block
     of each query tile computes the scores once for all of dQ; the f32 dQ
-    takes chunks of ``F32_DQ_CHUNK`` = 128."""
+    takes ``dq_f32_chunks(W)``: W in as few chunks of at most
+    ``DQ_F32_COLS`` = 512 as will do, multiples of 64 all as wide as the
+    first but the last, so up to D = 512 one chunk computes the scores once
+    for all of dQ."""
     f32_dq = name == "flash_bwd_dq_wide" and dtype == torch.float32
     for D in range(257, 1025):
         W = fa.kernel_width(D)
         blocks = fa.wide_blocks(name, dtype, W)
         flat = [c for blk in blocks for c in blk]
-        assert flat == fa.wide_chunks(W, fa.F32_DQ_CHUNK if f32_dq else fa.WIDE_CHUNK), (D, blocks)
+        if f32_dq:
+            assert flat == fa.dq_f32_chunks(W) and len(flat) == -(-W // 512), (D, blocks)
+            assert all(c % 64 == 0 and c <= 512 for c in flat), (D, blocks)
+            assert all(c == flat[0] for c in flat[:-1]) and flat[-1] <= flat[0], (D, blocks)
+            assert len(flat) == 1 or D > 512, (D, blocks)
+        else:
+            assert flat == fa.wide_chunks(W, fa.WIDE_CHUNK), (D, blocks)
         per_block = 2 if name == "flash_bwd_dq_wide" and dtype == torch.bfloat16 else 1
         assert all(len(blk) == per_block for blk in blocks[:-1]), (D, blocks)
         assert 1 <= len(blocks[-1]) <= per_block and all(c % 32 == 0 for c in flat), (D, blocks)
@@ -325,7 +334,9 @@ def test_wide_kernel_blocks(name, dtype):
             assert len(blocks) == 1, (D, blocks)
     assert fa.wide_blocks("flash_bwd_dq_wide", torch.bfloat16, 448) == [[256, 192]]
     assert fa.wide_blocks("flash_bwd_dq_wide", torch.bfloat16, 768) == [[256, 256], [256]]
-    assert fa.wide_blocks("flash_bwd_dq_wide", torch.float32, 448) == [[128]] * 3 + [[64]]
+    assert fa.wide_blocks("flash_bwd_dq_wide", torch.float32, 448) == [[448]]
+    assert fa.wide_blocks("flash_bwd_dq_wide", torch.float32, 576) == [[320], [256]]
+    assert fa.wide_blocks("flash_bwd_dq_wide", torch.float32, 768) == [[384], [384]]
     assert fa.wide_blocks("flash_bwd_dkv_wide", dtype, 448) == [[256], [192]]
 
 
@@ -345,6 +356,28 @@ def test_wide_dkv_f32_splits(BH, T):
         assert 1 <= s <= min(32, tiles) and -(-tiles // per) == s, (W, s)
     s = fa.dkv_f32_splits(BH, T, 132, 2)
     blocks = BH * (T // 32) * 2 * s
+    if BH == 1 and T in (768, 3072):
+        assert s > 1 and blocks / (-(-blocks // 132) * 132) >= 0.7, (T, s, blocks)
+    if (BH, T) == (8, 3072):
+        assert s == 1
+
+
+@pytest.mark.parametrize("BH, T", [(1, 768), (1, 3072), (8, 3072), (2, 3072), (1, 64), (4, 320)])
+def test_wide_dq_f32_splits(BH, T):
+    """The wide f32 dQ's key splits (``dq_f32_splits``: a block per 32
+    queries, chunk and split, 16-key tiles): every split is non-empty and
+    at most 32 at every wide width up to 1024; at one head of 3072 or 768
+    frames at D = 448 (one chunk: 96 or 24 blocks unsplit) the blocks fill
+    at least 70% of an H100's 132 SMs in every wave; at the f32 training
+    batch [8, 1, 3072, 448] (768 blocks) there is one split."""
+    tiles = T // 16
+    for W in range(320, 1025, 64):
+        chunks = len(fa.wide_blocks("flash_bwd_dq_wide", torch.float32, W))
+        s = fa.dq_f32_splits(BH, T, 132, chunks)
+        per = -(-tiles // s)
+        assert 1 <= s <= min(32, tiles) and -(-tiles // per) == s, (W, s)
+    s = fa.dq_f32_splits(BH, T, 132, 1)
+    blocks = BH * (T // 32) * s
     if BH == 1 and T in (768, 3072):
         assert s > 1 and blocks / (-(-blocks // 132) * 132) >= 0.7, (T, s, blocks)
     if (BH, T) == (8, 3072):

@@ -159,3 +159,48 @@ def test_query_splits_sum_to_the_backward(D):
         got_k, got_v = got_k + dk, got_v + dv
     np.testing.assert_allclose(got_k.numpy(), want_k.numpy(), atol=1e-6)
     np.testing.assert_allclose(got_v.numpy(), want_v.numpy(), atol=1e-6)
+
+
+@pytest.mark.parametrize("D", [300, 448])
+def test_key_splits_sum_to_dq(D):
+    """What ``wide_dq_f32_merge`` does: dQ = sum over keys of dS K, with dS =
+    P (dP - delta) sm_scale and P = exp(S sm_scale - lse) from each query
+    row's full lse and delta, so the sums of dS K over the key slices of
+    16-key tiles that ``split_tiles`` cuts (T = 128: 8 tiles three ways,
+    3, 3 and 2), added in split order, equal the same sum over all keys at
+    once within 1e-6 in f32 (only the order of the additions differs), and
+    autograd's dQ of ``flash_attention_plain`` within 2e-6: autograd's f32
+    dQ itself lies up to 1.3e-6 from the float64 sum at D = 300 (largest
+    |dQ| 1.44).  f32 at the kernels' padded width (300 runs at 320); B = 2,
+    the second item padded from 90 on."""
+    rng = np.random.default_rng(D)
+    B, H, T, W = 2, 1, 128, fa.kernel_width(D)
+    q, k, v, dout = (torch.tensor(rng.standard_normal((B, H, T, W)).astype(np.float32))
+                     for _ in range(4))
+    seg = torch.ones(B, T, dtype=torch.int32)
+    seg[1, 90:] = 0
+    scale = 1.0 / math.sqrt(D)
+    qkv = [t.requires_grad_() for t in (q, k, v)]
+    out, lse = fa.flash_attention_plain(*qkv, seg, scale)
+    (want,) = torch.autograd.grad(out, qkv[:1], dout)
+    same = seg[:, None, :, None] == seg[:, None, None, :]
+
+    def dq_sum(keys, dtype):
+        """dS K over the keys `keys`, in `dtype`."""
+        q_, k_, v_, do_, o_, lse_ = (t.detach().to(dtype) for t in (q, k, v, dout, out, lse))
+        delta = (do_ * o_).sum(-1, keepdim=True)
+        scores = torch.where(same[..., keys], q_ @ k_[:, :, keys].transpose(-1, -2) * scale,
+                             fa.MASK_VALUE)
+        ds = (torch.exp(scores - lse_[..., None])
+              * (do_ @ v_[:, :, keys].transpose(-1, -2) - delta) * scale)
+        return ds @ k_[:, :, keys]
+
+    tiles, nsplit = T // 16, 3
+    per = -(-tiles // nsplit)
+    splits = [slice(16 * per * s, min(T, 16 * per * (s + 1))) for s in range(nsplit)]
+    for dtype, tol, ref in ((torch.float32, 1e-6, dq_sum(slice(None), torch.float32)),
+                            (torch.float64, 2e-6, want.double())):
+        got = torch.zeros(B, H, T, W, dtype=dtype)
+        for keys in splits:
+            got = got + dq_sum(keys, dtype)
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=tol)

@@ -1250,22 +1250,20 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constan
 //     64 query rows, so the scores are computed once for up to 512 columns
 //     of dQ: A computes S and dS, B dP, and each sums 256 of dQ's columns
 //     (wide_dq_bf16 below).
-//   * f32 forward (serving) and f32 dK/dV (f32 training): 3xTF32 mma.sync
-//     (f32 accuracy), 8 warps, the bf16 kernels' chunks, the score products
-//     streamed in WK-column cp.async stages, and the keys (forward) or
-//     queries (dK/dV) split over blocks, since one head gives few blocks:
-//     flash_fwd_f32_merge and wide_dkv_f32_merge sum the splits.
-//   * f32 dQ: a first design on mma.sync, chunks of WC = 128 columns; see
-//     wide_dq_kernel below.
+//   * f32 forward (serving), f32 dK/dV and f32 dQ (f32 training): 3xTF32
+//     mma.sync (f32 accuracy), 8 warps, the score products streamed in
+//     cp.async stages, and the keys (forward, dQ) or queries (dK/dV) split
+//     over blocks, since one head gives few blocks: flash_fwd_f32_merge,
+//     wide_dkv_f32_merge and wide_dq_f32_merge sum the splits.  The forward
+//     and dK/dV take the bf16 kernels' chunks; dQ takes all of DP up to
+//     DQ_COLS = 512 columns as one chunk, so its scores are computed once.
 
-constexpr int WC = 128;   // wide_dq_kernel: output columns a block (blockIdx.z)
 constexpr int WK = 64;    // head-dim columns a stage of the score products; DP is a multiple
 constexpr int WQ = 128;   // forward: query rows a block
-constexpr int WB = 64;    // wide_dq_kernel: queries a block
-constexpr int WN = 32;    // the f32 forward and wide_dq_kernel: keys a tile
+constexpr int WN = 32;    // the f32 forward: keys a tile
 constexpr int WT = 256;   // threads of an mma.sync block: 8 warps
 constexpr int WNT = WN / 8;
-constexpr int WCH = 256;  // all but wide_dq_kernel: output columns a chunk (bf16 dQ: two)
+constexpr int WCH = 256;  // all but the f32 dQ: output columns a chunk (bf16 dQ: two)
 
 // ---------------------------------------------------------------------------
 // bf16 forward, dK/dV and dQ on wgmma + TMA
@@ -1328,14 +1326,14 @@ constexpr int BAR_WP_FULL = 1, BAR_WP_FREE = 2;  // dK/dV: P^T written, P^T read
 // dK/dV's chunk buffer Q_c, dO_c, or dQ's K_c of 2 WCH columns][x: dK/dV's
 // P^T, or dQ's dP and dS, f32 [NS][WG]][rows: the forward's two stages of
 // key segment ids, dK/dV's lse, delta and segment ids of the query tile, or
-// dQ's key segment ids][barriers].  wide_dkv_f32 lays its own out in the
-// same fields (wide_dkv_f32_plan).
+// dQ's key segment ids][barriers].  The f32 dK/dV and dQ lay their own out
+// in the same fields (wide_dkv_f32_plan, wide_dq_f32_plan).
 struct WidePlan {
   int res;         // 1: the block's own operand stays in shared memory
   int stages;      // ring stages
   uint32_t stage;  // bytes a ring stage
   uint32_t ring, c, x, rows, bar, smem;
-  int step_cols;   // wide_dkv_f32: columns a ring step at most
+  int step_cols;   // the f32 dK/dV and dQ: columns a ring step at most
 };
 
 enum WideKind { WIDE_FWD, WIDE_DKV, WIDE_DQ };
@@ -1898,11 +1896,10 @@ wide_dq_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ C
 //
 // Blocks are 8 warps.  Forward: 128 query rows (16 a warp), key tiles of
 // WN = 32, chunks of up to WCH columns (a warp's accumulator 16 x 256, as
-// flash_fwd_f32<256>), the keys split over blocks.  dK/dV: see wide_dkv_f32.
-// dQ: 64 rows as 4 pairs of warps (role 0 S and P, role 1 dP, both dS and
-// half of the chunk's dQ columns), tiles of WN, chunks of WC = 128 columns
-// (the last may be 64), two cp.async stages.  Operations bound them; dQ's
-// recomputed score products multiply its work by the chunk count.
+// flash_fwd_f32<256>), the keys split over blocks.  dK/dV: see
+// wide_dkv_f32; dQ, its mirror image: see wide_dq_f32.  Operations bound
+// them; a chunk recomputes the score products, so the chunk count
+// multiplies that part of the work.
 
 // Shared row stride of a COLS-column f32 tile: 16 bytes of padding keep
 // rows 16-byte aligned for cp.async and spread a fragment load over the
@@ -2019,23 +2016,6 @@ struct WideFwdF32 {
   static constexpr size_t SMEM = static_cast<size_t>(V + WN * LC) * sizeof(float);
   static_assert(SMEM <= SMEM_MAX, "wide forward shared memory");
   static_assert((WQ * LK * 4) % 16 == 0 && (STAGE * 4) % 16 == 0, "cp.async alignment");
-};
-
-// Shared memory of wide_dq_kernel: two stages of two [WB] and two [WN]
-// tiles of WK columns, then the [WN][wld(WC)] product
-// operand K_c; at byte ROWS the tile's segment ids (int) [WN]; at byte X the
-// f32 exchange buffers [4 pairs][2][WNT * 4][32].
-struct WideBwd {
-  static constexpr int LK = wld(WK), LC = wld(WC);
-  static constexpr int STAGE = 2 * (WB + WN) * LK;
-  static constexpr int C = 2 * STAGE;
-  static constexpr size_t ROWS = static_cast<size_t>(C + WN * LC) * sizeof(float);
-  static constexpr size_t X = ROWS + WN * 4;
-  static constexpr size_t SMEM = X + 4 * 2 * WNT * 4 * 32 * 4;
-  static_assert(SMEM <= SMEM_MAX, "wide dQ shared memory");
-  static_assert((WB * LK * sizeof(float)) % 16 == 0 && (WN * LK * sizeof(float)) % 16 == 0 &&
-                    (STAGE * sizeof(float)) % 16 == 0 && ROWS % 16 == 0 && X % 16 == 0,
-                "cp.async alignment");
 };
 
 // f32 forward: one block per (128 query rows, b * H + h, split of the key
@@ -2232,21 +2212,22 @@ __device__ __forceinline__ void f32_rows_load(float* dst, int ld, const float* s
       cp_async16(smem_u32(dst + (r0 + r) * ld + c0 + c), src + (r0 + r) * rs + c0 + c, 16u);
 }
 
-// s += A B^T over `cols` columns (a multiple of 64), k-steps 16 m + 8 hf:
-// A's 16 rows at `ta` (the warp's element (g, t), row stride lda), B's 16
+// s += A B^T over `cols` columns (a multiple of 32), k-steps 16 m + 8 hf:
+// A's 16 rows at `ta` (the warp's element (g, t), row stride lda), B's 8 NT
 // rows at `tb` (row 0, row stride ldb), read as the f32 forward reads K.
 // The hi-hi and the cross terms, of even and odd m, go to separate
 // accumulators (as in scores_f32): eight independent chains rather than two,
 // summed on the CUDA cores into s; the loop is unrolled to four k-steps so
 // the next fragments load under the current products.
-__device__ __forceinline__ void f32_step_scores(float (&s)[2][4], const float* ta, int lda,
+template <int NT = 2>
+__device__ __forceinline__ void f32_step_scores(float (&s)[NT][4], const float* ta, int lda,
                                                 const float* tb, int ldb, int hf, int cols) {
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  float hh[2][2][4], hl[2][2][4];
+  float hh[2][NT][4], hl[2][NT][4];
 #pragma unroll
   for (int p = 0; p < 2; ++p)
 #pragma unroll
-    for (int n = 0; n < 2; ++n)
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) hh[p][n][e] = hl[p][n][e] = 0.f;
 #pragma unroll 2
@@ -2260,7 +2241,7 @@ __device__ __forceinline__ void f32_step_scores(float (&s)[2][4], const float* t
       split_tf32(ta[kk + 4], ah[2], al[2]);
       split_tf32(ta[kk + 8 * lda + 4], ah[3], al[3]);
 #pragma unroll
-      for (int n = 0; n < 2; ++n) {
+      for (int n = 0; n < NT; ++n) {
         const float* bp = tb + (8 * n + g) * ldb + kk + t;
         uint32_t bh0, bl0, bh1, bl1;
         split_tf32(bp[0], bh0, bl0);
@@ -2272,25 +2253,26 @@ __device__ __forceinline__ void f32_step_scores(float (&s)[2][4], const float* t
     }
   }
 #pragma unroll
-  for (int n = 0; n < 2; ++n)
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[n][e] += (hl[0][n][e] + hl[1][n][e]) + (hh[0][n][e] + hh[1][n][e]);
 }
 
-// acc[n] += x B for the NO 8-column tiles of B over 16 rows: x (16 x 16,
+// acc[n] += x B for the NO 8-column tiles of B over 8 KS rows: x (16 x 8 KS,
 // accumulator layout) the A operand split in xh, xl with the rows of each
 // 8-row step in the order (0, 2, 4, 6, 1, 3, 5, 7), `vb` at B's row 2 t,
 // column g (row stride ldb), as accumulate_f32; every tile sums into fresh
 // registers, and NO is a constant, so the tiles' chains interleave.
-template <int NO>
-__device__ __forceinline__ void f32_accumulate(float (&acc)[WCH / 16][4], const uint32_t (&xh)[2][4],
-                                               const uint32_t (&xl)[2][4], const float* vb,
+template <int NO, int KS = 2>
+__device__ __forceinline__ void f32_accumulate(float (&acc)[WCH / 16][4],
+                                               const uint32_t (&xh)[KS][4],
+                                               const uint32_t (&xl)[KS][4], const float* vb,
                                                int ldb) {
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
     float part[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int ks = 0; ks < 2; ++ks) {
+    for (int ks = 0; ks < KS; ++ks) {
       uint32_t bh0, bl0, bh1, bl1;
       split_tf32(vb[8 * ks * ldb + 8 * n], bh0, bl0);
       split_tf32(vb[(8 * ks + 1) * ldb + 8 * n], bh1, bl1);
@@ -2494,107 +2476,254 @@ wide_dkv_f32_merge(const float* __restrict__ part, float* __restrict__ dk, float
   *reinterpret_cast<float4*>((blockIdx.y == 0 ? dk : dv) + i) = acc;
 }
 
-// dQ: one block per (64 queries, b * H + h, 128 output columns); key tiles
-// of WN.  Role 0 of a pair computes S = Q K^T and P, role 1 dP = dO V^T;
-// they swap P and dP through shared memory, both form dS = P (dP - delta)
-// sm_scale, and each sums dQ += round(dS) K over half of the chunk's columns.
-__global__ void __launch_bounds__(WT, 1)
-wide_dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-               const int* __restrict__ seg, const float* __restrict__ dout,
-               const float* __restrict__ lse, const float* __restrict__ delta,
-               float* __restrict__ dq, int H, int T_, int DP, float scale_log2, float sm_scale) {
-  using L = WideBwd;
-  constexpr int NO = WC / 16;  // 8-column tiles of a half of the chunk
-  constexpr int XB = WNT * 4 * 32;
-  extern __shared__ __align__(16) unsigned char wsm[];
-  float* sm = reinterpret_cast<float*>(wsm);
-  const int* segk = reinterpret_cast<const int*>(wsm + L::ROWS);  // the key tile's segment ids
+// dQ (f32): wide_dkv_f32's mirror image, queries and keys swapped.  One
+// block per (DQ_Q = 32 queries, b * H + h, chunk of dQ's columns x split of
+// the key tiles: blockIdx.z = split * chunks + chunk), key tiles of DQ_N =
+// 16.  A chunk is all of DP up to DQ_COLS (dq_f32_chunk: 448 is one chunk),
+// so S and dP are computed once a key tile and the tensor cores do the
+// function's work; past DQ_COLS the chunks are as even as multiples of 64
+// allow.  Q and dO of the block's queries stay in shared memory while they
+// fit (WidePlan res; DP <= 640), else stream with K and V.  Per key tile
+// the score products run over DP in steps of a cp.async ring (V; K outside
+// the chunk; Q and dO when they stream) as wide as shared memory allows two
+// of (step_cols: 256 at DP = 448; one __syncthreads a step); the chunk's K
+// columns go instead into K_c, a buffer for each parity of the tile, with
+// the tile's segment ids, and stay there for dQ += dS K_c.  The 8 warps are
+// (qg, role, hf): query group qg of 16 queries; role 0 computes S = Q K^T,
+// role 1 dP = dO V^T, each over the k-steps of parity hf of every step; at
+// the tile's last step the four partial sums of a query group meet in
+// shared memory, every warp of the group adds them in the same order and
+// forms P and dS = P (dP - delta) sm_scale, and warp (role, hf) sums dQ over
+// quarter 2 role + hf of the chunk's columns (at most 16 x 128, 64
+// registers a thread).  With splits (gridDim.z > chunks) each split writes
+// its partial dQ at `split_stride` floats from the last and
+// wide_dq_f32_merge sums them.
+constexpr int DQ_Q = 32, DQ_N = 16;
+constexpr int DQ_COLS = 512;           // dQ columns a chunk at most: 4 warps x 128
+constexpr int DQ_NT = DQ_N / 8;        // 8-key n-tiles of a key tile
+constexpr int DQ_XW = 4 * DQ_NT * 32;  // exchange floats a warp writes
+constexpr int DQ_XB = 8 * DQ_XW;       // exchange: [qg][role][hf][4 DQ_NT values][32 lanes]
 
+// The f32 dQ's chunk width at head dim DP: DP in as few chunks of at most
+// DQ_COLS as will do, each a multiple of WK and all but the last equal
+// (448 -> 448; 576 -> 320 + 256; 768 -> 384 + 384).
+__host__ __device__ constexpr int dq_f32_chunk(int DP) {
+  return WK * ((DP / WK + (DP + DQ_COLS - 1) / DQ_COLS - 1) / ((DP + DQ_COLS - 1) / DQ_COLS));
+}
+
+// Byte offsets of wide_dq_f32's shared memory: [Q, dO [DQ_Q][DP + 4] while
+// resident][ring: steps of V [DQ_N][step_cols + 4] (+ K [DQ_N][...] where
+// the chunk is narrower than DP, + Q, dO [DQ_Q][...] streamed)][c: K_c
+// [2][DQ_N][chunk + 4]][x: DQ_XB floats][rows: key segment ids [2][DQ_N]].
+// step_cols: the widest of 256, 192, 128, 64 that leaves room for two ring
+// steps.
+WidePlan wide_dq_f32_plan(int DP) {
+  const int cw = dq_f32_chunk(DP);
+  const uint32_t kc = 2u * DQ_N * (cw + 4) * 4, rest = kc + DQ_XB * 4 + 2 * DQ_N * 4;
+  WidePlan p{};
+  for (int res = 1; res >= 0; --res) {
+    const uint32_t rows_r = DQ_N + (cw < DP ? DQ_N : 0) + (res ? 0 : 2 * DQ_Q);
+    p.res = res;
+    p.ring = res ? 2u * DQ_Q * (DP + 4) * 4 : 0;
+    for (int sw = WCH; sw >= WK; sw -= WK) {
+      p.step_cols = sw;
+      p.stage = rows_r * (sw + 4) * 4;
+      if (p.ring + rest + 2 * p.stage > SMEM_MAX) continue;
+      p.stages = static_cast<int>((SMEM_MAX - p.ring - rest) / p.stage);
+      if (p.stages > WRING) p.stages = WRING;
+      p.c = p.ring + p.stages * p.stage;
+      p.x = p.c + kc;
+      p.rows = p.x + DQ_XB * 4;
+      p.bar = p.smem = p.rows + 2 * DQ_N * 4;
+      return p;
+    }
+  }
+  p.stages = 0;  // refused
+  return p;
+}
+
+// acc += x B over the first `no` 8-column tiles of B (no even, 2 <= no <=
+// WCH / 16) as f32_accumulate<no>, so the tiles' chains interleave.
+template <int NO = 2>
+__device__ __forceinline__ void dq_accumulate(float (&acc)[WCH / 16][4],
+                                              const uint32_t (&xh)[DQ_NT][4],
+                                              const uint32_t (&xl)[DQ_NT][4], const float* vb,
+                                              int ldb, int no) {
+  if constexpr (NO < WCH / 16) {
+    if (no > NO) {
+      dq_accumulate<NO + 2>(acc, xh, xl, vb, ldb, no);
+      return;
+    }
+  }
+  f32_accumulate<NO, DQ_NT>(acc, xh, xl, vb, ldb);
+}
+
+__global__ void __launch_bounds__(WT, 1)
+wide_dq_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+            const int* __restrict__ seg, const float* __restrict__ dout,
+            const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dq,
+            size_t split_stride, int H, int T_, int DP, const WidePlan p, int tiles_per_split,
+            float scale_log2, float sm_scale) {
+  extern __shared__ __align__(16) unsigned char wsm[];
+  float* ring = reinterpret_cast<float*>(wsm + p.ring);
+  float* kc_s = reinterpret_cast<float*>(wsm + p.c);
+  float* xs = reinterpret_cast<float*>(wsm + p.x);
+  int* segk_s = reinterpret_cast<int*>(wsm + p.rows);
+
+  const int cw = dq_f32_chunk(DP), nc = (DP + cw - 1) / cw;
+  const int chunk = blockIdx.z % nc, split = blockIdx.z / nc;
   const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
-  const int q0 = blockIdx.x * WB, c0 = blockIdx.z * WC, ncols = min(WC, DP - c0);
-  const int nd = DP / WK, nkt = T_ / WN, total = nkt * nd;
+  const int q0 = blockIdx.x * DQ_Q, c0 = chunk * cw, ncols = min(cw, DP - c0);
+  const int kt0 = split * tiles_per_split, ntile = min(T_ / DQ_N, kt0 + tiles_per_split) - kt0;
+  // steps a key tile: over the columns before the chunk (nbef steps), in it
+  // (nin) and after it, each at most step_cols wide
+  const int sw = p.step_cols, ldr = sw + 4, ldc = cw + 4, ldq = DP + 4;
+  const int nbef = (c0 + sw - 1) / sw, nin = (ncols + sw - 1) / sw;
+  const int nstep = nbef + nin + (DP - c0 - ncols + sw - 1) / sw, total = ntile * nstep;
+  const int ahead = min(nstep, p.stages - 1);  // steps in flight beyond the current one
+  // a ring slot's rows: V, then K where the chunk is narrower than DP, then
+  // Q and dO when they stream
+  const int krow_r = DQ_N, qrow_r = nc > 1 ? 2 * DQ_N : DQ_N;
+  const int slot = (qrow_r + (p.res ? 0 : 2 * DQ_Q)) * ldr;  // floats a ring slot
   const size_t rs = static_cast<size_t>(H) * DP;
   const size_t head = static_cast<size_t>(b) * T_ * rs + static_cast<size_t>(h) * DP;
   const size_t rows = static_cast<size_t>(bh) * T_;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int pair = warp % 4, role = warp / 4;
+  const int qg = warp & 1, role = (warp >> 1) & 1, hf = warp >> 2;
   const int* segb = seg + static_cast<size_t>(b) * T_;
-  const int ra = q0 + 16 * pair + g, rb = ra + 8;  // this thread's query rows
-  const int sqa = segb[ra], sqb = segb[rb];
-  const float la = lse[rows + ra] * LOG2E, lb = lse[rows + rb] * LOG2E;
-  const float da = delta[rows + ra], db = delta[rows + rb];
-  const int half_cols = ncols - role * (WC / 2);  // this role's columns (<= 0: none)
+  const int qr = q0 + 16 * qg + g;  // this thread's query rows qr, qr + 8
+  const int sq0 = segb[qr], sq1 = segb[qr + 8];
+  const float l0 = lse[rows + qr] * LOG2E, l1 = lse[rows + qr + 8] * LOG2E;
+  const float d0 = delta[rows + qr], d1 = delta[rows + qr + 8];
+  const int quarter = ncols / 4, wc = (2 * role + hf) * quarter;  // this warp's columns: c0 + wc..
 
-  // stage i: columns WK (i % nd).. of the block's Q and dO rows and of key tile i / nd's
-  // K and V rows
-  auto load_stage = [&](int i) {
-    const int j = i / nd, d = i - j * nd;
-    float* st = sm + (i & 1) * L::STAGE;
-    w_load<WK>(st, q + head + d * WK, q0, WB, T_, rs);
-    w_load<WK>(st + WB * L::LK, dout + head + d * WK, q0, WB, T_, rs);
-    w_load<WK>(st + 2 * WB * L::LK, k + head + d * WK, j * WN, WN, T_, rs);
-    w_load<WK>(st + (2 * WB + WN) * L::LK, v + head + d * WK, j * WN, WN, T_, rs);
+  // step r of a key tile: its first column and width; whether it lies in the chunk
+  auto step_col = [&](int r) {
+    return r < nbef ? r * sw
+           : r < nbef + nin ? c0 + (r - nbef) * sw
+                            : c0 + ncols + (r - nbef - nin) * sw;
   };
-  load_stage(0);
-  cp_async_commit();
-
-  float acc[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float* xmine = reinterpret_cast<float*>(wsm + L::X) + (2 * pair + role) * XB + lane;
-  const float* xother = reinterpret_cast<const float*>(wsm + L::X) + (2 * pair + (role ^ 1)) * XB +
-                        lane;
-
-  for (int j = 0; j < nkt; ++j) {
-    float s[WNT][4];
-#pragma unroll
-    for (int n = 0; n < WNT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-    for (int d = 0; d < nd; ++d) {
-      const int i = j * nd + d;
-      cp_async_wait<0>();
-      __syncthreads();  // stage i is in; every warp is done with stage i - 1 (and tile j - 1)
-      if (i + 1 < total) load_stage(i + 1);
-      if (d == 0) {
-        w_load<WC>(sm + L::C, k + head + c0, j * WN, WN, T_, rs, ncols);
-        row_load(wsm + L::ROWS, segb + j * WN, WN);
-      }
-      cp_async_commit();
-      const float* st = sm + (i & 1) * L::STAGE;
-      // S = Q K^T (role 0) or dP = dO V^T (role 1)
-      w_scores(s, st + (role * WB + 16 * pair + g) * L::LK + t,
-               st + (2 * WB + role * WN) * L::LK);
+  auto step_width = [&](int r) {
+    return min(sw, (r < nbef ? c0 : r < nbef + nin ? c0 + ncols : DP) - step_col(r));
+  };
+  auto in_chunk = [&](int r) { return r >= nbef && r < nbef + nin; };
+  // step i: step r of key tile kt0 + jj into ring slot i % stages (K's
+  // chunk columns into K_c of the tile's parity, the segment ids with step 0)
+  auto load_step = [&](int i) {
+    const int jj = i / nstep, r = i - jj * nstep, j = kt0 + jj;
+    const int col = step_col(r), w = step_width(r);
+    float* st = ring + (i % p.stages) * slot;
+    const size_t krow = head + static_cast<size_t>(j) * DQ_N * rs + col;
+    f32_rows_load(st, ldr, v + krow, DQ_N, w, rs);
+    if (in_chunk(r))
+      f32_rows_load(kc_s + (jj & 1) * DQ_N * ldc + col - c0, ldc, k + krow, DQ_N, w, rs);
+    else
+      f32_rows_load(st + krow_r * ldr, ldr, k + krow, DQ_N, w, rs);
+    if (!p.res) {
+      const size_t qrow = head + static_cast<size_t>(q0) * rs + col;
+      f32_rows_load(st + qrow_r * ldr, ldr, q + qrow, DQ_Q, w, rs);
+      f32_rows_load(st + (qrow_r + DQ_Q) * ldr, ldr, dout + qrow, DQ_Q, w, rs);
     }
-    cp_async_wait<0>();
-    __syncthreads();  // the tile's K columns c0.. and segment ids are in
-    // this thread: query rows ra (e < 2) and rb, keys 8 n + 2 t (+ 1 for odd e)
-    if (role == 0) {
+    if (r == 0) row_load(segk_s + (jj & 1) * DQ_N, segb + j * DQ_N, DQ_N);
+  };
+  // one cp.async group a step (the first also Q and dO), so step i is in
+  // once all but the `ahead` newest groups are
+  if (p.res) {
+    float* qd = reinterpret_cast<float*>(wsm);
+    const size_t qrow = head + static_cast<size_t>(q0) * rs;
+    f32_rows_load(qd, ldq, q + qrow, DQ_Q, DP, rs);
+    f32_rows_load(qd + DQ_Q * ldq, ldq, dout + qrow, DQ_Q, DP, rs);
+  }
+  for (int i = 0; i < ahead; ++i) {
+    if (i < total) load_step(i);
+    cp_async_commit();
+  }
+
+  float acc[WCH / 16][4];
 #pragma unroll
-      for (int n = 0; n < WNT; ++n) {
+  for (int n = 0; n < WCH / 16; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float s[DQ_NT][4];
+  // A's element (g, t) of this warp's 16 queries of Q (role 0) or dO (role 1)
+  const int arow = role * DQ_Q + 16 * qg + g;
+  const float* ta_res = reinterpret_cast<const float*>(wsm) + arow * ldq + t;
+
+  for (int i = 0, jj = 0, r = 0; i < total; ++i) {
+    cp_async_wait_n(ahead - 1);
+    __syncthreads();  // step i is in; every warp is done with step i - 1 (and its buffers)
+    if (i + ahead < total) load_step(i + ahead);
+    cp_async_commit();
+    if (r == 0) {
+#pragma unroll
+      for (int n = 0; n < DQ_NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    }
+    // S = Q K^T (role 0) or dP = dO V^T (role 1) over the step's columns
+    const int col = step_col(r);
+    const float* st = ring + (i % p.stages) * slot;
+    const float* kt = kc_s + (jj & 1) * DQ_N * ldc;  // the tile's K_c
+    const float* ta = p.res ? ta_res + col : st + (qrow_r + arow) * ldr + t;
+    const bool kc_b = role == 0 && in_chunk(r);
+    const float* tb = role == 1 ? st : kc_b ? kt + col - c0 : st + krow_r * ldr;
+    f32_step_scores<DQ_NT>(s, ta, p.res ? ldq : ldr, tb, kc_b ? ldc : ldr, hf, step_width(r));
+
+    if (r == nstep - 1) {
+      // the query group's four partial sums (its warps meet at named barrier
+      // 1 + qg), added in one order by every warp; this thread: queries qr
+      // (e < 2) and qr + 8, keys 8 n + 2 t (+ 1 for odd e)
+      float* mine = xs + ((qg * 2 + role) * 2 + hf) * DQ_XW + lane;
+#pragma unroll
+      for (int n = 0; n < DQ_NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mine[(4 * n + e) * 32] = s[n][e];
+      hopper::named_sync(1 + qg, 128);
+      const float* xq = xs + qg * 4 * DQ_XW + lane;  // S halves, then dP halves
+      const int* segk = segk_s + (jj & 1) * DQ_N;
+#pragma unroll
+      for (int n = 0; n < DQ_NT; ++n) {
         const int2 sk = *reinterpret_cast<const int2*>(segk + 8 * n + 2 * t);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          float x = s[n][e] * scale_log2;
-          if ((e < 2 ? sqa : sqb) != ((e & 1) ? sk.y : sk.x)) x = MASK;
-          s[n][e] = ex2(x - (e < 2 ? la : lb));
+          const int o = (4 * n + e) * 32;
+          // P = exp2(s * sm_scale * log2(e) - lse * log2(e)); masked: MASK
+          float x = (xq[o] + xq[DQ_XW + o]) * scale_log2;
+          if ((e < 2 ? sq0 : sq1) != ((e & 1) ? sk.y : sk.x)) x = MASK;
+          const float pr = ex2(x - (e < 2 ? l0 : l1));
+          // dS = P (dP - delta) sm_scale
+          s[n][e] = pr * ((xq[2 * DQ_XW + o] + xq[3 * DQ_XW + o]) - (e < 2 ? d0 : d1)) * sm_scale;
         }
       }
-    }
+      // dQ[:, c0 + wc..] += dS K_c[:, wc..] over this warp's quarter of the
+      // chunk, the keys of each 8-key step in the order (0, 2, 4, 6, 1, 3, 5,
+      // 7) as in accumulate_f32
+      uint32_t xh[DQ_NT][4], xl[DQ_NT][4];
 #pragma unroll
-    for (int i = 0; i < 4 * WNT; ++i) xmine[i * 32] = s[i / 4][i % 4];
-    hopper::named_sync(1 + pair, 64);
-    // dS = P (dP - delta) sm_scale, the same in both warps of the pair
-#pragma unroll
-    for (int i = 0; i < 4 * WNT; ++i) {
-      const float o = xother[i * 32], mine = s[i / 4][i % 4];
-      const float p = role == 0 ? mine : o, dp = role == 0 ? o : mine;
-      s[i / 4][i % 4] = p * (dp - ((i & 2) ? db : da)) * sm_scale;
+      for (int ks = 0; ks < DQ_NT; ++ks) {
+        split_tf32(s[ks][0], xh[ks][0], xl[ks][0]);
+        split_tf32(s[ks][2], xh[ks][1], xl[ks][1]);
+        split_tf32(s[ks][1], xh[ks][2], xl[ks][2]);
+        split_tf32(s[ks][3], xh[ks][3], xl[ks][3]);
+      }
+      dq_accumulate(acc, xh, xl, kt + 2 * t * ldc + wc + g, ldc, quarter / 8);
     }
-    // dQ[:, c0 + half..] += dS K[:, c0 + half..]
-    w_accumulate<NO, L::LC>(acc, s, sm + L::C + role * (WC / 2) + 2 * t * L::LC + g,
-                            half_cols);
+    if (++r == nstep) r = 0, ++jj;
   }
+  cp_async_wait<0>();
 
-  w_store<NO>(dq + head + c0 + role * (WC / 2), rs, ra, T_, acc, 1.f, 1.f, half_cols);
+  w_store<WCH / 16>(dq + split * split_stride + head + c0 + wc, rs, qr, T_, acc, 1.f, 1.f,
+                    quarter);
+}
+
+// Sum wide_dq_f32's nsplit partial dQ, n floats each ([nsplit][n] at part),
+// in split order: 4 floats a thread.
+__global__ void __launch_bounds__(256)
+wide_dq_f32_merge(const float* __restrict__ part, float* __restrict__ dq, size_t n, int nsplit) {
+  const size_t i = (static_cast<size_t>(blockIdx.x) * 256 + threadIdx.x) * 4;
+  if (i >= n) return;
+  float4 acc = *reinterpret_cast<const float4*>(part + i);
+  for (int s = 1; s < nsplit; ++s) {
+    const float4 x = *reinterpret_cast<const float4*>(part + s * n + i);
+    acc.x += x.x; acc.y += x.y; acc.z += x.z; acc.w += x.w;
+  }
+  *reinterpret_cast<float4*>(dq + i) = acc;
 }
 
 // ===========================================================================
@@ -2666,11 +2795,12 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 
 bool wide_shape_ok(int B, int H, int T, int D) {
   return B > 0 && H > 0 && T > 0 && T % 64 == 0 && D > MAX_D && D % WK == 0 &&
-         static_cast<long long>(B) * H <= 65535 && D / WC < 65535;
+         static_cast<long long>(B) * H <= 65535;
 }
 
-// Whether the f32 forward can split nkt key tiles nsplit ways (every split
-// non-empty, scratch given); its tiles a split, or 0.
+// Whether an f32 kernel can split its nkt tiles (keys of the forwards and
+// dQ, queries of dK/dV) nsplit ways (every split non-empty, scratch given);
+// its tiles a split, or 0.
 int split_tiles(int nkt, int nsplit, const void* part) {
   if (nsplit < 1 || nsplit > 32 || nsplit > nkt || (nsplit > 1 && part == nullptr)) return 0;
   const int tps = (nkt + nsplit - 1) / nsplit;
@@ -2792,10 +2922,12 @@ int flash_bwd_dq(const void* q, const void* k, const void* v, const void* seg, c
 // The wide kernels: as above, for a head dim D > 256 that is a multiple of
 // 64 (the caller zero-pads other head dims).  The forwards and dK/dV take
 // blockIdx.z chunks of WCH columns (in f32 times nsplit key or query
-// splits), the bf16 dQ pairs of them, the f32 dQ chunks of WC.  The f32
-// dK/dV splits the queries nsplit ways (1 <= nsplit <= 32, every split
-// non-empty: 16-query tiles), with 2 * nsplit * B * H * T * D floats of
-// scratch at `part` when nsplit > 1.
+// splits), the bf16 dQ pairs of them, the f32 dQ chunks of dq_f32_chunk(D)
+// columns times nsplit key splits.  The f32 dK/dV splits the queries nsplit
+// ways (1 <= nsplit <= 32, every split non-empty: 16-query tiles), with 2 *
+// nsplit * B * H * T * D floats of scratch at `part` when nsplit > 1; the
+// f32 dQ the keys (16-key tiles), with nsplit * B * H * T * D floats.  The
+// bf16 dK/dV and dQ take nsplit = 1.
 int flash_fwd_wide(const void* q, const void* k, const void* v, const void* seg, void* out,
                    void* lse, int B, int H, int T, int D, float sm_scale, int is_bf16, int nsplit,
                    void* part, void* stream) {
@@ -2865,7 +2997,8 @@ int flash_bwd_dkv_wide(const void* q, const void* k, const void* v, const void* 
 
 int flash_bwd_dq_wide(const void* q, const void* k, const void* v, const void* seg,
                       const void* dout, const void* lse, const void* delta, void* dq, int B,
-                      int H, int T, int D, float sm_scale, int is_bf16, void* stream) {
+                      int H, int T, int D, float sm_scale, int is_bf16, int nsplit, void* part,
+                      void* stream) {
   if (!wide_shape_ok(B, H, T, D)) return static_cast<int>(cudaErrorInvalidValue);
   if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout) || !aligned16(seg) ||
       !aligned16(lse) || !aligned16(delta))
@@ -2882,9 +3015,19 @@ int flash_bwd_dq_wide(const void* q, const void* k, const void* v, const void* s
     return launch(wide_dq_bf16, dim3(T / 64, B * H, (D + 2 * WCH - 1) / (2 * WCH)), 3 * WG, p.smem,
                   s, mq, mk, mv, mdo, seg, lse, delta, dq, H, T, D, p, sm_scale * LOG2E, sm_scale);
   }
-  return launch(wide_dq_kernel, dim3(T / WB, B * H, (D + WC - 1) / WC), WT, WideBwd::SMEM, s,
-                q, k, v, seg, dout, lse, delta, dq, H, T, D,
-                sm_scale * LOG2E, sm_scale);
+  const WidePlan p = wide_dq_f32_plan(D);
+  const int nc = (D + dq_f32_chunk(D) - 1) / dq_f32_chunk(D);
+  const int tps = split_tiles(T / DQ_N, nsplit, part);
+  if (p.stages < 2 || tps == 0 || nc * nsplit > 65535 || !aligned16(part))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t n = static_cast<size_t>(B) * T * H * D;
+  float* out = nsplit > 1 ? static_cast<float*>(part) : static_cast<float*>(dq);
+  const int e = launch(wide_dq_f32, dim3(T / DQ_Q, B * H, nc * nsplit), WT, p.smem, s, q, k, v, seg,
+                       dout, lse, delta, out, nsplit > 1 ? n : 0, H, T, D, p, tps,
+                       sm_scale * LOG2E, sm_scale);
+  if (e != 0 || nsplit == 1) return e;
+  return launch(wide_dq_f32_merge, dim3(static_cast<unsigned>((n / 4 + 255) / 256)), 256, 0, s,
+                part, dq, n, nsplit);
 }
 
 const char* wtv_error_string(int err) {

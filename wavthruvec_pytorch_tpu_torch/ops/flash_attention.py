@@ -21,8 +21,9 @@ JAX's flash branch takes: up to 256 the templates built for ``WIDTHS``
 (``flash_fwd``, ``flash_bwd_dkv``, ``flash_bwd_dq``), past 256 the wide
 kernels (``flash_fwd_wide``, ``flash_bwd_dkv_wide``, ``flash_bwd_dq_wide``)
 at any multiple of ``WIDE_PAD``, each output chunk a block of its own
-(``wide_chunks``: 256 columns, a pair of them a block in the bf16 dQ; 128
-in the f32 dQ, ``F32_DQ_CHUNK``; ``wide_blocks``).  The wrappers zero-pad
+(``wide_chunks``: 256 columns, a pair of them a block in the bf16 dQ; in
+the f32 dQ all of D up to ``DQ_F32_COLS`` = 512, ``dq_f32_chunks``;
+``wide_blocks``).  The wrappers zero-pad
 D to ``kernel_width(D)`` and slice the results back, which is exact
 (padded columns add 0 to every q.k, and padded v columns give output
 columns that are dropped; ``sm_scale`` stays the caller's), as JAX pads
@@ -45,9 +46,10 @@ _DTYPES = (torch.float32, torch.bfloat16)
 WIDTHS = (64, 128, 224, 256)  # head dims the templates are built for (csrc/flash_attn.cu)
 WIDE_PAD = 64  # past WIDTHS[-1]: the wide kernels' head dim is a multiple of it (WK)
 WIDE_CHUNK = 256  # the wide kernels' output columns a chunk (WCH), but the f32 dQ's
-F32_DQ_CHUNK = 128  # the wide f32 dQ's output columns a block (WC)
+DQ_F32_COLS = 512  # the wide f32 dQ's output columns a chunk at most (DQ_COLS)
 _SPLIT_ROWS, _SPLIT_KEYS = 128, 32  # the f32 forwards' query rows a block, keys a tile
 _DKV_KEYS, _DKV_QUERIES = 32, 16  # the wide f32 dK/dV's keys a block, queries a tile
+_DQ_QUERIES, _DQ_KEYS = 32, 16  # the wide f32 dQ's queries a block, keys a tile
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seg: torch.Tensor,
@@ -76,7 +78,7 @@ def _lib() -> ctypes.CDLL:
     lib.flash_bwd_dq.argtypes = [ptr] * 8 + [i32] * 4 + [f32, i32, ptr]
     lib.flash_fwd_wide.argtypes = lib.flash_fwd.argtypes
     lib.flash_bwd_dkv_wide.argtypes = lib.flash_bwd_dkv.argtypes[:-1] + [i32, ptr, ptr]
-    lib.flash_bwd_dq_wide.argtypes = lib.flash_bwd_dq.argtypes
+    lib.flash_bwd_dq_wide.argtypes = lib.flash_bwd_dq.argtypes[:-1] + [i32, ptr, ptr]
     for fn in (lib.flash_fwd, lib.flash_bwd_dkv, lib.flash_bwd_dq, lib.flash_fwd_wide,
                lib.flash_bwd_dkv_wide, lib.flash_bwd_dq_wide):
         fn.restype = ctypes.c_int
@@ -108,8 +110,18 @@ def wide_chunks(W: int, chunk: int = WIDE_CHUNK) -> list:
     ``kernel_width(D)``: ``chunk`` columns each, the last what remains (448
     -> [256, 192]), every one a multiple of the kernels' 32-column TMA box.
     Every wide kernel takes ``WIDE_CHUNK`` (a block each; the bf16 dQ a
-    block per two), but the f32 dQ, ``F32_DQ_CHUNK``."""
+    block per two), but the f32 dQ, ``dq_f32_chunks``."""
     return [min(chunk, W - c) for c in range(0, W, chunk)]
+
+
+def dq_f32_chunks(W: int) -> list:
+    """The wide f32 dQ's output-column chunks at padded head dim W (the
+    kernel's ``dq_f32_chunk``): W in as few chunks of at most
+    ``DQ_F32_COLS`` as will do, each a multiple of ``WIDE_PAD`` and all but
+    the last equal (448 -> [448]; 576 -> [320, 256]; 768 -> [384, 384]), so
+    up to 512 a block computes the scores once for all of dQ."""
+    n = -(-W // DQ_F32_COLS)
+    return wide_chunks(W, WIDE_PAD * -(-(W // WIDE_PAD) // n))
 
 
 def wide_blocks(name: str, dtype: torch.dtype, W: int) -> list:
@@ -117,11 +129,10 @@ def wide_blocks(name: str, dtype: torch.dtype, W: int) -> list:
     (``flash_fwd_wide``, ``flash_bwd_dkv_wide`` or ``flash_bwd_dq_wide``)
     covers in ``dtype`` at padded head dim W, one list a blockIdx.z (before
     any split): ``wide_chunks(W)`` one a block, but two a block in the bf16
-    dQ (a consumer warpgroup each) and chunks of ``F32_DQ_CHUNK`` in the
-    f32 dQ."""
+    dQ (a consumer warpgroup each) and ``dq_f32_chunks(W)`` in the f32 dQ."""
     if name == "flash_bwd_dq_wide":
         if dtype == torch.float32:
-            return [[c] for c in wide_chunks(W, F32_DQ_CHUNK)]
+            return [[c] for c in dq_f32_chunks(W)]
         chunks = wide_chunks(W)
         return [chunks[i:i + 2] for i in range(0, len(chunks), 2)]
     return [[c] for c in wide_chunks(W)]
@@ -158,6 +169,19 @@ def dkv_f32_splits(BH: int, T: int, n_sm: int, chunks: int) -> int:
     pass: so a grid that already fills the card, as the f32 training batch
     [8, 1, 3072, 448] does (1536 blocks), takes none."""
     return _splits(BH * (T // _DKV_KEYS) * chunks, T // _DKV_QUERIES, n_sm, min_gain=0.1)
+
+
+def dq_f32_splits(BH: int, T: int, n_sm: int, chunks: int) -> int:
+    """Key splits of the wide f32 dQ (``wide_dq_f32``) for B * H = BH heads
+    of length T on ``n_sm`` SMs, at ``chunks = len(dq_f32_chunks(W))``: the
+    mirror image of ``dkv_f32_splits``.  A block takes 32 queries of one
+    chunk and one SM, so one head of 3072 gives 96 blocks at D = 448 (one
+    chunk), under one wave of 132; each split adds that many blocks over a
+    share of the 16-key tiles, and its partial dQ is summed afterwards by
+    ``wide_dq_f32_merge``.  The cost and the tenth a split must save are
+    ``dkv_f32_splits``', so the f32 training batch [8, 1, 3072, 448] (768
+    blocks) takes none."""
+    return _splits(BH * (T // _DQ_QUERIES) * chunks, T // _DQ_KEYS, n_sm, min_gain=0.1)
 
 
 def _splits(blocks: int, tiles: int, n_sm: int, min_gain: float = 0.0) -> int:
@@ -306,8 +330,9 @@ def backward_inputs(q, k, v, seg, out, lse, dout) -> BackwardInputs:
 def _backward(ins: BackwardInputs, sm_scale: float, name: str, n_out: int):
     """Launch the backward kernel ``name`` of the C library on
     ``backward_inputs``' result; returns its ``n_out`` gradients [B, H, T, D]
-    in q's dtype.  The wide dK/dV also takes its query splits and their
-    scratch (``dkv_f32_splits``; one split in bf16)."""
+    in q's dtype.  The wide dK/dV and dQ also take their query or key
+    splits and their scratch (``dkv_f32_splits``, ``dq_f32_splits``; one
+    split in bf16)."""
     _require_cuda(ins.q)
     B, H, T, D = ins.shape
     if wide(D) != name.endswith("_wide"):
@@ -315,13 +340,14 @@ def _backward(ins: BackwardInputs, sm_scale: float, name: str, n_out: int):
     W = ins.q.shape[-1]
     grads = [torch.empty_like(ins.q) for _ in range(n_out)]
     splits = []
-    if name == "flash_bwd_dkv_wide":
+    if name in ("flash_bwd_dkv_wide", "flash_bwd_dq_wide"):
         nsplit, part = 1, None
         if ins.q.dtype == torch.float32:
             n_sm = torch.cuda.get_device_properties(ins.q.device).multi_processor_count
-            nsplit = dkv_f32_splits(B * H, T, n_sm, len(wide_blocks(name, ins.q.dtype, W)))
+            rule = dkv_f32_splits if name == "flash_bwd_dkv_wide" else dq_f32_splits
+            nsplit = rule(B * H, T, n_sm, len(wide_blocks(name, ins.q.dtype, W)))
             if nsplit > 1:
-                part = torch.empty(2 * nsplit * B * H * T * W, device=ins.q.device,
+                part = torch.empty(n_out * nsplit * B * H * T * W, device=ins.q.device,
                                    dtype=torch.float32)
         splits = [nsplit, None if part is None else part.data_ptr()]
     lib = _lib()
@@ -361,9 +387,10 @@ def flash_bwd_dkv_wide(ins: BackwardInputs, sm_scale: float):
 
 
 def flash_bwd_dq_wide(ins: BackwardInputs, sm_scale: float):
-    """The wide dQ kernel at D > 256, as ``flash_bwd_dq``: one launch, a
-    block per 64 queries and head, and per two chunks of ``wide_chunks``
-    (bf16) or one of ``F32_DQ_CHUNK`` columns (f32)."""
+    """The wide dQ kernel at D > 256, as ``flash_bwd_dq``: one call, a
+    block per 64 queries, head and two chunks of ``wide_chunks`` (bf16) or
+    per 32 queries, head, chunk of ``dq_f32_chunks`` and key split (f32);
+    in f32 with split keys, the kernel and the sum of its splits."""
     (dq,) = _backward(ins, sm_scale, "flash_bwd_dq_wide", 1)
     flash_bwd_dq_wide.launches += 1
     return dq

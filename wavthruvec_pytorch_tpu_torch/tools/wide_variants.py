@@ -1,9 +1,9 @@
 """Time design variants of the wide flash kernels on wgmma (``csrc/flash_attn.cu``
 ``wide_fwd_bf16``, ``wide_dkv_bf16``, ``wide_dq_bf16``) and of the f32
-dK/dV (``wide_dkv_f32``) against the current source on one NVIDIA Hopper
-GPU.  From the repo root:
+dK/dV and dQ (``wide_dkv_f32``, ``wide_dq_f32``) against the current source
+on one NVIDIA Hopper GPU.  From the repo root:
 
-    python3 -m wavthruvec_pytorch_tpu_torch.tools.wide_variants [--rounds N]
+    python3 -m wavthruvec_pytorch_tpu_torch.tools.wide_variants [--rounds N] [--only A,B]
 
 Each variant is a copy of ``csrc/flash_attn.cu`` with text patched in
 (``VARIANTS``: each (text, replacement) must occur once), built by nvcc
@@ -29,14 +29,26 @@ the wrappers ``flash_fwd_wide``, ``flash_bwd_dkv_wide`` and
   __syncthreads, not a named barrier for each group of 16 keys;
 - ``divided_loads``: the f32 dK/dV's run-time-width loads of Q and dO
   (and K and V) with an integer division a 16-byte copy, not 16 threads a
-  row of 64 columns.
+  row of 64 columns;
+- ``dq_chunks_256``: the f32 dQ in chunks of at most 256 columns (448 ->
+  256 + 192: S and dP computed twice), not all of D up to 512;
+- ``dq_steps_of_128``, ``dq_steps_of_64``: the f32 dQ's ring steps at most
+  128 or 64 columns wide (more of them in flight), not 256;
+- ``dq_keys_32``: the f32 dQ's key tiles 32 keys, not 16 (at D = 448 its
+  K_c buffers leave no room for Q and dO, which then stream).
 
-Prints ptxas's C75xx diagnostics (wgmma serialised, fences injected) of
-each build, holds each variant's bf16 forward, dK/dV and dQ and its f32
-dK/dV against autograd of ``flash_attention_plain`` at a small shape
-(phase 13's tolerances), then times the bf16 three at [16, 1, 3072, D] (the
-last item padded from 2000 on) and the f32 dK/dV at [1, 1, 3072, D] (D in
-``DIMS``) in turns, the order reversed each round, each the mean of
+A variant that changes a tiling the wrappers also know sets it on the
+Python side too (``SETTINGS``), while its library is in use.  ``--only``
+builds and times the named variants (and ``current``) alone.
+
+Prints ptxas's C75xx diagnostics (wgmma serialised, fences injected) and
+the f32 dQ's registers and spills of each build, holds each variant's bf16
+forward, dK/dV and dQ and its f32 dK/dV and dQ against autograd of
+``flash_attention_plain`` at a small shape (phase 13's tolerances), then
+times the bf16 three at [16, 1, 3072, D] (the last item padded from 2000
+on) and the f32 dK/dV and dQ at [1, 1, 3072, D] (D in ``DIMS``), and the
+f32 dQ at the f32 training shape [8, 1, 3072, 448] (the last item padded
+from 2000 on), in turns, the order reversed each round, each the mean of
 ``REPS`` launches queued behind a spin, and prints each one's median.
 """
 
@@ -178,16 +190,27 @@ VARIANTS = {
                       "for (p.step_cols = 2 * WK; p.step_cols >= WK;"),),
     "block_exchange": (("    hopper::named_sync(1 + kg, 128);\n", "    __syncthreads();\n"),),
     "divided_loads": ((_F32_LOADS, _F32_DIVIDED_LOADS),),
+    "dq_chunks_256": (("constexpr int DQ_COLS = 512;", "constexpr int DQ_COLS = 256;"),),
+    "dq_steps_of_128": (("for (int sw = WCH; sw >= WK; sw -= WK) {",
+                         "for (int sw = 2 * WK; sw >= WK; sw -= WK) {"),),
+    "dq_steps_of_64": (("for (int sw = WCH; sw >= WK; sw -= WK) {",
+                        "for (int sw = WK; sw >= WK; sw -= WK) {"),),
+    "dq_keys_32": (("constexpr int DQ_Q = 32, DQ_N = 16;", "constexpr int DQ_Q = 32, DQ_N = 32;"),),
 }
+# what a variant changes in ops/flash_attention.py's copy of the kernels' tiling
+SETTINGS = {"dq_chunks_256": {"DQ_F32_COLS": 256}, "dq_keys_32": {"_DQ_KEYS": 32}}
+F32_TRAIN = (8, 3072, 448)  # the f32 training shape [B, 1, T, D] of the one-head step
 
 
-def build() -> dict:
-    """Patch, build and load every variant; returns {name: (library, log)}."""
+def build(names) -> dict:
+    """Patch, build and load the variants ``names``; returns {name: (library,
+    log)}."""
     with open(os.path.join(kernel_build.SRC_DIR, "flash_attn.cu")) as f:
         text = f.read()
     os.makedirs(OUT_DIR, exist_ok=True)
     builds = {}
-    for name, patches in VARIANTS.items():
+    for name in names:
+        patches = VARIANTS[name]
         src = text
         for old, new in patches:
             if src.count(old) != 1:
@@ -205,9 +228,24 @@ def build() -> dict:
     return libs
 
 
-def use(lib) -> None:
-    """Make the wrappers launch ``lib``'s kernels."""
+_DEFAULTS = {key: getattr(fa, key) for settings in SETTINGS.values() for key in settings}
+
+
+def use(name: str, lib) -> None:
+    """Make the wrappers launch ``lib``'s kernels, the variant ``name``'s
+    tiling set on the Python side."""
     kernel_build._loaded["flash_attn"] = lib
+    for key, value in {**_DEFAULTS, **SETTINGS.get(name, {})}.items():
+        setattr(fa, key, value)
+
+
+def dq_ptxas(log: str) -> str:
+    """ptxas's registers and spills of ``wide_dq_f32`` in a build log."""
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if re.search(r"\d+wide_dq_f32E", line) and "entry function" in line:
+            return " ".join(x.strip() for x in lines[i + 1:i + 4] if "registers" in x or "spill" in x)
+    return "not found"
 
 
 def case(B: int, T: int, D: int, lens, seed: int = 0, dtype=torch.bfloat16):
@@ -220,8 +258,8 @@ def case(B: int, T: int, D: int, lens, seed: int = 0, dtype=torch.bfloat16):
 
 
 def check(name: str) -> None:
-    """The variant's bf16 forward, dK/dV and dQ and its f32 dK/dV against
-    autograd of the plain version."""
+    """The variant's bf16 forward, dK/dV and dQ and its f32 dK/dV and dQ
+    against autograd of the plain version."""
     for D in DIMS:
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v, dout, seg = case(2, 320, D, (320, 201), dtype=dtype)
@@ -243,19 +281,32 @@ def check(name: str) -> None:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--rounds", type=int, default=6)
+    p.add_argument("--only", default="", help="comma-separated variants to run beside current")
     a = p.parse_args(argv)
+    names = list(VARIANTS)
+    if a.only:
+        names = ["current"] + [n for n in a.only.split(",") if n != "current"]
+        unknown = [n for n in names if n not in VARIANTS]
+        if unknown:
+            p.error(f"unknown variants {unknown}; known: {list(VARIANTS)}")
     if not torch.cuda.is_available():
         print("wide_variants: PyTorch sees no CUDA device", file=sys.stderr)
         return 1
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
-    libs = build()
+    libs = build(names)
     for name, (lib, log) in libs.items():
         diags = sorted({m.group(1) + " in " + m.group(2) for m in re.finditer(
             r"\((C75\d\d)\)[^\n]*?(wide_\w+?_bf16)", log)})
-        print(f"{name}: ptxas {', '.join(diags) if diags else 'no C75xx diagnostic'}")
-        use(lib)
+        print(f"{name}: ptxas {', '.join(diags) if diags else 'no C75xx diagnostic'}; "
+              f"wide_dq_f32 {dq_ptxas(log)}")
+        use(name, lib)
         check(name)
+    B8, T8, D8 = F32_TRAIN
+    q8, k8, v8, dout8, seg8 = case(B8, T8, D8, [T8] * (B8 - 1) + [2000], dtype=torch.float32)
+    out8, lse8 = fa.flash_fwd_wide(q8, k8, v8, seg8, 1.0 / math.sqrt(D8))
+    ins8 = fa.backward_inputs(q8, k8, v8, seg8, out8, lse8, dout8)
+    del q8, k8, v8, dout8, out8
     for D in DIMS:
         scale = 1.0 / math.sqrt(D)
         q, k, v, dout, seg = case(16, 3072, D, [3072] * 15 + [2000])
@@ -267,17 +318,22 @@ def main(argv=None) -> int:
         calls = {"fwd": lambda: fa.flash_fwd_wide(q, k, v, seg, scale),
                  "dkv": lambda: fa.flash_bwd_dkv_wide(ins, scale),
                  "dq": lambda: fa.flash_bwd_dq_wide(ins, scale),
-                 "f32 dkv": lambda: fa.flash_bwd_dkv_wide(ins32, scale)}
+                 "f32 dkv": lambda: fa.flash_bwd_dkv_wide(ins32, scale),
+                 "f32 dq": lambda: fa.flash_bwd_dq_wide(ins32, scale)}
+        if D == D8:
+            calls["f32 dq B8"] = lambda: fa.flash_bwd_dq_wide(ins8, scale)
         times = {name: {c: [] for c in calls} for name in libs}
         for r in range(a.rounds):
             for name in (list(libs) if r % 2 == 0 else list(libs)[::-1]):
-                use(libs[name][0])
+                use(name, libs[name][0])
                 for c, fn in calls.items():
                     times[name][c].append(queued_ms(fn, REPS))
         for name, t in times.items():
             print(f"D = {D}, {name}: " + "; ".join(
                 f"{c} median {sorted(x)[len(x) // 2]:.3f} ms {[round(y, 3) for y in x]}"
-                for c, x in t.items()) + " (bf16 at [16, 1, 3072, D], f32 at [1, 1, 3072, D])")
+                for c, x in t.items()) + f" (bf16 at [16, 1, 3072, D], f32 at [1, 1, 3072, D], "
+                f"B8 at [{B8}, 1, {T8}, {D8}])")
+    use("current", libs["current"][0])
     return 0
 
 
