@@ -66,9 +66,11 @@ Then the Text2Vec training slice, on the same full-size Text2Vec config:
    second, peak device memory and the losses; every loss must be finite and
    the total loss must fall over the repeated batch.  Counters, set to 0
    just before the timed steps: one MAS launch, one BiGRU forward launch
-   (one device launch) and one BiGRU backward per step.  Then ``text2vec_loop.main`` trains 3
-   steps on the demo corpus (``data/demo/text2vec.json``; its run directory under a
-   temporary one).
+   and one BiGRU backward kernel launch per step (each one device launch:
+   both take their persistent route; every read of the counters checks the
+   backward's).  Then ``text2vec_loop.main`` trains 3 steps on the demo
+   corpus (``data/demo/text2vec.json``; its run directory under a temporary
+   one).
 9. The MAS kernel against its plain version, variable lengths, exact
    zeros in the valid region, the hard maps equal in every cell: at
    (B, T, N) = (16, 1024, 64) (the training step's), (16, 3000, 128),
@@ -78,15 +80,26 @@ Then the Text2Vec training slice, on the same full-size Text2Vec config:
    N = 1024 at (16, 3072), T = 1, a batch with out_len 0, in_len 0 and
    in_len > out_len items, and the "sharp" input, whose best path runs
    through exact zeros and leaves the map.
-10. The BiGRU backward on the card against the CPU (B = 2, T = 512,
-    H = 1024), and cuDNN ``nn.GRU``'s forward + backward (f32) at B = 16,
-    T = 1024 and 3072, the library yardstick of the BiGRU's training work.
+10. The BiGRU backward: ``ptxas``'s report of its kernel (the persistent
+    one may not spill); the kernel's reverse loop against its plain version
+    (``gru_bwd_loop_plain``, max |err| / max |plain| of dgi and dgh within
+    ``GRU_BWD_LOOP_RTOL``) on both routes at (B, T) in ``GRU_BWD_SHAPES``
+    ((2, 512) and the three training shapes, inputs from the BiGRU's own f32
+    forward), with the loop's time on the persistent route and on the
+    one-launch-a-step route in turns, its serial floor (the persistent grid
+    running barriers only), its bound, the plain loop's time, the whole
+    backward (gh, the loop, dw_hh and db_hh) with the kernel and with the
+    plain loop, and cuDNN ``nn.GRU``'s (f32) backward alone (on a retained
+    graph) and forward + backward, the library yardstick; then the whole
+    backward on the card against ``gru_bwd_plain`` on the CPU (B = 2,
+    T = 512, H = 1024).
 11. One training step on the card against the CPU: seeded full-size
     weights, one small batch (B = 8), dropout 0.  Hard alignments and
     durations equal, losses and gradients within stated tolerances.
 12. Where a training step's time goes: forward, backward and optimizer
-    (CUDA events), the MAS kernel, the BiGRU forward kernel and the plain
-    BiGRU backward at the step's shapes, and ``torch.profiler``'s device
+    (CUDA events), the MAS kernel, the BiGRU forward kernel and the BiGRU
+    backward (its loop kernel alone and with the matmuls around it) at the
+    step's shapes, and ``torch.profiler``'s device
     busy share (kernel events only: user annotations' GPU spans left out) and
     launch count.
 
@@ -543,10 +556,15 @@ from wavthruvec_pytorch_tpu_torch.ops.fused_resblock import (
     fused_conv_residual,
 )
 from wavthruvec_pytorch_tpu_torch.ops.gru import (
-    GRURecurrence,
     device_limits,
     gru_barrier_loop,
+    gru_bwd,
+    gru_bwd_barrier_loop,
+    gru_bwd_loop,
+    gru_bwd_loop_plain,
     gru_bwd_plain,
+    gru_bwd_plan,
+    gru_bwd_steps,
     gru_fwd,
     gru_fwd_f32,
     gru_fwd_plain,
@@ -631,6 +649,10 @@ WARMUP_STEPS, TIMED_STEPS = 2, 5
 # input, which leaves the gradient below them set by f32 rounding
 CHECK_B, CHECK_N, CHECK_T = 8, 16, 64
 GRU_BWD_RTOL = 1e-3   # atol, as a share of each gradient's largest value: f32 sums over T
+# the backward kernel against its plain loop on the card, max |err| / max
+# |plain| of dgi and of dgh: f32 both sides, only the order of the 3H-long
+# sums of dh differs (~1e-7 a step), carried through a contracting recurrence
+GRU_BWD_LOOP_RTOL = 1e-5
 STEP_LOSS_RTOL = 1e-4
 # gradients, as ||card - CPU|| / ||CPU||: of all of them at once, and of each
 # tensor whose largest gradient exceeds 1e-5 (the rest are 0 but for
@@ -1351,21 +1373,26 @@ def run_step(trainer, batch):
 
 
 def reset_gru_counters() -> None:
-    for fn in (gru_fwd, gru_fwd_f32):
+    for fn in (gru_fwd, gru_fwd_f32, gru_bwd_loop):
         fn.launches = fn.step_launches = fn.time_steps = 0
 
 
 def reset_counters() -> None:
     mas_width1.launches = 0
     reset_gru_counters()
-    GRURecurrence.backward_calls = 0
     for fn in FLASH_KERNELS:
         fn.launches = 0
 
 
 def read_counters() -> dict:
+    """The kernels' launches since ``reset_counters``; each of the BiGRU
+    backward's must have been one device launch (its persistent route, which
+    every training batch of the paths takes at H = 1024)."""
+    check(gru_bwd_loop.step_launches == gru_bwd_loop.launches,
+          f"BiGRU backward: {gru_bwd_loop.launches} kernel calls in "
+          f"{gru_bwd_loop.step_launches} device launches")
     return dict(mas=mas_width1.launches, gru_fwd=gru_fwd.launches,
-                gru_fwd_f32=gru_fwd_f32.launches, gru_bwd=GRURecurrence.backward_calls,
+                gru_fwd_f32=gru_fwd_f32.launches, gru_bwd=gru_bwd_loop.launches,
                 **{fn.__name__: fn.launches for fn in FLASH_KERNELS})
 
 
@@ -1593,8 +1620,113 @@ def check_mas():
     return first
 
 
-def check_gru_backward(bigru):
+# (B, T) of the BiGRU backward's checks and times: the loops' small batch,
+# the B = 16 x 1024 step, the long bf16 step and the long f32 step
+GRU_BWD_SHAPES = ((2, 512), (TRAIN_B, TRAIN_T), (LONG_B, LONG_T), (LONG_F32_B, LONG_T))
+
+
+def gru_bwd_case(bigru, B: int, T: int, g, lib_gru, n_sm: int, smem: int) -> dict:
+    """The backward kernel at (B, T), on seeded inputs from the BiGRU's own
+    f32 forward (so the gates lie where training puts them; w_hh the
+    transposed view the autograd function holds): its loop against
+    ``gru_bwd_loop_plain`` on both routes, its times (persistent, steps,
+    steps, persistent), the serial floor, the bound, the plain loop, the
+    whole backward with the kernel and with the plain loop, and cuDNN's f32
+    ``nn.GRU`` backward alone and forward + backward."""
     H = bigru.hidden_size
+    plan = gru_bwd_plan(2, B, H, n_sm, smem)
+    check(plan.route == "persistent", f"BiGRU backward B={B}: the planner picked {plan}")
+    with torch.no_grad():
+        gi, w_hh, b_hh = bigru.recurrence_inputs(torch.randn(B, T, H, generator=g,
+                                                             device="cuda"))
+        ys = gru_fwd_f32(gi, w_hh, b_hh)
+        hprev = torch.cat([ys.new_zeros(2, B, 1, H), ys[:, :, :-1]], dim=2)
+        gh = torch.matmul(hprev, w_hh[:, None]) + b_hh[:, None, None]
+        dys = torch.randn(ys.shape, generator=g, device="cuda")
+        del ys
+        args = (dys, gi, gh, hprev, w_hh)
+        want = gru_bwd_loop_plain(*args)
+        errs, abs_err = {}, 0.0
+        for route, fn in (("persistent", gru_bwd_loop), ("steps", gru_bwd_steps)):
+            got = fn(*args)
+            torch.cuda.synchronize()
+            rel = []
+            for a, b in zip(got, want):
+                diff = float((a - b).abs().max())
+                abs_err = max(abs_err, diff)
+                rel.append(diff / float(b.abs().max()))
+            errs[route] = rel
+            check(all(math.isfinite(e) and e <= GRU_BWD_LOOP_RTOL for e in rel),
+                  f"BiGRU backward B={B} T={T} {route}: dgi, dgh max |err| / max |plain| {rel}")
+            del got
+        del want
+        runs = {"persistent": [], "steps": []}
+        for route, fn in (("persistent", gru_bwd_loop), ("steps", gru_bwd_steps),
+                          ("steps", gru_bwd_steps), ("persistent", gru_bwd_loop)):
+            runs[route].append(cuda_ms(lambda: fn(*args), 3))
+        ms, steps_ms = float(np.mean(runs["persistent"])), float(np.mean(runs["steps"]))
+        floor = cuda_ms(lambda: gru_bwd_barrier_loop(2, B, T, H, "cuda"), 3) * T / max(T - 1, 1)
+        plain = cuda_ms(lambda: gru_bwd_loop_plain(*args), 1, warmup=0)
+        whole = cuda_ms(lambda: gru_bwd(dys, gi, hprev, w_hh, b_hh), 3)
+        whole_plain = cuda_ms(lambda: gru_bwd_plain(dys, gi, hprev, w_hh, b_hh), 1, warmup=0)
+    # the loop's least work: the product dgh . w_hh^T of every step (the
+    # steps' gate arithmetic is O(1/H) of it); its tensors moved once
+    n_ops = 2.0 * 2 * B * T * 3 * H * H
+    n_bytes = 4.0 * (2 * dys.numel() + 2 * gi.numel() + w_hh.numel() + 2 * gi.numel())
+    bms, by = bound_ms(n_bytes, n_ops, PEAK_F32)
+    serial = max(bms, floor)
+    del args, dys, gi, gh, hprev
+    x = torch.randn(B, T, H, device="cuda", requires_grad=True)
+    dout = torch.randn(B, T, 2 * H, device="cuda")
+    params = list(lib_gru.parameters())
+    out = lib_gru(x)[0]
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(out, [x] + params, dout, retain_graph=True), 3)
+    del out
+    lib_all = cuda_ms(lambda: torch.autograd.grad(lib_gru(x)[0], [x] + params, dout), 2)
+    del x, dout
+    torch.cuda.empty_cache()
+    print(f"  B={B:2d} T={T:4d}: dgi, dgh max |err| / max |plain| persistent "
+          f"{errs['persistent'][0]:.2e}, {errs['persistent'][1]:.2e}; steps route "
+          f"{errs['steps'][0]:.2e}, {errs['steps'][1]:.2e} (max |err| {abs_err:.2e})\n"
+          f"    loop: persistent {ms:.3f} ms ({1e3 * ms / T:.2f} us/step; runs "
+          f"{runs['persistent'][0]:.3f}, {runs['persistent'][1]:.3f}), steps route "
+          f"{steps_ms:.3f} ms ({steps_ms / ms:.2f}x), serial floor {floor:.3f} ms "
+          f"({1e3 * floor / T:.2f} us/step), bound {bms:.3f} ms ({by}, {n_ops / 1e9:.1f} GFLOP); "
+          f"the larger {serial:.3f} ms is {100 * serial / ms:.1f}% of the kernel; plain loop "
+          f"{plain:.3f} ms ({plain / ms:.1f}x); {plan.blocks} blocks of {plan.units} units, "
+          f"{plan.smem} bytes of shared memory\n"
+          f"    whole backward (gh, loop, dw_hh, db_hh): {whole:.3f} ms with the kernel, "
+          f"{whole_plain:.3f} ms with the plain loop; cuDNN nn.GRU (f32, TF32 off) backward "
+          f"alone {lib_bwd:.3f} ms, forward + backward {lib_all:.3f} ms")
+    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                library_ms=lib_bwd, floor_ms=floor, steps_ms=steps_ms, whole_ms=whole,
+                whole_plain_ms=whole_plain, library_fwd_bwd_ms=lib_all)
+
+
+def check_gru_backward(bigru) -> dict:
+    """Phase 10; returns the kernels line's entry of the backward kernel: its
+    times at the B = 16 x 1024 step's shape, the worst error over all
+    shapes and routes."""
+    H = bigru.hidden_size
+    check(not torch.backends.cudnn.allow_tf32, "cuDNN's yardstick must run without TF32")
+    print("BiGRU backward kernel, ptxas:")
+    ptxas_report("gru_bwd", ("gru_bwd_persistent_kernel", "gru_bwd_step_kernel"),
+                 ("gru_bwd_persistent_kernel",))
+    n_sm, smem = device_limits(torch.device("cuda"))
+    print(f"BiGRU backward loop, kernel vs plain (rtol {GRU_BWD_LOOP_RTOL}), D=2, H={H}, on "
+          f"{n_sm} SMs with {smem} bytes of shared memory a block; the serial floor is T x a "
+          f"step of the persistent grid running barriers only; bound at "
+          f"{PEAK_F32 / 1e12:.0f} TFLOP/s (f32, the CUDA cores); {card_line()}:")
+    lib_gru = torch.nn.GRU(H, H, batch_first=True, bidirectional=True, device="cuda")
+    lib_gru.load_state_dict(bigru.state_dict(), strict=True)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    cases = {shape: gru_bwd_case(bigru, *shape, g, lib_gru, n_sm, smem)
+             for shape in GRU_BWD_SHAPES}
+    del lib_gru
+    row = {k: cases[TRAIN_B, TRAIN_T][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    row["max_abs_err"] = max(case["max_abs_err"] for case in cases.values())
+
     g = torch.Generator().manual_seed(SEED)
     B, T = 2, 512
     with torch.no_grad():
@@ -1603,32 +1735,19 @@ def check_gru_backward(bigru):
     ys = gru_fwd_plain(gi, w_hh, b_hh, bigru.numerics(B))
     hprev = torch.cat([ys.new_zeros(2, B, 1, H), ys[:, :, :-1]], dim=2)
     dys = torch.randn(ys.shape, generator=g)
-    args = (dys, gi, hprev, w_hh.contiguous(), b_hh)
+    args = (dys, gi, hprev, w_hh, b_hh)
     want = gru_bwd_plain(*args)
-    got = gru_bwd_plain(*(a.cuda() for a in args))
+    got = gru_bwd(*(a.cuda() for a in args))
     errs = []
     for name, a, b in zip(("dgi", "dw_hh", "db_hh"), got, want):
         err = float((a.cpu() - b).abs().max() / b.abs().max())
         errs.append(err)
         check(err <= GRU_BWD_RTOL, f"BiGRU backward {name}: card vs CPU {err:.3g} of max")
-    print(f"BiGRU backward (plain PyTorch), card vs CPU at B={B} T={T} H={H}: max |err| / max |g| "
-          f"dgi {errs[0]:.2e}, dw_hh {errs[1]:.2e}, db_hh {errs[2]:.2e} (rtol {GRU_BWD_RTOL})")
-
-    # the library yardstick of the BiGRU's forward + backward: cuDNN's f32
-    # nn.GRU (TF32 off), with its input projection; timed only, never used
-    lib_gru = torch.nn.GRU(H, H, batch_first=True, bidirectional=True, device="cuda")
-    lib_gru.load_state_dict(bigru.state_dict(), strict=True)
-    params = list(lib_gru.parameters())
-    for T in (TRAIN_T, LONG_T):
-        x = torch.randn(TRAIN_B, T, H, device="cuda", requires_grad=True)
-        dout = torch.randn(TRAIN_B, T, 2 * H, device="cuda")
-
-        def fwd_bwd():
-            torch.autograd.grad(lib_gru(x)[0], [x] + params, dout)
-
-        ms = cuda_ms(fwd_bwd, 2)
-        print(f"  cuDNN nn.GRU forward + backward (f32) at B={TRAIN_B} T={T}: {ms:.3f} ms")
-        del x, dout
+    print(f"BiGRU backward (the kernel's loop), card vs CPU (plain) at B={B} T={T} H={H}: max "
+          f"|err| / max |g| dgi {errs[0]:.2e}, dw_hh {errs[1]:.2e}, db_hh {errs[2]:.2e} (rtol "
+          f"{GRU_BWD_RTOL})")
+    reset_gru_counters()  # the steps route ran here: no later read may count it
+    return row
 
 
 def grad_spread(got, ref):
@@ -1741,19 +1860,23 @@ def profile_step(trainer, batch) -> None:
         w_fwd = w_hh.to(torch.bfloat16) if kind == "bf16" else w_hh
         ys = fwd_kernel(gi, w_fwd, b_hh)
         hprev = torch.cat([ys.new_zeros(2, B, 1, ys.shape[-1]), ys[:, :, :-1]], dim=2)
+        gh = torch.matmul(hprev, w_hh[:, None]) + b_hh[:, None, None]
         dys = torch.randn_like(ys)
-        w32 = w_hh.contiguous()
         parts = {
             "MAS kernel": cuda_ms(lambda: mas_width1(attn, il, ol), 5),
             f"BiGRU forward kernel ({kind})": cuda_ms(lambda: fwd_kernel(gi, w_fwd, b_hh), 3),
-            "BiGRU backward (plain)": cuda_ms(lambda: gru_bwd_plain(dys, gi, hprev, w32, b_hh), 2),
+            "BiGRU backward (gh, the loop kernel, dw_hh, db_hh)":
+                cuda_ms(lambda: gru_bwd(dys, gi, hprev, w_hh, b_hh), 3),
+            "  of which the loop kernel": cuda_ms(lambda: gru_bwd_loop(dys, gi, gh, hprev, w_hh),
+                                                  3),
         }
+        del gh
     for name, ms in parts.items():
         print(f"  {name} at B={B} T={T}: {ms:.2f} ms ({100 * ms / step_ms:.1f}% of the step)")
     # the backward's least work: gh recomputed, the reverse loop's product
     # and dw_hh, each 2*D*B*T*H*3H f32 operations; its tensors moved once
     n_ops = 3 * 2.0 * gi.numel() * hprev.shape[-1]
-    n_bytes = 4.0 * (2 * dys.numel() + 2 * gi.numel() + 2 * w32.numel() + 2 * b_hh.numel())
+    n_bytes = 4.0 * (2 * dys.numel() + 2 * gi.numel() + 2 * w_hh.numel() + 2 * b_hh.numel())
     bms, by = bound_ms(n_bytes, n_ops, PEAK_F32)
     print(f"  BiGRU backward bound: {bms:.2f} ms ({by}; {n_ops / 1e9:.0f} GFLOP)")
 
@@ -5107,7 +5230,7 @@ def main() -> int:
 
     trainer, batch, train_launches = train(dev)
     mas = check_mas()
-    check_gru_backward(trainer.model.postnet.gru)
+    gru_bwd_row = check_gru_backward(trainer.model.postnet.gru)
     check_step_against_cpu(trainer.cfg)
     profile_step(trainer, batch)
     del trainer, batch
@@ -5179,6 +5302,10 @@ def main() -> int:
              replaces="wavthruvec_pytorch_tpu/models/layers.py:776",
              launches=launches["gru_fwd_f32"], serving_launches=serving["gru_fwd_f32"],
              **gru["gru_fwd_f32"]),
+        dict(name="gru_bwd", route="cuda",
+             source="wavthruvec_pytorch_tpu_torch/csrc/gru_bwd.cu",
+             replaces="wavthruvec_pytorch_tpu/models/layers.py:829",
+             launches=train_launches["gru_bwd"], **gru_bwd_row),
         dict(name="mas", route="cuda",
              source="wavthruvec_pytorch_tpu_torch/csrc/mas.cu",
              replaces="wavthruvec_pytorch_tpu/ops/mas_pallas.py:30",

@@ -139,9 +139,9 @@ def test_profile_dir_traces_iterations_3_to_8(monkeypatch, tmp_path, capsys):
 def test_precompile_runs_on_cpu(flag, monkeypatch, tmp_path, capsys):
     """Both ``--precompile`` and ``--no-precompile`` train on the CPU; only the
     former prints its line.  On a card it builds the libraries the step
-    launches: the BiGRU's and MAS's, and flash attention's where the flash
-    gate can pass at a bucket (the long-bucket config; not the demo config,
-    which has no flash)."""
+    launches: the BiGRU's forward and backward and MAS's, and flash
+    attention's where the flash gate can pass at a bucket (the long-bucket
+    config; not the demo config, which has no flash)."""
     monkeypatch.chdir(REPO)
     monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
     args = text2vec_loop.parse_args(["--device", "cpu", "--max_steps", "1", flag])
@@ -151,9 +151,9 @@ def test_precompile_runs_on_cpu(flag, monkeypatch, tmp_path, capsys):
     said = "precompile: nothing to build on the CPU" in capsys.readouterr().out
     assert said == (flag == "--precompile")
     demo = load_config(Text2VecConfig, T2V_TINY)
-    assert text2vec_loop.step_kernels(demo) == ["gru_fwd", "mas"]
+    assert text2vec_loop.step_kernels(demo) == ["gru_fwd", "gru_bwd", "mas"]
     long_cfg = load_config(Text2VecConfig, repo_path("artifacts", "flash_longbucket", "flash",
                                                      "longbucket", "config.json"))
-    assert text2vec_loop.step_kernels(long_cfg) == ["gru_fwd", "mas", "flash_attn"]
+    assert text2vec_loop.step_kernels(long_cfg) == ["gru_fwd", "gru_bwd", "mas", "flash_attn"]
     short = dataclasses.replace(long_cfg, text_buckets=(64,), frame_buckets=(200,))
-    assert text2vec_loop.step_kernels(short) == ["gru_fwd", "mas"]
+    assert text2vec_loop.step_kernels(short) == ["gru_fwd", "gru_bwd", "mas"]

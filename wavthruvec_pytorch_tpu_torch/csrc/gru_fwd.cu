@@ -84,6 +84,7 @@
 
 #include <type_traits>
 
+#include "gru_common.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -92,8 +93,10 @@ using hopper::cp_async16;
 using hopper::cp_async_commit;
 using hopper::cp_async_wait;
 using hopper::smem_u32;
-
-__device__ __forceinline__ float sigmoidf(float v) { return 1.f / (1.f + expf(-v)); }
+using gru::barrier_arrive;
+using gru::barrier_wait;
+using gru::halve;
+using gru::sigmoidf;
 
 // ===========================================================================
 // persistent route
@@ -112,28 +115,6 @@ __host__ __device__ inline size_t persistent_smem(int U, int B, int H) {
   const size_t hp = static_cast<size_t>(H) + 8, r = 3 * static_cast<size_t>(U);
   return 2 * r * hp + 2 * BM * hp + 4 * P_WARPS * BM * r + 4 * static_cast<size_t>(B) * r +
          4 * static_cast<size_t>(B) * U + 4 * r;
-}
-
-// The per-direction barrier, in two halves so that work that no other block
-// waits for runs while it is in flight.  arrive: after a bar.sync that
-// follows the block's writes, thread 0 adds 1 with gpu-scope release
-// semantics (cumulative: it orders the writes the bar.sync made visible to
-// it).  wait: thread 0 polls with gpu-scope acquire loads until every block
-// of the direction has arrived `target` times in all; the bar.sync after it
-// orders the block's later reads after the others' writes.
-__device__ __forceinline__ void barrier_arrive(unsigned* counter) {
-  if (threadIdx.x == 0)
-    asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n" ::"l"(counter) : "memory");
-}
-
-__device__ __forceinline__ void barrier_wait(unsigned* counter, unsigned target) {
-  if (threadIdx.x == 0) {
-    unsigned seen;
-    do {
-      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(seen) : "l"(counter) : "memory");
-    } while (seen < target);
-  }
-  __syncthreads();
 }
 
 __device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
@@ -346,20 +327,6 @@ __host__ __device__ inline size_t persistent_f32_smem(int U, int B, int H) {
   const size_t hp = static_cast<size_t>(H) + 4, r = 3 * static_cast<size_t>(U);
   return 4 * (r * hp + f32_red_floats(U) + static_cast<size_t>(B) * r +
               static_cast<size_t>(B) * U + r);
-}
-
-// One step of the reduce-scatter of N partial sums over the lanes that
-// differ in bit M of the lane index: the lanes with it set keep the upper
-// half, the others the lower, each adding its partner's copy of that half.
-template <int N, int M>
-__device__ __forceinline__ void halve(float* v, int lane) {
-  const bool up = lane & M;
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) {
-    const float send = up ? v[i] : v[i + N / 2];
-    const float keep = up ? v[i + N / 2] : v[i];
-    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, M);
-  }
 }
 
 // One block per (direction, U consecutive hidden units); grid D * nbd.  BT is

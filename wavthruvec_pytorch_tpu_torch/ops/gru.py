@@ -18,10 +18,14 @@ memory (the CBHG's shapes), or one launch a time step where the weights do
 not fit.
 
 ``GRURecurrence`` makes the recurrence differentiable: its forward is
-``gru_fwd`` or ``gru_fwd_f32``, its backward ``gru_bwd_plain``, plain
-PyTorch, as the JAX package's backward ``_gru_stacked_bwd``
-(models/layers.py:795-840) is a ``lax.scan`` and not a Pallas kernel, the
-same for both impls.
+``gru_fwd`` or ``gru_fwd_f32``, its backward ``gru_bwd``, the JAX package's
+custom VJP ``_gru_stacked_bwd`` (models/layers.py:795-840), the same for
+both numerics and in f32: the gates and gh recomputed for all T by one
+matmul, the reverse recurrence (JAX's reverse ``lax.scan``, :829) in the
+hand-written kernel ``csrc/gru_bwd.cu`` through ``gru_bwd_loop`` on CUDA
+tensors and in ``gru_bwd_loop_plain`` on CPU tensors, and the weight
+gradients as large matmuls after it.  ``gru_bwd_plan`` picks that kernel's
+route as ``gru_fwd_plan`` does the forward's.
 """
 
 from __future__ import annotations
@@ -296,15 +300,9 @@ for _fn in (gru_fwd, gru_fwd_f32):
     _fn.time_steps = 0
 
 
-def gru_barrier_loop(D: int, B: int, T: int, H: int, device, precision: str = "bf16") -> None:
-    """The persistent route's serial floor at (D, B, T, H) for
-    ``precision``'s kernel: its grid and shared memory, running the T - 1
-    per-direction barriers and nothing else (to time; the main path never
-    calls it).  Raises if the shape takes the steps route."""
-    device = torch.device(device)
-    plan = gru_fwd_plan(D, B, H, *device_limits(device), precision)
+def _barrier_loop(D: int, T: int, plan: GRUPlan, device: torch.device) -> None:
     if plan.route != "persistent":
-        raise ValueError(f"gru_barrier_loop: ({D}, {B}, {H}) takes the {plan.route} route")
+        raise ValueError(f"the barrier loop needs the persistent route, got {plan}")
     lib = _lib()
     counter = torch.zeros(D, device=device, dtype=torch.int32)
     err = lib.gru_fwd_barrier_loop(counter.data_ptr(), D, plan.blocks // D, T, plan.smem,
@@ -312,22 +310,30 @@ def gru_barrier_loop(D: int, B: int, T: int, H: int, device, precision: str = "b
     kernel_build.check(lib, err, "gru_fwd_barrier_loop")
 
 
-def gru_bwd_plain(dys: torch.Tensor, gi: torch.Tensor, hprev: torch.Tensor,
-                  w_hh: torch.Tensor, b_hh: torch.Tensor):
-    """Backward of the recurrence, JAX's ``_gru_stacked_bwd``: dys, hprev
-    [D, B, T, H], gi [D, B, T, 3H], w_hh [D, H, 3H] f32, b_hh [D, 3H] ->
-    (dgi [D, B, T, 3H], dw_hh [D, H, 3H], db_hh [D, 3H]).
+def gru_barrier_loop(D: int, B: int, T: int, H: int, device, precision: str = "bf16") -> None:
+    """The persistent route's serial floor at (D, B, T, H) for
+    ``precision``'s kernel: its grid and shared memory, running the T - 1
+    per-direction barriers and nothing else (to time; the main path never
+    calls it).  Raises if the shape takes the steps route."""
+    device = torch.device(device)
+    _barrier_loop(D, T, gru_fwd_plan(D, B, H, *device_limits(device), precision), device)
 
-    As in JAX, for both numerics, the gates are recomputed from the
-    forward's f32 ``hprev`` with the f32 ``w_hh`` (under "bf16" not the
-    bf16 copy the forward multiplied by).
+
+# --- backward ------------------------------------------------------------------
+
+def gru_bwd_loop_plain(dys: torch.Tensor, gi: torch.Tensor, gh: torch.Tensor,
+                       hprev: torch.Tensor, w_hh: torch.Tensor):
+    """The reverse recurrence of JAX's ``_gru_stacked_bwd`` (its ``lax.scan``,
+    models/layers.py:829), the plain version of ``gru_bwd_loop``'s kernel:
+    dys, hprev [D, B, T, H], gi, gh [D, B, T, 3H] (gh = hprev . w_hh + b_hh),
+    w_hh [D, H, 3H] f32 -> (dgi, dgh), both [D, B, T, 3H]: dgi = [dr_pre,
+    dz_pre, dn_pre] and dgh = [dr_pre, dz_pre, dhn] at every step.
+
     Everything that does not depend on the carried gradient is computed for
     all T at once: the gates, and the factors that turn the total gradient
-    on h_t into the gate gradients.  The reverse loop over T then carries
-    only dh [D, B, H] (4 launches a step), and every weight gradient is one
-    large matmul after it.  The arithmetic is JAX's, reassociated."""
+    on h_t into the gate gradients.  The loop over T then carries only dh
+    [D, B, H] (4 launches a step).  The arithmetic is JAX's, reassociated."""
     D, B, T, H = hprev.shape
-    gh = torch.matmul(hprev, w_hh[:, None]) + b_hh[:, None, None]  # [D, B, T, 3H]
     r = torch.sigmoid(gi[..., :H] + gh[..., :H])
     z = torch.sigmoid(gi[..., H:2 * H] + gh[..., H:2 * H])
     h_n = gh[..., 2 * H:]
@@ -348,9 +354,181 @@ def gru_bwd_plain(dys: torch.Tensor, gi: torch.Tensor, hprev: torch.Tensor,
         dh = torch.baddbmm(g * z_t[t], dgh, w_t)
     g = g_all.permute(1, 2, 0, 3)  # [D, B, T, H]
     dgh = (coef * g[:, :, :, None]).reshape(D, B, T, 3 * H)
-    dgi = torch.cat([dgh[..., :2 * H], g * dn], dim=-1)
+    return torch.cat([dgh[..., :2 * H], g * dn], dim=-1), dgh
+
+
+# the backward kernel's persistent block (csrc/gru_bwd.cu): floats of one of
+# its two dgh stages, floats of padding after each resident w_hh row, and the
+# batch-row passes whose inputs and carry a thread holds in registers
+_B_STAGE, _B_ROW_PAD, _B_PASSES = 4096, 8, 4
+
+
+def persistent_bwd_smem(U: int, H: int) -> int:
+    """Shared-memory bytes of the backward kernel's persistent route
+    (``persistent_bwd_smem`` in csrc/gru_bwd.cu): the block's rows of w_hh
+    [U, 3H + 8] f32 and two dgh stages of 4096 floats, where the warps'
+    partial sums also lie.  The step's inputs and the carried gradient live in
+    registers, so the batch does not enter."""
+    return 4 * (U * (3 * H + _B_ROW_PAD) + 2 * _B_STAGE)
+
+
+def _bwd_batch_tile(U: int, B: int) -> int:
+    """The backward kernel's batch rows a pass (``bwd_batch_tile`` in
+    csrc/gru_bwd.cu): the smallest power of two covering min(B, 16), at most
+    8 above U = 16."""
+    cap = 16 if U <= 16 else 8
+    bt = 1
+    while bt < cap and bt < B:
+        bt *= 2
+    return bt
+
+
+def gru_bwd_plan(D: int, B: int, H: int, n_sm: int, smem_bytes: int) -> GRUPlan:
+    """The route of the backward kernel for D directions of H units at batch
+    B on a card with ``n_sm`` SMs and ``smem_bytes`` of shared memory a
+    block.  Persistent when some ``U`` in ``PERSISTENT_UNITS`` gives at most
+    one block an SM (D * ceil(H / U) <= n_sm), its rows of w_hh fit in
+    shared memory and B takes at most 4 passes of its batch tile; the
+    smallest such U.  Otherwise the steps route, which takes any D, B and
+    H % 8 == 0.  A choice by shape, made before the launch."""
+    for U in PERSISTENT_UNITS:
+        blocks = D * -(-H // U)
+        if blocks > n_sm:
+            continue
+        smem = persistent_bwd_smem(U, H)
+        if smem <= smem_bytes and B <= _B_PASSES * _bwd_batch_tile(U, B):
+            return GRUPlan("persistent", blocks, U, smem)
+        break  # a larger U needs more shared memory and takes fewer batch rows
+    return GRUPlan("steps", D * -(-H // _STEP_UNITS), _STEP_UNITS, 0)
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = kernel_build.load("gru_bwd")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.gru_bwd_persistent.argtypes = [ptr] * 8 + [i32] * 5 + [ctypes.c_longlong, ptr]
+    lib.gru_bwd_steps.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
+    for fn in (lib.gru_bwd_persistent, lib.gru_bwd_steps):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _checked_bwd_shape(dys, gi, gh, hprev, w_hh):
+    """(D, B, T, H) of CUDA tensors the backward kernel takes; raises
+    otherwise."""
+    if dys.device.type != "cuda":
+        raise ValueError(f"gru_bwd_loop: unsupported device {dys.device}")
+    if dys.dim() != 4:
+        raise ValueError(f"dys must be [D, B, T, H], got {tuple(dys.shape)}")
+    D, B, T, H = dys.shape
+    if H % 8 != 0:
+        raise ValueError(f"gru_bwd_loop needs H % 8 == 0 (16-byte rows), got H={H}")
+    want = {"dys": (D, B, T, H), "hprev": (D, B, T, H), "gi": (D, B, T, 3 * H),
+            "gh": (D, B, T, 3 * H), "w_hh": (D, H, 3 * H)}
+    for name, t in (("dys", dys), ("gi", gi), ("gh", gh), ("hprev", hprev), ("w_hh", w_hh)):
+        if tuple(t.shape) != want[name] or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 {list(want[name])}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        if t.device != dys.device:
+            raise ValueError(f"{name} is on {t.device}, dys on {dys.device}")
+        if name != "w_hh" and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    return D, B, T, H
+
+
+def _launch_bwd(dys, gi, gh, hprev, w_hh, plan: GRUPlan):
+    """Run checked CUDA tensors on ``plan``'s route of the backward kernel;
+    an empty output launches nothing."""
+    lib = _bwd_lib()
+    D, B, T, H = dys.shape
+    dgi, dgh = torch.empty_like(gi), torch.empty_like(gi)
+    if dgi.numel() == 0:
+        return dgi, dgh
+    w = w_hh.contiguous()  # [D, H, 3H]: the rows a block keeps are w_hh[d, j]
+    stream = torch.cuda.current_stream(dys.device).cuda_stream
+    ptrs = (dys.data_ptr(), gi.data_ptr(), gh.data_ptr(), hprev.data_ptr(), w.data_ptr(),
+            dgi.data_ptr(), dgh.data_ptr())
+    if plan.route == "persistent":
+        counter = torch.zeros(D, device=dys.device, dtype=torch.int32)
+        err = lib.gru_bwd_persistent(*ptrs, counter.data_ptr(), D, B, T, H, plan.units,
+                                     plan.smem, stream)
+        gru_bwd_loop.step_launches += 1
+    else:
+        gz = torch.empty(D, B, H, device=dys.device, dtype=torch.float32)
+        err = lib.gru_bwd_steps(*ptrs, gz.data_ptr(), D, B, T, H, stream)
+        gru_bwd_loop.step_launches += T
+    kernel_build.check(lib, err, f"gru_bwd ({plan.route})")
+    gru_bwd_loop.launches += 1
+    gru_bwd_loop.time_steps += T
+    return dgi, dgh
+
+
+def gru_bwd_loop(dys: torch.Tensor, gi: torch.Tensor, gh: torch.Tensor, hprev: torch.Tensor,
+                 w_hh: torch.Tensor):
+    """``gru_bwd_loop_plain``'s function: dys, hprev [D, B, T, H] and gi, gh
+    [D, B, T, 3H] f32 contiguous, w_hh [D, H, 3H] f32 (any strides) -> (dgi,
+    dgh) [D, B, T, 3H].  CPU tensors take ``gru_bwd_loop_plain``; CUDA tensors
+    launch the kernel on the route ``gru_bwd_plan`` picks for the shape;
+    anything else raises."""
+    if dys.device.type == "cpu":
+        return gru_bwd_loop_plain(dys, gi, gh, hprev, w_hh)
+    D, B, T, H = _checked_bwd_shape(dys, gi, gh, hprev, w_hh)
+    return _launch_bwd(dys, gi, gh, hprev, w_hh,
+                       gru_bwd_plan(D, B, H, *device_limits(dys.device)))
+
+
+def gru_bwd_steps(dys: torch.Tensor, gi: torch.Tensor, gh: torch.Tensor, hprev: torch.Tensor,
+                  w_hh: torch.Tensor):
+    """``gru_bwd_loop`` on the one-launch-a-step route whatever the shape,
+    CUDA tensors only: to check and time that route beside the planner's
+    (the main path never calls it).  Counts in ``gru_bwd_loop``'s counters."""
+    D, B, T, H = _checked_bwd_shape(dys, gi, gh, hprev, w_hh)
+    return _launch_bwd(dys, gi, gh, hprev, w_hh,
+                       GRUPlan("steps", D * -(-H // _STEP_UNITS), _STEP_UNITS, 0))
+
+
+# the calls that launched the kernel, the device launches they issued (1 a
+# call on the persistent route, T on the steps route) and the time steps run
+gru_bwd_loop.launches = 0
+gru_bwd_loop.step_launches = 0
+gru_bwd_loop.time_steps = 0
+
+
+def gru_bwd_barrier_loop(D: int, B: int, T: int, H: int, device) -> None:
+    """The backward kernel's serial floor at (D, B, T, H): its persistent
+    grid and shared memory running the T - 1 per-direction barriers and
+    nothing else (the forward library's barrier kernel; to time, the main
+    path never calls it).  Raises if the shape takes the steps route."""
+    device = torch.device(device)
+    _barrier_loop(D, T, gru_bwd_plan(D, B, H, *device_limits(device)), device)
+
+
+def _gru_bwd(loop, dys, gi, hprev, w_hh, b_hh):
+    D, B, T, H = hprev.shape
+    gh = torch.matmul(hprev, w_hh[:, None]) + b_hh[:, None, None]  # [D, B, T, 3H]
+    dgi, dgh = loop(dys, gi, gh, hprev, w_hh)
     dw_hh = torch.matmul(hprev.reshape(D, B * T, H).transpose(1, 2), dgh.reshape(D, B * T, 3 * H))
     return dgi, dw_hh, dgh.sum(dim=(1, 2))
+
+
+def gru_bwd(dys: torch.Tensor, gi: torch.Tensor, hprev: torch.Tensor, w_hh: torch.Tensor,
+            b_hh: torch.Tensor):
+    """Backward of the recurrence, JAX's ``_gru_stacked_bwd``: dys, hprev
+    [D, B, T, H], gi [D, B, T, 3H], w_hh [D, H, 3H] f32, b_hh [D, 3H] ->
+    (dgi [D, B, T, 3H], dw_hh [D, H, 3H], db_hh [D, 3H]).
+
+    As in JAX, for both numerics, the gates are recomputed from the
+    forward's f32 ``hprev`` with the f32 ``w_hh`` (under "bf16" not the
+    bf16 copy the forward multiplied by): gh by one matmul for all T, then
+    the reverse loop ``gru_bwd_loop`` (the kernel on CUDA tensors), then
+    dw_hh and db_hh each as one large reduction."""
+    return _gru_bwd(gru_bwd_loop, dys, gi, hprev, w_hh, b_hh)
+
+
+def gru_bwd_plain(dys: torch.Tensor, gi: torch.Tensor, hprev: torch.Tensor,
+                  w_hh: torch.Tensor, b_hh: torch.Tensor):
+    """``gru_bwd`` with the plain loop ``gru_bwd_loop_plain`` on any device:
+    the backward's plain version."""
+    return _gru_bwd(gru_bwd_loop_plain, dys, gi, hprev, w_hh, b_hh)
 
 
 class GRURecurrence(torch.autograd.Function):
@@ -359,9 +537,9 @@ class GRURecurrence(torch.autograd.Function):
     w_hh [D, H, 3H] f32 (the parameters), b_hh [D, 3H] -> [D, B, T, H].  The
     forward is ``gru_fwd`` on a bf16 copy of ``w_hh`` made here ("bf16") or
     ``gru_fwd_f32`` on ``w_hh`` itself ("f32"): the kernel on CUDA tensors;
-    the backward ``gru_bwd_plain`` for both.  The gradients of the input
-    projection reach ``w_ih``, ``b_ih`` and x through the autograd of the
-    matmul that made ``gi``."""
+    the backward ``gru_bwd`` for both (its loop the kernel on CUDA tensors).
+    The gradients of the input projection reach ``w_ih``, ``b_ih`` and x
+    through the autograd of the matmul that made ``gi``."""
 
     @staticmethod
     def forward(ctx, gi, w_hh, b_hh, precision="bf16"):
@@ -378,7 +556,7 @@ class GRURecurrence(torch.autograd.Function):
         gi, ys, w_hh, b_hh = ctx.saved_tensors
         GRURecurrence.backward_calls += 1
         hprev = torch.cat([ys.new_zeros(ys.shape[:2] + (1, ys.shape[3])), ys[:, :, :-1]], dim=2)
-        return gru_bwd_plain(dys.contiguous(), gi, hprev, w_hh, b_hh) + (None,)
+        return gru_bwd(dys.contiguous(), gi, hprev, w_hh, b_hh) + (None,)
 
 
 # backward passes run, counted as gru_fwd counts its launches

@@ -24,7 +24,7 @@ from typing import Dict, Iterable
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
-KERNELS = ("fused_resblock", "gru_fwd", "mas", "flash_attn")
+KERNELS = ("fused_resblock", "gru_fwd", "gru_bwd", "mas", "flash_attn")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,7 +1,8 @@
-"""Measurements of the f32 BiGRU kernel on the card, beside ``chip_smoke.py``
-phase 5's.  From the repository root, on a machine with an NVIDIA GPU:
+"""Measurements of the f32 BiGRU kernels on the card, beside ``chip_smoke.py``
+phases 5 and 10.  From the repository root, on a machine with an NVIDIA GPU:
 
     python3 -m wavthruvec_pytorch_tpu_torch.tools.gru_f32 [--parent DIR] [--pairs N]
+        [--step train|long]...
 
 1. Where a step of the persistent f32 kernel goes: ``csrc/gru_fwd.cu`` is
    copied with ``%globaltimer`` stamps patched in by text at the phase
@@ -11,11 +12,14 @@ phase 5's.  From the repository root, on a machine with an NVIDIA GPU:
    directory, run at D = 2, H = 1024 and (B, T) in ``SHAPES``, and held
    against ``gru_fwd_plain``; prints microseconds a step.
 2. With ``--parent DIR`` (another commit's tree, e.g. ``git archive <rev> |
-   tar -x -C DIR``): ``chip_smoke.py`` phase 8's training step (B = 16 x
-   64 x 1024 on the demo config) of DIR's tree and of this one, in N
+   tar -x -C DIR``): a training step of DIR's tree and of this one, in N
    alternating pairs (parent, change, change, parent, ...), each run in a
-   fresh process in its own tree with its own kernel build; prints each
-   run's median step, its BiGRU launches and the medians of both sides.
+   fresh process in its own tree with its own kernel build, for each
+   ``--step``: ``train`` (the default), ``chip_smoke.py`` phase 8's step (B
+   = 16 x 64 x 1024 on the demo config); ``long``, phase 14's long-bucket
+   bf16 step (B = 16 x 768 x 3072).  Both run the BiGRU's forward and
+   backward kernels.  Prints each run's median step and launches, the
+   medians of both sides and the median of the pairs' differences.
 """
 
 from __future__ import annotations
@@ -133,36 +137,51 @@ def profile() -> None:
               + ", ".join(f"{n} {p:.3f}" for n, p in zip(PHASES, per)) + f"; sum {total:.3f}")
 
 
-_TRAIN = ("import torch, chip_smoke as cs\n"
+_SETUP = ("import torch, chip_smoke as cs\n"
           "torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False\n"
-          "cs.build_kernels()\n"
-          "cs.train(torch.device('cuda'))\n")
+          "cs.build_kernels()\n")
+# each --step: the script run in a tree, the step it times, and the label
+# of its launch line in chip_smoke's output
+STEPS = {
+    "train": (_SETUP + "cs.train(torch.device('cuda'))\n", "training step, B = 16 x 64 x 1024",
+              "the training path"),
+    "long": (_SETUP + "cs.train_long(torch.device('cuda'))\n",
+             "long-bucket bf16 step, B = 16 x 768 x 3072", "the long-bucket training"),
+}
 
 
-def ab(parent: str, pairs: int) -> None:
-    here = os.getcwd()
-    trees = {"parent": os.path.abspath(parent), "change": here}
+def ab(parent: str, pairs: int, step: str) -> None:
+    script, label, path = STEPS[step]
+    trees = {"parent": os.path.abspath(parent), "change": os.getcwd()}
     runs = {"parent": [], "change": []}
-    order = [("parent", "change") if i % 2 == 0 else ("change", "parent") for i in range(pairs)]
-    for name in (n for pair in order for n in pair):
-        out = subprocess.run([sys.executable, "-c", _TRAIN], cwd=trees[name], capture_output=True,
-                             text=True, timeout=900)
-        if out.returncode:
-            raise RuntimeError(f"{name} run failed:\n{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
-        step = re.search(r"training step: median ([\d.]+) ms", out.stdout)
-        launches = re.search(r"launches on the training path[^\n]*", out.stdout)
-        runs[name].append(float(step.group(1)))
-        print(f"  {name}: {step.group(1)} ms; {launches.group(0)[:160]}")
+    diffs = []
+    for i in range(pairs):
+        got = {}
+        for name in ("parent", "change") if i % 2 == 0 else ("change", "parent"):
+            out = subprocess.run([sys.executable, "-c", script], cwd=trees[name],
+                                 capture_output=True, text=True, timeout=900)
+            if out.returncode:
+                raise RuntimeError(f"{name} run failed:\n{out.stdout[-3000:]}\n"
+                                   f"{out.stderr[-3000:]}")
+            got[name] = float(re.search(r"step: median ([\d.]+) ms", out.stdout).group(1))
+            launches = re.search(f"launches on {path}[^\n]*", out.stdout)
+            runs[name].append(got[name])
+            print(f"  pair {i}: {name} {got[name]:.2f} ms; {launches.group(0)[:200]}", flush=True)
+        diffs.append(got["change"] - got["parent"])
     med = {k: sorted(v)[len(v) // 2] for k, v in runs.items()}
-    print(f"training step, B = 16 x 64 x 1024, {pairs} pairs: parent {runs['parent']} (median "
-          f"{med['parent']:.2f}), change {runs['change']} (median {med['change']:.2f}), change / "
-          f"parent {med['change'] / med['parent']:.4f}")
+    mdiff = sorted(diffs)[len(diffs) // 2]
+    print(f"{label}, {pairs} pairs: parent {runs['parent']} (median {med['parent']:.2f}), change "
+          f"{runs['change']} (median {med['change']:.2f}), change / parent "
+          f"{med['change'] / med['parent']:.4f}; change - parent by pair "
+          f"{[round(d, 2) for d in diffs]}, median {mdiff:.2f} ms", flush=True)
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--parent", default=None, help="another commit's tree: A/B its training step")
     p.add_argument("--pairs", type=int, default=5)
+    p.add_argument("--step", choices=sorted(STEPS), action="append",
+                   help="the step(s) to A/B (default: train)")
     a = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("gru_f32: PyTorch sees no CUDA device", file=sys.stderr)
@@ -172,7 +191,8 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=True).stdout.strip())
     profile()
     if a.parent:
-        ab(a.parent, a.pairs)
+        for step in a.step or ["train"]:
+            ab(a.parent, a.pairs, step)
     return 0
 
 

@@ -152,9 +152,9 @@ PROFILE_SPAN = "text2vec iteration"
 
 def step_kernels(cfg: Text2VecConfig) -> list:
     """The kernel libraries (``ops/kernel_build.py``) a training step launches:
-    the BiGRU forward and MAS, and flash attention where the config's flash
-    gate can pass at one of its buckets."""
-    names = ["gru_fwd", "mas"]
+    the BiGRU forward and backward and MAS, and flash attention where the
+    config's flash gate can pass at one of its buckets."""
+    names = ["gru_fwd", "gru_bwd", "mas"]
     d_k = cfg.decoder_model_dim // cfg.encoder_head  # both stacks take d_v == d_k
     if any(flash_gate(cfg.flash_attention, d_k, d_k, T)
            for T in tuple(cfg.text_buckets) + tuple(cfg.frame_buckets)):
