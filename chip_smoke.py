@@ -441,6 +441,28 @@ same attention work as its two heads of 224):
     seconds, the trace's spans (iterations 3-8) and device kernels counted,
     MAS, the f32 BiGRU and cuDNN's convolutions among them.
 
+Then the JAX package's orbax checkpoints, read without JAX by the port's own
+OCDBT, zarr and zstd readers (``orbax_format``), from the committed
+fixtures ``tests/fixtures/jax_orbax`` (``tests/make_jax_orbax_fixtures.py``
+writes them with the JAX package, on a machine that has it):
+
+49. The reader's seconds and MB/s of stored chunk bytes on this host, for
+    each fixture directory; one request served from the Text2Vec and
+    Generator variables (the fused Generator, as the command line serves),
+    its frame count equal and its latents and waveform within atol 1e-4
+    and 2e-4 of the JAX package's committed answer (``ORBAX_LATENT_ATOL``,
+    ``ORBAX_WAV_ATOL``), having launched ``fused_resblock``,
+    ``gru_fwd_f32`` and ``flash_fwd``; one Text2Vec training step resumed
+    from the fixture's ``T2VTrainState`` ``checkpoint_1`` (weights, LAMB
+    moments, learning rate 0.005 and step 1 carried; dropout 0), its
+    parameters held to the JAX package's committed next step at the
+    port's step-parity tolerance (``STEP_PARITY_ATOL``,
+    ``STEP_PARITY_SHARE``: ``tests/test_torch_train.py``) and its running
+    statistics within 1e-5, having launched ``gru_bwd``, ``mas``,
+    ``flash_bwd_dkv`` and ``flash_bwd_dq``.  None of ``JAX_MODULES``
+    (``jax``, ``jaxlib``, ``flax``, ``orbax``, ``tensorstore``,
+    ``ml_dtypes``, ``zstandard``, the JAX package) is imported afterwards.
+
 Every float32 product and convolution in this run is full float32: TF32 is
 off for matmuls and cuDNN.  Every Text2Vec config it drives but phase 3's
 "pallas" copy says ``gru_impl`` "scan", so their BiGRU is the f32 kernel
@@ -450,7 +472,8 @@ one entry per kernel (``serving_launches``: the launches of phases 22-24
 and 26; ``loop_launches``: those of phases 28-31; ``data_launches``: those
 of phases 32-36; ``tools_launches``: those of phases 37-41;
 ``parallel_launches``: those of phases 42-43 summed over the ranks;
-``bench_launches``: those of phase 44; the wide flash kernels' rows
+``bench_launches``: those of phase 44; ``orbax_launches``: those of phase
+49; the wide flash kernels' rows
 ``launches``: those of phase 47's timed steps, their times phase 45's at
 [16, 1, 3072, 448] bf16, f32_ keys at [1, 1, 3072, 448], f32_train_ keys
 (backward rows) at [``LONG_F32_B``, 1, 3072, 448]; a backward row's
@@ -5207,6 +5230,112 @@ def benches(dev, t2v_cfg=None, v2w_cfg=None, long_cfg=None, shapes=None) -> dict
     return counts
 
 
+# ---------------------------------------------------------------------------
+# The JAX package's orbax checkpoints (phase 49)
+# ---------------------------------------------------------------------------
+
+ORBAX_FIXTURES = repo_path("tests", "fixtures", "jax_orbax")
+ORBAX_DIRS = ("checkpoint_1", "t2v_variables", "gen_variables")
+ORBAX_LATENT_ATOL = 1e-4   # tests/test_torch_checkpoint.py's latent tolerance
+ORBAX_WAV_ATOL = 2e-4      # ROADMAP.md's Generator tolerance
+# the port's step-parity tolerance (tests/test_torch_train.py
+# test_step_running_stats_and_update): parameters within STEP_PARITY_ATOL of
+# JAX's in all but STEP_PARITY_SHARE of their elements, those within twice
+# the tensor's largest step; running statistics within STEP_PARITY_ATOL
+STEP_PARITY_ATOL, STEP_PARITY_SHARE = 1e-5, 1e-3
+JAX_MODULES = ("jax", "jaxlib", "flax", "orbax", "tensorstore", "ml_dtypes", "zstandard",
+               "wavthruvec_pytorch_tpu")
+
+
+def orbax_checkpoints(dev) -> dict:
+    """Phase 49: the launches of the served request and of the resumed
+    step, by kernel."""
+    t2v_cfg = load_config(Text2VecConfig, os.path.join(ORBAX_FIXTURES, "text2vec.json"))
+    v2w_cfg = load_config(Vec2WavConfig, os.path.join(ORBAX_FIXTURES, "vec2wav.json"))
+    want = np.load(os.path.join(ORBAX_FIXTURES, "expected.npz"))
+    for name in ORBAX_DIRS:
+        stats = {}
+        ckpt_module.restore_checkpoint(os.path.join(ORBAX_FIXTURES, name), stats)
+        print(f"phase 49: read {name}: {stats['bytes']} chunk bytes in {stats['seconds']:.4f} s, "
+              f"{stats['bytes'] / stats['seconds'] / 1e6:.3f} MB/s (this host's CPU)")
+
+    t2v_state, gen_state = init_import_models(
+        t2v_cfg, v2w_cfg, t2v_checkpoint=os.path.join(ORBAX_FIXTURES, "t2v_variables"),
+        gen_checkpoint=os.path.join(ORBAX_FIXTURES, "gen_variables"))
+    gen, gen_state = make_serving_generator(v2w_cfg, gen_state, "f32", device=dev)
+    synth = Synthesizer(t2v_cfg, v2w_cfg, t2v_state, gen_state,
+                        TextFrontend.from_vocab_file(repo_path("data", "demo", "vocab.txt")),
+                        device=dev, gen=gen)
+    reset_serving_counters()
+    with torch.inference_mode():
+        lat = synth.text_to_latents([str(want["text"])], want["ref"],
+                                    max_frames=t2v_cfg.frame_buckets[-1])
+        wav = synth.latents_to_wav(lat["feat_postnet_output"], want["spk"], noise=want["noise"])
+    torch.cuda.synchronize()
+    served = read_serving_counters()
+    frames = int(want["total_frames"][0])
+    n = frames * v2w_cfg.total_upsample
+    check(np.array_equal(lat["total_frames"], want["total_frames"]),
+          f"orbax serving: {lat['total_frames']} frames, JAX {want['total_frames']}")
+    lat_err = float(np.abs(lat["feat_postnet_output"][:, :frames] - want["latents"]).max())
+    wav_err = float(np.abs(wav[:, :n] - want["wav"]).max())
+    check(lat_err <= ORBAX_LATENT_ATOL, f"orbax serving: latents {lat_err:.3g} from JAX's")
+    check(wav_err <= ORBAX_WAV_ATOL, f"orbax serving: waveform {wav_err:.3g} from JAX's")
+    for name in ("fused_resblock", "gru_fwd_f32", "flash_fwd"):
+        check(served[name] > 0, f"orbax serving launched no {name}")
+    check(served["gru_fwd"] == 0, "orbax serving launched the bf16 BiGRU")
+    print(f"phase 49: served from the JAX variables: {int(want['total_frames'][0])} frames, "
+          f"latents {lat_err:.3g} (atol {ORBAX_LATENT_ATOL}), wav {wav_err:.3g} "
+          f"(atol {ORBAX_WAV_ATOL}) from the JAX package's; launches {served}")
+    del synth, gen
+
+    trainer = Text2VecTrainer(t2v_cfg, device=dev)
+    load_text2vec(os.path.join(ORBAX_FIXTURES, "checkpoint_1"), trainer)
+    check(trainer.step_count == int(want["step"]) and
+          abs(trainer.learning_rate - float(want["lr"])) <= 1e-9,
+          f"orbax resume: step {trainer.step_count}, lr {trainer.learning_rate}")
+    start = {k: p.detach().cpu().clone() for k, p in trainer.model.named_parameters()}
+    batch = {k[len("step_"):]: want[k] for k in want.files if k.startswith("step_")}
+    reset_counters()
+    trainer.step(batch)
+    torch.cuda.synchronize()
+    step_counts = read_counters()
+    for name in ("gru_bwd", "mas", "flash_bwd_dkv", "flash_bwd_dq"):
+        check(step_counts[name] > 0, f"orbax resumed step launched no {name}")
+    buffers = {k: b.cpu() for k, b in trainer.model.named_buffers()}
+    params = {k: p.detach().cpu() for k, p in trainer.model.named_parameters()}
+    n_off = n_all = n_stats = 0
+    worst_stat = 0.0
+    for key in want.files:
+        if not key.startswith("next/"):
+            continue
+        name, ref = key[len("next/"):], want[key]
+        if name.endswith(("running_mean", "running_var")):
+            worst_stat = max(worst_stat, float(np.abs(buffers[name].numpy() - ref).max()))
+            n_stats += 1
+        elif name in params:
+            diff = np.abs(params[name].numpy() - ref)
+            step = np.abs(ref - start[name].numpy())
+            off = diff > STEP_PARITY_ATOL
+            check(bool((diff[off] <= 2 * step.max() + STEP_PARITY_ATOL).all()),
+                  f"orbax resumed step: {name} past twice its largest step from JAX's")
+            n_off, n_all = n_off + int(off.sum()), n_all + diff.size
+    check(n_stats > 0 and n_all > 0 and worst_stat <= STEP_PARITY_ATOL,
+          f"orbax resumed step: running statistics {worst_stat:.3g} from JAX's")
+    check(n_off <= STEP_PARITY_SHARE * n_all,
+          f"orbax resumed step: {n_off} of {n_all} elements past {STEP_PARITY_ATOL}")
+    print(f"phase 49: one step resumed from the JAX T2VTrainState: {n_off} of {n_all} parameter "
+          f"elements beyond {STEP_PARITY_ATOL} of the JAX package's next step (at most "
+          f"{STEP_PARITY_SHARE:.1%} allowed), {n_stats} running statistics within "
+          f"{worst_stat:.3g}; launches {step_counts}")
+    loaded = [m for m in sys.modules if m.split(".")[0] in JAX_MODULES]
+    check(not loaded, f"phase 49 imported {loaded}")
+    counts = dict(served)
+    for name, value in step_counts.items():
+        counts[name] = counts.get(name, 0) + value
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: PyTorch sees no CUDA device; this script runs on an NVIDIA GPU",
@@ -5285,6 +5414,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     profile_t2v_loop(dev)
     print(f"phases 45-48: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    orbax = orbax_checkpoints(dev)
+    print(f"phase 49: {time.perf_counter() - t0:.1f} s")
 
     kernels = [
         dict(name="fused_resblock", route="cuda",
@@ -5330,6 +5463,7 @@ def main() -> int:
         kern["tools_launches"] = tools.get(kern["name"], 0)
         kern["parallel_launches"] = par.get(kern["name"], 0)
         kern["bench_launches"] = bench.get(kern["name"], 0)
+        kern["orbax_launches"] = orbax.get(kern["name"], 0)
     for kern in kernels:
         keys = ("ms", "plain_ms", "bound_ms") + (("f32_ms", "f32_plain_ms", "f32_bound_ms",
                                                    "f32_sdpa_bwd_ms")

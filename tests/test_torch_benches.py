@@ -9,6 +9,7 @@ import os
 
 import pytest
 
+from tests.torch_threads import share_cores  # noqa: F401  (autouse: the xdist worker's cores)
 from tests._torch_parallel_worker import torch_one_thread  # noqa: F401 (a fixture)
 from wavthruvec_pytorch_tpu_torch.config import Text2VecConfig, Vec2WavConfig, load_config
 from wavthruvec_pytorch_tpu_torch.infer import rtf_bench, serve_bench, train_bench

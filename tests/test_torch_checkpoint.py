@@ -14,6 +14,7 @@ random weights: its streamed audio equals its batched audio within 2e-5
 
 import io
 import os
+import re
 import sys
 
 import numpy as np
@@ -21,12 +22,20 @@ import pytest
 import torch
 from scipy.io import wavfile
 
+from tests.torch_threads import share_cores  # noqa: F401  (autouse: the xdist worker's cores)
 from tests.test_torch_synthesize import SYMBOLS, T2V, V2W, models  # noqa: F401  (fixture)
 from wavthruvec_pytorch_tpu import checkpoint as jckpt
 from wavthruvec_pytorch_tpu_torch import cli
-from wavthruvec_pytorch_tpu_torch.config import Text2VecConfig, Vec2WavConfig, repo_path
+from wavthruvec_pytorch_tpu_torch.config import Text2VecConfig, Vec2WavConfig, load_config, repo_path
 from wavthruvec_pytorch_tpu_torch.infer.synthesize import Synthesizer, init_import_models
+from wavthruvec_pytorch_tpu_torch.models.text2vec import Text2Vec
+from wavthruvec_pytorch_tpu_torch.models.vec2wav import Generator
 from wavthruvec_pytorch_tpu_torch.text import TextFrontend
+
+FIXTURES = repo_path("tests", "fixtures", "jax_orbax")
+# the JAX command line's subcommands, as its main() dispatches them
+with open(repo_path("wavthruvec_pytorch_tpu", "cli.py"), encoding="utf-8") as _f:
+    JAX_SUBCOMMANDS = sorted(set(re.findall(r'cmd == "([a-z0-9-]+)"', _f.read())))
 
 TINY = ["--t2v_config", repo_path("data", "demo", "text2vec_tiny.json"),
         "--v2w_config", repo_path("data", "demo", "vec2wav_tiny.json"), "--device", "cpu"]
@@ -58,10 +67,24 @@ def test_reference_files_load_strict_and_give_the_same_wav(tmp_path, models):
 
 
 def test_orbax_directory_raises(tmp_path):
-    t2v_cfg, v2w_cfg = Text2VecConfig(**T2V), Vec2WavConfig(**V2W)
-    for kw in ({"t2v_checkpoint": str(tmp_path)}, {"gen_checkpoint": str(tmp_path)}):
-        with pytest.raises(NotImplementedError, match="export-torch"):
+    """An orbax directory of the JAX package: Text2Vec and Generator
+    variables load (those of ``tests/fixtures/jax_orbax``, strictly into the
+    port's models), a training state raises as the JAX package's restore
+    into variables does, naming the port's ``export-torch``, and a directory
+    that is no orbax checkpoint raises."""
+    t2v_cfg = load_config(Text2VecConfig, os.path.join(FIXTURES, "text2vec.json"))
+    v2w_cfg = load_config(Vec2WavConfig, os.path.join(FIXTURES, "vec2wav.json"))
+    t2v_state, gen_state = init_import_models(
+        t2v_cfg, v2w_cfg, t2v_checkpoint=os.path.join(FIXTURES, "t2v_variables"),
+        gen_checkpoint=os.path.join(FIXTURES, "gen_variables"))
+    Text2Vec(t2v_cfg, device="cpu").load_state_dict(t2v_state, strict=True)
+    Generator(v2w_cfg, device="cpu").load_state_dict(gen_state, strict=True)
+    train_state = os.path.join(FIXTURES, "checkpoint_1")
+    for kw in ({"t2v_checkpoint": train_state}, {"gen_checkpoint": train_state}):
+        with pytest.raises(ValueError, match="training state.*export-torch"):
             init_import_models(t2v_cfg, v2w_cfg, **kw)
+    with pytest.raises(ValueError, match="_METADATA"):
+        init_import_models(t2v_cfg, v2w_cfg, t2v_checkpoint=str(tmp_path))
 
 
 def test_random_weights_are_seeded():
@@ -176,11 +199,16 @@ def test_cli_gru_impl_scan_synthesizes(tmp_path, monkeypatch):
     np.testing.assert_allclose(got, ref_lat, atol=1e-4)
 
 
-@pytest.mark.parametrize("cmd", sorted(cli.NOT_PORTED))
+@pytest.mark.parametrize("cmd", JAX_SUBCOMMANDS)
 def test_cli_unported_subcommands_exit_nonzero(cmd, capsys):
-    assert cli.main([cmd, "--help"]) == 2
-    err = capsys.readouterr().err
-    assert "not ported" in err and "ROADMAP.md, queue 1 item" in err
+    """No subcommand of the JAX command line is left unported (the port's
+    table of unported ones is gone): the port's ``cli.main`` dispatches each
+    of them, whose ``--help`` prints its flags and exits with 0, where an
+    unknown command returns 1."""
+    with pytest.raises(SystemExit) as e:
+        cli.main([cmd, "--help"])
+    assert e.value.code == 0
+    assert "usage:" in capsys.readouterr().out
 
 
 def test_cli_runs_on_the_card_unless_asked(tmp_path, monkeypatch):

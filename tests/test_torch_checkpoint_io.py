@@ -28,6 +28,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests.torch_threads import share_cores  # noqa: F401  (autouse: the xdist worker's cores)
 from wavthruvec_pytorch_tpu import checkpoint as jckpt
 from wavthruvec_pytorch_tpu.config import Text2VecConfig as JT2V
 from wavthruvec_pytorch_tpu.config import Vec2WavConfig as JV2W

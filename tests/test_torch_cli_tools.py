@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import share_cores  # noqa: F401  (autouse: the xdist worker's cores)
 from tests.test_ingest_featurizer import TINY_W2V
 from wavthruvec_pytorch_tpu_torch import cli
 from wavthruvec_pytorch_tpu_torch.config import Text2VecConfig, load_config, repo_path
@@ -76,8 +77,13 @@ def test_cli_ported_tools_run_on_cpu(cmd, tmp_path):
 
 
 def test_only_export_torch_is_not_ported():
-    assert sorted(cli.NOT_PORTED) == ["export-torch"]
-    assert "orbax" in cli.NOT_PORTED["export-torch"]
+    """Every subcommand is ported now, ``export-torch`` last: the table of
+    unported ones is gone and ``export-torch`` takes the JAX command's
+    flags."""
+    assert not hasattr(cli, "NOT_PORTED")
+    with pytest.raises(SystemExit) as e:
+        cli.main(["export-torch", "--help"])
+    assert e.value.code == 0
 
 
 def test_prepare_data_needs_weights(tmp_path):

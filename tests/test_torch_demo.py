@@ -8,6 +8,7 @@ import os
 
 import pytest
 
+from tests.torch_threads import share_cores  # noqa: F401  (autouse: the xdist worker's cores)
 from wavthruvec_pytorch_tpu_torch import cli
 from wavthruvec_pytorch_tpu_torch.config import Text2VecConfig, Vec2WavConfig, load_config
 from wavthruvec_pytorch_tpu_torch.data.demo import make_demo_data

@@ -16,6 +16,7 @@ import pytest
 import torch
 from scipy.io import wavfile
 
+from tests.torch_threads import share_cores  # noqa: F401  (autouse: the xdist worker's cores)
 from tests.test_models import T2V_SMALL, V2W_SMALL
 from wavthruvec_pytorch_tpu.data.dataset import BucketedLoader as JBucketedLoader
 from wavthruvec_pytorch_tpu.data.dataset import load_buffer as jax_load_buffer

@@ -19,6 +19,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests.torch_threads import share_cores  # noqa: F401  (autouse: the xdist worker's cores)
 from tests.test_torch_train import JCFG, _init_params, _items, _randomize_stats
 from wavthruvec_pytorch_tpu.models import ecapa as jecapa
 from wavthruvec_pytorch_tpu.models import losses as jlosses

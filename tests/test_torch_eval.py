@@ -15,6 +15,7 @@ import torch
 
 import jax
 
+from tests.torch_threads import share_cores  # noqa: F401  (autouse: the xdist worker's cores)
 from tests.test_torch_train import JCFG
 from wavthruvec_pytorch_tpu_torch import cli, weights
 from wavthruvec_pytorch_tpu_torch.config import Text2VecConfig, repo_path

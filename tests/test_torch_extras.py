@@ -10,6 +10,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests.torch_threads import share_cores  # noqa: F401  (autouse: the xdist worker's cores)
 from tests.test_torch_train import _randomize_stats
 from wavthruvec_pytorch_tpu.models.ecapa_lawlict import ECAPA_TDNN_Lawlict as JLawlict
 from wavthruvec_pytorch_tpu.models.extras import PostNet as JPostNet

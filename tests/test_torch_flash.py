@@ -29,6 +29,7 @@ from jax.experimental.pallas.ops.tpu.flash_attention import (
     mha_reference_no_custom_vjp,
 )
 
+from tests.torch_threads import share_cores  # noqa: F401  (autouse: the xdist worker's cores)
 from wavthruvec_pytorch_tpu.models.fft_block import FFTBlock as JFFT
 from wavthruvec_pytorch_tpu_torch import weights
 from wavthruvec_pytorch_tpu_torch.config import Text2VecConfig, load_config, repo_path

@@ -1,6 +1,7 @@
 """The port's GAN modules against the JAX package's on the CPU: the
 spectral-norm and 2-D weight-norm layers, both discriminators, the
-train-mode Generator and the losses.  The same numpy inputs go through
+train-mode Generator and the losses (the loop on the CPU:
+``test_torch_gan_loop.py``).  The same numpy inputs go through
 both; JAX weights are carried into the port by ``weights.py``.
 
 Tolerances (f32 on both sides, sums in another order): layers' outputs and
@@ -11,9 +12,7 @@ the JAX package's Generator/MPD/MSD torch-parity tolerance
 statistics and spectral vectors atol 1e-5; the losses rtol 1e-6.
 """
 
-import dataclasses
 import os
-import sys
 
 import numpy as np
 import pytest
@@ -22,17 +21,18 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests.torch_threads import share_cores  # noqa: F401  (autouse: the xdist worker's cores)
 from wavthruvec_pytorch_tpu import checkpoint as ckpt
 from wavthruvec_pytorch_tpu.config import Vec2WavConfig as JV2W
 from wavthruvec_pytorch_tpu.models import layers as jl
 from wavthruvec_pytorch_tpu.models import vec2wav as jv
 from wavthruvec_pytorch_tpu_torch import weights
-from wavthruvec_pytorch_tpu_torch.config import Vec2WavConfig, load_config
+from wavthruvec_pytorch_tpu_torch.config import Vec2WavConfig
 from wavthruvec_pytorch_tpu_torch.models import layers as tl
 from wavthruvec_pytorch_tpu_torch.models import vec2wav as tv
 from wavthruvec_pytorch_tpu_torch.ops.fused_resblock import fused_conv_residual
 from wavthruvec_pytorch_tpu_torch.train import vec2wav_loop
-from wavthruvec_pytorch_tpu_torch.train.vec2wav_train import SCALAR_KEYS, GANTrainer
+from wavthruvec_pytorch_tpu_torch.train.vec2wav_train import GANTrainer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 V2W_SMALL = dict(n_feat_dim=24, num_wv_feat=24, spk_dim=8, noise_dim=8,
@@ -315,19 +315,3 @@ def test_gan_entry_points_raise_without_gpu(monkeypatch):
                                             cfg=cfg)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build()
-
-
-def test_vec2wav_loop_cpu(monkeypatch, tmp_path):
-    """``vec2wav_loop.main`` for 3 steps with the tiny demo config on the
-    CPU (its run directory under a temporary one, its scalars to JSONL):
-    finite scalars, over two epochs' lr (batch size 5 of 10 items)."""
-    monkeypatch.chdir(REPO)
-    # the JSONL logger: TensorBoard's import would load TensorFlow where it is installed
-    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
-    cfg = dataclasses.replace(load_config(Vec2WavConfig, "data/demo/vec2wav_tiny.json"),
-                              batch_size=5, run_path=str(tmp_path))
-    history = vec2wav_loop.main(vec2wav_loop.parse_args(["--max_steps", "3", "--device", "cpu"]),
-                                cfg=cfg).steps
-    assert len(history) == 3
-    assert all(set(h) == set(SCALAR_KEYS) and all(np.isfinite(list(h.values())))
-               for h in history.values())

@@ -46,6 +46,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests.torch_threads import share_cores  # noqa: F401  (autouse: the xdist worker's cores)
 from tests.test_torch_gan_step import CFG, JCFG, _np
 from wavthruvec_pytorch_tpu.checkpoint import (
     import_vec2wav_generator,

@@ -31,6 +31,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests.torch_threads import share_cores  # noqa: F401  (autouse: the xdist worker's cores)
 from tests.test_models import V2W_SMALL
 from wavthruvec_pytorch_tpu.ops.stft import mel_spectrogram as jax_mel
 from wavthruvec_pytorch_tpu.models.vec2wav import (

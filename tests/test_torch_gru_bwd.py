@@ -22,6 +22,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests.torch_threads import share_cores  # noqa: F401  (autouse: the xdist worker's cores)
 from wavthruvec_pytorch_tpu.models import layers as jl
 from wavthruvec_pytorch_tpu_torch.ops import gru, kernel_build
 

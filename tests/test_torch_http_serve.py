@@ -15,6 +15,7 @@ import wave
 import numpy as np
 import pytest
 
+from tests.torch_threads import share_cores  # noqa: F401  (autouse: the xdist worker's cores)
 from tests.test_torch_serve import make_synth, mk_speakers
 from wavthruvec_pytorch_tpu_torch.infer.http_serve import (
     SynthesisService,

@@ -11,6 +11,7 @@ import pytest
 
 import jax
 
+from tests.torch_threads import share_cores  # noqa: F401  (autouse: the xdist worker's cores)
 from tests.test_ingest_featurizer import TINY_W2V
 from wavthruvec_pytorch_tpu_torch import weights
 from wavthruvec_pytorch_tpu_torch.data import ingest

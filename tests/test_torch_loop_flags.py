@@ -17,6 +17,7 @@ from unittest import mock
 
 import pytest
 
+from tests.torch_threads import share_cores  # noqa: F401  (autouse: the xdist worker's cores)
 from tests.test_torch_checkpoint_io import one_torch_thread  # noqa: F401 (autouse)
 from wavthruvec_pytorch_tpu.train import text2vec_loop as jt2v_loop
 from wavthruvec_pytorch_tpu.train import vec2wav_loop as jv2w_loop

@@ -16,6 +16,7 @@ import torch
 
 import jax.numpy as jnp
 
+from tests.torch_threads import share_cores  # noqa: F401  (autouse: the xdist worker's cores)
 from wavthruvec_pytorch_tpu.ops.mas import mas_width1_batched, mas_width1_numpy
 from wavthruvec_pytorch_tpu.ops.mas_pallas import mas_width1_pallas
 from wavthruvec_pytorch_tpu_torch.ops.mas import (

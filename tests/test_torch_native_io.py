@@ -13,6 +13,7 @@ import os
 import numpy as np
 import pytest
 
+from tests.torch_threads import share_cores  # noqa: F401  (autouse: the xdist worker's cores)
 from tests.test_torch_train import JCFG
 from wavthruvec_pytorch_tpu.data import native_io as jax_native_io
 from wavthruvec_pytorch_tpu.data.dataset import load_buffer as jax_load_buffer

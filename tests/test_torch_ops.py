@@ -12,6 +12,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests.torch_threads import share_cores  # noqa: F401  (autouse: the xdist worker's cores)
 from wavthruvec_pytorch_tpu.models.layers import BiGRU as JaxBiGRU
 from wavthruvec_pytorch_tpu.ops import length_regulator as jlr
 from wavthruvec_pytorch_tpu.ops import masking as jmask

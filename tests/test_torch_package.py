@@ -22,6 +22,7 @@ import sys
 import pytest
 import torch
 
+from tests.torch_threads import share_cores  # noqa: F401  (autouse: the xdist worker's cores)
 import wavthruvec_pytorch_tpu_torch as port
 from wavthruvec_pytorch_tpu_torch.config import Text2VecConfig, Vec2WavConfig, check_ported
 from wavthruvec_pytorch_tpu_torch.entry import entry
@@ -37,7 +38,8 @@ from wavthruvec_pytorch_tpu_torch.train.vec2wav_train import GANTrainer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_DIR = os.path.dirname(os.path.abspath(port.__file__))
-FORBIDDEN = ("jax", "flax", "wavthruvec_pytorch_tpu")
+FORBIDDEN = ("jax", "flax", "wavthruvec_pytorch_tpu", "orbax", "tensorstore", "ml_dtypes",
+             "zstandard")
 
 TINY_T2V = dict(n_feat_dim=16, spk_channel=16, n_speaker_dim=8, vocab_size=20,
                 max_seq_len=32, encoder_dim=8, encoder_n_layer=1,

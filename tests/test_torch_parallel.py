@@ -29,6 +29,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests.torch_threads import share_cores  # noqa: F401  (autouse: the xdist worker's cores)
 from tests import _torch_parallel_worker as worker
 from tests._torch_parallel_worker import torch_one_thread  # noqa: F401 (a fixture)
 from tests.test_torch_device_cache import t2v_corpus  # noqa: F401 (a fixture)

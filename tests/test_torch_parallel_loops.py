@@ -17,6 +17,7 @@ import os
 import numpy as np
 import torch
 
+from tests.torch_threads import share_cores  # noqa: F401  (autouse: the xdist worker's cores)
 from tests import _torch_parallel_worker as worker
 from tests._torch_parallel_worker import torch_one_thread  # noqa: F401 (a fixture)
 from wavthruvec_pytorch_tpu_torch.config import Text2VecConfig, Vec2WavConfig, load_config

@@ -7,6 +7,7 @@ import time
 
 import pytest
 
+from tests.torch_threads import share_cores  # noqa: F401  (autouse: the xdist worker's cores)
 from wavthruvec_pytorch_tpu_torch.data.prefetch import DEPTH, PrefetchIterator, prefetched
 
 

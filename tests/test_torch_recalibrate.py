@@ -20,6 +20,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests.torch_threads import share_cores  # noqa: F401  (autouse: the xdist worker's cores)
 from tests.test_models import T2V_SMALL, V2W_SMALL
 from tests.test_torch_train import _randomize_stats
 from wavthruvec_pytorch_tpu import checkpoint as jckpt

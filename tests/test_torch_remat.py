@@ -19,6 +19,7 @@ import torch
 
 import jax
 
+from tests.torch_threads import share_cores  # noqa: F401  (autouse: the xdist worker's cores)
 from tests._torch_parallel_worker import torch_one_thread  # noqa: F401 (a fixture)
 from tests.test_torch_train import (
     CFG,

@@ -22,6 +22,7 @@ import pytest
 import torch
 from scipy.io import wavfile
 
+from tests.torch_threads import share_cores  # noqa: F401  (autouse: the xdist worker's cores)
 from tests.test_serve import _parse_pcm
 from tests.test_torch_synthesize import SYMBOLS, T2V, V2W, models  # noqa: F401  (fixture)
 from wavthruvec_pytorch_tpu.infer import serve as jserve

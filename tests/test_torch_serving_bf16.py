@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import share_cores  # noqa: F401  (autouse: the xdist worker's cores)
 from tests.test_torch_serve import make_synth
 from wavthruvec_pytorch_tpu.config import Vec2WavConfig as JV2W
 from wavthruvec_pytorch_tpu.infer.synthesize import make_serving_generator as jax_serving_generator

@@ -11,6 +11,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests.torch_threads import share_cores  # noqa: F401  (autouse: the xdist worker's cores)
 from tests.test_torch_train import _randomize_stats
 from wavthruvec_pytorch_tpu.data import spk_emb as jspk
 from wavthruvec_pytorch_tpu.models import ecapa_speechbrain as jsb

@@ -18,6 +18,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests.torch_threads import share_cores  # noqa: F401  (autouse: the xdist worker's cores)
 from wavthruvec_pytorch_tpu.config import Vec2WavConfig as JV2W
 from wavthruvec_pytorch_tpu.config import load_config as jax_load_config
 from wavthruvec_pytorch_tpu.data import vocoder_data as jdata

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import share_cores  # noqa: F401  (autouse: the xdist worker's cores)
 from wavthruvec_pytorch_tpu.config import Vec2WavConfig as JV2W
 from wavthruvec_pytorch_tpu.infer.streaming import StreamingVocoder as JStreamingVocoder
 from wavthruvec_pytorch_tpu.infer.streaming import (

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 import jax
 import jax.numpy as jnp
 
+from tests.torch_threads import share_cores  # noqa: F401  (autouse: the xdist worker's cores)
 from tests.test_torch_gan import _compare_outputs, _np, _t, _waves
 from wavthruvec_pytorch_tpu.checkpoint import import_vec2wav_msd
 from wavthruvec_pytorch_tpu.models import vec2wav as jv

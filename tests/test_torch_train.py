@@ -24,6 +24,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests.torch_threads import share_cores  # noqa: F401  (autouse: the xdist worker's cores)
 from tests.test_models import T2V_SMALL
 from wavthruvec_pytorch_tpu.data.prior import beta_binomial_prior_distribution as jax_prior
 from wavthruvec_pytorch_tpu.models import layers as jl

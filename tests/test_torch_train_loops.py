@@ -25,6 +25,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests.torch_threads import share_cores  # noqa: F401  (autouse: the xdist worker's cores)
 from tests.test_torch_checkpoint_io import one_torch_thread  # noqa: F401 (autouse)
 from tests.test_torch_train import JCFG, _init_params, _items, _randomize_stats
 from wavthruvec_pytorch_tpu.config import Vec2WavConfig as JV2W
@@ -46,6 +47,7 @@ from wavthruvec_pytorch_tpu_torch.config import (
 )
 from wavthruvec_pytorch_tpu_torch.data.dataset import BucketedLoader
 from wavthruvec_pytorch_tpu_torch.data.vocoder_data import VocoderDataset, get_dataset_filelist
+from wavthruvec_pytorch_tpu_torch.models.text2vec import Text2Vec
 from wavthruvec_pytorch_tpu_torch.models.vec2wav import Generator
 from wavthruvec_pytorch_tpu_torch.train import text2vec_loop, vec2wav_loop
 from wavthruvec_pytorch_tpu_torch.train.text2vec_train import VAL_KEYS, Text2VecTrainer
@@ -373,12 +375,23 @@ def test_cli_train_subcommands(cmd, monkeypatch, tmp_path, jsonl_logger):
     save_config(cfg, path)
     assert cli.main([cmd, "--config", path, "--max_steps", "1", "--device", "cpu"]) == 0
     assert want in os.listdir(cfg.checkpoint_path)
-    assert cmd not in cli.NOT_PORTED
 
 
-def test_cli_export_torch_names_the_port_files(capsys):
-    assert cli.main(["export-torch"]) == 2
-    assert "already the torch reference's files" in capsys.readouterr().err
+def test_cli_export_torch_names_the_port_files(tmp_path, capsys):
+    """``cli export-torch --stage t2v`` on the JAX package's committed
+    ``T2VTrainState`` (``tests/fixtures/jax_orbax/checkpoint_1``) writes
+    ``checkpoint_1.pth.tar``, names it, and the file loads strictly into
+    the port's Text2Vec."""
+    fixtures = os.path.join(REPO, "tests", "fixtures", "jax_orbax")
+    out = str(tmp_path / "checkpoint_1.pth.tar")
+    assert cli.main(["export-torch", "--stage", "t2v", "--checkpoint",
+                     os.path.join(fixtures, "checkpoint_1"), "--config",
+                     os.path.join(fixtures, "text2vec.json"), "--out", out]) == 0
+    assert f"wrote {out}" in capsys.readouterr().out
+    obj = torch.load(out, map_location="cpu", weights_only=False)
+    assert sorted(obj) == ["epoch", "learning_rate", "model", "optimizer"]
+    cfg = load_config(Text2VecConfig, os.path.join(fixtures, "text2vec.json"))
+    Text2Vec(cfg, device="cpu").load_state_dict(obj["model"], strict=True)
 
 
 @pytest.mark.parametrize("value,want", [("True", True), ("true", True), ("1", True),

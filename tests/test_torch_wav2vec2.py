@@ -15,6 +15,7 @@ import torch
 
 import jax
 
+from tests.torch_threads import share_cores  # noqa: F401  (autouse: the xdist worker's cores)
 from tests.test_ingest_featurizer import TINY_W2V
 from wavthruvec_pytorch_tpu_torch import weights
 from wavthruvec_pytorch_tpu_torch.data.ingest import Wav2VecFeaturizer

@@ -12,6 +12,7 @@ serving front ends, and the data-preparation and model-upkeep commands:
     python -m wavthruvec_pytorch_tpu_torch.cli make-demo-data [--root ./data/demo]
     python -m wavthruvec_pytorch_tpu_torch.cli recalibrate-bn --t2v_checkpoint ... --filelist ...
     python -m wavthruvec_pytorch_tpu_torch.cli recalibrate-bn --generator_checkpoint ... --filelist ...
+    python -m wavthruvec_pytorch_tpu_torch.cli export-torch --stage t2v|v2w --checkpoint DIR
 
 The flags are the JAX package's (the training commands take their loop's,
 ``train/text2vec_loop.py`` and ``train/vec2wav_loop.py``, and
@@ -20,10 +21,13 @@ card; pass ``--device cpu`` to run the kernels' plain versions on the CPU)
 and, for ``synthesize``, ``--t2v_config`` / ``--v2w_config`` as the serving
 commands have them.  Checkpoints are the torch reference's files
 (``checkpoint_{step}.pth.tar``, ``g_XXXXXXXX``), which the training loops
-write; without one a model takes seeded random weights.  Pretrained
-wav2vec 2.0 and SpeechBrain weights are read from local paths only.
-``export-torch`` is not ported: it exits with status 2 and names its
-ROADMAP.md item.
+write, or the JAX package's orbax directories, read without JAX
+(``orbax_format``): variables for serving, ``eval-text2vec`` and
+``recalibrate-bn``, training states for the loops' resume and for
+``export-torch``, which writes the reference's files from one as the JAX
+package's ``export-torch`` does.  Without a checkpoint a model takes seeded
+random weights.  Pretrained wav2vec 2.0 and SpeechBrain weights are read
+from local paths only.
 """
 
 from __future__ import annotations
@@ -32,15 +36,6 @@ import argparse
 import dataclasses
 import os
 import sys
-
-# the JAX subcommands that are not ported, and where ROADMAP.md queues them
-NOT_PORTED = {
-    "export-torch": "queue 1 item 11 (the port's own checkpoints are already the torch "
-                    "reference's files; what remains is the orbax route: reading an orbax "
-                    "checkpoint of the JAX package needs orbax, a JAX library, so the JAX "
-                    "package's own export-torch converts it)",
-}
-
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
@@ -76,10 +71,8 @@ def main(argv=None) -> int:
         return _make_demo_data(rest)
     if cmd == "recalibrate-bn":
         return _recalibrate_bn(rest)
-    if cmd in NOT_PORTED:
-        print(f"{cmd} is not ported to wavthruvec_pytorch_tpu_torch yet: ROADMAP.md, "
-              f"{NOT_PORTED[cmd]}.", file=sys.stderr)
-        return 2
+    if cmd == "export-torch":
+        return _export_torch(rest)
     print(f"unknown command: {cmd}\n{__doc__}", file=sys.stderr)
     return 1
 
@@ -90,9 +83,11 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--v2w_config", default="",
                    help="Vec2WavConfig JSON (e.g. data/demo/vec2wav_tiny.json)")
     p.add_argument("--t2v_checkpoint", default=None,
-                   help="the reference's checkpoint_{step}.pth.tar (key 'model')")
+                   help="the reference's checkpoint_{step}.pth.tar (key 'model'), or the JAX "
+                   "package's orbax Text2Vec variables directory")
     p.add_argument("--gen_checkpoint", default=None,
-                   help="the reference's g_XXXXXXXX (key 'generator')")
+                   help="the reference's g_XXXXXXXX (key 'generator'), or the JAX package's "
+                   "orbax Generator variables directory")
     p.add_argument("--vocab_path", default="./data/vocab.txt")
     p.add_argument("--alpha", type=float, default=1.0)
     p.add_argument("--max_frames", type=int, default=0,
@@ -378,11 +373,17 @@ def _recalibrate_bn(rest) -> int:
     (``g_XXXXXXXX``, key ``generator``) the Generator's Conditional
     BatchNorms.  The output, ``{out}/`` + the input's file name, carries
     every other entry of the input unchanged (a Text2Vec file's optimizer
-    state, learning rate and epoch), so it resumes as the input would."""
+    state, learning rate and epoch), so it resumes as the input would.  An
+    input that is the JAX package's orbax variables directory (what the JAX
+    command writes) is written as the torch reference's file, which the
+    port and the JAX package's importers load: ``checkpoint_{step}.pth.tar``
+    (with an optimizer stub at the config's learning rate) or
+    ``g_{step:08d}``, the step from the directory's name (0 without one)."""
     import numpy as np
     import torch
 
-    from wavthruvec_pytorch_tpu_torch.checkpoint import _load, _save
+    from wavthruvec_pytorch_tpu_torch import checkpoint as ckpt
+    from wavthruvec_pytorch_tpu_torch.checkpoint import _save
     from wavthruvec_pytorch_tpu_torch.config import Text2VecConfig, Vec2WavConfig, load_config
     from wavthruvec_pytorch_tpu_torch.data.vocoder_data import load_spk_emb
     from wavthruvec_pytorch_tpu_torch.infer.recalibrate import (
@@ -395,8 +396,12 @@ def _recalibrate_bn(rest) -> int:
     from wavthruvec_pytorch_tpu_torch.text import TextFrontend
 
     p = argparse.ArgumentParser()
-    p.add_argument("--t2v_checkpoint", default="", help="the reference's checkpoint_{step}.pth.tar")
-    p.add_argument("--generator_checkpoint", default="", help="the reference's g_XXXXXXXX")
+    p.add_argument("--t2v_checkpoint", default="",
+                   help="the reference's checkpoint_{step}.pth.tar, or the JAX package's orbax "
+                   "Text2Vec variables directory")
+    p.add_argument("--generator_checkpoint", default="",
+                   help="the reference's g_XXXXXXXX, or the JAX package's orbax Generator "
+                   "variables directory")
     p.add_argument("--filelist", required=True,
                    help="npy|text|spk calibration lines (e.g. the val list)")
     p.add_argument("--feat_root", default="", help="root of the filelist's npy paths")
@@ -414,13 +419,21 @@ def _recalibrate_bn(rest) -> int:
     p.add_argument("--seed", type=int, default=1234,
                    help="generator: the seed of the CBN noise (a CPU torch.Generator)")
     p.add_argument("--out", required=True,
-                   help="output directory; the file keeps the input's name")
+                   help="output directory; the file keeps the input's name.  Where the JAX "
+                   "command writes an orbax directory, this one writes the torch reference's "
+                   "file: from an orbax variables input, checkpoint_{step}.pth.tar or "
+                   "g_{step:08d} (the step from the input's name)")
     p.add_argument("--device", default=None, help="default: the card (cuda)")
     a = p.parse_args(rest)
     if bool(a.t2v_checkpoint) == bool(a.generator_checkpoint):
         p.error("pass exactly one of --t2v_checkpoint / --generator_checkpoint")
     src = a.t2v_checkpoint or a.generator_checkpoint
-    out_path = os.path.join(a.out, os.path.basename(src))
+    from_orbax = os.path.isdir(src)
+    step = max(ckpt.checkpoint_step(src), 0)
+    name = os.path.basename(os.path.normpath(src))
+    if from_orbax:
+        name = f"checkpoint_{step}.pth.tar" if a.t2v_checkpoint else f"g_{step:08d}"
+    out_path = os.path.join(a.out, name)
     if os.path.abspath(out_path) == os.path.abspath(src):
         p.error(f"--out would overwrite the input {src}")
     rows = _parse_filelist(a.filelist, a.max_items)
@@ -428,13 +441,14 @@ def _recalibrate_bn(rest) -> int:
     def featpath(npy):
         return os.path.join(a.feat_root, npy) if a.feat_root else npy
 
-    obj = _load(src)
     if a.t2v_checkpoint:
         if a.config:
             cfg = load_config(Text2VecConfig, a.config)
         else:
             cfg = Text2VecConfig(vocab_path=a.vocab_path,
                                  vocab_size=TextFrontend.from_vocab_file(a.vocab_path).vocab_size)
+        obj = (ckpt.reference_text2vec(ckpt.load_torch_state_dict(src, key="model", cfg=cfg), cfg)
+               if from_orbax else ckpt._load(src))
         frontend = TextFrontend.from_vocab_file(cfg.vocab_path)
         t2v = Text2Vec(cfg, device=a.device)
         t2v.load_state_dict(obj["model"], strict=True)
@@ -448,6 +462,8 @@ def _recalibrate_bn(rest) -> int:
         return 0
 
     cfg = load_config(Vec2WavConfig, a.config) if a.config else Vec2WavConfig()
+    obj = ({"generator": ckpt.load_torch_state_dict(src, key="generator", cfg=cfg)}
+           if from_orbax else ckpt._load(src))
     gen = Generator(cfg, device=a.device)
     gen.load_state_dict(obj["generator"], strict=True)
 
@@ -482,6 +498,52 @@ def _recalibrate_bn(rest) -> int:
     _save({**obj, "generator": gen.state_dict()}, out_path)
     print(f"recalibrated Generator CBN stats over {len(keep)} items ({len(batches)} batches) "
           f"-> {out_path}")
+    return 0
+
+
+def _export_torch(rest) -> int:
+    """The JAX package's ``export-torch``, without JAX: an orbax training
+    state of the JAX package as the torch reference's files, keys and
+    values equal to what the JAX command writes from the same directory.
+
+    * t2v (a ``T2VTrainState``): ``checkpoint_{step}.pth.tar`` = {model,
+      optimizer, learning_rate, epoch};
+    * v2w (a ``GANTrainState``): ``g_{step:08d}`` {generator} and
+      ``do_{step:08d}`` {mpd, msd, optim_g, optim_d, steps, epoch}.
+
+    As in the JAX command the optimizer entries are stubs at the config's
+    learning rate with empty state: the LAMB and AdamW moments are not
+    written.  The port's loops resume from the directory itself, moments
+    included (``train-text2vec --restore_step``, ``train-vec2wav``)."""
+    from wavthruvec_pytorch_tpu_torch import checkpoint as ckpt
+    from wavthruvec_pytorch_tpu_torch.config import Text2VecConfig, Vec2WavConfig, load_config
+
+    p = argparse.ArgumentParser()
+    p.add_argument("--stage", required=True, choices=("t2v", "v2w"))
+    p.add_argument("--checkpoint", required=True,
+                   help="orbax checkpoint dir (t2v: .../checkpoint_{step}; "
+                   "v2w: .../state_{step:08d})")
+    p.add_argument("--config", default="", help="stage config JSON")
+    p.add_argument("--out", default="",
+                   help="t2v: output file (default checkpoint_{step}.pth.tar next to the input); "
+                   "v2w: output dir (default the input's parent)")
+    p.add_argument("--step", type=int, default=-1,
+                   help="step for the output name (default: parsed from the checkpoint name)")
+    a = p.parse_args(rest)
+
+    raw = ckpt.restore_checkpoint(a.checkpoint)
+    step = a.step if a.step >= 0 else max(ckpt.checkpoint_step(a.checkpoint), 0)
+    parent = os.path.dirname(os.path.abspath(a.checkpoint))
+    if a.stage == "t2v":
+        cfg = load_config(Text2VecConfig, a.config) if a.config else Text2VecConfig()
+        out = a.out or os.path.join(parent, f"checkpoint_{step}.pth.tar")
+        ckpt.export_text2vec(out, raw, cfg, epoch=int(raw.get("epoch", 0) or 0))
+        print(f"wrote {out}")
+    else:
+        cfg = load_config(Vec2WavConfig, a.config) if a.config else Vec2WavConfig()
+        out_dir = a.out or parent
+        ckpt.export_vec2wav(out_dir, step, raw, cfg)
+        print(f"wrote {out_dir}/g_{step:08d} and {out_dir}/do_{step:08d}")
     return 0
 
 

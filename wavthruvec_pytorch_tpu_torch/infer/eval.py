@@ -9,8 +9,9 @@ the reference's commented-out loop (eval.py:131-138).
     python -m wavthruvec_pytorch_tpu_torch.cli eval-text2vec --config data/demo/text2vec.json \\
         --checkpoint_path run/30_30_spk_4fft/model_new --step 6 [--rtf] [--device cpu]
 
-The checkpoint is the torch reference's ``checkpoint_{step}.pth.tar`` (key
-``model``).  Without one the model takes seeded random weights, with a
+The checkpoint is the JAX package's orbax variables directory
+``checkpoint_{step}`` or the torch reference's ``checkpoint_{step}.pth.tar``
+(key ``model``), the directory first, as in JAX.  Without one the model takes seeded random weights, with a
 warning, as the JAX package does.  Runs on the card unless ``--device``
 says otherwise.
 """
@@ -45,15 +46,19 @@ LATENT_HZ = 50.0  # wav2vec 2.0 latent frames a second
 
 
 def load_model(cfg: Text2VecConfig, checkpoint_path: str, step: int, device=None) -> Text2Vec:
-    """``Text2Vec`` with ``{checkpoint_path}/checkpoint_{step}.pth.tar``'s
-    weights, or seeded random ones (``torch.manual_seed(0)``) and a warning
-    when there is no such file."""
+    """``Text2Vec`` with the weights of ``{checkpoint_path}/checkpoint_{step}``,
+    taken in the JAX package's order (infer/eval.py:55-62): the orbax
+    variables directory of that name where it exists (a training state
+    there raises, as it does in JAX), else ``checkpoint_{step}.pth.tar``,
+    else seeded random weights (``torch.manual_seed(0)``) and a warning."""
     device = resolve_device(device)
-    path = os.path.join(checkpoint_path, f"checkpoint_{step}.pth.tar")
-    if os.path.exists(path):
+    path = os.path.join(checkpoint_path, f"checkpoint_{step}")
+    if os.path.exists(path) or os.path.exists(path + ".pth.tar"):
+        src = path if os.path.exists(path) else path + ".pth.tar"
         model = Text2Vec(cfg, device=device)
-        model.load_state_dict(load_torch_state_dict(path, key="model"), strict=True)
-        print(f"loaded checkpoint_{step}.pth.tar")
+        model.load_state_dict(load_torch_state_dict(src, key="model", cfg=cfg), strict=True)
+        print(f"restored checkpoint_{step}" if src == path
+              else f"loaded checkpoint_{step}.pth.tar")
     else:
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(0)

@@ -43,7 +43,10 @@ def init_import_models(t2v_cfg: Text2VecConfig, v2w_cfg: Vec2WavConfig,
     """The Text2Vec and Generator state dicts for the ``synthesize`` and
     ``serve`` front ends, as CPU tensors: from the torch reference's files
     (``checkpoint_{step}.pth.tar`` with key ``model``, ``g_XXXXXXXX`` with key
-    ``generator``; a directory raises, see ``checkpoint.py``), or, for a model
+    ``generator``) or the JAX package's orbax variables directories (Text2Vec
+    {params, batch_stats}, Generator {params, batch_stats, spectral}, as its
+    ``recalibrate-bn`` writes them; a training state raises, as the JAX
+    package's restore into variables does: ``checkpoint.py``), or, for a model
     without a checkpoint, seeded random weights made on the CPU (each model
     from ``torch.manual_seed(0)``, as the JAX package inits from
     ``PRNGKey(0)``), so every device serves the same ones.
@@ -56,11 +59,11 @@ def init_import_models(t2v_cfg: Text2VecConfig, v2w_cfg: Vec2WavConfig,
             return build().state_dict()
 
     if t2v_checkpoint:
-        t2v_state = load_torch_state_dict(t2v_checkpoint, key="model")
+        t2v_state = load_torch_state_dict(t2v_checkpoint, key="model", cfg=t2v_cfg)
     else:
         t2v_state = random_state(lambda: Text2Vec(t2v_cfg, device="cpu"))
     if gen_checkpoint:
-        gen_state = load_torch_state_dict(gen_checkpoint, key="generator")
+        gen_state = load_torch_state_dict(gen_checkpoint, key="generator", cfg=v2w_cfg)
     else:
         gen_state = random_state(lambda: Generator(v2w_cfg, device="cpu"))
     if folded:

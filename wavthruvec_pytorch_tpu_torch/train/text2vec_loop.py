@@ -19,8 +19,10 @@ writes:
 * ``model_new/checkpoint_{step}.pth.tar`` every ``save_step`` steps, the
   reference's file (``checkpoint.py``); ``--restore_step K`` resumes from
   ``checkpoint_K.pth.tar``, weights, LAMB moments, step count and epoch
-  (whose batches it starts over, as the reference does), and raises if the
-  file is missing;
+  (whose batches it starts over, as the reference does), or, where that
+  file is missing, from the JAX package's orbax ``checkpoint_K`` directory
+  (its weights, LAMB moments, learning rate and step; epoch 0, as the JAX
+  loop resumes), saying which it took, and raises if neither is there;
 * the scalars of every ``--scalar_log_step``-th step, to TensorBoard or
   ``tb_logs/scalars.jsonl`` (``utils/logging.py``), fetched from the card
   in one transfer every ``--metric_flush_steps`` steps and at each log step;
@@ -247,10 +249,11 @@ def main(args: Optional[argparse.Namespace] = None,
     # resume (reference: --restore_step and checkpoint_{step}, train.py:237-248)
     iteration, first_epoch = 0, 0
     if args.restore_step > 0:
-        first_epoch = ckpt.load_text2vec(
-            ckpt.text2vec_path(cfg.checkpoint_path, args.restore_step), trainer)
+        path = ckpt.text2vec_resume_path(cfg.checkpoint_path, args.restore_step)
+        first_epoch = ckpt.load_text2vec(path, trainer)
         iteration = args.restore_step
-        print(f"\n---Model Restored at Step {args.restore_step}---\n")
+        print(f"\n---Model Restored at Step {args.restore_step}--- from {path}"
+              + (" (the JAX package's orbax T2VTrainState)" if os.path.isdir(path) else "") + "\n")
     if args.frozen_learning_rate:  # after the restore, which loads the saved lr
         trainer.set_learning_rate(args.learning_rate_frozen)
     globalize_state([trainer.model], [trainer.optimizer])

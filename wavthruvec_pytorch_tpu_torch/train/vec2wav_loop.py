@@ -17,7 +17,11 @@ are numbered from 0, as the reference numbers them.  Into
   steps and after the last step of ``--max_steps``, the reference's files
   (``checkpoint.py``); a run resumes from the newest pair it finds there,
   weights, spectral vectors, AdamW moments, step and epoch (whose batches
-  it starts over, as the reference does);
+  it starts over, as the reference does), or from the JAX package's orbax
+  ``state_XXXXXXXX`` directory where one is newer by step (a tie goes to
+  the pair): its weights, spectral vectors, BatchNorm statistics, AdamW
+  moments, counts and learning rates, at step ``state.step + 1`` and the
+  epoch that step falls in, as the JAX loop resumes;
 * the G loss and mel error every ``log_step`` steps, to TensorBoard or
   ``tb_logs/scalars.jsonl`` (``utils/logging.py``);
 * every ``val_step`` steps the validation's mel L1 over at most 16 whole
@@ -176,11 +180,17 @@ def main(args: Optional[argparse.Namespace] = None,
     # auto-resume from the newest g_/do_ pair (reference: train.py:74-89), on
     # every rank from the same files
     steps, first_epoch = 0, 0
-    latest = ckpt.latest_vec2wav(cfg.checkpoint_path)
-    if latest is not None:
-        resumed = ckpt.load_vec2wav(*latest, trainer)
+    latest = ckpt.newest_vec2wav(cfg.checkpoint_path)
+    if latest is not None and latest[0] == "jax":
+        # the JAX package's orbax GANTrainState, at its loop's epoch
+        steps = ckpt.load_jax_vec2wav(latest[1], trainer)
+        first_epoch = steps // max(len(loader), 1)
+        print(f"resumed from {latest[1]} (the JAX package's orbax GANTrainState) at step "
+              f"{steps}, epoch {first_epoch + 1}")
+    elif latest is not None:
+        resumed = ckpt.load_vec2wav(*latest[1], trainer)
         steps, first_epoch = resumed["steps"], resumed["epoch"]
-        print(f"resumed from {latest[1]} at step {steps}, epoch {first_epoch + 1}")
+        print(f"resumed from {latest[1][1]} at step {steps}, epoch {first_epoch + 1}")
     globalize_state([trainer.gen, trainer.mpd, trainer.msd], [trainer.opt_g, trainer.opt_d])
 
     if is_main_process():

@@ -263,6 +263,17 @@ def msd_state_dict(np_vars: Any) -> Dict[str, torch.Tensor]:
     return _to_torch(_export(np_vars, _msd_spec()))
 
 
+def param_tensors(tree: Any, kind: str, cfg: Any = None) -> Dict[str, torch.Tensor]:
+    """A tree in the layout of a model's ``params`` (an optimizer's moments,
+    or gradients) under the port's parameter names, for ``kind``
+    ``text2vec``, ``generator``, ``mpd`` or ``msd``: no buffers, and
+    nothing the tree lacks."""
+    spec = {"text2vec": _text2vec_spec, "generator": _generator_spec, "mpd": _mpd_spec,
+            "msd": lambda _: _msd_spec()}[kind](cfg)
+    sd = _export({"params": tree}, spec)
+    return _to_torch({k: v for k, v in sd.items() if not k.endswith(".num_batches_tracked")})
+
+
 def _cfg_get(cfg: Any, name: str):
     return cfg[name] if isinstance(cfg, dict) else getattr(cfg, name)
 
