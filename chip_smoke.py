@@ -49,8 +49,9 @@ below is fatal: nothing is caught.
    turns in the same run, on the one-launch-a-step route, with the serial
    floor (T steps of the persistent grid running its barriers and nothing
    else) beside the byte and operation bounds, the plain version's time
-   and cuDNN's f32 ``nn.GRU`` (TF32 off); and the f32 kernel at
-   ``GRU_GATE_SHAPE`` (B = 32), where JAX's gate sends "pallas" to f32 too.
+   and cuDNN's f32 ``nn.GRU`` (TF32 off), one device launch a call on the
+   persistent route; and the f32 kernel at ``GRU_GATE_SHAPE`` (B = 32),
+   where JAX's gate sends "pallas" to f32 too.
 6. The full-size path on the card against the same path on the CPU (the
    kernels' plain versions) on a small request.
 7. Where the time of the 512-frame request goes, by stage (CUDA events
@@ -81,12 +82,16 @@ Then the Text2Vec training slice, on the same full-size Text2Vec config:
    in_len > out_len items, and the "sharp" input, whose best path runs
    through exact zeros and leaves the map.
 10. The BiGRU backward: ``ptxas``'s report of its kernel (the persistent
-    one may not spill); the kernel's reverse loop against its plain version
-    (``gru_bwd_loop_plain``, max |err| / max |plain| of dgi and dgh within
-    ``GRU_BWD_LOOP_RTOL``) on both routes at (B, T) in ``GRU_BWD_SHAPES``
-    ((2, 512) and the three training shapes, inputs from the BiGRU's own f32
-    forward), with the loop's time on the persistent route and on the
-    one-launch-a-step route in turns, its serial floor (the persistent grid
+    one may not spill); the clusters of two and of four the card holds at
+    once (``cudaOccupancyMaxActiveClusters``) and the plan's cluster size
+    (pairs, each block multiplying half of dgh_{t+1}'s columns for both
+    blocks' units) with each shape's stages; the kernel's reverse loop
+    against its plain version (``gru_bwd_loop_plain``, max |err| / max
+    |plain| of dgi and dgh within ``GRU_BWD_LOOP_RTOL``) on both routes at
+    (B, T) in ``GRU_BWD_SHAPES`` ((2, 512) and the three training shapes,
+    inputs from the BiGRU's own f32 forward), one device launch a call on
+    the persistent route, with the loop's time on the persistent route and
+    on the one-launch-a-step route in turns, its serial floor (the persistent grid
     running barriers only), its bound, the plain loop's time, the whole
     backward (gh, the loop, dw_hh and db_hh) with the kernel and with the
     plain loop, and cuDNN ``nn.GRU``'s (f32) backward alone (on a retained
@@ -579,6 +584,8 @@ from wavthruvec_pytorch_tpu_torch.ops.fused_resblock import (
     fused_conv_residual,
 )
 from wavthruvec_pytorch_tpu_torch.ops.gru import (
+    PAIR,
+    bwd_plan,
     device_limits,
     gru_barrier_loop,
     gru_bwd,
@@ -586,7 +593,6 @@ from wavthruvec_pytorch_tpu_torch.ops.gru import (
     gru_bwd_loop,
     gru_bwd_loop_plain,
     gru_bwd_plain,
-    gru_bwd_plan,
     gru_bwd_steps,
     gru_fwd,
     gru_fwd_f32,
@@ -594,6 +600,7 @@ from wavthruvec_pytorch_tpu_torch.ops.gru import (
     gru_fwd_plan,
     gru_fwd_steps,
     gru_numerics,
+    max_clusters,
 )
 from wavthruvec_pytorch_tpu_torch.ops.flash_attention import (
     KERNELS as FLASH_KERNELS,
@@ -1142,7 +1149,10 @@ def gru_case(bigru, x, kind: str, n_sm: int, smem: int) -> dict:
     w_hh = w_hh.to(torch.bfloat16) if kind == "bf16" else w_hh
     kernel = GRU_KERNELS[kind][1]
     plan = gru_fwd_plan(2, B, H, n_sm, smem, kind)
+    launched = kernel.step_launches
     got = kernel(gi, w_hh, b_hh)
+    check(kernel.step_launches - launched == (1 if plan.route == "persistent" else T),
+          f"{kind} BiGRU B={B}: {kernel.step_launches - launched} device launches a call")
     got_steps = gru_fwd_steps(gi, w_hh, b_hh)
     want = gru_fwd_plain(gi, w_hh, b_hh, kind)
     torch.cuda.synchronize()
@@ -1179,6 +1189,12 @@ def gru_case(bigru, x, kind: str, n_sm: int, smem: int) -> dict:
              f"larger with the floor {serial:.3f} ms ({'serial' if serial > bms else by}), "
              f"{100 * serial / ms:.1f}% of it; {plan.blocks} blocks of {plan.units} units, "
              f"{plan.smem} bytes of shared memory")
+    if kind == "f32" and plan.route == "persistent":  # h_{t-1} through two 8 KB stages
+        bt = 1
+        while bt < 16 and bt < B:
+            bt *= 2
+        line += (f", no cluster, {-(-B // bt)} x {-(-H // (2048 // bt))} stages of 8192 bytes "
+                 f"a step")
     print(line)
     return dict(max_abs_err=max(err, err_steps), ms=ms, plain_ms=plain, bound_ms=bms,
                 bound_by=by, floor_ms=floor, route=plan.route)
@@ -1648,7 +1664,20 @@ def check_mas():
 GRU_BWD_SHAPES = ((2, 512), (TRAIN_B, TRAIN_T), (LONG_B, LONG_T), (LONG_F32_B, LONG_T))
 
 
-def gru_bwd_case(bigru, B: int, T: int, g, lib_gru, n_sm: int, smem: int) -> dict:
+def pair_stages(plan, B: int, H: int) -> str:
+    """The backward's persistent route on ``plan`` (csrc/gru_bwd.cu): its
+    pairs, and the 16 KB stages of dgh_{t+1} a block streams a step (its half
+    of the 3H columns, [BT][4096 / BT] a stage)."""
+    check(plan.cluster == PAIR, f"BiGRU backward plan {plan}: the card cannot hold its pairs")
+    bt = 1
+    while bt < 16 and bt < B:
+        bt *= 2
+    passes, stages = -(-B // bt), -(-3 * H // PAIR // (4096 // bt))
+    return (f"clusters of {plan.cluster} (each block half the columns for both blocks' units), "
+            f"{passes} x {stages} stages of 16384 bytes a step")
+
+
+def gru_bwd_case(bigru, B: int, T: int, g, lib_gru) -> dict:
     """The backward kernel at (B, T), on seeded inputs from the BiGRU's own
     f32 forward (so the gates lie where training puts them; w_hh the
     transposed view the autograd function holds): its loop against
@@ -1657,7 +1686,7 @@ def gru_bwd_case(bigru, B: int, T: int, g, lib_gru, n_sm: int, smem: int) -> dic
     whole backward with the kernel and with the plain loop, and cuDNN's f32
     ``nn.GRU`` backward alone and forward + backward."""
     H = bigru.hidden_size
-    plan = gru_bwd_plan(2, B, H, n_sm, smem)
+    plan = bwd_plan(2, B, H, "cuda")
     check(plan.route == "persistent", f"BiGRU backward B={B}: the planner picked {plan}")
     with torch.no_grad():
         gi, w_hh, b_hh = bigru.recurrence_inputs(torch.randn(B, T, H, generator=g,
@@ -1671,8 +1700,12 @@ def gru_bwd_case(bigru, B: int, T: int, g, lib_gru, n_sm: int, smem: int) -> dic
         want = gru_bwd_loop_plain(*args)
         errs, abs_err = {}, 0.0
         for route, fn in (("persistent", gru_bwd_loop), ("steps", gru_bwd_steps)):
+            launched = gru_bwd_loop.step_launches
             got = fn(*args)
             torch.cuda.synchronize()
+            check(gru_bwd_loop.step_launches - launched == (1 if route == "persistent" else T),
+                  f"BiGRU backward B={B} {route}: {gru_bwd_loop.step_launches - launched} "
+                  f"device launches a call")
             rel = []
             for a, b in zip(got, want):
                 diff = float((a - b).abs().max())
@@ -1717,7 +1750,7 @@ def gru_bwd_case(bigru, B: int, T: int, g, lib_gru, n_sm: int, smem: int) -> dic
           f"({1e3 * floor / T:.2f} us/step), bound {bms:.3f} ms ({by}, {n_ops / 1e9:.1f} GFLOP); "
           f"the larger {serial:.3f} ms is {100 * serial / ms:.1f}% of the kernel; plain loop "
           f"{plain:.3f} ms ({plain / ms:.1f}x); {plan.blocks} blocks of {plan.units} units, "
-          f"{plan.smem} bytes of shared memory\n"
+          f"{plan.smem} bytes of shared memory, {pair_stages(plan, B, H)}\n"
           f"    whole backward (gh, loop, dw_hh, db_hh): {whole:.3f} ms with the kernel, "
           f"{whole_plain:.3f} ms with the plain loop; cuDNN nn.GRU (f32, TF32 off) backward "
           f"alone {lib_bwd:.3f} ms, forward + backward {lib_all:.3f} ms")
@@ -1736,6 +1769,11 @@ def check_gru_backward(bigru) -> dict:
     ptxas_report("gru_bwd", ("gru_bwd_persistent_kernel", "gru_bwd_step_kernel"),
                  ("gru_bwd_persistent_kernel",))
     n_sm, smem = device_limits(torch.device("cuda"))
+    plan_device = torch.device("cuda")
+    plan = bwd_plan(2, TRAIN_B, H, plan_device)
+    print(f"backward kernel: clusters the card holds at once at {plan.smem} bytes a block "
+          f"(cudaOccupancyMaxActiveClusters) {max_clusters(2, TRAIN_B, H, plan, plan_device)}; "
+          f"the plan takes clusters of {plan.cluster}")
     print(f"BiGRU backward loop, kernel vs plain (rtol {GRU_BWD_LOOP_RTOL}), D=2, H={H}, on "
           f"{n_sm} SMs with {smem} bytes of shared memory a block; the serial floor is T x a "
           f"step of the persistent grid running barriers only; bound at "
@@ -1743,7 +1781,7 @@ def check_gru_backward(bigru) -> dict:
     lib_gru = torch.nn.GRU(H, H, batch_first=True, bidirectional=True, device="cuda")
     lib_gru.load_state_dict(bigru.state_dict(), strict=True)
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    cases = {shape: gru_bwd_case(bigru, *shape, g, lib_gru, n_sm, smem)
+    cases = {shape: gru_bwd_case(bigru, *shape, g, lib_gru)
              for shape in GRU_BWD_SHAPES}
     del lib_gru
     row = {k: cases[TRAIN_B, TRAIN_T][k]

@@ -28,6 +28,9 @@ from wavthruvec_pytorch_tpu_torch.ops import gru, kernel_build
 
 BWD_ATOL = 2e-5
 H100_SMS, H100_SMEM = 132, 232448
+# clusters of C blocks an H100 80GB HBM3 holds at once at one block an SM
+# (cudaOccupancyMaxActiveClusters, as chip_smoke.py phase 10 prints them)
+H100_CLUSTERS = {4: 30, 2: 66}
 
 
 def _inputs(D, B, T, C, H, seed):
@@ -84,9 +87,10 @@ def test_bwd_plan_persistent_at_cbhg_shapes(B):
     backward is one persistent launch at every batch the training paths
     use (1, 2, 8, 16), at the f32 forward's persistent limit (40) and up to
     64 (four passes of 16 rows): 16 units a block, 128 blocks, the kernel's
-    shared memory whatever B."""
-    plan = gru.gru_bwd_plan(2, B, 1024, H100_SMS, H100_SMEM)
-    assert plan == gru.GRUPlan("persistent", 128, 16, gru.persistent_bwd_smem(16, 1024))
+    shared memory whatever B, in clusters of 2 (32 clusters of 4 do not fit
+    the card at once)."""
+    plan = gru.gru_bwd_plan(2, B, 1024, H100_SMS, H100_SMEM, H100_CLUSTERS)
+    assert plan == gru.GRUPlan("persistent", 128, 16, gru.persistent_bwd_smem(16, 1024), 2)
     assert plan.smem <= H100_SMEM
 
 
@@ -101,17 +105,20 @@ def test_bwd_plan_steps_where_it_does_not_fit(D, B, H, n_sm, smem):
     """Where the blocks outnumber the SMs, the rows of w_hh overflow a
     block's shared memory or the batch needs more passes than a thread's
     registers hold, the backward takes the one-launch-a-step route."""
-    plan = gru.gru_bwd_plan(D, B, H, n_sm, smem)
+    plan = gru.gru_bwd_plan(D, B, H, n_sm, smem, H100_CLUSTERS)
     assert plan == gru.GRUPlan("steps", D * H // 8, 8, 0)
 
 
 def test_persistent_bwd_smem_bytes():
-    """The persistent kernel's shared memory: 16 rows of 3 x 1024 + 8 floats
-    and two stages of 4096 floats at H = 1024 (the next U, 24, does not
-    fit an H100's block); 8 rows of 3 x 512 + 8 and the stages at H = 512."""
-    assert gru.persistent_bwd_smem(16, 1024) == 229_888
-    assert gru.persistent_bwd_smem(8, 512) == 82_176
-    assert gru.persistent_bwd_smem(24, 1024) == 328_448 > H100_SMEM
+    """The persistent kernel's shared memory: the pair's 2U rows of w_hh over
+    half the 3H columns (U x 3H f32), two dgh stages of 4096 floats, the
+    partner's sums [2, 16, U] and two 8-byte mbarriers.  At H = 1024:
+    196,608 + 32,768 + 2,048 + 16 (the next U, 24, has no instance and
+    would not fit an H100's block); 8 units at H = 512."""
+    assert gru.persistent_bwd_smem(16, 1024) == 196_608 + 32_768 + 2_048 + 16 == 231_440
+    assert gru.persistent_bwd_smem(8, 512) == 49_152 + 32_768 + 1_024 + 16 == 82_960
+    assert gru.persistent_bwd_smem(24, 1024) == 294_912 + 32_768 + 3_072 + 16 > H100_SMEM
+    assert gru.BWD_UNITS == (8, 16)
 
 
 def test_bwd_wrapper_takes_plain_only_on_cpu(monkeypatch):

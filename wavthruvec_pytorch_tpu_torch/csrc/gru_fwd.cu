@@ -362,6 +362,7 @@ gru_persistent_f32_kernel(const float* __restrict__ gi, const float* __restrict_
   const int kl = 16 * warp + 4 * kq;                           // the lane's 4 k of each slab
   const size_t bstride = static_cast<size_t>(T) * H;  // between batch rows of y
   unsigned* ctr = counter + d;
+  gru::Stamps prof;
 
   // the block's rows of w^T, local row gate * U + u <- row gate * H + j0 + u
   for (int i = tid; i < R * cpr; i += P_THREADS) {
@@ -394,6 +395,7 @@ gru_persistent_f32_kernel(const float* __restrict__ gi, const float* __restrict_
   for (int t = 0; t < T; ++t) {
     cp_async_wait<0>();  // this step's gi (and w at t = 0)
     __syncthreads();
+    prof.mark(gru::PROF_BARRIER);
     for (int bb0 = 0; bb0 < B; bb0 += BT) {
       if (t > 0) {
         // stage q of the pass: h_{t-1} of rows bb0 .. bb0 + BT - 1 at slabs
@@ -419,8 +421,10 @@ gru_persistent_f32_kernel(const float* __restrict__ gi, const float* __restrict_
         for (int i = 0; i < N; ++i) acc[i] = 0.f;
         issue(0);
         for (int q = 0; q < nstage; ++q) {
+          const unsigned long long w0 = prof.start();
           cp_async_wait<0>();  // stage q has landed ...
           __syncthreads();     // ... for every thread, and q - 1's buffer is free
+          prof.nested(gru::PROF_WAITS, w0);
           issue(q + 1);
           const float* st = red + (q & 1) * F_STAGE;
 #pragma unroll
@@ -446,6 +450,7 @@ gru_persistent_f32_kernel(const float* __restrict__ gi, const float* __restrict_
             }
           }
         }
+        prof.mark(gru::PROF_STAGES);
         __syncthreads();  // every warp is past the stages, which lie in red
         // the 4 kq lanes of a row (lane bits 3 and 4) hold the sums of other
         // k: reduce-scatter them where N divides (each lane ends with N / 4
@@ -469,6 +474,7 @@ gru_persistent_f32_kernel(const float* __restrict__ gi, const float* __restrict_
           }
         }
         __syncthreads();
+        prof.mark(gru::PROF_REDUCE);
       }
 
       for (int p = tid; p < BT * U; p += P_THREADS) {
@@ -495,14 +501,17 @@ gru_persistent_f32_kernel(const float* __restrict__ gi, const float* __restrict_
         y[((static_cast<size_t>(d) * B + b) * T + t) * H + j] = h;
       }
       __syncthreads();  // the pass's h is written; red is free again
+      prof.mark(gru::PROF_UNIT);
     }
     if (t + 1 < T) {
       barrier_arrive(ctr);
       load_gi(t + 1);  // while the other blocks arrive
       cp_async_commit();
+      prof.mark(gru::PROF_ARRIVAL);
       barrier_wait(ctr, static_cast<unsigned>(t + 1) * nbd);
     }
   }
+  prof.store();
 }
 
 template <int U, int BT>
@@ -771,3 +780,5 @@ const char* wtv_error_string(int err) {
 }
 
 }  // extern "C"
+
+GRU_PROF_READER

@@ -25,7 +25,10 @@ matmul, the reverse recurrence (JAX's reverse ``lax.scan``, :829) in the
 hand-written kernel ``csrc/gru_bwd.cu`` through ``gru_bwd_loop`` on CUDA
 tensors and in ``gru_bwd_loop_plain`` on CPU tensors, and the weight
 gradients as large matmuls after it.  ``gru_bwd_plan`` picks that kernel's
-route as ``gru_fwd_plan`` does the forward's.
+route as ``gru_fwd_plan`` does the forward's; its persistent route runs in
+thread-block clusters of two (``PAIR``), each block multiplying half the
+columns for both blocks' units, and where the card cannot hold every pair at
+once (``max_clusters``) the wrapper raises.
 """
 
 from __future__ import annotations
@@ -103,15 +106,19 @@ _STEP_UNITS = 8  # the steps route's hidden units a block, one warp each
 
 class GRUPlan(NamedTuple):
     """How a wrapper runs a shape on the card: ``route`` "persistent" (one
-    cooperative launch for all T steps, ``units`` hidden units of one
-    direction a block, their ``w_hh`` rows resident in ``smem`` bytes of
-    shared memory) or "steps" (one launch a time step, ``units`` hidden
-    units a block, no dynamic shared memory); ``blocks`` a launch."""
+    launch for all T steps with every block resident, ``units`` hidden units
+    of one direction a block, their ``w_hh`` rows resident in ``smem`` bytes
+    of shared memory) or "steps" (one launch a time step, ``units`` hidden
+    units a block, no dynamic shared memory); ``blocks`` a launch;
+    ``cluster`` the blocks of a thread-block cluster: ``PAIR`` on the
+    backward's persistent route (0 where the card cannot hold every pair at
+    once, which its wrapper refuses), 1 elsewhere."""
 
     route: str
     blocks: int
     units: int
     smem: int
+    cluster: int = 1
 
 
 def persistent_smem(U: int, B: int, H: int) -> int:
@@ -157,8 +164,8 @@ def gru_fwd_plan(D: int, B: int, H: int, n_sm: int, smem_bytes: int,
     return GRUPlan("steps", D * -(-H // _STEP_UNITS), _STEP_UNITS, 0)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = kernel_build.load("gru_fwd")
+def bind_fwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C signatures of a build of ``csrc/gru_fwd.cu`` on ``lib``."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.gru_fwd_device_limits.argtypes = [ctypes.POINTER(i32), ctypes.POINTER(i32)]
     lib.gru_fwd_persistent.argtypes = [ptr] * 6 + [i32] * 5 + [ctypes.c_longlong, ptr]
@@ -170,6 +177,10 @@ def _lib() -> ctypes.CDLL:
                lib.gru_fwd_barrier_loop, lib.gru_fwd_steps, lib.gru_fwd_steps_f32):
         fn.restype = ctypes.c_int
     return lib
+
+
+def _lib() -> ctypes.CDLL:
+    return bind_fwd(kernel_build.load("gru_fwd"))
 
 
 _limits: Dict[int, Tuple[int, int]] = {}
@@ -220,14 +231,15 @@ def _checked_shape(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor, pre
 
 
 def _launch(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor, plan: GRUPlan,
-            precision: str) -> torch.Tensor:
+            precision: str, lib: ctypes.CDLL = None) -> torch.Tensor:
     """Run checked CUDA tensors on ``plan``'s route of ``precision``'s
-    kernel; an empty output launches nothing."""
+    kernel (in ``lib``, a ``bind_fwd`` library, if given: a measurement
+    build); an empty output launches nothing."""
     D, B, T, H = gi.shape[0], gi.shape[1], gi.shape[2], gi.shape[3] // 3
     y = torch.empty(D, B, T, H, device=gi.device, dtype=torch.float32)
     if y.numel() == 0:
         return y
-    lib = _lib()
+    lib = lib or _lib()
     wrapper = gru_fwd if precision == "bf16" else gru_fwd_f32
     w_t = w_hh.transpose(1, 2).contiguous()  # [D, 3H, H]: no copy for a transposed view
     stream = torch.cuda.current_stream(gi.device).cuda_stream
@@ -357,59 +369,124 @@ def gru_bwd_loop_plain(dys: torch.Tensor, gi: torch.Tensor, gh: torch.Tensor,
     return torch.cat([dgh[..., :2 * H], g * dn], dim=-1), dgh
 
 
-# the backward kernel's persistent block (csrc/gru_bwd.cu): floats of one of
-# its two dgh stages, floats of padding after each resident w_hh row, and the
-# batch-row passes whose inputs and carry a thread holds in registers
-_B_STAGE, _B_ROW_PAD, _B_PASSES = 4096, 8, 4
+# the backward kernel's persistent block (csrc/gru_bwd.cu): the hidden units
+# a block may own (its instances), the blocks of its clusters (a pair, each
+# block multiplying half the columns for both blocks' units), the batch-row
+# passes whose inputs and carry a thread holds in registers, and the floats
+# of one of its two dgh stages
+BWD_UNITS = (8, 16)
+PAIR = 2
+_B_PASSES, _B_STAGE = 4, 4096
 
 
 def persistent_bwd_smem(U: int, H: int) -> int:
     """Shared-memory bytes of the backward kernel's persistent route
-    (``persistent_bwd_smem`` in csrc/gru_bwd.cu): the block's rows of w_hh
-    [U, 3H + 8] f32 and two dgh stages of 4096 floats, where the warps'
-    partial sums also lie.  The step's inputs and the carried gradient live in
-    registers, so the batch does not enter."""
-    return 4 * (U * (3 * H + _B_ROW_PAD) + 2 * _B_STAGE)
+    (``persistent_bwd_smem`` in csrc/gru_bwd.cu): the pair's 2U rows of w_hh
+    over the block's half of the 3H columns (U x 3H f32 in all), two dgh
+    stages of 4096 floats (where the warps' partial sums also lie), the
+    partner's sums [2, 16, U] and two mbarriers.  The step's inputs and the
+    carried gradient live in registers, so the batch does not enter."""
+    return 4 * (3 * U * H + 2 * _B_STAGE + 2 * _BM * U) + 16
 
 
-def _bwd_batch_tile(U: int, B: int) -> int:
+def pair_blocks(U: int, H: int) -> int:
+    """A direction's blocks on the backward's persistent route
+    (``pair_blocks`` in csrc/gru_bwd.cu): ceil(H / U) rounded up to whole
+    pairs, so that a pair never spans two directions (a block past H owns
+    no unit and multiplies its half of the columns for its partner)."""
+    return PAIR * -(-H // (PAIR * U))
+
+
+def cluster_size(blocks: int, clusters) -> int:
+    """The blocks a cluster of the backward's persistent grid of ``blocks``
+    blocks: ``PAIR`` where ``clusters[PAIR]``, the pairs the card can hold
+    at once (``max_clusters``), cover the grid; 0 otherwise (or where
+    ``clusters`` is None: not asked)."""
+    if clusters is not None and clusters.get(PAIR, 0) * PAIR >= blocks:
+        return PAIR
+    return 0
+
+
+def _bwd_batch_tile(B: int) -> int:
     """The backward kernel's batch rows a pass (``bwd_batch_tile`` in
-    csrc/gru_bwd.cu): the smallest power of two covering min(B, 16), at most
-    8 above U = 16."""
-    cap = 16 if U <= 16 else 8
+    csrc/gru_bwd.cu): the smallest power of two covering min(B, 16)."""
     bt = 1
-    while bt < cap and bt < B:
+    while bt < _BM and bt < B:
         bt *= 2
     return bt
 
 
-def gru_bwd_plan(D: int, B: int, H: int, n_sm: int, smem_bytes: int) -> GRUPlan:
+def gru_bwd_plan(D: int, B: int, H: int, n_sm: int, smem_bytes: int,
+                 clusters=None) -> GRUPlan:
     """The route of the backward kernel for D directions of H units at batch
     B on a card with ``n_sm`` SMs and ``smem_bytes`` of shared memory a
-    block.  Persistent when some ``U`` in ``PERSISTENT_UNITS`` gives at most
-    one block an SM (D * ceil(H / U) <= n_sm), its rows of w_hh fit in
-    shared memory and B takes at most 4 passes of its batch tile; the
-    smallest such U.  Otherwise the steps route, which takes any D, B and
-    H % 8 == 0.  A choice by shape, made before the launch."""
-    for U in PERSISTENT_UNITS:
-        blocks = D * -(-H // U)
+    block.  Persistent when some ``U`` in ``BWD_UNITS`` gives at most one
+    block an SM (D * pair_blocks(U, H) <= n_sm), its rows of w_hh fit in shared
+    memory and B takes at most 4 passes of its batch tile; the smallest such
+    U, in clusters of ``cluster_size(blocks, clusters)`` (pairs, each
+    block multiplying half the columns for both blocks' units; 0, which the
+    wrapper refuses, where the card cannot hold them).  Otherwise the steps
+    route, which takes any D, B and H % 8 == 0.  A choice by shape, made
+    before the launch."""
+    for U in BWD_UNITS:
+        blocks = D * pair_blocks(U, H)
         if blocks > n_sm:
             continue
         smem = persistent_bwd_smem(U, H)
-        if smem <= smem_bytes and B <= _B_PASSES * _bwd_batch_tile(U, B):
-            return GRUPlan("persistent", blocks, U, smem)
-        break  # a larger U needs more shared memory and takes fewer batch rows
+        if smem <= smem_bytes and B <= _B_PASSES * _bwd_batch_tile(B):
+            return GRUPlan("persistent", blocks, U, smem, cluster_size(blocks, clusters))
+        break  # a larger U needs more shared memory
     return GRUPlan("steps", D * -(-H // _STEP_UNITS), _STEP_UNITS, 0)
 
 
-def _bwd_lib() -> ctypes.CDLL:
-    lib = kernel_build.load("gru_bwd")
+def bwd_plan(D: int, B: int, H: int, device) -> GRUPlan:
+    """``gru_bwd_plan`` at the card's limits, with its cluster size from the
+    card's ``max_clusters`` on the persistent route."""
+    device = torch.device(device)
+    n_sm, smem = device_limits(device)
+    plan = gru_bwd_plan(D, B, H, n_sm, smem)
+    if plan.route != "persistent":
+        return plan
+    return gru_bwd_plan(D, B, H, n_sm, smem, max_clusters(D, B, H, plan, device))
+
+
+def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C signatures of a build of ``csrc/gru_bwd.cu`` on ``lib``."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.gru_bwd_persistent.argtypes = [ptr] * 8 + [i32] * 5 + [ctypes.c_longlong, ptr]
+    lib.gru_bwd_persistent.argtypes = [ptr] * 8 + [i32] * 6 + [ctypes.c_longlong, ptr]
+    lib.gru_bwd_max_clusters.argtypes = [i32] * 5 + [ctypes.c_longlong, ctypes.POINTER(i32)]
     lib.gru_bwd_steps.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
-    for fn in (lib.gru_bwd_persistent, lib.gru_bwd_steps):
+    for fn in (lib.gru_bwd_persistent, lib.gru_bwd_max_clusters, lib.gru_bwd_steps):
         fn.restype = ctypes.c_int
     return lib
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    return bind_bwd(kernel_build.load("gru_bwd"))
+
+
+_clusters: Dict[tuple, Dict[int, int]] = {}
+
+
+def max_clusters(D: int, B: int, H: int, plan: GRUPlan, device: torch.device) -> Dict[int, int]:
+    """{C: the clusters of C blocks the card can hold at once} for C = 2 and
+    4, of the backward kernel on ``plan``'s persistent route at (D, B, H), as
+    cudaOccupancyMaxActiveClusters reports for its instance and shared memory
+    (4 only to print: the kernel runs in pairs)."""
+    lib = _bwd_lib()
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    key = (index, D, B, H, plan.units, plan.smem)
+    if key not in _clusters:
+        counts = {}
+        with torch.cuda.device(index):
+            for C in (PAIR, 2 * PAIR):
+                n = ctypes.c_int()
+                kernel_build.check(lib, lib.gru_bwd_max_clusters(D, B, H, plan.units, C,
+                                                                 plan.smem, ctypes.byref(n)),
+                                   f"gru_bwd_max_clusters (C={C})")
+                counts[C] = n.value
+        _clusters[key] = counts
+    return _clusters[key]
 
 
 def _checked_bwd_shape(dys, gi, gh, hprev, w_hh):
@@ -435,14 +512,18 @@ def _checked_bwd_shape(dys, gi, gh, hprev, w_hh):
     return D, B, T, H
 
 
-def _launch_bwd(dys, gi, gh, hprev, w_hh, plan: GRUPlan):
-    """Run checked CUDA tensors on ``plan``'s route of the backward kernel;
-    an empty output launches nothing."""
-    lib = _bwd_lib()
+def _launch_bwd(dys, gi, gh, hprev, w_hh, plan: GRUPlan, lib: ctypes.CDLL = None):
+    """Run checked CUDA tensors on ``plan``'s route of the backward kernel
+    (in ``lib``, a ``bind_bwd`` library, if given: a measurement build); an
+    empty output launches nothing."""
     D, B, T, H = dys.shape
     dgi, dgh = torch.empty_like(gi), torch.empty_like(gi)
     if dgi.numel() == 0:
         return dgi, dgh
+    if plan.route == "persistent" and plan.cluster < 1:  # every block resident, or no launch
+        raise RuntimeError(f"gru_bwd_loop: the card cannot hold all {plan.blocks} blocks of "
+                           f"{plan.smem} bytes in clusters of {PAIR} at once")
+    lib = lib or _bwd_lib()
     w = w_hh.contiguous()  # [D, H, 3H]: the rows a block keeps are w_hh[d, j]
     stream = torch.cuda.current_stream(dys.device).cuda_stream
     ptrs = (dys.data_ptr(), gi.data_ptr(), gh.data_ptr(), hprev.data_ptr(), w.data_ptr(),
@@ -450,7 +531,7 @@ def _launch_bwd(dys, gi, gh, hprev, w_hh, plan: GRUPlan):
     if plan.route == "persistent":
         counter = torch.zeros(D, device=dys.device, dtype=torch.int32)
         err = lib.gru_bwd_persistent(*ptrs, counter.data_ptr(), D, B, T, H, plan.units,
-                                     plan.smem, stream)
+                                     plan.cluster, plan.smem, stream)
         gru_bwd_loop.step_launches += 1
     else:
         gz = torch.empty(D, B, H, device=dys.device, dtype=torch.float32)
@@ -472,8 +553,7 @@ def gru_bwd_loop(dys: torch.Tensor, gi: torch.Tensor, gh: torch.Tensor, hprev: t
     if dys.device.type == "cpu":
         return gru_bwd_loop_plain(dys, gi, gh, hprev, w_hh)
     D, B, T, H = _checked_bwd_shape(dys, gi, gh, hprev, w_hh)
-    return _launch_bwd(dys, gi, gh, hprev, w_hh,
-                       gru_bwd_plan(D, B, H, *device_limits(dys.device)))
+    return _launch_bwd(dys, gi, gh, hprev, w_hh, bwd_plan(D, B, H, dys.device))
 
 
 def gru_bwd_steps(dys: torch.Tensor, gi: torch.Tensor, gh: torch.Tensor, hprev: torch.Tensor,

@@ -1,25 +1,38 @@
 """Measurements of the f32 BiGRU kernels on the card, beside ``chip_smoke.py``
 phases 5 and 10.  From the repository root, on a machine with an NVIDIA GPU:
 
-    python3 -m wavthruvec_pytorch_tpu_torch.tools.gru_f32 [--parent DIR] [--pairs N]
-        [--step train|long]...
+    python3 -m wavthruvec_pytorch_tpu_torch.tools.gru_f32 [--bounds] [--parent DIR]
+        [--pairs N] [--step train|long|kernels]...
 
-1. Where a step of the persistent f32 kernel goes: ``csrc/gru_fwd.cu`` is
-   copied with ``%globaltimer`` stamps patched in by text at the phase
-   boundaries of block 0's thread 0 (the stage loop and, inside it, its
-   ``cp.async`` waits; the reduce of the partial sums; the gates; the
-   arrival; the barrier), built with nvcc into this tree's build
-   directory, run at D = 2, H = 1024 and (B, T) in ``SHAPES``, and held
-   against ``gru_fwd_plain``; prints microseconds a step.
-2. With ``--parent DIR`` (another commit's tree, e.g. ``git archive <rev> |
-   tar -x -C DIR``): a training step of DIR's tree and of this one, in N
-   alternating pairs (parent, change, change, parent, ...), each run in a
-   fresh process in its own tree with its own kernel build, for each
-   ``--step``: ``train`` (the default), ``chip_smoke.py`` phase 8's step (B
-   = 16 x 64 x 1024 on the demo config); ``long``, phase 14's long-bucket
-   bf16 step (B = 16 x 768 x 3072).  Both run the BiGRU's forward and
-   backward kernels.  Prints each run's median step and launches, the
-   medians of both sides and the median of the pairs' differences.
+1. Where a step of each persistent f32 kernel goes, the forward
+   (``csrc/gru_fwd.cu``) and the backward loop (``csrc/gru_bwd.cu``): both
+   sources are built with ``-DGRU_PROFILE`` into this tree's build
+   directory, so that thread 0 of block 0 stamps its phases with
+   ``%globaltimer`` (``gru::Stamps`` in ``csrc/gru_common.cuh``, whose marks
+   the kernels carry): the wait at the per-direction barrier, the stage loop
+   and, inside it, its waits for stages, the reduce of the partial sums (in
+   the backward with the exchange of the pair's halves), the unit step (the
+   gates), and the arrival.  Each runs through ``ops/gru.py``'s own launch
+   at D = 2, H = 1024 and (B, T) in ``SHAPES``, is held against its plain
+   version and prints microseconds a step.
+2. With ``--bounds``: what bounds the backward's loop.  Copies of
+   ``csrc/gru_bwd.cu`` with switches patched in by text (``BOUNDS``;
+   raises if a patched line changed), built with nvcc beside the profile
+   builds and timed in turns at ``BOUNDS_SHAPES``: the kernel, the kernel
+   with its dgh stream zero-filled (no L2 reads; the FFMA loop and the
+   rest stay), without its FFMA products (the stream and the rest stay),
+   and with neither.
+3. With ``--parent DIR`` (another commit's tree, e.g. ``git archive <rev> |
+   tar -x -C DIR``): DIR's tree and this one in N alternating pairs
+   (parent, change, change, parent, ...), each run in a fresh process in its
+   own tree with its own kernel build, for each ``--step``: ``train`` (the
+   default), ``chip_smoke.py`` phase 8's step (B = 16 x 64 x 1024 on the demo
+   config); ``long``, phase 14's long-bucket bf16 step (B = 16 x 768 x
+   3072), both of which run the BiGRU's forward and backward kernels;
+   ``kernels``, each tree's ``gru_fwd_f32`` and ``gru_bwd_loop`` alone at
+   ``KERNEL_SHAPES`` (serving, training and the long steps).  Prints each
+   run's times and launches, the medians of both sides and the median of the
+   pairs' differences.
 """
 
 from __future__ import annotations
@@ -34,127 +47,186 @@ import sys
 import torch
 
 from wavthruvec_pytorch_tpu_torch.ops import gru, kernel_build
-from wavthruvec_pytorch_tpu_torch.tools import finish_builds, start_build
+from wavthruvec_pytorch_tpu_torch.tools import finish_builds, queued_ms, start_build
 
-SHAPES = ((1, 512), (2, 512), (8, 1024), (16, 1024), (32, 256))
-PHASES = ("stage loop", "of which cp.async waits", "reduce", "gates", "arrival", "barrier")
+SHAPES = ((2, 512), (16, 1024), (16, 3072))
+# gru::PROF_* in csrc/gru_common.cuh, in order
+PHASES = ("barrier", "stage loop", "of which stage waits", "reduce", "unit step", "arrival")
 
-_NOW = ('if (prof) { unsigned long long x_; asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(x_)); '
-        'now_ = x_; }')
-# (text of csrc/gru_fwd.cu, the same text with a stamp): each must occur once
-_STAMPS = (
-    ("__device__ __forceinline__ uint32_t lds32(",
-     "__device__ unsigned long long gru_prof[6];\n\n__device__ __forceinline__ uint32_t lds32("),
-    ("  const size_t bstride = static_cast<size_t>(T) * H;  // between batch rows of y\n"
-     "  unsigned* ctr = counter + d;\n",
-     "  const size_t bstride = static_cast<size_t>(T) * H;  // between batch rows of y\n"
-     "  unsigned* ctr = counter + d;\n"
-     "  const bool prof = blockIdx.x == 0 && threadIdx.x == 0;\n"
-     "  unsigned long long st[5] = {0, 0, 0, 0, 0}, sum[6] = {0, 0, 0, 0, 0, 0};\n"
-     "  unsigned long long now_ = 0, w0_ = 0;\n"),
-    ("    __syncthreads();\n    for (int bb0 = 0; bb0 < B; bb0 += BT) {\n",
-     "    __syncthreads();\n    " + _NOW
-     + " if (prof && t > 1) sum[5] += now_ - st[4]; st[0] = now_;\n"
-     "    for (int bb0 = 0; bb0 < B; bb0 += BT) {\n"),
-    ("          cp_async_wait<0>();  // stage q has landed ...\n"
-     "          __syncthreads();     // ... for every thread, and q - 1's buffer is free\n",
-     "          " + _NOW.replace("now_ = x_", "w0_ = x_") + "\n"
-     "          cp_async_wait<0>();  // stage q has landed ...\n"
-     "          __syncthreads();     // ... for every thread, and q - 1's buffer is free\n"
-     "          " + _NOW + " if (prof) sum[1] += now_ - w0_;\n"),
-    ("        __syncthreads();  // every warp is past the stages, which lie in red\n",
-     "        " + _NOW + " if (prof) { sum[0] += now_ - st[0]; st[1] = now_; }\n"
-     "        __syncthreads();  // every warp is past the stages, which lie in red\n"),
-    ("        __syncthreads();\n      }\n\n      for (int p = tid; p < BT * U; p += P_THREADS) {",
-     "        __syncthreads();\n        " + _NOW
-     + " if (prof) { sum[2] += now_ - st[1]; st[2] = now_; }\n"
-     "      }\n\n      for (int p = tid; p < BT * U; p += P_THREADS) {"),
-    ("      __syncthreads();  // the pass's h is written; red is free again\n",
-     "      __syncthreads();  // the pass's h is written; red is free again\n"
-     "      " + _NOW + " if (prof && t > 0) sum[3] += now_ - st[2]; st[3] = now_; st[0] = now_;\n"),
-    ("      load_gi(t + 1);  // while the other blocks arrive\n      cp_async_commit();\n",
-     "      load_gi(t + 1);  // while the other blocks arrive\n      cp_async_commit();\n"
-     "      " + _NOW + " if (prof && t > 0) sum[4] += now_ - st[3]; st[4] = now_;\n"),
-    ("      barrier_wait(ctr, static_cast<unsigned>(t + 1) * nbd);\n    }\n  }\n}\n\n"
-     "template <int U, int BT>\ncudaError_t launch_persistent_f32(",
-     "      barrier_wait(ctr, static_cast<unsigned>(t + 1) * nbd);\n    }\n  }\n"
-     "  if (prof) for (int i = 0; i < 6; ++i) gru_prof[i] = sum[i];\n}\n\n"
-     "template <int U, int BT>\ncudaError_t launch_persistent_f32("),
+
+def profile_libs() -> dict:
+    """Both sources built with -DGRU_PROFILE: {"fwd" | "bwd": library}."""
+    os.makedirs(kernel_build.BUILD_DIR, exist_ok=True)
+    builds = {}
+    for kind, name in (("fwd", "gru_fwd"), ("bwd", "gru_bwd")):
+        library = os.path.join(kernel_build.BUILD_DIR, f"lib{name}_profile.so")
+        builds[kind] = (start_build(os.path.join(kernel_build.SRC_DIR, f"{name}.cu"), library,
+                                    ("GRU_PROFILE",)), library)
+    libs = {}
+    for kind, (lib, _) in finish_builds(builds).items():
+        lib.wtv_error_string.argtypes = [ctypes.c_int]
+        lib.wtv_error_string.restype = ctypes.c_char_p
+        lib.gru_prof_read.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
+        libs[kind] = (gru.bind_fwd if kind == "fwd" else gru.bind_bwd)(lib)
+    return libs
+
+
+def read_phases(lib, T: int) -> list:
+    ns = (ctypes.c_ulonglong * len(PHASES))()
+    kernel_build.check(lib, lib.gru_prof_read(ns), "gru_prof_read")
+    return [v / T / 1e3 for v in ns]
+
+
+def print_phases(label: str, err: float, per: list) -> None:
+    total = sum(per) - per[PHASES.index("of which stage waits")]  # the waits lie in the loop
+    print(f"  {label} (err vs plain {err:.2e}): "
+          + ", ".join(f"{n} {p:.3f}" for n, p in zip(PHASES, per)) + f"; sum {total:.3f}",
+          flush=True)
+
+
+# (name, the text of csrc/gru_bwd.cu it replaces, the replacement under the
+# variant's define): each text must occur once
+BOUNDS = (
+    ("NO_STREAM", "              const bool in = k < KC && b < B;\n",
+     "              const bool in = !NO_STREAM && k < KC && b < B;\n"),
+    ("NO_FMA", "            if (k < KC) {\n              float4 wv[RL];\n",
+     "            if (!NO_FMA && k < KC) {\n              float4 wv[RL];\n"),
 )
+BOUNDS_VARIANTS = {"kernel": (), "no stream": ("NO_STREAM",), "no FFMA": ("NO_FMA",),
+                   "neither": ("NO_STREAM", "NO_FMA")}
+BOUNDS_SHAPES = ((16, 1024), (2, 512))
 
 
-def stamped_source() -> str:
-    """``csrc/gru_fwd.cu`` with the stamps and a reader,
-    ``gru_prof_read(out)``: the f32 kernel's nanoseconds by phase, summed
-    over the steps of its last launch."""
-    with open(os.path.join(kernel_build.SRC_DIR, "gru_fwd.cu")) as f:
-        src = f.read()
-    for old, new in _STAMPS:
+def bounds() -> None:
+    src = open(os.path.join(kernel_build.SRC_DIR, "gru_bwd.cu")).read()
+    for name, old, new in BOUNDS:
         if src.count(old) != 1:
-            raise RuntimeError(f"csrc/gru_fwd.cu changed: {old[:60]!r} no longer occurs once")
-        src = src.replace(old, new)
-    return src + ('\nextern "C" int gru_prof_read(unsigned long long* out) {\n'
-                  '  return static_cast<int>(cudaMemcpyFromSymbol(out, gru_prof, 6 * 8));\n}\n')
+            raise RuntimeError(f"csrc/gru_bwd.cu changed: {old.strip()!r} no longer occurs once")
+        src = src.replace(old, f"#ifndef {name}\n#define {name} 0\n#endif\n" + new)
+    os.makedirs(kernel_build.BUILD_DIR, exist_ok=True)
+    path = os.path.join(kernel_build.BUILD_DIR, "gru_bwd_bounds.cu")
+    with open(path, "w") as f:
+        f.write(src)
+    builds = {}
+    for i, (name, defines) in enumerate(BOUNDS_VARIANTS.items()):
+        library = os.path.join(kernel_build.BUILD_DIR, f"libgru_bwd_bounds{i}.so")
+        builds[name] = (start_build(path, library, defines), library)
+    libs = {}
+    for name, (lib, _) in finish_builds(builds).items():
+        lib.wtv_error_string.argtypes = [ctypes.c_int]
+        lib.wtv_error_string.restype = ctypes.c_char_p
+        libs[name] = gru.bind_bwd(lib)
+    D, H = 2, 1024
+    print(f"the backward loop's bounds (D={D} H={H}, microseconds a step; two rounds in turns):")
+    for B, T in BOUNDS_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(B)
+        gi = torch.randn((D, B, T, 3 * H), generator=g, device="cuda") * 0.5
+        w = (torch.rand((D, H, 3 * H), generator=g, device="cuda") * 2 - 1) / H ** 0.5
+        b = torch.randn((D, 3 * H), generator=g, device="cuda") * 0.1
+        y = gru.gru_fwd_plain(gi, w, b, "f32")
+        hprev = torch.cat([y.new_zeros(D, B, 1, H), y[:, :, :-1]], dim=2)
+        gh = torch.matmul(hprev, w[:, None]) + b[:, None, None]
+        args = (torch.randn((D, B, T, H), generator=g, device="cuda"), gi, gh, hprev, w)
+        plan = gru.bwd_plan(D, B, H, "cuda")
+        got = {name: [] for name in libs}
+        for _ in range(2):
+            for name, lib in libs.items():
+                got[name].append(1e3 * queued_ms(lambda: gru._launch_bwd(*args, plan, lib), 3) / T)
+        print(f"  B={B:2d} T={T:4d}: " + ", ".join(f"{n} {v[0]:.2f}, {v[1]:.2f}"
+                                               for n, v in got.items()), flush=True)
 
 
 def profile() -> None:
-    os.makedirs(kernel_build.BUILD_DIR, exist_ok=True)
-    source = os.path.join(kernel_build.BUILD_DIR, "gru_fwd_profile.cu")
-    library = os.path.join(kernel_build.BUILD_DIR, "libgru_fwd_profile.so")
-    with open(source, "w") as f:
-        f.write(stamped_source())
-    lib, _ = finish_builds({"profile": (start_build(source, library), library)})["profile"]
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.gru_fwd_persistent_f32.argtypes = [ptr] * 5 + [i32] * 5 + [ctypes.c_longlong, ptr]
-    lib.gru_fwd_persistent_f32.restype = ctypes.c_int
-    lib.gru_prof_read.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
-    n_sm, smem = gru.device_limits(torch.device("cuda"))
+    libs = profile_libs()
     D, H = 2, 1024
-    print(f"the f32 kernel's step by phase (block 0, thread 0; microseconds a step), D={D} H={H}:")
+    print(f"the f32 kernels' step by phase (block 0, thread 0; microseconds a step), D={D} "
+          f"H={H}:")
     for B, T in SHAPES:
         g = torch.Generator(device="cuda").manual_seed(B)
         gi = torch.randn((D, B, T, 3 * H), generator=g, device="cuda") * 0.5
         w = (torch.rand((D, H, 3 * H), generator=g, device="cuda") * 2 - 1) / H ** 0.5
         b = torch.randn((D, 3 * H), generator=g, device="cuda") * 0.1
-        plan = gru.gru_fwd_plan(D, B, H, n_sm, smem, "f32")
-        if plan.route != "persistent":
-            raise RuntimeError(f"B={B}: the f32 kernel takes the {plan.route} route")
-        wt = w.transpose(1, 2).contiguous()
-        y = torch.empty(D, B, T, H, device="cuda")
+        plan = gru.gru_fwd_plan(D, B, H, *gru.device_limits(torch.device("cuda")), "f32")
+        bplan = gru.bwd_plan(D, B, H, "cuda")
+        if plan.route != "persistent" or bplan.route != "persistent":
+            raise RuntimeError(f"B={B}: the routes are {plan.route}, {bplan.route}")
         for _ in range(2):  # the second launch is read
-            counter = torch.zeros(D, device="cuda", dtype=torch.int32)
-            kernel_build.check(lib, lib.gru_fwd_persistent_f32(
-                gi.data_ptr(), wt.data_ptr(), b.data_ptr(), y.data_ptr(), counter.data_ptr(),
-                D, B, T, H, plan.units, plan.smem, torch.cuda.current_stream().cuda_stream),
-                "gru_fwd_persistent_f32 (stamped)")
+            y = gru._launch(gi, w, b, plan, "f32", libs["fwd"])
             torch.cuda.synchronize()
-        ns = (ctypes.c_ulonglong * 6)()
-        kernel_build.check(lib, lib.gru_prof_read(ns), "gru_prof_read")
+        per = read_phases(libs["fwd"], T)
         err = (y - gru.gru_fwd_plain(gi, w, b, "f32")).abs().max().item()
-        per = [v / (T - 1) / 1e3 for v in ns]
-        total = sum(per) - per[1]  # the waits lie inside the stage loop
-        print(f"  B={B:2d} T={T:4d} (err vs plain {err:.2e}): "
-              + ", ".join(f"{n} {p:.3f}" for n, p in zip(PHASES, per)) + f"; sum {total:.3f}")
+        print_phases(f"forward  B={B:2d} T={T:4d} {plan}", err, per)
+        hprev = torch.cat([y.new_zeros(D, B, 1, H), y[:, :, :-1]], dim=2)
+        gh = torch.matmul(hprev, w[:, None]) + b[:, None, None]
+        dys = torch.randn((D, B, T, H), generator=g, device="cuda")
+        args = (dys, gi, gh, hprev, w)
+        for _ in range(2):
+            got = gru._launch_bwd(*args, bplan, libs["bwd"])
+            torch.cuda.synchronize()
+        per = read_phases(libs["bwd"], T)
+        err = max(float((a - p).abs().max() / p.abs().max())
+                  for a, p in zip(got, gru.gru_bwd_loop_plain(*args)))
+        print_phases(f"backward B={B:2d} T={T:4d} {bplan}", err, per)
+        del gi, y, hprev, gh, dys, args, got
+        torch.cuda.empty_cache()
 
 
 _SETUP = ("import torch, chip_smoke as cs\n"
           "torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False\n"
           "cs.build_kernels()\n")
-# each --step: the script run in a tree, the step it times, and the label
-# of its launch line in chip_smoke's output
+# the kernels step: each tree's own f32 forward and backward wrappers at the
+# paths' shapes, timed on a filled launch queue
+KERNEL_SHAPES = {"fwd": ((1, 512), (1, 3000), (2, 512), (16, 1024), (16, 3072)),
+                 "bwd": ((2, 512), (16, 1024), (16, 3072), (8, 3072))}
+_KERNELS = (
+    "import torch\n"
+    "from wavthruvec_pytorch_tpu_torch.ops import gru\n"
+    "from wavthruvec_pytorch_tpu_torch.tools import queued_ms\n"
+    "torch.backends.cuda.matmul.allow_tf32 = False\n"
+    "H = 1024\n"
+    f"for kind, shapes in {KERNEL_SHAPES!r}.items():\n"
+    "    for B, T in shapes:\n"
+    "        g = torch.Generator(device='cuda').manual_seed(B * 131 + T)\n"
+    "        gi = torch.randn((2, B, T, 3 * H), generator=g, device='cuda') * 0.5\n"
+    "        w = (torch.rand((2, H, 3 * H), generator=g, device='cuda') * 2 - 1) / H ** 0.5\n"
+    "        b = torch.randn((2, 3 * H), generator=g, device='cuda') * 0.1\n"
+    "        if kind == 'fwd':\n"
+    "            fn = lambda: gru.gru_fwd_f32(gi, w, b)\n"
+    "        else:\n"
+    "            y = gru.gru_fwd_f32(gi, w, b)\n"
+    "            hprev = torch.cat([y.new_zeros(2, B, 1, H), y[:, :, :-1]], dim=2)\n"
+    "            gh = torch.matmul(hprev, w[:, None]) + b[:, None, None]\n"
+    "            dys = torch.randn((2, B, T, H), generator=g, device='cuda')\n"
+    "            fn = lambda: gru.gru_bwd_loop(dys, gi, gh, hprev, w)\n"
+    "        print(f'kernel {kind} ({B}, {T}): {queued_ms(fn, 5):.4f} ms', flush=True)\n"
+    "print('launches on the kernels: gru_fwd_f32', gru.gru_fwd_f32.step_launches, "
+    "'gru_bwd', gru.gru_bwd_loop.step_launches)\n")
+# each --step: the script run in a tree, what it times, and the label of its
+# launch line
 STEPS = {
     "train": (_SETUP + "cs.train(torch.device('cuda'))\n", "training step, B = 16 x 64 x 1024",
               "the training path"),
     "long": (_SETUP + "cs.train_long(torch.device('cuda'))\n",
              "long-bucket bf16 step, B = 16 x 768 x 3072", "the long-bucket training"),
+    "kernels": (_KERNELS, "the f32 BiGRU kernels (D = 2, H = 1024)", "the kernels"),
 }
+
+
+def times(out: str) -> dict:
+    """{what: ms} of one run: the step's median, or each kernel's time."""
+    got = {f"{k} {s}": float(ms) for k, s, ms in
+           re.findall(r"kernel (\w+) (\(\d+, \d+\)): ([\d.]+) ms", out)}
+    step = re.search(r"step: median ([\d.]+) ms", out)
+    if step:
+        got["step"] = float(step.group(1))
+    return got
 
 
 def ab(parent: str, pairs: int, step: str) -> None:
     script, label, path = STEPS[step]
     trees = {"parent": os.path.abspath(parent), "change": os.getcwd()}
-    runs = {"parent": [], "change": []}
-    diffs = []
+    runs = {"parent": {}, "change": {}}
+    diffs = {}
     for i in range(pairs):
         got = {}
         for name in ("parent", "change") if i % 2 == 0 else ("change", "parent"):
@@ -163,21 +235,27 @@ def ab(parent: str, pairs: int, step: str) -> None:
             if out.returncode:
                 raise RuntimeError(f"{name} run failed:\n{out.stdout[-3000:]}\n"
                                    f"{out.stderr[-3000:]}")
-            got[name] = float(re.search(r"step: median ([\d.]+) ms", out.stdout).group(1))
+            got[name] = times(out.stdout)
+            for k, v in got[name].items():
+                runs[name].setdefault(k, []).append(v)
             launches = re.search(f"launches on {path}[^\n]*", out.stdout)
-            runs[name].append(got[name])
-            print(f"  pair {i}: {name} {got[name]:.2f} ms; {launches.group(0)[:200]}", flush=True)
-        diffs.append(got["change"] - got["parent"])
-    med = {k: sorted(v)[len(v) // 2] for k, v in runs.items()}
-    mdiff = sorted(diffs)[len(diffs) // 2]
-    print(f"{label}, {pairs} pairs: parent {runs['parent']} (median {med['parent']:.2f}), change "
-          f"{runs['change']} (median {med['change']:.2f}), change / parent "
-          f"{med['change'] / med['parent']:.4f}; change - parent by pair "
-          f"{[round(d, 2) for d in diffs]}, median {mdiff:.2f} ms", flush=True)
+            print(f"  pair {i}: {name} " + ", ".join(f"{k} {v:.3f} ms" for k, v in got[name].items())
+                  + f"; {launches.group(0)[:200] if launches else ''}", flush=True)
+        for k in got["change"]:
+            diffs.setdefault(k, []).append(got["change"][k] - got["parent"][k])
+    for k in runs["change"]:
+        med = {n: sorted(runs[n][k])[len(runs[n][k]) // 2] for n in runs}
+        mdiff = sorted(diffs[k])[len(diffs[k]) // 2]
+        print(f"{label}, {k}, {pairs} pairs: parent {runs['parent'][k]} (median "
+              f"{med['parent']:.3f}), change {runs['change'][k]} (median {med['change']:.3f}), "
+              f"change / parent {med['change'] / med['parent']:.4f}; change - parent by pair "
+              f"{[round(d, 3) for d in diffs[k]]}, median {mdiff:.3f} ms", flush=True)
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--bounds", action="store_true",
+                   help="time the backward with its stream or its FFMA patched out")
     p.add_argument("--parent", default=None, help="another commit's tree: A/B its training step")
     p.add_argument("--pairs", type=int, default=5)
     p.add_argument("--step", choices=sorted(STEPS), action="append",
@@ -190,6 +268,8 @@ def main(argv=None) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     profile()
+    if a.bounds:
+        bounds()
     if a.parent:
         for step in a.step or ["train"]:
             ab(a.parent, a.pairs, step)
